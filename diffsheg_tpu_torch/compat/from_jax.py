@@ -1,0 +1,109 @@
+"""Carry weights across from a JAX/Flax variables tree.
+
+The port's modules use the Flax parameter names, so a tree of nested dicts
+of numpy arrays (``{"params": ..., "batch_stats": ...}``, e.g. from
+``jax.tree.map(np.asarray, variables)``) fills them by walking both in
+step:
+
+  - ``Dense`` kernels are (in, out) and become ``nn.Linear`` weights
+    (out, in);
+  - ``Conv`` kernels are (k, in / groups, out) and become ``nn.Conv1d``
+    weights (out, in / groups, k);
+  - ``LayerNorm`` / ``BatchNorm`` scale and bias become weight and bias,
+    and BatchNorm ``batch_stats`` mean / var the running statistics;
+  - both layer layouts load: unrolled ``layer_i`` subtrees and the
+    ``scan_layers`` form, one ``layers/layer`` subtree whose leaves carry
+    a leading layer axis.
+
+Every parameter and buffer of the module must be filled exactly once, and
+every leaf of the tree must land somewhere; anything else raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from diffsheg_tpu_torch.models.denoiser import BatchNorm
+
+Tree = Dict[str, Any]
+
+
+def _set(t: torch.Tensor, value, filled: set, name: str) -> None:
+    value = torch.tensor(np.array(value, dtype=np.float32))
+    if tuple(value.shape) != tuple(t.shape):
+        raise ValueError(f"{name}: tree shape {tuple(value.shape)} != "
+                         f"module shape {tuple(t.shape)}")
+    with torch.no_grad():
+        t.copy_(value.to(t.dtype))
+    filled.add(id(t))
+
+
+def _fill(mod: nn.Module, p: Tree, bs: Optional[Tree], filled: set,
+          path: str) -> None:
+    bs = bs or {}
+    if isinstance(mod, nn.Linear):
+        _set(mod.weight, np.asarray(p["kernel"]).T, filled, path + "/kernel")
+        if "bias" in p:
+            _set(mod.bias, p["bias"], filled, path + "/bias")
+        return
+    if isinstance(mod, nn.Conv1d):
+        _set(mod.weight, np.asarray(p["kernel"]).transpose(2, 1, 0), filled,
+             path + "/kernel")
+        if "bias" in p:
+            _set(mod.bias, p["bias"], filled, path + "/bias")
+        return
+    if isinstance(mod, (nn.LayerNorm, BatchNorm)):
+        _set(mod.weight, p["scale"], filled, path + "/scale")
+        _set(mod.bias, p["bias"], filled, path + "/bias")
+        if isinstance(mod, BatchNorm):
+            _set(mod.running_mean, bs["mean"], filled, path + "/mean")
+            _set(mod.running_var, bs["var"], filled, path + "/var")
+        return
+    for key, sub in p.items():
+        where = f"{path}/{key}"
+        if key == "layers" and isinstance(sub, dict) and set(sub) == {"layer"}:
+            # scan_layers layout: slice the leading layer axis back out
+            stacked, st = sub["layer"], bs.get("layers", {}).get("layer")
+            n = len(np.asarray(_first_leaf(stacked)))
+            for i in range(n):
+                _fill(getattr(mod, f"layer_{i}"), _index(stacked, i),
+                      None if st is None else _index(st, i), filled,
+                      f"{where}[{i}]")
+            continue
+        if not hasattr(mod, key):
+            raise KeyError(f"{where}: no such attribute on "
+                           f"{type(mod).__name__}")
+        target = getattr(mod, key)
+        if isinstance(target, nn.Module):
+            _fill(target, sub, bs.get(key), filled, where)
+        else:
+            _set(target, sub, filled, where)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def load_flax_tree(module: nn.Module, variables: Tree) -> nn.Module:
+    """Fill ``module`` from ``{"params": ..., "batch_stats": ...}``;
+    returns the module."""
+    filled: set = set()
+    _fill(module, variables["params"], variables.get("batch_stats"), filled,
+          "")
+    missing = [n for n, t in list(module.named_parameters())
+               + list(module.named_buffers()) if id(t) not in filled]
+    if missing:
+        raise KeyError(f"not in the tree: {missing}")
+    return module

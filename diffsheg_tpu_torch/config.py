@@ -1,0 +1,166 @@
+"""Typed configuration for diffsheg_tpu_torch.
+
+The port's own copy of the serving-relevant part of
+``diffsheg_tpu/config.py``: the same frozen dataclasses, field names,
+defaults and presets, so a configuration reads the same in both packages.
+Training and mesh settings are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Denoiser (UniDiffuser) architecture: latent 512, 8 layers, 8 heads,
+    ffn 1024, mel 128 -> audio latent 256, HuBERT 1024 -> 128 conv
+    encoder."""
+
+    pose_dim: int = 141
+    expression_dim: int = 51
+    latent_dim: int = 512
+    num_layers: int = 8
+    num_heads: int = 8
+    ff_size: int = 1024
+    audio_dim: int = 128
+    aud_latent_dim: int = 256
+    style_dim: int = 30
+    max_seq_len: int = 600
+    pe_type: str = "pe_sinu"   # {'learnable','ppe_sinu','pe_sinu','pe_sinu_repeat'}
+    dropout: float = 0.0
+    cond_projection: str = "mlp_includeX"
+    cond_residual: bool = True
+    add_hubert: bool = True
+    encode_hubert: bool = True
+    hubert_dim: int = 1024
+    hubert_latent_dim: int = 128
+    speech_encoder: str = "conv"   # {'conv','linear','raw'}
+    add_text_cond: bool = False
+    add_emo_cond: bool = False
+    word_f: int = 128
+    emotion_f: int = 8
+    word_vocab: int = 2048
+    num_emotions: int = 8
+    classifier_free: bool = False
+    null_cond_prob: float = 0.2
+    cond_scale: float = 1.0
+    branch_mode: str = "joint"
+    expr_id_off: bool = False
+    no_style: bool = False
+    remove_audio: bool = False
+    remove_style: bool = False
+    use_single_style: bool = False
+    model_base: str = "transformer_encoder"
+    learned_variance: bool = False
+    remat: bool = False
+    scan_layers: bool = False
+    compute_dtype: str = "float32"
+
+    @property
+    def motion_dim(self) -> int:
+        return self.pose_dim + self.expression_dim
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.latent_dim * 4
+
+    @property
+    def uses_cfg_at_inference(self) -> bool:
+        return self.classifier_free and self.cond_scale != 1.0
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """Forward/reverse process."""
+
+    num_steps: int = 1000
+    beta_schedule: str = "linear"        # {'linear','cosine'}
+    mean_type: str = "epsilon"
+    var_type: str = "fixed_small"
+    respacing: str = "ddim25"
+    sampler: str = "ddim"
+    clip_denoised: bool = False
+    jump_length: int = 3
+    jump_n_sample: int = 5
+    no_resample: bool = False
+    # 'auto'/'jnp': the streamlined eta=0 DDIM+RePaint step composition
+    fused_step: str = "auto"
+    # 'auto'/'on': the per-layer kernel (ops/fused_layer.py::fused_layer);
+    # 'chain': the whole-branch kernel (fused_branch)
+    fused_layer: str = "auto"
+    level_cache: bool = True
+    quantize: str = "none"
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Arbitrary-length windowed-outpainting generation."""
+
+    overlap_len: int = 4
+    add_blend: bool = True
+    fix_very_first: bool = False
+    no_repaint: bool = False
+    same_overlap_noisy: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset-dependent constants."""
+
+    dataset_name: str = "beat"
+    fps: int = 15
+    n_poses: int = 34
+    stride: int = 10
+    audio_sr: int = 16000
+    mel_sr: int = 18000
+    mel_hop: int = 1200
+    n_mels: int = 128
+    speaker_dim: int = 30
+    data_root: str = "data/BEAT"
+    cache_name: str = "beat_4english_15_141"
+    remove_hand: bool = False
+    audio_feat: str = "mel"
+    n_mfcc: int = 64
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level serving config."""
+
+    name: str = "beat_diffsheg_tpu"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def beat_config(**overrides) -> Config:
+    """BEAT preset: 141-d gesture + 51-d face @ 15 fps, 34-frame windows."""
+    cfg = Config(
+        name="beat_diffsheg_tpu",
+        model=ModelConfig(pose_dim=141, expression_dim=51, style_dim=30),
+        data=DataConfig(dataset_name="beat", fps=15, n_poses=34, stride=10,
+                        speaker_dim=30, mel_sr=18000, mel_hop=1200),
+        stream=StreamConfig(overlap_len=4),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def show_config(**overrides) -> Config:
+    """SHOW/TalkSHOW preset: 129-d pose + 103-d face @ 30 fps, 88-frame
+    windows, classifier-free guidance."""
+    cfg = Config(
+        name="talkshow_diffsheg_tpu",
+        model=ModelConfig(pose_dim=129, expression_dim=103, style_dim=4,
+                          classifier_free=True, cond_scale=1.15),
+        data=DataConfig(dataset_name="talkshow", fps=30, n_poses=88,
+                        stride=10, speaker_dim=4, mel_sr=18000, mel_hop=600,
+                        data_root="data/SHOW", cache_name="talkshow_cache"),
+        stream=StreamConfig(overlap_len=10),
+    )
+    return cfg.replace(**overrides) if overrides else cfg

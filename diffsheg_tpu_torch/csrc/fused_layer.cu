@@ -1,0 +1,742 @@
+// Whole-layer and whole-branch denoiser kernels for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of diffsheg_tpu/ops/fused_layer.py:
+//   - fused_layer  (ops/fused_layer.py:505, body _kernel :492): one
+//     DiffusionTransformerLayer on pre-assembled feats;
+//   - fused_branch (ops/fused_layer.py:398, body _chain_kernel :374 and
+//     _chain_step :327): a branch's whole layer stack, feats assembled
+//     per layer from the resident hidden state and the condition, with
+//     the optional classifier-free null-row blend.
+// Both compute _layer_math (ops/fused_layer.py:205-306); here that is one
+// kernel body (fused_layers_kernel) with two entry modes.
+//
+// What bounds it.  At serving shapes (B = 1..2 rows, T = 34..88 frames,
+// L = 512, F = 1024) a layer does ~0.26 GFLOP but reads 7.6-7.9 MB of
+// bf16 weights, so the card's limit is the weight stream from HBM
+// (~2.3 us per layer at 3.35 TB/s).  The Pallas grid is (B,) or
+// (B, layers) with the layer axis sequential; a literal copy with one
+// block per batch row would put the whole weight read on one SM of 132.
+//
+// What the design does about it.  One cooperative launch per call; the
+// grid covers every SM (one block each at this kernel's register use).
+// Each layer runs as twelve phases separated by grid-wide barriers:
+//   LN(feats) | fc1 | fc2 | LN | QKV | attention | LN+AdaLN | sa_out |
+//   ffn l1 | ffn l2 | LN+AdaLN | ffn_out.
+// Every weight product is split by output columns (8 per work item for
+// bf16 weights, 4 for f32) across all blocks, so each weight byte is read
+// once per call by one block and every SM streams a share.  A block
+// copies the product's operand rows (B*T <= 256 of them, L2-resident) to
+// shared memory once per phase and splits the contraction over its 8
+// warps (bf16: tensor-core mma.sync m16n8k16; f32: FMAs).  A row phase
+// (one block per row) computes each LayerNorm / AdaLN / SiLU once and
+// writes the next product's rounded operand.  The attention phase splits
+// (batch row, head, 8-column chunk of ctx): column j of y = Q.ctx needs
+// only column j of ctx = K^T.V.  For the branch kernel the layer loop
+// runs inside the launch with the hidden state in a global f32 scratch
+// buffer (it never leaves L2), taking the place of the TPU grid's
+// sequential layer axis.
+//
+// Where it stands: each phase is a short chain of dependent latencies
+// (barrier, operand copy, weight slice, multiply, epilogue), so the kernel
+// runs far above the weight-stream bound; PERF.md has the per-phase times
+// chip_smoke.py measures and the next steps.
+//
+// All eight weight products and both attention contractions are computed
+// here with f32 accumulation (no library GEMM): bf16 products on the
+// tensor cores, f32 products and the attention on CUDA cores.  Numerics
+// follow _layer_math: product inputs are rounded to the weight dtype,
+// activations are f32, ctx is rounded before y = Q.ctx, GELU is the
+// Abramowitz-Stegun erf form, the first LayerNorm is masked to c_real,
+// and each layer's output is rounded to the activation dtype.
+//
+// C interface (ctypes): diffsheg_fused_layers(dtype, ptrs, ints, stream)
+// returns a cudaError_t code (0 = launched).
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int NT = 256;      // threads per block
+constexpr int RB = 64;       // most operand rows a product stages at once
+constexpr size_t A_BUDGET = 160 * 1024;  // shared-memory bytes for them
+constexpr int MMAX = 256;    // rows (batch * time) per launch
+constexpr int HDMAX = 128;   // head width
+constexpr int AC = 8;        // ctx columns per attention work item
+constexpr float LN_EPS = 1e-5f;
+
+// weight fields, in LayerParams order (ops/fused_layer.py)
+enum Field {
+  FP_NORM_S, FP_NORM_B, FC1_K, FC1_B, FC2_K, FC2_B,
+  SA_NORM_S, SA_NORM_B, Q_K, Q_B, K_K, K_B, V_K, V_B,
+  SA_SO_S, SA_SO_B, SA_OUT_K, SA_OUT_B,
+  L1_K, L1_B, L2_K, L2_B, FF_SO_S, FF_SO_B, FF_OUT_K, FF_OUT_B,
+  N_FIELDS
+};
+
+struct Args {
+  const void* w[N_FIELDS];      // field base (layer 0)
+  long long wstride[N_FIELDS];  // elements between layers
+  const void* x;                // (M, L)
+  const void* feats;            // layer mode (M, Cp); chain mode cond (M, Cp-L)
+  const void* mod_sa;           // (B, 2L) of layer 0
+  const void* mod_ffn;
+  long long mod_layer_stride;   // elements between layers' mods
+  const void* null_emb;         // (Cp) or nullptr
+  const float* null_mask;       // (B) or nullptr
+  void* out;                    // (M, L)
+  float* scratch;               // f32 work buffers, see layout below
+  int chain, n_layers, B, T, L, Cp, c_real, F, H;
+  int a_elems;                  // shared-memory operand capacity (elements)
+  int w_off, part_off;          // shared-memory offsets (bytes)
+  unsigned long long* trace;    // phase end times (ns) or nullptr
+};
+
+template <typename W> __device__ __forceinline__ float ld(const void* p, long long i);
+template <> __device__ __forceinline__ float ld<float>(const void* p, long long i) {
+  return static_cast<const float*>(p)[i];
+}
+template <> __device__ __forceinline__ float ld<__nv_bfloat16>(const void* p, long long i) {
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// round an f32 value to the weight dtype (the `.astype(cdtype)` of _layer_math)
+template <typename W> __device__ __forceinline__ float rnd(float v);
+template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename W> __device__ __forceinline__ void st(void* p, long long i, float v);
+template <> __device__ __forceinline__ void st<float>(void* p, long long i, float v) {
+  static_cast<float*>(p)[i] = v;
+}
+template <> __device__ __forceinline__ void st<__nv_bfloat16>(void* p, long long i, float v) {
+  static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+}
+
+template <typename W> __device__ __forceinline__ W to_w(float v);
+template <> __device__ __forceinline__ float to_w<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 to_w<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+// exact GELU with the Abramowitz & Stegun 7.1.26 erf (ops/fused_layer.py:49-64)
+__device__ __forceinline__ float gelu_as(float x) {
+  float z = x * 0.7071067811865476f;
+  float s = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+  float a = fabsf(z);
+  float t = 1.0f / (1.0f + 0.3275911f * a);
+  float poly = t * (0.254829592f + t * (-0.284496736f + t * (
+      1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  float erf = s * (1.0f - poly * expf(-a * a));
+  return 0.5f * x * (1.0f + erf);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// What a row phase writes: the next product's operand, rounded to the
+// weight dtype (the `.astype(cdtype)` every product of _layer_math makes).
+enum RowMode { R_FEATS, R_LN, R_LNMOD };
+// What a product's epilogue does with acc + bias.
+enum Epi { E_SILU_RND, E_RES, E_BIAS, E_GELU_RND, E_RES_FINAL };
+
+struct Prod {
+  const void* A;          // (M, K) operand rows in the weight dtype
+  int K, N, ncol;         // ncol: columns per weight matrix
+  const void* wk0;        // (K, ncol) row-major weight matrices; the QKV
+  const void* wk1;        // product walks the columns of all three
+  const void* wk2;
+  const void* wb0;        // their biases (ncol)
+  const void* wb1;
+  const void* wb2;
+  int epi;
+  const float* res;       // residual (M, N) f32 (E_RES*)
+  float* dst;             // f32 output (M, N)
+  void* dst_w;            // output in the weight dtype (E_*_RND; E_RES: a
+                          // rounded copy, or null)
+  int last;               // E_RES_FINAL: write args.out instead of dst
+};
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();                 // red is reused across calls
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) s += red[w];
+  return s;
+}
+
+// Source value of row m, column k of a row phase.
+template <typename W>
+__device__ __forceinline__ float row_src(const Args& a, int mode,
+                                         const float* src, int K,
+                                         const float* h, int m, int k) {
+  if (mode != R_FEATS) return src[(long long)m * K + k];
+  if (!a.chain) return ld<W>(a.feats, (long long)m * a.Cp + k);
+  // fused_branch: concat(h, cond) then the f32 null-row blend (_chain_step)
+  float v = k < a.L ? h[(long long)m * a.L + k]
+                    : ld<W>(a.feats, (long long)m * (a.Cp - a.L) + (k - a.L));
+  if (a.null_emb != nullptr) {
+    const float nm = a.null_mask[m / a.T];
+    v = v * (1.0f - nm) + ld<W>(a.null_emb, k) * nm;
+  }
+  return v;
+}
+
+// Row phase: one block per row.  LayerNorm of the row (R_FEATS: masked to
+// c_real — mean over all Cp columns / c_real, the pads being zero), then
+// AdaLN + SiLU (R_LNMOD), rounded to the weight dtype into the product
+// operand dst (M, K).
+template <typename W>
+__device__ void row_phase(const Args& a, int mode, const float* src, int K,
+                          const void* ln_s, const void* ln_b, const void* mod,
+                          const float* h, W* dst, float* red) {
+  const int M = a.B * a.T;
+  const float n = mode == R_FEATS ? (float)a.c_real : (float)K;
+  const int kmax = mode == R_FEATS ? a.c_real : K;
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    float s = 0.f;
+    for (int k = threadIdx.x; k < K; k += NT) s += row_src<W>(a, mode, src, K, h, m, k);
+    const float mean = block_sum(s, red) / n;
+    float q = 0.f;
+    for (int k = threadIdx.x; k < kmax; k += NT) {
+      const float d = row_src<W>(a, mode, src, K, h, m, k) - mean;
+      q += d * d;
+    }
+    const float rs = rsqrtf(block_sum(q, red) / n + LN_EPS);
+    const long long b = m / a.T;
+    for (int k = threadIdx.x; k < K; k += NT) {
+      float v = (row_src<W>(a, mode, src, K, h, m, k) - mean) * rs
+                * ld<W>(ln_s, k) + ld<W>(ln_b, k);
+      if (mode == R_LNMOD)
+        v = silu(v * (1.0f + ld<W>(mod, b * 2 * a.L + k))
+                 + ld<W>(mod, b * 2 * a.L + a.L + k));
+      dst[(long long)m * K + k] = to_w<W>(v);
+    }
+  }
+}
+
+// Copy operand rows r0 .. r0 + rows to shared memory (row stride lda),
+// 16 bytes per load.
+template <typename W>
+__device__ void stage_a(const Prod& p, int r0, int rows, W* As, int lda) {
+  const int per_row = p.K * (int)sizeof(W) / 16;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      static_cast<const W*>(p.A) + (long long)r0 * p.K);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    const int r = i / per_row, q = i - r * per_row;
+    reinterpret_cast<uint4*>(As + r * lda)[q] = src[i];
+  }
+}
+
+// The weight matrix and bias holding product column n0 (the QKV product
+// walks the columns of three matrices).  No dynamic indexing into p: that
+// would put it in local memory.
+template <typename W>
+__device__ __forceinline__ const W* weight_cols(const Prod& p, int n0,
+                                                const void** wb, int* c0) {
+  const int mat = n0 / p.ncol;
+  *c0 = n0 - mat * p.ncol;
+  *wb = mat == 0 ? p.wb0 : (mat == 1 ? p.wb1 : p.wb2);
+  return static_cast<const W*>(mat == 0 ? p.wk0 : (mat == 1 ? p.wk1 : p.wk2))
+         + *c0;
+}
+
+// Columns per product work item: 8 for bf16 (one mma n-tile), 4 for f32;
+// either way a weight row of the item is 16 bytes.
+template <typename W> __host__ __device__ constexpr int item_cols() {
+  return 16 / (int)sizeof(W);
+}
+
+// Copy work item `item`'s K x tn weight slice (one 16-byte load a row).
+template <typename W>
+__device__ void stage_w(const Prod& p, int item, W* Ws) {
+  constexpr int tn = item_cols<W>();
+  const void* wb;
+  int c0;
+  const W* wk = weight_cols<W>(p, item * tn, &wb, &c0);
+#pragma unroll 4
+  for (int k = threadIdx.x; k < p.K; k += NT)
+    reinterpret_cast<uint4*>(Ws)[k] =
+        *reinterpret_cast<const uint4*>(wk + (long long)k * p.ncol);
+}
+
+// The product epilogue for output element o of row-major (M, N).
+template <typename W>
+__device__ __forceinline__ void epilogue(const Args& a, const Prod& p,
+                                         long long o, float y) {
+  switch (p.epi) {
+    case E_SILU_RND: st<W>(p.dst_w, o, silu(y)); break;
+    case E_GELU_RND: st<W>(p.dst_w, o, gelu_as(y)); break;
+    case E_BIAS: p.dst[o] = y; break;
+    case E_RES: {
+      const float out = y + p.res[o];
+      p.dst[o] = out;
+      if (p.dst_w != nullptr) st<W>(p.dst_w, o, out);
+    } break;
+    case E_RES_FINAL: {
+      const float out = rnd<W>(y + p.res[o]);  // layer output in x.dtype
+      if (p.last) st<W>(a.out, o, out); else p.dst[o] = out;
+    } break;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Multiply one work item: the block's staged rows x the item's K x tn
+// slice, then the epilogue.  bf16: each of the 8 warps runs the mma.sync
+// m16n8k16 steps of its K / 8 slice over every 16-row tile and the warps'
+// partial tiles are summed through shared memory.  f32: lane = 4 kg + c
+// (c: the item's column, kg: one of 8 interleaved contraction slices),
+// warp rg owns rows rg + 8 i, FMAs, slices summed with warp shuffles.
+__device__ void multiply(const Args& a, const Prod p, int r0, int rows,
+                         int item, const float* As, int lda, const float* Ws,
+                         float*) {
+  constexpr int tn = item_cols<float>();
+  const int K = p.K;
+  const int c = threadIdx.x & (tn - 1);
+  const int kg = (threadIdx.x >> 2) & 7;
+  const int rg = threadIdx.x >> 5;
+  const int nr = (rows - rg + 7) / 8;             // rows of this warp
+  float acc[RB / 8];
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i) acc[i] = 0.f;
+  for (int k = kg; k < K; k += 8) {
+    const float w = Ws[k * tn + c];
+#pragma unroll
+    for (int i = 0; i < RB / 8; ++i)
+      if (i < nr) acc[i] = fmaf(As[(rg + 8 * i) * lda + k], w, acc[i]);
+  }
+  const void* wb;
+  int c0;
+  weight_cols<float>(p, item * tn, &wb, &c0);
+  const float bias = ld<float>(wb, c0 + c);
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i) {
+    float v = acc[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (kg != 0 || i >= nr) continue;
+    epilogue<float>(a, p, (long long)(r0 + rg + 8 * i) * p.N + item * tn + c,
+                    v + bias);
+  }
+}
+
+__device__ void multiply(const Args& a, const Prod p, int r0, int rows,
+                         int item, const __nv_bfloat16* As, int lda,
+                         const __nv_bfloat16* Ws, float* part) {
+  constexpr int tn = item_cols<__nv_bfloat16>();
+  const unsigned short* Wu = reinterpret_cast<const unsigned short*>(Ws);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ksteps = p.K / 16, kper = (ksteps + 7) / 8;
+  const int ks0 = warp * kper, ks1 = min(ksteps, ks0 + kper);
+  const int mtiles = (rows + 15) / 16;
+  float d[RB / 16][4];
+#pragma unroll
+  for (int m = 0; m < RB / 16; ++m) d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const int k0 = ks * 16 + 2 * t;
+    const uint32_t b0 = Wu[k0 * tn + g] | ((uint32_t)Wu[(k0 + 1) * tn + g] << 16);
+    const uint32_t b1 = Wu[(k0 + 8) * tn + g] | ((uint32_t)Wu[(k0 + 9) * tn + g] << 16);
+#pragma unroll
+    for (int m = 0; m < RB / 16; ++m) {
+      if (m >= mtiles) break;
+      const __nv_bfloat16* r = As + (m * 16 + g) * lda + k0;
+      mma_bf16(d[m],
+               *reinterpret_cast<const uint32_t*>(r),
+               *reinterpret_cast<const uint32_t*>(r + 8 * lda),
+               *reinterpret_cast<const uint32_t*>(r + 8),
+               *reinterpret_cast<const uint32_t*>(r + 8 * lda + 8),
+               b0, b1);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < RB / 16; ++m) {
+    if (m >= mtiles) break;
+    float* pr = part + (warp * RB + m * 16 + g) * tn + 2 * t;
+    pr[0] = d[m][0];
+    pr[1] = d[m][1];
+    pr[8 * tn] = d[m][2];
+    pr[8 * tn + 1] = d[m][3];
+  }
+  __syncthreads();
+  const void* wb;
+  int c0;
+  weight_cols<__nv_bfloat16>(p, item * tn, &wb, &c0);
+  for (int i = threadIdx.x; i < rows * tn; i += NT) {
+    const int r = i / tn, j = i - r * tn;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * tn + j];
+    epilogue<__nv_bfloat16>(a, p, (long long)(r0 + r) * p.N + item * tn + j,
+                            v + ld<__nv_bfloat16>(wb, c0 + j));
+  }
+}
+
+// One weight product over all M rows.  Work items are column tiles
+// spread over the grid; a block copies up to `rb` operand rows once (row
+// stride K + 8 for bf16, so fragment loads of 8 rows fall in distinct
+// banks), then walks its items: copy the item's weight slice, multiply.
+template <typename W>
+__device__ void product(const Args& a, const Prod p, unsigned char* smem) {
+  constexpr bool mma = sizeof(W) == 2;
+  const int M = a.B * a.T;
+  const int n_items = p.N / item_cols<W>();
+  if ((int)blockIdx.x >= n_items) return;
+  const int lda = mma ? p.K + 8 : p.K;
+  const int rb = min(RB, (a.a_elems / lda) / (mma ? 16 : 8) * (mma ? 16 : 8));
+  W* As = reinterpret_cast<W*>(smem);
+  W* Ws = reinterpret_cast<W*>(smem + a.w_off);
+  float* part = reinterpret_cast<float*>(smem + a.part_off);
+  for (int r0 = 0; r0 < M; r0 += rb) {
+    const int rows = min(rb, M - r0);
+    __syncthreads();                              // As is free
+    stage_a<W>(p, r0, rows, As, lda);
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      __syncthreads();                            // Ws is free
+      stage_w<W>(p, item, Ws);
+      __syncthreads();
+      multiply(a, p, r0, rows, item, As, lda, Ws, part);
+    }
+  }
+}
+
+// Linear attention core, per (batch row, head, AC-column chunk of ctx):
+// q' = softmax(q) over features, k' = softmax(k) over time,
+// ctx[:, c] = k'^T v[:, c], y[:, c] = q' ctx[:, c].  The head's q and k
+// and the v chunk are staged in shared memory with coalesced loads first.
+template <typename W>
+__device__ void attention(const Args& a, const float* qkv, float* y,
+                          float* smem) {
+  const int T = a.T, L = a.L, hd = L / a.H, nc = hd / AC;
+  const int n_items = a.B * a.H * nc;
+  const int ld_ = hd + 1;
+  float* Qs = smem;                 // T x (hd + 1)
+  float* Ks = Qs + T * ld_;         // T x (hd + 1)
+  float* Vs = Ks + T * ld_;         // T x AC
+  float* Cs = Vs + T * AC;          // hd x AC
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int c = item % nc, hh = (item / nc) % a.H, b = item / (nc * a.H);
+    const float* base = qkv + (long long)b * T * 3 * L;
+    for (int i = threadIdx.x; i < T * hd; i += NT) {
+      const int t = i / hd, d = i - t * hd;
+      Qs[t * ld_ + d] = base[(long long)t * 3 * L + hh * hd + d];
+      Ks[t * ld_ + d] = base[(long long)t * 3 * L + L + hh * hd + d];
+    }
+    for (int i = threadIdx.x; i < T * AC; i += NT) {
+      const int t = i / AC, cc = i - t * AC;
+      Vs[i] = rnd<W>(base[(long long)t * 3 * L + 2 * L + hh * hd + c * AC + cc]);
+    }
+    __syncthreads();
+    // softmax(q) over the head's features, one warp per frame
+    for (int t = warp; t < T; t += NT / 32) {
+      float* q = Qs + t * ld_;
+      float mx = -FLT_MAX;
+      for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, q[d]);
+      mx = warp_max(mx);
+      float s = 0.f;
+      for (int d = lane; d < hd; d += 32) s += expf(q[d] - mx);
+      s = warp_sum(s);
+      for (int d = lane; d < hd; d += 32) q[d] = rnd<W>(expf(q[d] - mx) / s);
+    }
+    // softmax(k) over time: 4 neighbouring lanes share a feature and split
+    // the frames, combining with shuffles (hd % 8 == 0 keeps whole warps
+    // in every pass of the loop)
+    constexpr int parts = 4;
+    for (int i = threadIdx.x; i < hd * parts; i += NT) {
+      const int d = i / parts, part = i - d * parts;
+      float mx = -FLT_MAX;
+      for (int t = part; t < T; t += parts) mx = fmaxf(mx, Ks[t * ld_ + d]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float s = 0.f;
+      for (int t = part; t < T; t += parts) s += expf(Ks[t * ld_ + d] - mx);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      for (int t = part; t < T; t += parts)
+        Ks[t * ld_ + d] = rnd<W>(expf(Ks[t * ld_ + d] - mx) / s);
+    }
+    __syncthreads();
+    // ctx[:, c] = k'^T v[:, c] and y[:, c] = q' ctx[:, c], four partial
+    // sums each to shorten the dependent chains
+    for (int i = threadIdx.x; i < hd * AC; i += NT) {
+      const int d = i / AC, cc = i - d * AC;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      int t = 0;
+      for (; t + 3 < T; t += 4) {
+        s0 = fmaf(Ks[t * ld_ + d], Vs[t * AC + cc], s0);
+        s1 = fmaf(Ks[(t + 1) * ld_ + d], Vs[(t + 1) * AC + cc], s1);
+        s2 = fmaf(Ks[(t + 2) * ld_ + d], Vs[(t + 2) * AC + cc], s2);
+        s3 = fmaf(Ks[(t + 3) * ld_ + d], Vs[(t + 3) * AC + cc], s3);
+      }
+      for (; t < T; ++t) s0 = fmaf(Ks[t * ld_ + d], Vs[t * AC + cc], s0);
+      Cs[i] = rnd<W>((s0 + s1) + (s2 + s3));
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < T * AC; i += NT) {
+      const int t = i / AC, cc = i - t * AC;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      int d = 0;
+      for (; d + 3 < hd; d += 4) {
+        s0 = fmaf(Qs[t * ld_ + d], Cs[d * AC + cc], s0);
+        s1 = fmaf(Qs[t * ld_ + d + 1], Cs[(d + 1) * AC + cc], s1);
+        s2 = fmaf(Qs[t * ld_ + d + 2], Cs[(d + 2) * AC + cc], s2);
+        s3 = fmaf(Qs[t * ld_ + d + 3], Cs[(d + 3) * AC + cc], s3);
+      }
+      for (; d < hd; ++d) s0 = fmaf(Qs[t * ld_ + d], Cs[d * AC + cc], s0);
+      y[((long long)b * T + t) * L + hh * hd + c * AC + cc] = (s0 + s1) + (s2 + s3);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ const void* wp(const Args& a, int f, int layer) {
+  return static_cast<const char*>(a.w[f]) + (size_t)layer * a.wstride[f] * sizeof(W);
+}
+
+__device__ __forceinline__ void mark(const Args& a, int& n) {
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.trace[n] = t;
+  }
+  ++n;
+}
+
+// Product `i` (0 .. 6, phase order) of one layer.
+template <typename W>
+__device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
+                                           float* h, float* x1, float* qkv,
+                                           float* x2, float* g, W* act,
+                                           W* opA, W* opB) {
+  const int L = a.L;
+  Prod p{};
+  auto w = [&](Prod& q, int k0, int k1, int k2) {
+    q.wk0 = wp<W>(a, k0, layer); q.wb0 = wp<W>(a, k0 + 1, layer);
+    q.wk1 = k1 < 0 ? nullptr : wp<W>(a, k1, layer);
+    q.wb1 = k1 < 0 ? nullptr : wp<W>(a, k1 + 1, layer);
+    q.wk2 = k2 < 0 ? nullptr : wp<W>(a, k2, layer);
+    q.wb2 = k2 < 0 ? nullptr : wp<W>(a, k2 + 1, layer);
+  };
+  switch (i) {
+    case 0:   // LN(feats) -> fc1 -> SiLU
+      p.A = opA; p.K = a.Cp; p.N = p.ncol = 2 * L; w(p, FC1_K, -1, -1);
+      p.epi = E_SILU_RND; p.dst_w = act; break;
+    case 1:   // fc2 + x
+      p.A = act; p.K = 2 * L; p.N = p.ncol = L; w(p, FC2_K, -1, -1);
+      p.epi = E_RES; p.res = h; p.dst = x1; break;
+    case 2:   // LN -> Q, K, V (one product over the three matrices' columns)
+      p.A = opA; p.K = L; p.N = 3 * L; p.ncol = L; w(p, Q_K, K_K, V_K);
+      p.epi = E_BIAS; p.dst = qkv; break;
+    case 3:   // LN -> AdaLN -> SiLU -> out + x1 (and x2 rounded, for l1)
+      p.A = opA; p.K = L; p.N = p.ncol = L; w(p, SA_OUT_K, -1, -1);
+      p.epi = E_RES; p.res = x1; p.dst = x2; p.dst_w = opB; break;
+    case 4:   // FFN l1 -> GELU
+      p.A = opB; p.K = L; p.N = p.ncol = a.F; w(p, L1_K, -1, -1);
+      p.epi = E_GELU_RND; p.dst_w = act; break;
+    case 5:   // l2
+      p.A = act; p.K = a.F; p.N = p.ncol = L; w(p, L2_K, -1, -1);
+      p.epi = E_BIAS; p.dst = g; break;
+    default:  // LN -> AdaLN -> SiLU -> out + x2: the layer's output
+      p.A = opA; p.K = L; p.N = p.ncol = L; w(p, FF_OUT_K, -1, -1);
+      p.epi = E_RES_FINAL; p.res = x2; p.dst = h;
+      p.last = layer == a.n_layers - 1; break;
+  }
+  return p;
+}
+
+template <typename W>
+__global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[NT / 32];
+  cg::grid_group grid = cg::this_grid();
+  const int M = a.B * a.T, L = a.L;
+  // scratch: f32 rows (resident state and intermediates), then the
+  // products' operands in the weight dtype
+  float* h = a.scratch;                 // M x L
+  float* x1 = h + (size_t)M * L;        // M x L
+  float* qkv = x1 + (size_t)M * L;      // M x 3L
+  float* y = qkv + (size_t)M * 3 * L;   // M x L
+  float* x2 = y + (size_t)M * L;        // M x L
+  float* g = x2 + (size_t)M * L;        // M x L
+  W* act = reinterpret_cast<W*>(g + (size_t)M * L);         // M x max(2L, F)
+  W* opA = act + (size_t)M * (2 * L > a.F ? 2 * L : a.F);   // M x max(Cp, L)
+  W* opB = opA + (size_t)M * (a.Cp > L ? a.Cp : L);         // M x L
+#define PROD(layer, i) layer_prod<W>(a, layer, i, h, x1, qkv, x2, g, act, opA, opB)
+#define SYNC() do { grid.sync(); mark(a, n); } while (0)
+
+  int n = 0;
+  const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
+  for (long long i = tid; i < (long long)M * L; i += (long long)gridDim.x * NT)
+    h[i] = ld<W>(a.x, i);
+  SYNC();
+
+  for (int layer = 0; layer < a.n_layers; ++layer) {
+    const void* msa = static_cast<const char*>(a.mod_sa)
+        + (size_t)layer * a.mod_layer_stride * sizeof(W);
+    const void* mffn = static_cast<const char*>(a.mod_ffn)
+        + (size_t)layer * a.mod_layer_stride * sizeof(W);
+    row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp<W>(a, FP_NORM_S, layer),
+                 wp<W>(a, FP_NORM_B, layer), nullptr, h, opA, red);
+    SYNC();
+    product<W>(a, PROD(layer, 0), smem);
+    SYNC();
+    product<W>(a, PROD(layer, 1), smem);
+    SYNC();
+    row_phase<W>(a, R_LN, x1, L, wp<W>(a, SA_NORM_S, layer),
+                 wp<W>(a, SA_NORM_B, layer), nullptr, h, opA, red);
+    SYNC();
+    product<W>(a, PROD(layer, 2), smem);
+    SYNC();
+    attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
+    SYNC();
+    row_phase<W>(a, R_LNMOD, y, L, wp<W>(a, SA_SO_S, layer),
+                 wp<W>(a, SA_SO_B, layer), msa, h, opA, red);
+    SYNC();
+    product<W>(a, PROD(layer, 3), smem);
+    SYNC();
+    product<W>(a, PROD(layer, 4), smem);
+    SYNC();
+    product<W>(a, PROD(layer, 5), smem);
+    SYNC();
+    row_phase<W>(a, R_LNMOD, g, L, wp<W>(a, FF_SO_S, layer),
+                 wp<W>(a, FF_SO_B, layer), mffn, h, opA, red);
+    SYNC();
+    product<W>(a, PROD(layer, 6), smem);
+    if (layer + 1 < a.n_layers || a.trace != nullptr) SYNC();
+  }
+#undef PROD
+#undef SYNC
+}
+
+// Shared memory of one block: [operand rows | attention tiles] (the larger
+// of the two), then the weight slice, then (bf16) the warps' partial
+// tiles.  The operand gets up to A_BUDGET bytes: all B*T rows of a K-wide
+// operand when they fit (serving shapes in bf16), else row blocks.
+template <typename W>
+void smem_plan(Args* a, size_t* bytes) {
+  const int M = a->B * a->T, hd = a->L / a->H;
+  const int kmax = max(max(a->Cp, 2 * a->L), max(a->F, a->L));
+  const bool mma = sizeof(W) == 2;
+  const int align = mma ? 16 : 8;             // rows per mma tile / warp
+  const int lda = mma ? kmax + 8 : kmax;      // padded row for mma
+  const int rows = min(RB, min((M + align - 1) / align * align,
+                               (int)(A_BUDGET / (lda * sizeof(W))) / align * align));
+  a->a_elems = rows * lda;
+  const size_t abytes = sizeof(W) * (size_t)a->a_elems;
+  const size_t attn = sizeof(float) * ((size_t)2 * a->T * (hd + 1)
+                                       + (size_t)a->T * AC + (size_t)hd * AC);
+  a->w_off = (int)((max(abytes, attn) + 15) / 16 * 16);
+  a->part_off = a->w_off + (int)(sizeof(W) * (size_t)kmax * (16 / sizeof(W)));
+  *bytes = a->part_off + (mma ? sizeof(float) * (NT / 32) * RB * 8 : 0);
+}
+
+template <typename W>
+int launch(const Args& a, cudaStream_t stream) {
+  // launch geometry, cached per instantiation: the SM count never changes
+  // and the occupancy only with the dynamic shared memory size
+  static int sms = 0, occ = 0;
+  static size_t smem_set = 0;
+  Args args = a;
+  size_t smem = 0;
+  smem_plan<W>(&args, &smem);
+  if (args.a_elems < 16 * max(max(a.Cp, 2 * a.L), max(a.F, a.L)))
+    return (int)cudaErrorInvalidValue;          // widths too large to stage
+  void* fn = (void*)fused_layers_kernel<W>;
+  cudaError_t e;
+  if (sms == 0) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+  }
+  if (smem != smem_set) {
+    if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, NT, smem)) != cudaSuccess)
+      return (int)e;
+    smem_set = smem;
+  }
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = sms * (occ < 2 ? occ : 2);
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: the N_FIELDS weight bases, then x, feats|cond, mod_sa, mod_ffn,
+//       null_emb, null_mask, out, scratch, trace (0 for absent).  scratch
+//       holds M * 8 L floats then M * (L + max(2 L, F) + max(Cp, L))
+//       weight-dtype elements, M = B * T; trace, when given, receives
+//       1 + 12 * n_layers globaltimer stamps (ns), one per phase end.
+// ints: the N_FIELDS per-layer strides, then mod_layer_stride, chain,
+//       n_layers, B, T, L, Cp, c_real, F, H.
+// dtype: 0 = float32, 1 = bfloat16 (weights, x, feats/cond, mods, out).
+extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
+                                     const int64_t* ints, void* stream) {
+  Args a{};
+  for (int f = 0; f < N_FIELDS; ++f) {
+    a.w[f] = reinterpret_cast<const void*>(ptrs[f]);
+    a.wstride[f] = ints[f];
+  }
+  int i = N_FIELDS;
+  a.x = reinterpret_cast<const void*>(ptrs[i++]);
+  a.feats = reinterpret_cast<const void*>(ptrs[i++]);
+  a.mod_sa = reinterpret_cast<const void*>(ptrs[i++]);
+  a.mod_ffn = reinterpret_cast<const void*>(ptrs[i++]);
+  a.null_emb = reinterpret_cast<const void*>(ptrs[i++]);
+  a.null_mask = reinterpret_cast<const float*>(ptrs[i++]);
+  a.out = reinterpret_cast<void*>(ptrs[i++]);
+  a.scratch = reinterpret_cast<float*>(ptrs[i++]);
+  a.trace = reinterpret_cast<unsigned long long*>(ptrs[i++]);
+  int j = N_FIELDS;
+  a.mod_layer_stride = ints[j++];
+  a.chain = (int)ints[j++];
+  a.n_layers = (int)ints[j++];
+  a.B = (int)ints[j++];
+  a.T = (int)ints[j++];
+  a.L = (int)ints[j++];
+  a.Cp = (int)ints[j++];
+  a.c_real = (int)ints[j++];
+  a.F = (int)ints[j++];
+  a.H = (int)ints[j++];
+  if (a.B * a.T > MMAX || a.L / a.H > HDMAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+}

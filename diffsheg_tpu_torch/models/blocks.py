@@ -1,0 +1,96 @@
+"""Denoiser building blocks.
+
+Counterpart of ``diffsheg_tpu/models/blocks.py``; attribute names follow
+the Flax parameter tree so weights carry across by name
+(``compat/from_jax.py``).
+
+- ``StylizationBlock``: AdaLN modulation ``out(silu(norm(h) * (1 + scale)
+  + shift))`` from the time(+speaker) embedding.
+- ``FFN``: GELU MLP with a stylization residual.
+- ``CondProjection``: LN -> Dense(2L) -> SiLU -> Dense(L).
+- ``DiffusionTransformerLayer``: condition re-injection (concat + MLP
+  projection + residual) then linear self-attention and FFN.  The port
+  runs the branch layers in the fused-layer kernels
+  (``ops/fused_layer.py``); the forward here is the condition-free
+  audio-encoder layer's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from diffsheg_tpu_torch.models.attention import LinearTemporalSelfAttention
+
+LN_EPS = 1e-5
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+class StylizationBlock(nn.Module):
+    def __init__(self, latent_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.emb_proj = nn.Linear(time_embed_dim, 2 * latent_dim)
+        self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
+        self.out_proj = nn.Linear(latent_dim, latent_dim)
+
+    def forward(self, h, emb: torch.Tensor):
+        # emb (B, E) -> mod (B, 2L)
+        mod = self.emb_proj(F.silu(emb))
+        scale, shift = mod[:, None, :].chunk(2, dim=-1)
+        h = self.norm(h) * (1.0 + scale) + shift
+        return self.out_proj(F.silu(h))
+
+
+class FFN(nn.Module):
+    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.linear1 = nn.Linear(latent_dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+
+    def forward(self, x, emb):
+        y = self.linear2(gelu_exact(self.linear1(x)))
+        return x + self.proj_out(y, emb)
+
+
+class CondProjection(nn.Module):
+    def __init__(self, in_dim: int, latent_dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(in_dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(in_dim, 2 * latent_dim)
+        self.fc2 = nn.Linear(2 * latent_dim, latent_dim)
+
+    def forward(self, x):
+        return self.fc2(F.silu(self.fc1(self.norm(x))))
+
+
+class DiffusionTransformerLayer(nn.Module):
+    """One denoiser layer.  ``feats_dim`` is the concat width (latent +
+    condition); ``None`` builds the condition-free layer of the audio
+    encoder, whose residual doubles the input (a reference quirk kept for
+    checkpoint parity)."""
+
+    def __init__(self, latent_dim: int, ffn_dim: int, num_heads: int,
+                 time_embed_dim: int, feats_dim: Optional[int] = None):
+        super().__init__()
+        if feats_dim is not None:
+            self.feat_proj = CondProjection(feats_dim, latent_dim)
+        self.sa_block = LinearTemporalSelfAttention(latent_dim, num_heads,
+                                                    time_embed_dim)
+        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim)
+
+    def forward(self, x, emb):
+        """The condition-free layer: x (B, T, L), emb (B, E)."""
+        if hasattr(self, "feat_proj"):
+            raise NotImplementedError(
+                "branch layers run in ops/fused_layer.py; the uncached "
+                "forward is not ported yet")
+        x = x + x
+        x = self.sa_block(x, emb)
+        return self.ffn(x, emb)

@@ -1,0 +1,403 @@
+"""Whole-layer and whole-branch denoiser kernels, with their plain versions.
+
+Counterpart of ``diffsheg_tpu/ops/fused_layer.py``.  One
+DiffusionTransformerLayer on the sampler's fast path is: masked LayerNorm
+of the padded feats -> fc1 -> SiLU -> fc2 + residual; LayerNorm -> Q/K/V
+-> per-head linear attention; LayerNorm -> AdaLN (precomputed mods) ->
+SiLU -> out + residual; FFN (l1 -> A&S-erf GELU -> l2) -> LayerNorm ->
+AdaLN -> SiLU -> out + residual.
+
+- :func:`fused_layer` runs one layer on pre-assembled feats;
+- :func:`fused_branch` runs a branch's whole layer stack in one launch,
+  assembling concat(h, cond) per layer with the optional classifier-free
+  null-row blend.
+
+On a CUDA tensor each wrapper launches the hand-written kernel of
+``csrc/fused_layer.cu`` (built at first use, see ``ops/build.py``) or
+raises; on a CPU tensor it runs the plain PyTorch version
+(:func:`fused_layer_reference`, :func:`fused_branch_reference`), the
+exact transcription of the JAX ``_layer_math``.  Each wrapper counts its
+kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional
+
+import torch
+
+LN_EPS = 1e-5
+KERNEL_SOURCE = "fused_layer.cu"
+_MAX_ROWS = 256   # B * T per launch (csrc MMAX); larger batches are split
+_MAX_HEAD = 128
+
+
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU with the Abramowitz & Stegun 7.1.26 erf (max abs error
+    1.5e-7), the same formula as the JAX kernel and its oracle."""
+    z = x * 0.7071067811865476
+    s = torch.sign(z)
+    a = torch.abs(z)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erf = s * (1.0 - poly * torch.exp(-a * a))
+    return 0.5 * x * (1.0 + erf)
+
+
+class LayerParams(NamedTuple):
+    """One layer's weights, kernel-ready, in the JAX layout: matrices are
+    ``(in, out)``; the ``fp_*`` tensors are zero-padded on the feats axis
+    to ``c_pad``.  Stacked form: a leading ``(num_layers,)`` axis."""
+
+    fp_norm_scale: torch.Tensor   # (Cp,)
+    fp_norm_bias: torch.Tensor    # (Cp,)
+    fp_fc1_k: torch.Tensor        # (Cp, 2L)
+    fp_fc1_b: torch.Tensor        # (2L,)
+    fp_fc2_k: torch.Tensor        # (2L, L)
+    fp_fc2_b: torch.Tensor        # (L,)
+    sa_norm_scale: torch.Tensor   # (L,)
+    sa_norm_bias: torch.Tensor
+    q_k: torch.Tensor             # (L, L)
+    q_b: torch.Tensor
+    k_k: torch.Tensor
+    k_b: torch.Tensor
+    v_k: torch.Tensor
+    v_b: torch.Tensor
+    sa_so_norm_scale: torch.Tensor
+    sa_so_norm_bias: torch.Tensor
+    sa_out_k: torch.Tensor        # (L, L)
+    sa_out_b: torch.Tensor
+    ffn_l1_k: torch.Tensor        # (L, F)
+    ffn_l1_b: torch.Tensor        # (F,)
+    ffn_l2_k: torch.Tensor        # (F, L)
+    ffn_l2_b: torch.Tensor
+    ffn_so_norm_scale: torch.Tensor
+    ffn_so_norm_bias: torch.Tensor
+    ffn_out_k: torch.Tensor       # (L, L)
+    ffn_out_b: torch.Tensor
+
+
+def extract_layer_params(layer, c_real: int, c_pad: int,
+                         dtype: torch.dtype) -> LayerParams:
+    """A :class:`~diffsheg_tpu_torch.models.blocks.DiffusionTransformerLayer`
+    -> LayerParams on the layer's device, cast to ``dtype``, feats-axis
+    tensors zero-padded from ``c_real`` to ``c_pad`` (inert: the masked
+    LayerNorm's pads normalise to zero and the fc1 pad rows are zero)."""
+    pad = c_pad - c_real
+
+    def v(t):
+        return t.detach().to(dtype).contiguous()
+
+    def k(lin):  # nn.Linear (out, in) -> (in, out)
+        return v(lin.weight.t())
+
+    fp, sa, ffn = layer.feat_proj, layer.sa_block, layer.ffn
+    return LayerParams(
+        fp_norm_scale=torch.nn.functional.pad(v(fp.norm.weight), (0, pad)),
+        fp_norm_bias=torch.nn.functional.pad(v(fp.norm.bias), (0, pad)),
+        fp_fc1_k=torch.nn.functional.pad(k(fp.fc1), (0, 0, 0, pad)),
+        fp_fc1_b=v(fp.fc1.bias), fp_fc2_k=k(fp.fc2), fp_fc2_b=v(fp.fc2.bias),
+        sa_norm_scale=v(sa.norm.weight), sa_norm_bias=v(sa.norm.bias),
+        q_k=k(sa.query), q_b=v(sa.query.bias),
+        k_k=k(sa.key), k_b=v(sa.key.bias),
+        v_k=k(sa.value), v_b=v(sa.value.bias),
+        sa_so_norm_scale=v(sa.proj_out.norm.weight),
+        sa_so_norm_bias=v(sa.proj_out.norm.bias),
+        sa_out_k=k(sa.proj_out.out_proj), sa_out_b=v(sa.proj_out.out_proj.bias),
+        ffn_l1_k=k(ffn.linear1), ffn_l1_b=v(ffn.linear1.bias),
+        ffn_l2_k=k(ffn.linear2), ffn_l2_b=v(ffn.linear2.bias),
+        ffn_so_norm_scale=v(ffn.proj_out.norm.weight),
+        ffn_so_norm_bias=v(ffn.proj_out.norm.bias),
+        ffn_out_k=k(ffn.proj_out.out_proj),
+        ffn_out_b=v(ffn.proj_out.out_proj.bias),
+    )
+
+
+def stack_layer_params(lps: List[LayerParams]) -> LayerParams:
+    """Stack per-layer LayerParams along a new leading layer axis."""
+    return LayerParams(*(torch.stack(f).contiguous() for f in zip(*lps)))
+
+
+def layer_at(slp: LayerParams, i: int) -> LayerParams:
+    return LayerParams(*(f[i] for f in slp))
+
+
+# --------------------------------------------------------------------------
+# plain versions (exact transcription of the JAX _layer_math)
+# --------------------------------------------------------------------------
+
+def layer_math(x, feats, mod_sa, mod_ffn, lp: LayerParams, num_heads: int,
+               c_real: int) -> torch.Tensor:
+    """The whole layer on (B, T, .) rows: f32 activations, product inputs
+    rounded to the weight dtype with f32 accumulation (bf16 values are
+    exact in f32, so an f32 product of the rounded operands is the JAX
+    ``preferred_element_type=f32`` dot)."""
+    f32 = torch.float32
+    cdtype = lp.fp_norm_scale.dtype
+
+    def c(a):  # round to the weight dtype, compute in f32
+        return a.to(cdtype).to(f32)
+
+    def mm(a, w, b):
+        return torch.matmul(c(a), w.to(f32)) + b.to(f32)
+
+    def ln(h, scale, bias):
+        mu = h.mean(-1, keepdim=True)
+        var = ((h - mu) ** 2).mean(-1, keepdim=True)
+        return (h - mu) * torch.rsqrt(var + LN_EPS) * scale.to(f32) + bias.to(f32)
+
+    silu = torch.nn.functional.silu
+    x = x.to(f32)
+    feats = feats.to(f32)
+    B, T, L = x.shape
+
+    # condition projection: statistics masked to the true feats width
+    Cp = feats.shape[-1]
+    valid = (torch.arange(Cp, device=feats.device) < c_real).to(f32)
+    mu = feats.sum(-1, keepdim=True) / c_real
+    var = (((feats - mu) ** 2) * valid).sum(-1, keepdim=True) / c_real
+    nf = ((feats - mu) * torch.rsqrt(var + LN_EPS)
+          * lp.fp_norm_scale.to(f32) + lp.fp_norm_bias.to(f32))
+    a1 = silu(mm(nf, lp.fp_fc1_k, lp.fp_fc1_b))
+    x1 = mm(a1, lp.fp_fc2_k, lp.fp_fc2_b) + x
+
+    # linear self-attention (all-ones mask)
+    n1 = ln(x1, lp.sa_norm_scale, lp.sa_norm_bias)
+    hd = L // num_heads
+    q = mm(n1, lp.q_k, lp.q_b).view(B, T, num_heads, hd).softmax(-1)
+    k = mm(n1, lp.k_k, lp.k_b).view(B, T, num_heads, hd).softmax(1)
+    v = mm(n1, lp.v_k, lp.v_b).view(B, T, num_heads, hd)
+    ctx = torch.einsum("bthd,bthe->bhde", c(k), c(v))
+    y = torch.einsum("bthd,bhde->bthe", c(q), c(ctx)).reshape(B, T, L)
+
+    scale_sa, shift_sa = mod_sa.to(f32).chunk(2, dim=-1)
+    z = ln(y, lp.sa_so_norm_scale, lp.sa_so_norm_bias)
+    z = silu(z * (1.0 + scale_sa[:, None]) + shift_sa[:, None])
+    x2 = x1 + mm(z, lp.sa_out_k, lp.sa_out_b)
+
+    f = gelu_as(mm(x2, lp.ffn_l1_k, lp.ffn_l1_b))
+    g = mm(f, lp.ffn_l2_k, lp.ffn_l2_b)
+    scale_f, shift_f = mod_ffn.to(f32).chunk(2, dim=-1)
+    z2 = ln(g, lp.ffn_so_norm_scale, lp.ffn_so_norm_bias)
+    z2 = silu(z2 * (1.0 + scale_f[:, None]) + shift_f[:, None])
+    return x2 + mm(z2, lp.ffn_out_k, lp.ffn_out_b)
+
+
+def fused_layer_reference(x, feats, mod_sa, mod_ffn, lp: LayerParams,
+                          num_heads: int, c_real: int) -> torch.Tensor:
+    """Plain version of :func:`fused_layer`."""
+    return layer_math(x, feats, mod_sa, mod_ffn, lp, num_heads,
+                      c_real).to(x.dtype)
+
+
+def chain_feats(h, cond, null_emb, null_mask) -> torch.Tensor:
+    """concat(h, cond) and, for classifier-free rows, the all-f32 blend
+    toward ``null_emb`` over the full padded concat (JAX _chain_step)."""
+    feats = torch.cat([h.to(cond.dtype), cond], dim=-1)
+    if null_emb is None:
+        return feats
+    m = null_mask.to(torch.float32)[:, None, None]
+    return feats.float() * (1.0 - m) + null_emb.float()[None] * m
+
+
+def fused_branch_reference(x, cond, mods, slp: LayerParams, num_heads: int,
+                           c_real: int, null_emb=None,
+                           null_mask=None) -> torch.Tensor:
+    """Plain version of :func:`fused_branch`: sequential layers, each
+    layer's output rounded to ``x.dtype`` as the kernel's resident state
+    is."""
+    h = x
+    for i in range(slp.fp_fc1_k.shape[0]):
+        feats = chain_feats(h, cond, None if null_emb is None else null_emb[0],
+                            null_mask)
+        h = layer_math(h, feats, mods[i, 0], mods[i, 1], layer_at(slp, i),
+                       num_heads, c_real).to(x.dtype)
+    return h
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    from diffsheg_tpu_torch.ops.build import library
+    lib = library(KERNEL_SOURCE)
+    fn = lib.diffsheg_fused_layers
+    if fn.restype is not ctypes.c_int:
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
+                       ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
+            num_heads, c_real, chain, null_emb, null_mask, trace=None):
+    """Check everything the kernel assumes, allocate, launch."""
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"kernel supports float32/bfloat16, got {dt}")
+    B, T, L = x.shape
+    Cp = slp.fp_fc1_k.shape[-2]
+    F = slp.ffn_l1_b.shape[-1]
+    if L % num_heads or (L // num_heads) % 8 or L // num_heads > _MAX_HEAD:
+        raise ValueError(f"head width {L}/{num_heads} must be a multiple "
+                         f"of 8 and at most {_MAX_HEAD}")
+    if L % 16 or Cp % 16 or F % 16 or not L <= c_real <= Cp:
+        raise ValueError(f"widths must be multiples of 16 with L <= c_real "
+                         f"<= Cp (L={L}, c_real={c_real}, Cp={Cp}, F={F})")
+    if B * T > _MAX_ROWS:
+        raise ValueError(f"B*T={B * T} exceeds {_MAX_ROWS} rows per launch")
+    lead = (n_layers,) if chain else ()
+    shapes = LayerParams(
+        (Cp,), (Cp,), (Cp, 2 * L), (2 * L,), (2 * L, L), (L,), (L,), (L,),
+        (L, L), (L,), (L, L), (L,), (L, L), (L,), (L,), (L,), (L, L), (L,),
+        (L, F), (F,), (F, L), (L,), (L,), (L,), (L, L), (L,))
+    for name, t, shp in zip(LayerParams._fields, slp, shapes):
+        _check(name, t, lead + shp, dt, dev)
+    _check("x", x, (B, T, L), dt, dev)
+    _check("feats" if not chain else "cond", feats,
+           (B, T, Cp if not chain else Cp - L), dt, dev)
+    if null_emb is not None:
+        _check("null_emb", null_emb, (Cp,), dt, dev)
+        _check("null_mask", null_mask, (B,), torch.float32, dev)
+    out = torch.empty_like(x)
+    M = B * T
+    scratch = torch.empty(M * 8 * L * 4 + M * (L + max(2 * L, F) + max(Cp, L))
+                          * x.element_size(), dtype=torch.uint8, device=dev)
+    ptrs = [t.data_ptr() for t in slp] + [
+        x.data_ptr(), feats.data_ptr(), mod_sa.data_ptr(), mod_ffn.data_ptr(),
+        0 if null_emb is None else null_emb.data_ptr(),
+        0 if null_mask is None else null_mask.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(),
+        0 if trace is None else trace.data_ptr()]
+    strides = [t[0].numel() if chain else 0 for t in slp]
+    ints = strides + [mod_layer_stride, int(chain), n_layers, B, T, L, Cp,
+                      c_real, F, num_heads]
+    err = _lib()(_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
+                 (ctypes.c_int64 * len(ints))(*ints),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused layer kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def _batch_groups(B: int, T: int):
+    per = max(1, _MAX_ROWS // T)
+    return [slice(s, min(B, s + per)) for s in range(0, B, per)]
+
+
+def fused_layer(x: torch.Tensor,        # (B, T, L)
+                feats: torch.Tensor,    # (B, T, Cp) pre-concat/substituted/padded
+                mod_sa: torch.Tensor,   # (B, 2L)
+                mod_ffn: torch.Tensor,  # (B, 2L)
+                lp: LayerParams,
+                num_heads: int,
+                c_real: int,
+                sc=None) -> torch.Tensor:
+    """One denoiser layer.  CUDA tensors: the kernel of
+    ``csrc/fused_layer.cu`` (replaces the Pallas ``fused_layer``,
+    diffsheg_tpu/ops/fused_layer.py:505).  CPU tensors: the plain
+    version."""
+    if sc is not None:
+        raise NotImplementedError("quantized weights are not ported yet")
+    if x.device.type == "cpu":
+        return fused_layer_reference(x, feats, mod_sa, mod_ffn, lp,
+                                     num_heads, c_real)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    outs = []
+    for g in _batch_groups(x.shape[0], x.shape[1]):
+        ms, mf = mod_sa[g].contiguous(), mod_ffn[g].contiguous()
+        for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
+            _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype, x.device)
+        outs.append(_launch(x[g].contiguous(), feats[g].contiguous(), ms, mf,
+                            0, lp, 1, num_heads, c_real, False, None, None))
+        fused_layer.launches += 1
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+fused_layer.launches = 0
+
+
+def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
+                 cond: torch.Tensor,   # (B, T, Cp - L) condition, zero-padded
+                 mods: torch.Tensor,   # (num_layers, 2, B, 2L)
+                 slp: LayerParams,     # stacked over layers
+                 num_heads: int,
+                 c_real: int,
+                 null_emb: Optional[torch.Tensor] = None,   # (1, Cp)
+                 null_mask: Optional[torch.Tensor] = None,  # (B,) 0/1 rows
+                 ssc=None) -> torch.Tensor:
+    """A branch's whole layer stack in one launch.  CUDA tensors: the
+    kernel of ``csrc/fused_layer.cu`` in chain mode (replaces the Pallas
+    ``fused_branch``, diffsheg_tpu/ops/fused_layer.py:398).  CPU tensors:
+    the plain version."""
+    if ssc is not None:
+        raise NotImplementedError("quantized weights are not ported yet")
+    if x.device.type == "cpu":
+        return fused_branch_reference(x, cond, mods, slp, num_heads, c_real,
+                                      null_emb, null_mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n_layers = slp.fp_fc1_k.shape[0]
+    L = x.shape[-1]
+    outs = []
+    for g in _batch_groups(x.shape[0], x.shape[1]):
+        Bg = g.stop - g.start
+        m = mods[:, :, g].contiguous()
+        _check("mods", m, (n_layers, 2, Bg, 2 * L), x.dtype, x.device)
+        ne = None if null_emb is None else null_emb.reshape(-1).contiguous()
+        nm = None if null_mask is None else \
+            null_mask[g].to(torch.float32).contiguous()
+        outs.append(_launch(x[g].contiguous(), cond[g].contiguous(), m[0, 0],
+                            m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
+                            num_heads, c_real, True, ne, nm))
+        fused_branch.launches += 1
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+fused_branch.launches = 0
+
+
+PHASES = ("ln_feats", "fc1", "fc2", "ln", "qkv", "attention", "ln_adaln",
+          "sa_out", "ffn_l1", "ffn_l2", "ln_adaln", "ffn_out")
+
+
+def branch_phase_ns(x, cond, mods, slp: LayerParams, num_heads: int,
+                    c_real: int, null_emb=None, null_mask=None):
+    """One traced launch of the branch kernel (CUDA tensors, batch within
+    one launch): the device-clock nanoseconds of each phase, shape
+    (num_layers, len(PHASES)).  Block 0 stamps the global timer after
+    every grid barrier, so a phase's time is that of its slowest block.
+    Not counted in ``fused_branch.launches``."""
+    n_layers = slp.fp_fc1_k.shape[0]
+    L = x.shape[-1]
+    B = x.shape[0]
+    trace = torch.zeros(1 + len(PHASES) * n_layers, dtype=torch.int64,
+                        device=x.device)
+    _launch(x, cond, mods[0, 0], mods[0, 1], 2 * B * 2 * L, slp, n_layers,
+            num_heads, c_real, True,
+            None if null_emb is None else null_emb.reshape(-1),
+            None if null_mask is None else null_mask.float(), trace)
+    stamps = trace.cpu().numpy()
+    return (stamps[1:] - stamps[:-1]).reshape(n_layers, len(PHASES))

@@ -1,0 +1,189 @@
+"""Single-window generation: model + schedule + step programs.
+
+Counterpart of ``diffsheg_tpu/sampling/generator.py`` on the serving path:
+the timestep-level cache and the fused fast path.  A window runs either
+the *plain* program (every respaced step, the first window) or the
+*harmonize* program (RePaint jump schedule from 60% depth, continuation
+windows, with the overlap projection).
+
+Knobs kept from the JAX package: ``diffusion.fused_layer`` ('auto' / 'on'
+-> the per-layer kernel, 'chain' -> the branch kernel) and
+``diffusion.fused_step`` ('auto' / 'jnp' -> the streamlined step
+composition).  Not ported yet, and refused with NotImplementedError:
+``fused_layer='off'`` (the uncached forward), ``level_cache=False``,
+``quantize`` int8/int4, ancestral sampling, and the general step path.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import numpy as np
+import torch
+
+from diffsheg_tpu_torch.config import Config
+from diffsheg_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
+from diffsheg_tpu_torch.diffusion.jump import (jump_schedule_ddim,
+                                               make_step_program,
+                                               plain_program)
+from diffsheg_tpu_torch.diffusion.respace import (make_respaced_schedule,
+                                                  space_timesteps)
+from diffsheg_tpu_torch.diffusion.sampler import (NoiseSource, RepaintSpec,
+                                                  ddim_sample_program)
+from diffsheg_tpu_torch.diffusion.schedule import (get_named_beta_schedule,
+                                                   make_schedule)
+from diffsheg_tpu_torch.models.factory import ablate_inputs, denoised_channels
+from diffsheg_tpu_torch.models.fast_forward import (extract_fast_params,
+                                                    fast_unidiffuser_step)
+from diffsheg_tpu_torch.models.level_cache import (AudioCache, ModelCache,
+                                                   StaticCache,
+                                                   build_audio_cache,
+                                                   build_static_cache,
+                                                   combine, gather_level)
+from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
+
+
+def _refuse(what: str):
+    raise NotImplementedError(f"{what} is not ported to diffsheg_tpu_torch yet")
+
+
+class WindowGenerator:
+    """Window-level sampling for a UniDiffuser.
+
+    The model is copied, cast to ``cfg.model.compute_dtype`` (weights stored
+    in the compute dtype, as the JAX generator does) and moved to
+    ``device`` (default: the GPU).
+    """
+
+    def __init__(self, cfg: Config, model: UniDiffuser,
+                 device: DeviceLike = None):
+        d, stream = cfg.diffusion, cfg.stream
+        if d.fused_layer == "off" or not d.level_cache:
+            _refuse("the uncached forward (fused_layer='off' / "
+                    "level_cache=False)")
+        if d.fused_layer not in ("auto", "on", "chain"):
+            raise ValueError(f"diffusion.fused_layer={d.fused_layer!r}")
+        if d.quantize != "none":
+            _refuse(f"diffusion.quantize={d.quantize!r}")
+        if d.sampler != "ddim":
+            _refuse(f"diffusion.sampler={d.sampler!r}")
+        if d.fused_step not in ("auto", "jnp"):
+            _refuse(f"diffusion.fused_step={d.fused_step!r}")
+        if d.mean_type != "epsilon" or d.clip_denoised:
+            _refuse("the general DDIM step (mean_type other than epsilon, "
+                    "clip_denoised)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.model.compute_dtype)
+        self.model = copy.deepcopy(model).to(device=self.device,
+                                             dtype=self.dtype).eval()
+        self.chain = d.fused_layer == "chain"
+
+        base_betas = get_named_beta_schedule(d.beta_schedule, d.num_steps)
+        if d.respacing:
+            self.schedule, self.timestep_map = make_respaced_schedule(
+                base_betas, space_timesteps(d.num_steps, d.respacing))
+        else:
+            self.schedule = make_schedule(base_betas)
+            self.timestep_map = np.arange(d.num_steps, dtype=np.int32)
+        self.t_levels = torch.as_tensor(self.timestep_map, device=self.device)
+        n = self.schedule.num_steps
+        if n > 64:   # the JAX generator serves these through the uncached forward
+            _refuse(f"a {n}-step schedule (the level cache covers <= 64)")
+        self._plain = plain_program(n)
+        jl, jns = (1, 1) if d.no_resample else (d.jump_length, d.jump_n_sample)
+        self._harmonize = make_step_program(jump_schedule_ddim(n, jl, jns))
+        self._repaint_prog = self._plain if stream.no_repaint else self._harmonize
+        self.spec = RepaintSpec(overlap_len=stream.overlap_len,
+                                add_blend=stream.add_blend,
+                                same_overlap_noisy=stream.same_overlap_noisy)
+
+    # -- cache and fast-path weights ---------------------------------------
+    def cache_static(self, pid: torch.Tensor) -> StaticCache:
+        _, pid = ablate_inputs(self.cfg.model, None, pid.to(self.device))
+        return build_static_cache(self.model, self.t_levels, pid)
+
+    def cache_audio(self, mel: torch.Tensor,
+                    hubert: Optional[torch.Tensor]) -> AudioCache:
+        """``mel`` (N, T, A) may fold windows into N."""
+        mel, _ = ablate_inputs(self.cfg.model, mel.to(self.device), None)
+        return build_audio_cache(self.model, self.t_levels, mel,
+                                 None if hubert is None else hubert.to(self.device))
+
+    def build_cache(self, mel, pid, hubert) -> ModelCache:
+        return combine(self.cache_static(pid), self.cache_audio(mel, hubert))
+
+    def make_fast(self, T: int):
+        return extract_fast_params(self.cfg.model, self.model, T,
+                                   self.cfg.diffusion.quantize)
+
+    # -- sampling ------------------------------------------------------------
+    def _denoise_fn(self, cache: ModelCache, fast):
+        mcfg, sched = self.cfg.model, self.schedule
+
+        @torch.no_grad()
+        def fn(x: torch.Tensor, t: int) -> torch.Tensor:
+            return fast_unidiffuser_step(
+                mcfg, fast, x,
+                (float(sched.sqrt_recip_alphas_cumprod[t]),
+                 float(sched.sqrt_recipm1_alphas_cumprod[t])),
+                gather_level(cache, t),
+                cfg_inference=mcfg.uses_cfg_at_inference, chain=self.chain)
+        return fn
+
+    def _shape(self, mel):
+        return (mel.shape[0], mel.shape[1], denoised_channels(self.cfg.model))
+
+    def sample_plain(self, mel, pid, hubert, noise: NoiseSource,
+                     window: int = 0, cache: Optional[ModelCache] = None,
+                     fast=None) -> torch.Tensor:
+        """The plain program (every respaced step)."""
+        cache = cache if cache is not None else self.build_cache(mel, pid, hubert)
+        fast = fast if fast is not None else self.make_fast(mel.shape[1])
+        x, _ = ddim_sample_program(self.schedule, self._denoise_fn(cache, fast),
+                                   self._plain, noise, window,
+                                   self._shape(mel), self.device)
+        return x
+
+    def sample_repaint(self, mel, pid, hubert, gt, noise: NoiseSource,
+                       window: int = 0, prev_tails=None,
+                       prev_tails_valid=None,
+                       cache: Optional[ModelCache] = None, fast=None):
+        """The harmonize program with the overlap head pinned toward
+        ``gt`` (B, T, C); returns ``(sample, saved_tails)``."""
+        cache = cache if cache is not None else self.build_cache(mel, pid, hubert)
+        fast = fast if fast is not None else self.make_fast(mel.shape[1])
+        return ddim_sample_program(
+            self.schedule, self._denoise_fn(cache, fast), self._repaint_prog,
+            noise, window, self._shape(mel), self.device, repaint=self.spec,
+            gt=gt.to(self.device), prev_saved_tails=prev_tails,
+            prev_tails_valid=prev_tails_valid)
+
+    def generate(self, mel, person_id, noise: NoiseSource, hubert=None,
+                 gt_head=None, prev_saved_tails=None, window: int = 0):
+        """One window: the plain program, or with ``gt_head`` (B, overlap,
+        C) the harmonize program.  Returns the sample, plus the saved
+        tails under ``same_overlap_noisy``."""
+        if self.cfg.model.add_hubert and hubert is None:
+            raise ValueError("model config requires hubert features")
+        mel = mel.to(self.device)
+        pid = person_id.to(self.device)
+        hubert = None if hubert is None else hubert.to(self.device)
+        if gt_head is None:
+            return self.sample_plain(mel, pid, hubert, noise, window)
+        B, T = mel.shape[0], mel.shape[1]
+        gt = torch.zeros((B, T, denoised_channels(self.cfg.model)),
+                         device=self.device)
+        gt[:, :self.cfg.stream.overlap_len] = gt_head.to(self.device)
+        x, tails = self.sample_repaint(mel, pid, hubert, gt, noise, window,
+                                       prev_saved_tails)
+        return (x, tails) if self.cfg.stream.same_overlap_noisy else x
+
+    @property
+    def num_model_calls_plain(self) -> int:
+        return self._plain.num_model_calls
+
+    @property
+    def num_model_calls_repaint(self) -> int:
+        return self._harmonize.num_model_calls

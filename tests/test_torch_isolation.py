@@ -1,0 +1,114 @@
+"""The port stands alone: no JAX, Flax or diffsheg_tpu import anywhere in
+``diffsheg_tpu_torch`` or in ``chip_smoke.py``, and its entry points run
+on the GPU unless the caller asks for the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "diffsheg_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import diffsheg_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_source_file_imports_jax():
+    import diffsheg_tpu_torch
+    pkg = os.path.dirname(diffsheg_tpu_torch.__file__)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for f in files:
+        bad = [m for m in _imports(f) if _forbidden(m)]
+        assert not bad, (f, bad)
+
+
+def test_kernel_sources_are_package_data():
+    import diffsheg_tpu_torch.ops.build as build
+    for src in build.SOURCES:
+        assert (build.CSRC / src).exists()
+    # nothing is built at import
+    assert not build._loaded
+
+
+@pytest.mark.parametrize("entry", ["generator", "hubert", "mel"])
+def test_entry_points_default_to_cuda(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
+    from diffsheg_tpu_torch.audio.mel import MelFrontend
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.models.hubert import HubertConfig
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    from diffsheg_tpu_torch.sampling.generator import WindowGenerator
+    tiny_hub = HubertConfig(hidden_size=16, num_layers=1, num_heads=2,
+                            intermediate_size=32, conv_dim=(8,) * 7)
+    import dataclasses
+    cfg = beat_config()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, latent_dim=32, num_layers=1, num_heads=2, ff_size=64,
+        hubert_dim=16, hubert_latent_dim=8))
+    make = {
+        "generator": lambda **kw: WindowGenerator(
+            cfg, init_unidiffuser(cfg.model), **kw),
+        "hubert": lambda **kw: HubertFeatureExtractor(tiny_hub, **kw),
+        "mel": lambda **kw: MelFrontend(**kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    assert make(device="cpu") is not None
+
+
+def test_chip_smoke_refuses_without_cuda():
+    # no card here: the script exits non-zero and prints no result
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_walk_covers_the_slice():
+    import diffsheg_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__, "diffsheg_tpu_torch.")}
+    for mod in ("config", "diffusion.schedule", "diffusion.respace",
+                "diffusion.jump", "diffusion.sampler", "models.embeddings",
+                "models.attention", "models.blocks", "models.denoiser",
+                "models.level_cache", "models.fast_forward", "models.hubert",
+                "ops.fused_layer", "sampling.generator", "sampling.streamer",
+                "sampling.pipeline", "audio.mel", "audio.hubert_runner",
+                "compat.from_jax"):
+        assert f"diffsheg_tpu_torch.{mod}" in names, mod

@@ -1,0 +1,107 @@
+"""Shared helpers for the port's parity tests (tests/test_torch_*.py).
+
+Both packages get the same inputs: weights are made once in JAX (Flax init,
+then every leaf perturbed with seeded numpy noise so no zero-initialised
+projection hides a sub-layer) and carried into the port with
+``diffsheg_tpu_torch.compat.from_jax``; sampler noise is replayed from the
+JAX key chain into a ``TableNoise``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from diffsheg_tpu import config as jconfig
+from diffsheg_tpu_torch import config as tconfig
+
+
+def rel_rms(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(((a - b) ** 2).mean()) / np.sqrt((b ** 2).mean()))
+
+
+TINY_MODEL = dict(latent_dim=64, num_layers=2, num_heads=4, ff_size=128,
+                  hubert_dim=48, hubert_latent_dim=32)
+
+
+def config_pair(preset: str = "beat", model=None, diffusion=None,
+                stream=None, data=None):
+    """The same configuration in both packages: a preset with overrides.
+    The JAX side runs the streamlined step composition (``fused_step
+    ='jnp'``), the step the port implements."""
+    pair = []
+    for mod in (jconfig, tconfig):
+        cfg = getattr(mod, f"{preset}_config")()
+        over = dict(model=dict(TINY_MODEL, **(model or {})),
+                    diffusion=dict(fused_step="jnp", **(diffusion or {})),
+                    stream=stream or {}, data=data or {})
+        cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                             for k, v in over.items()})
+        pair.append(cfg)
+    return tuple(pair)
+
+
+def perturb(tree, seed: int, scale: float = 0.1):
+    """Add ``scale * N(0, 1)`` to every leaf (variances kept positive)."""
+    rng = np.random.RandomState(seed)
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        a = np.asarray(t, np.float32)
+        n = (scale * rng.randn(*a.shape)).astype(np.float32)
+        return a + (np.abs(n) if name == "var" else n)
+
+    return walk(tree)
+
+
+def jax_unidiffuser(jcfg, seed: int = 0):
+    """Perturbed UniDiffuser variables (numpy tree) for a JAX config."""
+    from diffsheg_tpu.models.unidiffuser import init_unidiffuser
+    _, variables = init_unidiffuser(jcfg.model, jcfg.data.n_poses,
+                                    jax.random.PRNGKey(seed))
+    variables = jax.tree.map(np.asarray, dict(variables))
+    return {k: perturb(v, seed + 100) for k, v in variables.items()}
+
+
+def torch_unidiffuser(tcfg, variables):
+    from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
+    from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
+    return load_flax_tree(UniDiffuser(tcfg.model), variables)
+
+
+def jax_window_noise(key, B, T, C, program, repaint: bool):
+    """Replay one window's draws: ``rng, k = split(key)``; x_T =
+    normal(k); per step ``key, k_model, k_gt, k_undo = split(key, 4)``."""
+    rng, k = jax.random.split(key)
+    initial = np.asarray(jax.random.normal(k, (B, T, C)))
+    steps = {}
+    key = rng
+    for s, den in enumerate(np.asarray(program.denoise).tolist()):
+        key, _, k_gt, k_undo = jax.random.split(key, 4)
+        if den and repaint:
+            steps[(s, "gt")] = np.asarray(jax.random.normal(k_gt, (B, T, C)))
+        elif not den:
+            steps[(s, "undo")] = np.asarray(jax.random.normal(k_undo, (B, T, C)))
+    return initial, steps
+
+
+def stream_noise(rng, n_windows, B, T, C, plain, harmonize):
+    """The TableNoise of a stream: window keys chained off ``rng`` as the
+    JAX streamer and pipeline do; window 0 runs the plain program."""
+    from diffsheg_tpu_torch.diffusion.sampler import TableNoise
+    initial, steps = {}, {}
+    for w in range(n_windows):
+        rng, k = jax.random.split(rng)
+        prog = plain if w == 0 else harmonize
+        initial[w], st = jax_window_noise(k, B, T, C, prog, w > 0)
+        steps.update({(w, s, kind): v for (s, kind), v in st.items()})
+    return TableNoise(initial, steps)
+
+
+def jnp_f32(x):
+    return jnp.asarray(np.asarray(x, np.float32))
