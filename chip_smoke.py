@@ -6,20 +6,34 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — compiles the CUDA kernels from ``diffsheg_tpu_torch/csrc``;
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the main path's shapes (BEAT branches in bf16 and f32, the
-              SHOW classifier-free shape with null rows), with times;
-4. stream   — a two-window BEAT stream with the same injected noise through
-              the bf16 kernel path, the f32 kernel path and the f32 plain
-              path, held to the port's numerics bands;
+              the main paths' shapes, with times: the fused-layer kernels
+              (BEAT branches in bf16 and f32, the SHOW classifier-free
+              shape with null rows), linear attention (BEAT and SHOW
+              branch rows in f32 and bf16, the level cache's 750-row audio
+              encoder; gradients too) and the DDIM + RePaint step (BEAT
+              and SHOW, every switch);
+4. stream   — a three-window BEAT stream with the same injected noise
+              through the bf16 and f32 branch-kernel paths and phase 6's
+              path, held to the port's numerics bands against the f32 fully
+              uncached module forward with no kernel in it (bench.py
+              --check's reference), the kernel paths also against the f32
+              fast path with its kernels swapped for their plain versions;
 5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
               -> windowed DDIM-25 + RePaint sampler -> motion) at full
               width with seeded random weights, through the branch kernel;
-              then a short stream through the per-layer kernel.
+              then a short stream through the per-layer kernel;
+6. uncached — the same pipeline at f32 through the module forward
+              (fused_layer='off') fed by the level cache, with the step
+              kernel (fused_step='on'): every self-attention in the
+              linear-attention kernel; then a 10 s stream with
+              level_cache=False, the audio encoder in every call.
 
-Prints its findings, a ``kernels`` JSON line, the nvidia-smi line, and
-ends with ``{"ok": true, "device": {...}}``.  Any failed phase raises and
-the exit code is non-zero; with no CUDA device it exits 1 and prints no
-result.
+Each main path runs with every kernel's launch count set to 0 just before
+it and read just after, and the counts are asserted exactly.  Prints its
+findings, a ``kernels`` JSON line, the nvidia-smi line, and ends with
+``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
+code is non-zero; with no CUDA device it exits 1 and prints no result.
+TF32 is off in every phase that holds an f32 band.
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
@@ -95,6 +109,31 @@ def wall_ms(fn, reps: int) -> float:
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt())
+
+
+def no_tf32() -> None:
+    """Full-f32 products and convolutions (cuDNN defaults to TF32 for
+    convolutions, e.g. the HuBERT conv encoder): called at the top of every
+    phase that holds an f32 band."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def counters():
+    """Every kernel wrapper of the port, by name; each counts its launches
+    in ``.launches``."""
+    from diffsheg_tpu_torch.ops.fused_layer import fused_branch, fused_layer
+    from diffsheg_tpu_torch.ops.linear_attention import fused_linear_attention
+    from diffsheg_tpu_torch.ops.step_math import fused_ddim_repaint_step
+    return {"fused_branch": fused_branch, "fused_layer": fused_layer,
+            "fused_linear_attention": fused_linear_attention,
+            "fused_ddim_repaint_step": fused_ddim_repaint_step}
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time for the work."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 # --------------------------------------------------------------------------
@@ -174,13 +213,10 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     flops = n_layers * 2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L
                                     + 2 * L * F) \
         + n_layers * 4 * B * T * L * (L // H)
-    bound = max((w_bytes + io_bytes) / HBM_BYTES_PER_S,
-                flops / PEAK_FLOPS[dtype]) * 1e3
+    b_ms, b_by = bound(w_bytes + io_bytes, flops, dtype)
     out["fused_branch"] = dict(
         rel_rms=e_rel, max_abs_err=e_abs, ms=branch_ms, wall_ms=branch_wall,
-        plain_ms=plain_ms,
-        bound_ms=bound, bound_by="bytes" if (w_bytes + io_bytes)
-        / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[dtype] else "operations")
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     # fused_layer: layer 0 on assembled, padded feats
     lp = layer_at(slp, 0)
@@ -201,13 +237,10 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     lplain_ms = device_ms(lplain, max(3, reps // 4))
     lw = w_bytes / n_layers
     lio = sum(t.numel() * t.element_size() for t in (x, feats, ms_, mf_, x))
-    lbound = max((lw + lio) / HBM_BYTES_PER_S,
-                 flops / n_layers / PEAK_FLOPS[dtype]) * 1e3
+    b_ms, b_by = bound(lw + lio, flops / n_layers, dtype)
     out["fused_layer"] = dict(
         rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms, wall_ms=layer_wall,
-        plain_ms=lplain_ms,
-        bound_ms=lbound, bound_by="bytes" if (lw + lio) / HBM_BYTES_PER_S
-        >= flops / n_layers / PEAK_FLOPS[dtype] else "operations")
+        plain_ms=lplain_ms, bound_ms=b_ms, bound_by=b_by)
     if name.startswith("beat-ges"):
         from diffsheg_tpu_torch.ops.fused_layer import PHASES, branch_phase_ns
         ns = branch_phase_ns(x, cond, mods, slp, H, c_real, null_emb,
@@ -226,10 +259,129 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     return out
 
 
+def attention_case(name, dtype, B, T, D, H, dev, seed, reps):
+    """The linear-attention kernel against its plain version.  The
+    gradient check only shows that backward runs on the card behind the
+    kernel's forward: the backward recomputes through the plain
+    composition from the saved inputs, so it matches plain autograd by
+    construction (the VJP itself is held against jax.grad on the CPU)."""
+    from diffsheg_tpu_torch.ops.linear_attention import (
+        fused_linear_attention, fused_linear_attention_reference,
+        linear_attention_reference)
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, T, D, generator=gen) for _ in range(3))
+    mask = torch.ones(B, T, 1)
+    mask[:, T - T // 8:] = 0.0          # masked keys, as padded frames get
+    k, v = k + (1.0 - mask) * -1e6, v * mask
+    q, k, v = (a.to(dev, dtype) for a in (q, k, v))
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    got = fused_linear_attention(q, k, v, H)
+    ref = fused_linear_attention_reference(q, k, v, H)
+    torch.cuda.synchronize()
+    err, e_abs = rel_rms(got, ref), float((got.float() - ref.float()).abs().max())
+
+    g = torch.randn(B, T, D, generator=gen).to(dev, dtype)
+    kq, kk, kv = (a.clone().requires_grad_() for a in (q, k, v))
+    fused_linear_attention(kq, kk, kv, H).backward(g)
+    pq, pk, pv = (a.clone().requires_grad_() for a in (q, k, v))
+    linear_attention_reference(pq, pk, pv, H).backward(g)
+    g_err = max(rel_rms(a.grad, b.grad) for a, b in
+                ((kq, pq), (kk, pk), (kv, pv)))
+
+    def kernel():
+        fused_linear_attention(q, k, v, H)
+
+    def plain():
+        fused_linear_attention_reference(q, k, v, H)
+
+    ms, wall = device_ms(kernel, reps), wall_ms(kernel, reps)
+    plain_ms = device_ms(plain, reps)
+    nbytes = 4 * B * T * D * q.element_size()
+    flops = 4 * B * T * D * (D // H)            # both contractions, f32
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    log(f"kernel[fused_linear_attention {name}]: rel_rms={err:.3e} "
+        f"(tol {tol:g}) max_abs={e_abs:.3e} grad_rel_rms={g_err:.3e} "
+        f"ms={ms:.4f} wall_ms={wall:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by})")
+    if not (err <= tol and g_err <= tol):
+        raise AssertionError(f"fused_linear_attention {name}: {err:.3e}, "
+                             f"grad {g_err:.3e} > {tol:g}")
+    return dict(rel_rms=err, max_abs_err=e_abs, ms=ms, wall_ms=wall,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def step_case(name, B, T, C, ov, dev, seed, reps):
+    """The step kernel against its plain version at every switch: no GT;
+    GT with no tail, a valid and an invalid saved tail, the blend on and
+    off, at a high-noise and a low-noise (blending) level."""
+    from diffsheg_tpu_torch.diffusion.respace import (make_respaced_schedule,
+                                                      space_timesteps)
+    from diffsheg_tpu_torch.diffusion.schedule import get_named_beta_schedule
+    from diffsheg_tpu_torch.ops.step_math import (
+        ddim_repaint_step_reference, fused_ddim_repaint_step)
+    gen = torch.Generator().manual_seed(seed)
+    x, eps, gt, gtn = (torch.randn(B, T, C, generator=gen).to(dev)
+                       for _ in range(4))
+    tail = torch.randn(B, ov, C, generator=gen).to(dev)
+    sched, _ = make_respaced_schedule(get_named_beta_schedule("linear", 1000),
+                                      space_timesteps(1000, "ddim25"))
+    # DDIM-25 levels 24 (sqrt(1 - ab_prev) ~ 1) and 1 (~ 0.01: blends)
+    levels = {lv: (sched.alphas_cumprod_prev[t],
+                   sched.sqrt_recip_alphas_cumprod[t],
+                   sched.sqrt_recipm1_alphas_cumprod[t])
+              for lv, t in (("high", 24), ("low", 1))}
+    worst = 0.0
+    combos = [(None, None, None, 0.0, False, "high")]          # no GT
+    for lv in levels:
+        for t_, valid in ((None, 0.0), (tail, 1.0), (tail, 0.0)):
+            for blend in (False, True):
+                combos.append((gt, gtn, t_, valid, blend, lv))
+    for g_, n_, t_, valid, blend, lv in combos:
+        args = (x, eps, (*levels[lv], valid), g_, n_, t_, ov, blend)
+        got = fused_ddim_repaint_step(*args)
+        ref = ddim_repaint_step_reference(*args)
+        worst = max(worst, float((got - ref).abs().max()))
+    torch.cuda.synchronize()
+    main = (x, eps, (*levels["low"], 1.0), gt, gtn, tail, ov, True)
+
+    def kernel():
+        fused_ddim_repaint_step(*main)
+
+    def plain():
+        ddim_repaint_step_reference(*main)
+
+    ms, wall = device_ms(kernel, reps), wall_ms(kernel, reps)
+    plain_ms = device_ms(plain, reps)
+    # the timed call reads x, eps and the valid tail and writes out; it
+    # never reads gt or its noise (the tail takes the head's place)
+    nbytes = 4 * (3 * B * T * C + B * ov * C)
+    flops = 9 * B * T * C
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    log(f"kernel[fused_ddim_repaint_step {name}]: {len(combos)} switch "
+        f"combinations max_abs={worst:.3e} (tol 1e-6) ms={ms:.4f} "
+        f"wall_ms={wall:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+        f"({b_by})")
+    if not worst <= 1e-6:
+        raise AssertionError(f"fused_ddim_repaint_step {name}: {worst:.3e}")
+    return dict(max_abs_err=worst, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(dev, reps):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     results = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    # linear attention: branch rows (BEAT B 1, SHOW classifier-free B 2,
+    # latent 512, 8 heads) and the cache's audio encoder (25 levels x 30
+    # windows of a 60 s stream, width 128, 8 heads)
+    for name, dt, B, T, D in (("beat-f32", f32, 1, 34, 512),
+                              ("beat-bf16", bf16, 1, 34, 512),
+                              ("show-cfg-f32", f32, 2, 88, 512),
+                              ("audio-enc-f32", f32, 750, 34, 128)):
+        results[f"attn-{name}"] = attention_case(name, dt, B, T, D, 8, dev,
+                                                 11, reps)
+    results["step-beat"] = step_case("beat", 1, 34, 192, 4, dev, 12, reps)
+    results["step-show"] = step_case("show", 1, 88, 232, 10, dev, 13, reps)
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         # BEAT expression branch: c_real = 512 + 256 + 128 = Cp
@@ -248,14 +400,14 @@ def phase_kernels(dev, reps):
 # phase 4: stream numerics
 # --------------------------------------------------------------------------
 
-def beat_cfg(dtype: str, fused_layer: str):
+def beat_cfg(dtype: str, fused_layer: str, **diffusion):
     import dataclasses
     from diffsheg_tpu_torch.config import beat_config
     cfg = beat_config()
     return cfg.replace(
         model=dataclasses.replace(cfg.model, compute_dtype=dtype),
         diffusion=dataclasses.replace(cfg.diffusion, jump_n_sample=2,
-                                      fused_layer=fused_layer))
+                                      fused_layer=fused_layer, **diffusion))
 
 
 def run_stream(cfg, model, mel, pid, hub, seed, dev):
@@ -270,16 +422,40 @@ def run_stream(cfg, model, mel, pid, hub, seed, dev):
 
 def phase_stream(dev, model):
     """A 68-frame stream (windows at 0, 30 and a left-shifted 34) with the
-    same noise through the bf16 and f32 kernel paths and the f32 plain
-    path (the fast path's kernel calls swapped for their plain versions
-    in this process only)."""
+    same noise through the bf16 and f32 branch-kernel paths and the f32
+    module forward on the cache with the step kernel, held against the f32
+    fully uncached module forward (fused_layer='off', level_cache=False:
+    bench.py --check's reference) with every kernel out of it: its
+    attention is the plain composition (in this process only) and its step
+    the streamlined composition, and no kernel launches in it.  The kernel
+    paths are also held against the f32 fast path with its kernel calls
+    swapped for their plain versions (in this process only)."""
+    import diffsheg_tpu_torch.models.attention as attn
     import diffsheg_tpu_torch.models.fast_forward as ff
     from diffsheg_tpu_torch.ops import fused_layer as ops
+    from diffsheg_tpu_torch.ops.linear_attention import (
+        linear_attention_reference)
+    no_tf32()
     gen = torch.Generator().manual_seed(7)
     T = 68
     mel = torch.randn(1, T, 128, generator=gen).to(dev)
     hub = torch.randn(1, T, 1024, generator=gen).to(dev)
     pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    saved = attn.linear_attention
+    attn.linear_attention = (lambda q, k, v, h, use_fused=None:
+                             linear_attention_reference(q, k, v, h))
+    try:
+        ref = run_stream(beat_cfg("float32", "off", level_cache=False),
+                         model, mel, pid, hub, 5, dev)
+    finally:
+        attn.linear_attention = saved
+    expect("kernel-free reference", {n: fn.launches for n, fn in
+                                     counters().items()})
+    # phase 6's path: the module forward on the cache, the step kernel
+    f32o = run_stream(beat_cfg("float32", "off", fused_step="on"), model,
+                      mel, pid, hub, 5, dev)
     bf16 = run_stream(beat_cfg("bfloat16", "chain"), model, mel, pid, hub, 5, dev)
     f32k = run_stream(beat_cfg("float32", "chain"), model, mel, pid, hub, 5, dev)
     saved = ff.fused_branch, ff.fused_layer
@@ -290,17 +466,24 @@ def phase_stream(dev, model):
                           5, dev)
     finally:
         ff.fused_branch, ff.fused_layer = saved
-    r16, r32 = rel_rms(bf16, f32p), rel_rms(f32k, f32p)
-    log(f"stream[68 frames]: bf16-kernel vs f32-plain rel_rms={r16:.3e} "
-        f"(tol 2.5e-2); f32-kernel vs f32-plain rel_rms={r32:.3e} "
-        f"(tol 5e-3); |x| max {float(f32p.abs().max()):.3e}")
-    if not (torch.isfinite(bf16).all() and r16 < 2.5e-2 and r32 < 5e-3):
-        raise AssertionError(f"stream bands failed: {r16:.3e}, {r32:.3e}")
+    r16, r32 = rel_rms(bf16, ref), rel_rms(f32k, ref)
+    r16p, r32p = rel_rms(bf16, f32p), rel_rms(f32k, f32p)
+    r32o = rel_rms(f32o, ref)
+    log(f"stream[68 frames] vs f32 uncached: bf16-chain rel_rms={r16:.3e} "
+        f"(tol 2.5e-2); f32-chain rel_rms={r32:.3e} (tol 5e-3); "
+        f"f32-off-cache-step-kernel rel_rms={r32o:.3e} (tol 5e-3); "
+        f"vs f32 plain-swap: bf16-chain {r16p:.3e} (tol 2.5e-2), "
+        f"f32-chain {r32p:.3e} (tol 5e-3); |x| max {float(ref.abs().max()):.3e}")
+    if not (torch.isfinite(ref).all() and torch.isfinite(bf16).all()
+            and r16 < 2.5e-2 and r32 < 5e-3 and r32o < 5e-3
+            and r16p < 2.5e-2 and r32p < 5e-3):
+        raise AssertionError(f"stream bands failed: {r16:.3e}, {r32:.3e}, "
+                             f"{r32o:.3e}, {r16p:.3e}, {r32p:.3e}")
     return {"bf16_rel_rms": r16, "f32_rel_rms": r32}
 
 
 # --------------------------------------------------------------------------
-# phase 5: the serving pipeline end to end
+# phases 5 and 6: the serving pipeline end to end
 # --------------------------------------------------------------------------
 
 def synth(secs: int, sr: int) -> np.ndarray:
@@ -323,34 +506,49 @@ def make_pipeline(cfg, model, hubert_fe, dev):
 
 
 def drive(pipe, secs, dev, seed):
-    """One pipeline call on ``secs`` of audio with the launch counts set
+    """One pipeline call on ``secs`` of audio with every launch count set
     to 0 just before and read just after; returns (out, seconds, counts)."""
     from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
-    from diffsheg_tpu_torch.ops.fused_layer import fused_branch, fused_layer
     a18 = torch.from_numpy(synth(secs, 18000)).to(dev)
     a16 = torch.from_numpy(synth(secs, 16000)).to(dev)
     pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
     torch.cuda.synchronize()
-    fused_branch.launches = fused_layer.launches = 0
+    for fn in counters().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = pipe(a18, a16, pid, GeneratorNoise(seed, dev))
     torch.cuda.synchronize()
     secs_taken = time.perf_counter() - t0
-    counts = {"fused_branch": fused_branch.launches,
-              "fused_layer": fused_layer.launches}
+    counts = {name: fn.launches for name, fn in counters().items()}
     return out, secs_taken, counts
 
 
-def phase_e2e(dev, model):
+def expect(what, counts, **want):
+    """Exact launch counts; every kernel not named must not launch."""
+    want = {name: want.get(name, 0) for name in counters()}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+# a 60 s BEAT stream: windows at 0, 30, ..., 840 and a left-shifted 866,
+# the first on the plain program (25 model calls), 29 on the harmonize
+# program (27 each); a 10 s stream: windows at 0, 30, 60, 90, 116
+CALLS_60S = 25 + 29 * 27            # 808
+CALLS_10S = 25 + 4 * 27             # 133
+
+
+def make_hubert(dev):
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
     from diffsheg_tpu_torch.models.hubert import HubertConfig
+    return HubertFeatureExtractor(HubertConfig(dtype="bfloat16"), seed=3,
+                                  device=dev)
+
+
+def phase_e2e(dev, model, hubert_fe):
     t0 = time.perf_counter()
-    hubert_fe = HubertFeatureExtractor(HubertConfig(dtype="bfloat16"), seed=3,
-                                       device=dev)
     cfg = beat_cfg("bfloat16", "chain")
     pipe = make_pipeline(cfg, model, hubert_fe, dev)
-    log(f"e2e: set-up (random HuBERT-large + model to the card) "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"e2e: set-up (model to the card) {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     _, warm_s, _ = drive(pipe, 60, dev, 11)
     out, secs, counts = drive(pipe, 60, dev, 12)
@@ -370,9 +568,7 @@ def phase_e2e(dev, model):
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
-    if counts["fused_branch"] != 2 * 808:
-        raise AssertionError(f"fused_branch launched {counts['fused_branch']}"
-                             " times, expected 1616")
+    expect("chain path", counts, fused_branch=2 * CALLS_60S)
 
     # the library default 'auto' runs the per-layer kernel
     pipe = make_pipeline(beat_cfg("bfloat16", "auto"), model, hubert_fe, dev)
@@ -381,20 +577,80 @@ def phase_e2e(dev, model):
     log(f"e2e[beat 10 s, bf16, fused_layer=auto]: frames={out10.shape[1]} "
         f"seconds={secs10:.3f} fps={out10.shape[1] / secs10:.1f} "
         f"launches={counts10}")
-    calls = 25 + 4 * 27          # windows at 0, 30, 60, 90, 116
-    if (not torch.isfinite(out10).all()
-            or counts10["fused_layer"] != 16 * calls
-            or counts10["fused_branch"] != 0):
-        raise AssertionError(f"auto path: {counts10}")
+    if not torch.isfinite(out10).all():
+        raise AssertionError("auto path: non-finite output")
+    expect("auto path", counts10, fused_layer=16 * CALLS_10S)
     return {"fused_branch": counts["fused_branch"],
             "fused_layer": counts10["fused_layer"]}
+
+
+def phase_uncached(dev, model, hubert_fe):
+    """The module forward at f32: every self-attention (16 per model call,
+    8 per branch) through the linear-attention kernel, every denoise step
+    through the step kernel.  With the level cache the audio encoder runs
+    once per stream, over all 25 levels x 30 windows in one launch;
+    without it, once per model call."""
+    no_tf32()
+    cfg = beat_cfg("float32", "off", fused_step="on")
+    pipe = make_pipeline(cfg, model, hubert_fe, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, warm_s, _ = drive(pipe, 60, dev, 21)
+    out, secs, counts = drive(pipe, 60, dev, 22)
+    log(f"uncached[beat 60 s, f32, fused_layer=off, level cache, "
+        f"fused_step=on]: frames={out.shape[1]} warm_s={warm_s:.3f} "
+        f"seconds={secs:.3f} fps={out.shape[1] / secs:.1f} "
+        f"launches={counts} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
+        raise AssertionError(f"bad output {tuple(out.shape)}")
+    expect("module forward on the cache", counts,
+           fused_linear_attention=16 * CALLS_60S + 1,
+           fused_ddim_repaint_step=CALLS_60S)
+    # one model call alone (after the counted run): device time behind a
+    # sleep kernel against host time, at a mid level of window 0
+    gen = pipe.stream.gen
+    g = torch.Generator().manual_seed(25)
+    mel = torch.randn(1, 34, 128, generator=g).to(dev)
+    hub = torch.randn(1, 34, 1024, generator=g).to(dev)
+    pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
+    x = torch.randn(1, 34, 192, generator=g).to(dev)
+    fn = gen._denoise_fn(gen.build_cache(mel, pid, hub), None, mel, pid, hub)
+    call_dev, call_wall = (f(lambda: fn(x, 12), 20) for f in (device_ms,
+                                                               wall_ms))
+    # the same call under torch.profiler: how many kernels it launches
+    # and how long the device is busy with them
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x, 12)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time for e in kern) / 1e3
+    log(f"uncached[one model call]: device_ms={call_dev:.3f} "
+        f"wall_ms={call_wall:.3f} (stream: {secs / CALLS_60S * 1e3:.3f} ms "
+        f"per call); profiler: {len(kern)} kernels, device busy "
+        f"{busy_ms:.3f} ms")
+
+    pipe = make_pipeline(beat_cfg("float32", "off", fused_step="on",
+                                  level_cache=False), model, hubert_fe, dev)
+    drive(pipe, 10, dev, 23)
+    out10, secs10, counts10 = drive(pipe, 10, dev, 24)
+    log(f"uncached[beat 10 s, f32, fused_layer=off, level_cache=False, "
+        f"fused_step=on]: frames={out10.shape[1]} seconds={secs10:.3f} "
+        f"fps={out10.shape[1] / secs10:.1f} launches={counts10}")
+    if not torch.isfinite(out10).all():
+        raise AssertionError("uncached path: non-finite output")
+    expect("fully uncached forward", counts10,
+           fused_linear_attention=17 * CALLS_10S,
+           fused_ddim_repaint_step=CALLS_10S)
+    return {"fused_linear_attention": counts["fused_linear_attention"],
+            "fused_ddim_repaint_step": counts["fused_ddim_repaint_step"]}
 
 
 # --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "stream", "e2e"),
+    ap.add_argument("--only", choices=("kernels", "stream", "e2e", "uncached"),
                     default=None, help="run the build and one phase")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -404,7 +660,6 @@ def main() -> int:
         return 1
     import diffsheg_tpu_torch  # noqa: F401  (fails outside a checkout)
     from diffsheg_tpu_torch.ops import build
-    from diffsheg_tpu_torch.ops.fused_layer import fused_branch, fused_layer
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -416,31 +671,46 @@ def main() -> int:
     build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
-    launches = {"fused_branch": None, "fused_layer": None}
-    kres = phase_kernels(dev, args.reps) if args.only in (None, "kernels") \
-        else None
-    if args.only in (None, "stream", "e2e"):
+    def run(phase):
+        return args.only in (None, phase)
+
+    launches = dict.fromkeys(counters())
+    kres = phase_kernels(dev, args.reps) if run("kernels") else None
+    if run("stream") or run("e2e") or run("uncached"):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
-        if args.only in (None, "stream"):
+        if run("stream"):
             phase_stream(dev, model)
-        if args.only in (None, "e2e"):
-            launches = phase_e2e(dev, model)
+        if run("e2e") or run("uncached"):
+            t0 = time.perf_counter()
+            hubert_fe = make_hubert(dev)
+            log(f"set-up: random HuBERT-large on the card "
+                f"{time.perf_counter() - t0:.1f} s")
+            if run("e2e"):
+                launches.update(phase_e2e(dev, model, hubert_fe))
+            if run("uncached"):
+                launches.update(phase_uncached(dev, model, hubert_fe))
     if kres is None:
         return 0
-    main_case = kres["beat-ges-bf16"]
     entries = []
-    for name, line in (("fused_branch", "ops/fused_layer.py:475"),
-                       ("fused_layer", "ops/fused_layer.py:556")):
-        r = main_case[name]
+    for name, case, source, line in (
+            ("fused_branch", kres["beat-ges-bf16"]["fused_branch"],
+             "fused_layer.cu", "ops/fused_layer.py:475"),
+            ("fused_layer", kres["beat-ges-bf16"]["fused_layer"],
+             "fused_layer.cu", "ops/fused_layer.py:556"),
+            ("fused_linear_attention", kres["attn-beat-f32"],
+             "linear_attention.cu", "ops/linear_attention.py:99"),
+            ("fused_ddim_repaint_step", kres["step-beat"],
+             "step_math.cu", "ops/step_math.py:153")):
         entries.append(dict(
             name=name, route="cuda",
-            source="diffsheg_tpu_torch/csrc/fused_layer.cu",
+            source=f"diffsheg_tpu_torch/csrc/{source}",
             replaces=f"diffsheg_tpu/{line}",
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            launches=launches[name], max_abs_err=case["max_abs_err"],
+            ms=case["ms"], plain_ms=case["plain_ms"],
+            bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+            library_ms=None))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """DDIM + RePaint reverse process for one window.
 
-Counterpart of ``ddim_sample_program`` in ``diffsheg_tpu/diffusion/sampler.py``
-for the serving configuration: epsilon prediction, no clipping, eta = 0,
-with the streamlined step of ``diffsheg_tpu/ops/step_math.py``
-(``ddim_repaint_step_reference``), the RePaint overlap projection with the
-low-noise linear blend, and optional saved noisy tails
+Counterpart of ``ddim_sample_program`` in ``diffsheg_tpu/diffusion/sampler.py``:
+the general DDIM step (``mean_type`` epsilon / start_x / previous_x,
+``clip_denoised``, ``eta``) with the RePaint overlap projection and its
+low-noise linear blend, or, for the serving configuration (epsilon, no
+clipping, eta = 0), the streamlined step of ``ops/step_math.py`` as its
+plain version or its CUDA kernel; optional saved noisy tails
 (``same_overlap_noisy``).  The step program runs as a host loop.
 
 Noise comes from an injectable :class:`NoiseSource`.  PyTorch cannot
@@ -13,8 +14,9 @@ replay JAX's threefry draws, so the tests hand the sampler a
 the default is :class:`GeneratorNoise`, a seeded ``torch.Generator``.
 Draws are addressed by (window, step, kind) where the JAX chain is: per
 window ``rng, k = split(window_key)``, ``noise = normal(k)``; per step
-``key, k_model, k_gt, k_undo = split(key, 4)``, the RePaint GT noise
-``normal(k_gt)`` and the undo noise ``normal(k_undo)``.
+``key, k_model, k_gt, k_undo = split(key, 4)``, the DDIM noise
+``normal(k_model)`` (drawn only where eta > 0 adds it), the RePaint GT
+noise ``normal(k_gt)`` and the undo noise ``normal(k_undo)``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch
 
 from diffsheg_tpu_torch.diffusion.jump import StepProgram
 from diffsheg_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diffsheg_tpu_torch.ops.step_math import (blend_weights,
+                                              ddim_repaint_step_reference,
+                                              fused_ddim_repaint_step)
 
 # denoise_fn(x, t) -> model epsilon; t is the respaced level (python int)
 DenoiseFn = Callable[[torch.Tensor, int], torch.Tensor]
@@ -41,8 +46,9 @@ class NoiseSource:
 
     def step(self, window: int, step: int, kind: str, shape,
              device) -> torch.Tensor:
-        """``kind`` 'gt' (RePaint GT noise of a denoise step) or 'undo'
-        (re-noising of an undo step)."""
+        """``kind`` 'model' (DDIM noise of a denoise step at eta > 0), 'gt'
+        (RePaint GT noise of a denoise step) or 'undo' (re-noising of an
+        undo step)."""
         raise NotImplementedError
 
 
@@ -92,30 +98,67 @@ class RepaintSpec:
     same_overlap_noisy: bool = False
 
 
-def ddim_repaint_step(x, eps_out, ab_prev: float, r: float, rm1: float,
-                      gt, gt_noise, prev_tail, prev_valid: bool,
-                      overlap_len: int, add_blend: bool) -> torch.Tensor:
-    """The eta=0 DDIM step from (x, eps) plus the RePaint head:
+def split_model_output(model_out: torch.Tensor, var_type: str):
+    """(mean part, raw variance): a learned-variance output carries 2C
+    channels; the fixed variances pass through."""
+    if var_type in ("learned", "learned_range"):
+        C = model_out.shape[-1] // 2
+        return model_out[..., :C], model_out[..., C:]
+    return model_out, None
 
-        x0   = r x - rm1 eps;  mean = sqrt(ab_prev) x0 + sqrt(1-ab_prev) eps
-        head = saved tail if valid else sqrt(ab_prev) gt + sqrt(1-ab_prev) n
-        head = linear blend toward mean when sqrt(1-ab_prev) < 0.2
-    """
+
+def _pred_xstart(sched: DiffusionSchedule, mean_type: str, x, t: int,
+                 model_out, clip_denoised: bool) -> torch.Tensor:
+    if mean_type == "epsilon":
+        x0 = sched.predict_xstart_from_eps(x, t, model_out)
+    elif mean_type == "start_x":
+        x0 = model_out
+    elif mean_type == "previous_x":
+        x0 = sched.predict_xstart_from_xprev(x, t, model_out)
+    else:
+        raise ValueError(mean_type)
+    if clip_denoised:
+        x0 = x0.clamp(-1.0, 1.0)
+    return x0
+
+
+def ddim_update(sched: DiffusionSchedule, x, t: int, x0,
+                noise: Optional[torch.Tensor], eta: float = 0.0):
+    """DDIM eq. 12 step t -> t-1, scalars in float32 as the JAX tables
+    are gathered; ``noise`` may be None where it adds nothing (eta = 0 or
+    t = 0)."""
+    f32, one = np.float32, np.float32(1.0)
+    ab, ab_prev = f32(sched.alphas_cumprod[t]), f32(sched.alphas_cumprod_prev[t])
+    eps = ((float(np.sqrt(one / ab)) * x - x0)
+           / float(np.sqrt(one / ab - one)))
+    sigma = (f32(eta) * np.sqrt((one - ab_prev) / (one - ab))
+             * np.sqrt(one - ab / ab_prev))
+    mean = (x0 * float(np.sqrt(ab_prev))
+            + float(np.sqrt(one - ab_prev - sigma ** 2)) * eps)
+    if t != 0 and sigma != 0:
+        mean = mean + float(sigma) * noise
+    return mean
+
+
+def repaint_project(sched: DiffusionSchedule, spec: RepaintSpec, x, t: int,
+                    gt, noise, prev_tail=None,
+                    prev_tail_valid: Optional[bool] = None) -> torch.Tensor:
+    """Project the overlap head of the updated sample ``x`` toward noised
+    ``gt`` (or the saved tail, when ``prev_tail_valid`` is None or true),
+    cross-faded toward ``x`` once sqrt(1 - ab_prev) < 0.2."""
+    ov = spec.overlap_len
     f32 = np.float32
-    sqrt_ab_prev = float(np.sqrt(f32(ab_prev)))
-    noise_w = np.sqrt(f32(1.0) - f32(ab_prev))
-    x0 = r * x - rm1 * eps_out
-    mean = sqrt_ab_prev * x0 + float(noise_w) * eps_out
-    if gt is None:
-        return mean
-    ov = overlap_len
-    head = (sqrt_ab_prev * gt + float(noise_w) * gt_noise)[:, :ov]
-    if prev_tail is not None and prev_valid:
+    ab_prev = f32(sched.alphas_cumprod_prev[t])
+    noise_w = np.sqrt(f32(1.0) - ab_prev)
+    head = (float(np.sqrt(ab_prev)) * gt[:, :ov]
+            + float(noise_w) * noise[:, :ov])
+    if prev_tail is not None and (prev_tail_valid is None
+                                  or bool(prev_tail_valid)):
         head = prev_tail
-    if add_blend and noise_w < f32(0.2):
-        w = torch.linspace(0.0, 1.0, ov, device=x.device).reshape(1, ov, 1)
-        head = head * (1.0 - w) + mean[:, :ov] * w
-    return torch.cat([head, mean[:, ov:]], dim=1)
+    if spec.add_blend and noise_w < f32(0.2):
+        w = blend_weights(ov, x.device)
+        head = head * (1.0 - w) + x[:, :ov] * w
+    return torch.cat([head, x[:, ov:]], dim=1)
 
 
 def ddim_sample_program(
@@ -130,18 +173,34 @@ def ddim_sample_program(
     gt: Optional[torch.Tensor] = None,
     prev_saved_tails: Optional[torch.Tensor] = None,
     prev_tails_valid: Optional[bool] = None,
+    mean_type: str = "epsilon",
+    var_type: str = "fixed_small",
+    clip_denoised: bool = False,
+    eta: float = 0.0,
+    fused_step: str = "jnp",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a reverse program from the window's initial noise; returns
     ``(sample, saved_tails)``, the tails (levels, B, overlap, C) being
     meaningful only under ``same_overlap_noisy``.  ``prev_tails_valid``
     False makes a window ignore ``prev_saved_tails`` (the first
-    continuation window has none yet)."""
+    continuation window has none yet).
+
+    ``fused_step``: 'none' runs the general step (pred-xstart, DDIM update
+    with ``eta``, RePaint projection); 'jnp' the streamlined step's plain
+    version and 'kernel' its CUDA kernel (``ops/step_math.py``), which
+    apply to epsilon prediction without clipping at eta = 0 — other
+    settings take the general step."""
     B, _, C = shape
     do_repaint = repaint is not None and repaint.overlap_len > 0 and gt is not None
     track_tails = do_repaint and repaint.same_overlap_noisy
     ov = repaint.overlap_len if do_repaint else 1
     tails = torch.zeros((sched.num_steps + 1, B, ov, C), device=device)
     use_prev = track_tails and prev_saved_tails is not None
+    valid = use_prev and (prev_tails_valid is None or bool(prev_tails_valid))
+    use_fast = (fused_step != "none" and mean_type == "epsilon"
+                and not clip_denoised and eta == 0.0)
+    step_fn = (fused_ddim_repaint_step if fused_step == "kernel"
+               else ddim_repaint_step_reference)
 
     x = noise.initial(window, shape, device)
     for s, (t, is_denoise) in enumerate(zip(program.t.tolist(),
@@ -149,16 +208,27 @@ def ddim_sample_program(
         if not is_denoise:
             x = sched.undo(x, t, noise.step(window, s, "undo", shape, device))
             continue
-        eps = denoise_fn(x, t)
-        x = ddim_repaint_step(
-            x, eps, sched.alphas_cumprod_prev[t],
-            float(sched.sqrt_recip_alphas_cumprod[t]),
-            float(sched.sqrt_recipm1_alphas_cumprod[t]),
-            gt if do_repaint else None,
-            noise.step(window, s, "gt", shape, device) if do_repaint else None,
-            prev_saved_tails[t] if use_prev else None,
-            prev_tails_valid is None or bool(prev_tails_valid),
-            ov if do_repaint else 0, do_repaint and repaint.add_blend)
+        out, _ = split_model_output(denoise_fn(x, t), var_type)
+        prev_tail = prev_saved_tails[t] if use_prev else None
+        if use_fast:
+            x = step_fn(
+                x, out, (sched.alphas_cumprod_prev[t],
+                         sched.sqrt_recip_alphas_cumprod[t],
+                         sched.sqrt_recipm1_alphas_cumprod[t], float(valid)),
+                gt if do_repaint else None,
+                noise.step(window, s, "gt", shape, device) if do_repaint else None,
+                prev_tail, ov if do_repaint else 0,
+                do_repaint and repaint.add_blend)
+        else:
+            x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
+            x = ddim_update(sched, x, t, x0,
+                            noise.step(window, s, "model", shape, device)
+                            if eta > 0 and t != 0 else None, eta)
+            if do_repaint:
+                x = repaint_project(
+                    sched, repaint, x, t, gt,
+                    noise.step(window, s, "gt", shape, device), prev_tail,
+                    prev_tails_valid if use_prev else None)
         if track_tails:
             tails[t] = x[:, -ov:]
     return x, tails

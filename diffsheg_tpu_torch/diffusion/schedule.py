@@ -3,7 +3,8 @@
 Counterpart of ``diffsheg_tpu/diffusion/schedule.py``: every per-timestep
 coefficient is computed once on the host in float64 and kept as a float32
 table.  The sampler's loop runs on the host and reads its scalars from
-these tables.
+these tables, and the closed forms (``predict_*``, ``undo``) take one
+level as a python int.
 """
 
 from __future__ import annotations
@@ -54,6 +55,21 @@ class DiffusionSchedule(NamedTuple):
     @property
     def num_steps(self) -> int:
         return self.betas.shape[0]
+
+    # closed forms at one level ``t`` (python int), scalars in float32 as
+    # the JAX tables are gathered
+    def predict_xstart_from_eps(self, x_t, t: int, eps):
+        return (float(self.sqrt_recip_alphas_cumprod[t]) * x_t
+                - float(self.sqrt_recipm1_alphas_cumprod[t]) * eps)
+
+    def predict_eps_from_xstart(self, x_t, t: int, x0):
+        return ((float(self.sqrt_recip_alphas_cumprod[t]) * x_t - x0)
+                / float(self.sqrt_recipm1_alphas_cumprod[t]))
+
+    def predict_xstart_from_xprev(self, x_t, t: int, xprev):
+        c1 = self.posterior_mean_coef1[t]
+        return (float(np.float32(1.0) / c1) * xprev
+                - float(self.posterior_mean_coef2[t] / c1) * x_t)
 
     def undo(self, x: torch.Tensor, t: int, noise: torch.Tensor) -> torch.Tensor:
         """RePaint re-noising: one forward-diffusion step at level ``t``."""

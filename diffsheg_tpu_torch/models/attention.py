@@ -6,40 +6,29 @@ over the per-head features, K over time, and
     ctx  = sum_t K[t] (x) V[t]          # (B, H, hd, hd)
     y[t] = Q[t] @ ctx                   # (B, T, H, hd)
 
-This module is the plain composition (what the JAX package runs for bf16
-activations); it serves the audio-encoder layer of the timestep-level
-cache.  The sampler's per-step layers run inside the fused-layer kernels.
-The source mask is all ones on every path the port runs (fixed-size
-sampler windows), so the key mask and value zeroing are identities.
+with the reference's masking: the key logits get ``(1 - mask) * -1e6``
+before the time softmax and the values are zeroed outside the mask.  The
+core goes through ``ops/linear_attention.py::linear_attention``: the CUDA
+kernel for f32 activations on the card, the composition otherwise.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from diffsheg_tpu_torch.ops.linear_attention import (  # noqa: F401
+    linear_attention, linear_attention_reference)
 
 LN_EPS = 1e-5
 
 
-def linear_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """q, k, v (B, T, D) pre-softmax -> (B, T, D) in q's dtype; both
-    contractions accumulate in f32 and ctx is rounded to q's dtype before
-    the second, as in the JAX composition."""
-    B, T, D = q.shape
-    N = k.shape[1]
-    hd = D // num_heads
-    qs = q.reshape(B, T, num_heads, hd).softmax(-1)
-    ks = k.reshape(B, N, num_heads, hd).softmax(1)
-    vv = v.reshape(B, N, num_heads, hd)
-    ctx = torch.einsum("bnhd,bnhl->bhdl", ks.float(), vv.float())
-    y = torch.einsum("bnhd,bhdl->bnhl", qs.float(),
-                     ctx.to(qs.dtype).float())
-    return y.to(q.dtype).reshape(B, T, D)
-
-
 class LinearTemporalSelfAttention(nn.Module):
-    """LN -> Q/K/V -> linear attention -> stylization, plus the residual."""
+    """LN -> Q/K/V -> masked linear attention -> stylization, plus the
+    residual.  ``src_mask`` (B, T, 1) of ones and zeros, or None for all
+    ones; ``mod`` (B, 2L) a precomputed stylization modulation."""
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int):
         super().__init__()
@@ -51,8 +40,13 @@ class LinearTemporalSelfAttention(nn.Module):
         self.value = nn.Linear(latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, src_mask: Optional[torch.Tensor] = None,
+                mod: Optional[torch.Tensor] = None):
         xn = self.norm(x)
-        y = linear_attention_reference(self.query(xn), self.key(xn),
-                                       self.value(xn), self.num_heads)
-        return x + self.proj_out(y, emb)
+        query, key, value = self.query(xn), self.key(xn), self.value(xn)
+        if src_mask is not None:
+            mask = src_mask.to(query.dtype)
+            key = key + (1.0 - mask) * -1_000_000.0
+            value = value * mask
+        y = linear_attention(query, key, value, self.num_heads)
+        return x + self.proj_out(y, emb, mod)

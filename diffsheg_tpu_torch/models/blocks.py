@@ -5,14 +5,15 @@ the Flax parameter tree so weights carry across by name
 (``compat/from_jax.py``).
 
 - ``StylizationBlock``: AdaLN modulation ``out(silu(norm(h) * (1 + scale)
-  + shift))`` from the time(+speaker) embedding.
+  + shift))`` from the time(+speaker) embedding or a precomputed ``mod``
+  from the timestep-level cache.
 - ``FFN``: GELU MLP with a stylization residual.
 - ``CondProjection``: LN -> Dense(2L) -> SiLU -> Dense(L).
-- ``DiffusionTransformerLayer``: condition re-injection (concat + MLP
-  projection + residual) then linear self-attention and FFN.  The port
-  runs the branch layers in the fused-layer kernels
-  (``ops/fused_layer.py``); the forward here is the condition-free
-  audio-encoder layer's.
+- ``DiffusionTransformerLayer``: condition re-injection (concat, the
+  classifier-free null-condition substitution, MLP projection and
+  residual) then linear self-attention and FFN.  This is the module
+  forward; the sampler's fast path runs the same layers in the fused-layer
+  kernels (``ops/fused_layer.py``).
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ class StylizationBlock(nn.Module):
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.out_proj = nn.Linear(latent_dim, latent_dim)
 
-    def forward(self, h, emb: torch.Tensor):
-        # emb (B, E) -> mod (B, 2L)
-        mod = self.emb_proj(F.silu(emb))
+    def forward(self, h, emb: Optional[torch.Tensor],
+                mod: Optional[torch.Tensor] = None):
+        # emb (B, E) -> mod (B, 2L), unless the cache supplies it
+        if mod is None:
+            mod = self.emb_proj(F.silu(emb))
         scale, shift = mod[:, None, :].chunk(2, dim=-1)
         h = self.norm(h) * (1.0 + scale) + shift
         return self.out_proj(F.silu(h))
@@ -54,9 +57,9 @@ class FFN(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, mod: Optional[torch.Tensor] = None):
         y = self.linear2(gelu_exact(self.linear1(x)))
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, mod)
 
 
 class CondProjection(nn.Module):
@@ -85,12 +88,22 @@ class DiffusionTransformerLayer(nn.Module):
                                                     time_embed_dim)
         self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim)
 
-    def forward(self, x, emb):
-        """The condition-free layer: x (B, T, L), emb (B, E)."""
-        if hasattr(self, "feat_proj"):
-            raise NotImplementedError(
-                "branch layers run in ops/fused_layer.py; the uncached "
-                "forward is not ported yet")
-        x = x + x
-        x = self.sa_block(x, emb)
-        return self.ffn(x, emb)
+    def forward(self, x, cond: Optional[torch.Tensor],
+                emb: Optional[torch.Tensor],
+                src_mask: Optional[torch.Tensor] = None,
+                null_cond_mask: Optional[torch.Tensor] = None,
+                null_cond_emb: Optional[torch.Tensor] = None,
+                mods: Optional[torch.Tensor] = None):
+        """x (B, T, L); cond (B, T, C) or None; emb (B, E) or None when
+        ``mods`` (2, B, 2L) come from the cache; ``null_cond_mask`` (B,)
+        bool rows whose concat is replaced by ``null_cond_emb`` (1, L+C)."""
+        if cond is not None:
+            feats = torch.cat([x, cond], dim=-1)
+            if null_cond_mask is not None:
+                null = null_cond_emb[:, None, :].to(feats.dtype).expand_as(feats)
+                feats = torch.where(null_cond_mask[:, None, None], null, feats)
+            x = self.feat_proj(feats) + x
+        else:
+            x = x + x
+        x = self.sa_block(x, emb, src_mask, None if mods is None else mods[0])
+        return self.ffn(x, emb, None if mods is None else mods[1])

@@ -1,22 +1,35 @@
 """Per-branch denoiser modules (expression or gesture).
 
 Counterpart of ``diffsheg_tpu/models/denoiser.py``: ``TimeEmbedMLP``,
-``HubertConvEncoder`` and the branch's parameter holder
-``MotionDenoiser``.  The port runs a branch through the timestep-level
-cache (``models/level_cache.py``) and the fused fast path
-(``models/fast_forward.py``); the uncached forward is not ported yet.
-Attribute names follow the Flax parameter tree (``layer_0`` ...).
+``HubertConvEncoder`` and the branch ``MotionDenoiser``, whose module
+forward runs uncached or fed by one level of the timestep-level cache
+(``models/level_cache.py``).  The sampler's fast path
+(``models/fast_forward.py``) runs the same weights through the fused
+kernels instead.  Attribute names follow the Flax parameter tree
+(``layer_0`` ...); a ``scan_layers`` tree loads into the same modules.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from diffsheg_tpu_torch.models.blocks import DiffusionTransformerLayer, gelu_exact
+from diffsheg_tpu_torch.models.embeddings import (positional_encoding,
+                                                  timestep_embedding)
+
+
+class BranchCache(NamedTuple):
+    """Per-branch conditioning of the timestep-level cache.  Leveled (as
+    built): ``mods`` and ``audio_lat`` carry a leading level axis;
+    ``level_cache.gather_level`` drops it."""
+
+    mods: torch.Tensor                   # (Lv, num_layers, 2, B, 2*latent)
+    audio_lat: torch.Tensor              # (Lv, B, T, aud_latent)
+    hubert_lat: Optional[torch.Tensor]   # (B, T, hubert_latent)
 
 
 class TimeEmbedMLP(nn.Module):
@@ -78,10 +91,17 @@ class MotionDenoiser(nn.Module):
                  style_dim: int, audio_dim: int, aud_latent_dim: int,
                  hubert_dim: int, hubert_latent_dim: int, speech_mode: str,
                  use_pid_embed: bool, classifier_free: bool, pe_type: str,
+                 cond_scale: float = 1.0, max_seq_len: int = 600,
                  max_frames: int = 240):
         super().__init__()
         E = 4 * latent_dim
         self.num_layers = num_layers
+        self.latent_dim = latent_dim
+        self.pe_type = pe_type
+        self.max_seq_len = max_seq_len
+        self.classifier_free = classifier_free
+        self.cond_scale = cond_scale
+        self._pe_cache = {}
         self.time_embed = TimeEmbedMLP(latent_dim, E)
         if use_pid_embed:
             self.pid_embed = TimeEmbedMLP(style_dim, E)
@@ -104,3 +124,90 @@ class MotionDenoiser(nn.Module):
     @property
     def layers(self) -> List[DiffusionTransformerLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def _pe_table(self, T: int, device, dtype) -> torch.Tensor:
+        """The (T, latent) sinusoidal table on ``device``, built on the host
+        once per (T, device, dtype): a constant of the call, as in the JAX
+        trace (building it every call cost ~5 ms of host time)."""
+        key = (T, device, dtype)
+        if key not in self._pe_cache:
+            self._pe_cache[key] = torch.from_numpy(positional_encoding(
+                self.pe_type, T, self.latent_dim, self.max_seq_len)).to(
+                    device=device, dtype=dtype)
+        return self._pe_cache[key]
+
+    def forward(self, x, t, audio, person_id, hubert=None, exp_cond=None,
+                src_mask=None, cfg_inference: bool = False,
+                cache: Optional[BranchCache] = None) -> torch.Tensor:
+        """The branch's module forward (JAX ``MotionDenoiser.__call__`` at
+        inference): x (B, T, input_feats) noisy channels, t (B,)
+        original-process timesteps, audio (B, T, audio_dim) the mel ++
+        encoded-audio features (unused with ``cache``), person_id (B,
+        style), hubert (B, T, hubert_dim) or None, exp_cond (B, T, E) or
+        None, src_mask (B, T, 1) or None for all frames valid.
+        ``cache`` (one level of the timestep-level cache) supplies the
+        audio latent, the encoded HuBERT features and every stylization
+        modulation.  Returns the f32 output, classifier-free guided when
+        ``cfg_inference``."""
+        B, T, _ = x.shape
+        compute = self.joint_embed.weight.dtype
+
+        # concat order: HuBERT features, then the expression condition
+        cond_parts = []
+        if cache is not None:
+            if cache.hubert_lat is not None:
+                cond_parts.append(cache.hubert_lat)
+        elif hubert is not None:
+            h = hubert.to(compute)
+            cond_parts.append(self.hubert_encoder(h)
+                              if hasattr(self, "hubert_encoder") else h)
+        if exp_cond is not None:
+            cond_parts.append(exp_cond.to(compute))
+
+        do_cfg = (cfg_inference and self.classifier_free
+                  and self.cond_scale != 1.0)
+        null_cond_mask = None
+        if do_cfg:
+            x, t = torch.cat([x, x]), torch.cat([t, t])
+            if cache is None:
+                audio = torch.cat([audio, audio])
+            person_id = torch.cat([person_id, person_id])
+            if src_mask is not None:
+                src_mask = torch.cat([src_mask, src_mask])
+            cond_parts = [torch.cat([c, c]) for c in cond_parts]
+            # first half unconditional
+            null_cond_mask = torch.linspace(0.0, 1.0, 2 * B,
+                                            device=x.device) < 0.5
+
+        emb = None   # with the cache every modulation comes precomputed
+        if cache is None:
+            emb = self.time_embed(
+                timestep_embedding(t, self.latent_dim).to(compute))
+            if hasattr(self, "pid_embed"):
+                emb = emb + self.pid_embed(person_id.to(compute))
+
+        h = self.joint_embed(x.to(compute))
+        if self.pe_type == "learnable":
+            h = h + self.sequence_embedding[None, :T].to(compute)
+        else:
+            h = h + self._pe_table(T, h.device, compute)[None]
+
+        mods = None
+        if cache is not None:
+            audio_lat, mods = cache.audio_lat, cache.mods
+            if do_cfg:
+                audio_lat = torch.cat([audio_lat, audio_lat])
+                mods = torch.cat([mods, mods], dim=2)          # batch axis
+        else:
+            audio_lat = self.audio_proj(audio.to(compute))
+        cond = torch.cat([audio_lat] + cond_parts, dim=-1)
+
+        null_emb = getattr(self, "null_cond_emb", None)
+        for i, layer in enumerate(self.layers):
+            h = layer(h, cond, emb, src_mask, null_cond_mask, null_emb,
+                      None if mods is None else mods[i])
+        out = self.out(h).float()
+        if do_cfg:
+            uncond, cond_out = out[:B], out[B:]
+            out = uncond + self.cond_scale * (cond_out - uncond)
+        return out

@@ -11,7 +11,7 @@ loop, by applying the same modules to their own weights:
   - :func:`build_audio_cache` — audio encoder + projections, for all
     windows of a stream in one batch;
   - :func:`combine` / :func:`gather_level` — the per-window, per-step
-    views the fast path consumes.
+    views the fast path and the module forward consume.
 """
 
 from __future__ import annotations
@@ -21,18 +21,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch.nn import functional as F
 
+from diffsheg_tpu_torch.models.denoiser import BranchCache
 from diffsheg_tpu_torch.models.embeddings import timestep_embedding
 from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser, speech_mode
-
-
-class BranchCache(NamedTuple):
-    """Per-branch conditioning.  Leveled (as built): ``mods`` and
-    ``audio_lat`` carry a leading level axis; :func:`gather_level` drops
-    it."""
-
-    mods: torch.Tensor                   # (Lv, num_layers, 2, B, 2*latent)
-    audio_lat: torch.Tensor              # (Lv, B, T, aud_latent)
-    hubert_lat: Optional[torch.Tensor]   # (B, T, hubert_latent)
 
 
 class ModelCache(NamedTuple):
@@ -112,7 +103,7 @@ def build_audio_cache(model: UniDiffuser, t_levels: torch.Tensor,
         timestep_embedding(t_levels, cfg.latent_dim).to(dtype))      # (Lv, E)
     mel_rep = mel.to(dtype)[None].expand(Lv, N, T, A).reshape(Lv * N, T, A)
     emb_rep = top_emb.repeat_interleave(N, dim=0)                    # (Lv*N, E)
-    audio_feat = model.encoder_aud(mel_rep, emb_rep)
+    audio_feat = model.encoder_aud(mel_rep, None, emb_rep)
     audio_emb = torch.cat([mel_rep, audio_feat], dim=-1)
 
     def proj(branch):

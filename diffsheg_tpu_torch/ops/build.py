@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "diffsheg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_layer.cu",)
+SOURCES = ("fused_layer.cu", "linear_attention.cu", "step_math.cu")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -228,7 +228,7 @@ def _lib():
     from diffsheg_tpu_torch.ops.build import library
     lib = library(KERNEL_SOURCE)
     fn = lib.diffsheg_fused_layers
-    if fn.restype is not ctypes.c_int:
+    if fn.argtypes is None:     # 64-bit stream handle, not ctypes' default int
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
                        ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -1,17 +1,23 @@
 """Single-window generation: model + schedule + step programs.
 
-Counterpart of ``diffsheg_tpu/sampling/generator.py`` on the serving path:
-the timestep-level cache and the fused fast path.  A window runs either
-the *plain* program (every respaced step, the first window) or the
+Counterpart of ``diffsheg_tpu/sampling/generator.py``.  A window runs
+either the *plain* program (every respaced step, the first window) or the
 *harmonize* program (RePaint jump schedule from 60% depth, continuation
-windows, with the overlap projection).
+windows, with the overlap projection).  The selection logic is the JAX
+generator's, with "on TPU" read as "on CUDA":
 
-Knobs kept from the JAX package: ``diffusion.fused_layer`` ('auto' / 'on'
--> the per-layer kernel, 'chain' -> the branch kernel) and
-``diffusion.fused_step`` ('auto' / 'jnp' -> the streamlined step
-composition).  Not ported yet, and refused with NotImplementedError:
-``fused_layer='off'`` (the uncached forward), ``level_cache=False``,
-``quantize`` int8/int4, ancestral sampling, and the general step path.
+- ``diffusion.level_cache`` with at most 64 respaced steps: the
+  timestep-level cache (``models/level_cache.py``); longer schedules and
+  ``level_cache=False`` run the uncached forward;
+- ``diffusion.fused_layer`` 'auto' / 'on' (the per-layer kernel) or
+  'chain' (the branch kernel): the fused fast path, which consumes the
+  cache; 'off': the module forward ``UniDiffuser.forward``, fed by the
+  cache when there is one;
+- ``diffusion.fused_step`` 'off': the general DDIM step; 'auto' / 'jnp':
+  the streamlined step's plain version; 'on': its CUDA kernel.
+
+Not ported yet, and refused with NotImplementedError: ``quantize``
+int8/int4 and ancestral sampling.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from diffsheg_tpu_torch.models.level_cache import (AudioCache, ModelCache,
                                                    combine, gather_level)
 from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
 
+# diffusion.fused_step -> the sampler's step mode
+STEP_MODES = {"off": "none", "auto": "jnp", "jnp": "jnp", "on": "kernel"}
+
 
 def _refuse(what: str):
     raise NotImplementedError(f"{what} is not ported to diffsheg_tpu_torch yet")
@@ -59,26 +68,21 @@ class WindowGenerator:
     def __init__(self, cfg: Config, model: UniDiffuser,
                  device: DeviceLike = None):
         d, stream = cfg.diffusion, cfg.stream
-        if d.fused_layer == "off" or not d.level_cache:
-            _refuse("the uncached forward (fused_layer='off' / "
-                    "level_cache=False)")
-        if d.fused_layer not in ("auto", "on", "chain"):
+        if d.fused_layer not in ("auto", "on", "chain", "off"):
             raise ValueError(f"diffusion.fused_layer={d.fused_layer!r}")
+        if d.fused_step not in STEP_MODES:
+            raise ValueError(f"diffusion.fused_step={d.fused_step!r}")
         if d.quantize != "none":
             _refuse(f"diffusion.quantize={d.quantize!r}")
         if d.sampler != "ddim":
             _refuse(f"diffusion.sampler={d.sampler!r}")
-        if d.fused_step not in ("auto", "jnp"):
-            _refuse(f"diffusion.fused_step={d.fused_step!r}")
-        if d.mean_type != "epsilon" or d.clip_denoised:
-            _refuse("the general DDIM step (mean_type other than epsilon, "
-                    "clip_denoised)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.model.compute_dtype)
         self.model = copy.deepcopy(model).to(device=self.device,
                                              dtype=self.dtype).eval()
         self.chain = d.fused_layer == "chain"
+        self.step_mode = STEP_MODES[d.fused_step]
 
         base_betas = get_named_beta_schedule(d.beta_schedule, d.num_steps)
         if d.respacing:
@@ -89,8 +93,11 @@ class WindowGenerator:
             self.timestep_map = np.arange(d.num_steps, dtype=np.int32)
         self.t_levels = torch.as_tensor(self.timestep_map, device=self.device)
         n = self.schedule.num_steps
-        if n > 64:   # the JAX generator serves these through the uncached forward
-            _refuse(f"a {n}-step schedule (the level cache covers <= 64)")
+        # the level cache covers sampling-friendly step counts; the
+        # uncached forward is the general path
+        self.use_cache = d.level_cache and n <= 64
+        self.use_fast = self.use_cache and d.fused_layer in ("auto", "on",
+                                                             "chain")
         self._plain = plain_program(n)
         jl, jns = (1, 1) if d.no_resample else (d.jump_length, d.jump_n_sample)
         self._harmonize = make_step_program(jump_schedule_ddim(n, jl, jns))
@@ -100,37 +107,65 @@ class WindowGenerator:
                                 same_overlap_noisy=stream.same_overlap_noisy)
 
     # -- cache and fast-path weights ---------------------------------------
-    def cache_static(self, pid: torch.Tensor) -> StaticCache:
+    # Each returns None where it does not apply (no cache, no fast path).
+    def cache_static(self, pid: torch.Tensor) -> Optional[StaticCache]:
+        if not self.use_cache:
+            return None
         _, pid = ablate_inputs(self.cfg.model, None, pid.to(self.device))
         return build_static_cache(self.model, self.t_levels, pid)
 
     def cache_audio(self, mel: torch.Tensor,
-                    hubert: Optional[torch.Tensor]) -> AudioCache:
+                    hubert: Optional[torch.Tensor]) -> Optional[AudioCache]:
         """``mel`` (N, T, A) may fold windows into N."""
+        if not self.use_cache:
+            return None
         mel, _ = ablate_inputs(self.cfg.model, mel.to(self.device), None)
         return build_audio_cache(self.model, self.t_levels, mel,
                                  None if hubert is None else hubert.to(self.device))
 
-    def build_cache(self, mel, pid, hubert) -> ModelCache:
+    def build_cache(self, mel, pid, hubert) -> Optional[ModelCache]:
+        if not self.use_cache:
+            return None
         return combine(self.cache_static(pid), self.cache_audio(mel, hubert))
 
     def make_fast(self, T: int):
+        if not self.use_fast:
+            return None
         return extract_fast_params(self.cfg.model, self.model, T,
                                    self.cfg.diffusion.quantize)
 
     # -- sampling ------------------------------------------------------------
-    def _denoise_fn(self, cache: ModelCache, fast):
+    def _denoise_fn(self, cache: Optional[ModelCache], fast, mel, pid,
+                    hubert):
+        """The fast path on the cache, or the module forward (fed by the
+        cache when there is one) on the window's conditioning."""
         mcfg, sched = self.cfg.model, self.schedule
+        mel, pid = ablate_inputs(mcfg, mel, pid)
 
         @torch.no_grad()
         def fn(x: torch.Tensor, t: int) -> torch.Tensor:
-            return fast_unidiffuser_step(
-                mcfg, fast, x,
-                (float(sched.sqrt_recip_alphas_cumprod[t]),
-                 float(sched.sqrt_recipm1_alphas_cumprod[t])),
-                gather_level(cache, t),
-                cfg_inference=mcfg.uses_cfg_at_inference, chain=self.chain)
+            sqrt_alphas = (float(sched.sqrt_recip_alphas_cumprod[t]),
+                           float(sched.sqrt_recipm1_alphas_cumprod[t]))
+            level = None if cache is None else gather_level(cache, t)
+            if fast is not None:
+                return fast_unidiffuser_step(
+                    mcfg, fast, x, sqrt_alphas, level,
+                    cfg_inference=mcfg.uses_cfg_at_inference,
+                    chain=self.chain)
+            return self.model(
+                x, self.t_levels[t].expand(x.shape[0]), sqrt_alphas, mel,
+                pid, hubert=hubert, cfg_inference=mcfg.uses_cfg_at_inference,
+                cache=level)
         return fn
+
+    def _sample(self, program, mel, pid, hubert, noise, window, cache, fast,
+                **kw):
+        d = self.cfg.diffusion
+        return ddim_sample_program(
+            self.schedule, self._denoise_fn(cache, fast, mel, pid, hubert),
+            program, noise, window, self._shape(mel), self.device,
+            mean_type=d.mean_type, var_type=d.var_type,
+            clip_denoised=d.clip_denoised, fused_step=self.step_mode, **kw)
 
     def _shape(self, mel):
         return (mel.shape[0], mel.shape[1], denoised_channels(self.cfg.model))
@@ -141,9 +176,8 @@ class WindowGenerator:
         """The plain program (every respaced step)."""
         cache = cache if cache is not None else self.build_cache(mel, pid, hubert)
         fast = fast if fast is not None else self.make_fast(mel.shape[1])
-        x, _ = ddim_sample_program(self.schedule, self._denoise_fn(cache, fast),
-                                   self._plain, noise, window,
-                                   self._shape(mel), self.device)
+        x, _ = self._sample(self._plain, mel, pid, hubert, noise, window,
+                            cache, fast)
         return x
 
     def sample_repaint(self, mel, pid, hubert, gt, noise: NoiseSource,
@@ -154,11 +188,10 @@ class WindowGenerator:
         ``gt`` (B, T, C); returns ``(sample, saved_tails)``."""
         cache = cache if cache is not None else self.build_cache(mel, pid, hubert)
         fast = fast if fast is not None else self.make_fast(mel.shape[1])
-        return ddim_sample_program(
-            self.schedule, self._denoise_fn(cache, fast), self._repaint_prog,
-            noise, window, self._shape(mel), self.device, repaint=self.spec,
-            gt=gt.to(self.device), prev_saved_tails=prev_tails,
-            prev_tails_valid=prev_tails_valid)
+        return self._sample(self._repaint_prog, mel, pid, hubert, noise,
+                            window, cache, fast, repaint=self.spec,
+                            gt=gt.to(self.device), prev_saved_tails=prev_tails,
+                            prev_tails_valid=prev_tails_valid)
 
     def generate(self, mel, person_id, noise: NoiseSource, hubert=None,
                  gt_head=None, prev_saved_tails=None, window: int = 0):

@@ -6,9 +6,10 @@ overlap_len``; pin each continuation window's first ``overlap_len`` frames
 toward the previous window's output with RePaint; the final window is
 shifted left to end at the sequence end, and only its new frames are
 emitted.  :meth:`StreamingGenerator.generate_fused` computes what the JAX
-``generate_fused`` computes — the static cache once per stream, the audio
-cache for all windows in one batch, the same per-window noise order — with
-a Python loop over windows in place of ``lax.scan``.
+``generate_fused`` computes — where they apply, the fast-path weights and
+the static cache once per stream and the audio cache for all windows in
+one batch; the same per-window noise order — with a Python loop over
+windows in place of ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -73,6 +74,9 @@ class StreamingGenerator:
         C = denoised_channels(cfg.model)
         track_tails = cfg.stream.same_overlap_noisy
 
+        # the fast-path weights and the static cache once per stream, the
+        # audio cache for all windows in one batch; each only where it
+        # applies (None otherwise)
         fast = gen.make_fast(size)
         static = gen.cache_static(person_id)
         mel_all = torch.stack([mel[:, s:s + size] for s in starts])
@@ -81,15 +85,18 @@ class StreamingGenerator:
         ac = gen.cache_audio(mel_all.reshape(K * B, size, -1),
                              None if hub_all is None
                              else hub_all.reshape(K * B, size, -1))
-        # unfold the window axis: (Lv, K*B, T, .) -> (K, Lv, B, T, .);
-        # (K*B, T, .) -> (K, B, T, .)
-        ac = AudioCache(
-            *(a.reshape(a.shape[0], K, B, *a.shape[2:]).transpose(0, 1)
-              for a in (ac.exp_audio, ac.ges_audio)),
-            *(None if a is None else a.reshape(K, B, *a.shape[1:])
-              for a in (ac.exp_hub, ac.ges_hub)))
+        if ac is not None:
+            # unfold the window axis: (Lv, K*B, T, .) -> (K, Lv, B, T, .);
+            # (K*B, T, .) -> (K, B, T, .)
+            ac = AudioCache(
+                *(a.reshape(a.shape[0], K, B, *a.shape[2:]).transpose(0, 1)
+                  for a in (ac.exp_audio, ac.ges_audio)),
+                *(None if a is None else a.reshape(K, B, *a.shape[1:])
+                  for a in (ac.exp_hub, ac.ges_hub)))
 
         def cache_at(k):
+            if ac is None:
+                return None
             return combine(static, AudioCache(
                 *(None if a is None else a[k] for a in ac)))
 

@@ -108,7 +108,8 @@ def test_walk_covers_the_slice():
                 "diffusion.jump", "diffusion.sampler", "models.embeddings",
                 "models.attention", "models.blocks", "models.denoiser",
                 "models.level_cache", "models.fast_forward", "models.hubert",
-                "ops.fused_layer", "sampling.generator", "sampling.streamer",
+                "ops.fused_layer", "ops.linear_attention", "ops.step_math",
+                "sampling.generator", "sampling.streamer",
                 "sampling.pipeline", "audio.mel", "audio.hubert_runner",
                 "compat.from_jax"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod

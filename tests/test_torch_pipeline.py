@@ -9,7 +9,8 @@
   implementations may round one ulp apart: 1e-5 at 50 frames);
 - pipeline: a three-window ``FusedPipeline`` stream (the last window
   left-shifted) against JAX's ``FusedPipeline`` on the same audio and
-  replayed keys; the port runs the branch ("chain") kernel path.  Samples
+  replayed keys; the port runs the branch ("chain") kernel path, and
+  both run the fully uncached forward with the step kernel.  Samples
   of a random model reach ~1e5 (see test_torch_sampler.py), so the bound
   is relative: rel-RMS <= 1e-4 and max-abs <= 1e-4 of max |ref|.
 """
@@ -90,7 +91,9 @@ def test_linear_resample_matches_jax(new_len):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_three_window_pipeline_matches_jax():
+def _three_window_pipeline(diffusion, port_diffusion=None):
+    """A three-window stream (windows at 0, 30 and 46) through JAX's and
+    the port's ``FusedPipeline`` on the same audio and replayed keys."""
     from diffsheg_tpu.audio.mel import MelFrontend as JM
     from diffsheg_tpu.sampling.generator import WindowGenerator as JG
     from diffsheg_tpu.sampling.pipeline import FusedPipeline as JP
@@ -102,9 +105,9 @@ def test_three_window_pipeline_matches_jax():
                                                       window_starts)
 
     jcfg, tcfg = config_pair("beat", model={"hubert_dim": HUB["hidden_size"]},
-                             diffusion={"jump_n_sample": 2})
-    tcfg = tcfg.replace(diffusion=dataclasses.replace(tcfg.diffusion,
-                                                      fused_layer="chain"))
+                             diffusion=dict(jump_n_sample=2, **diffusion))
+    tcfg = tcfg.replace(diffusion=dataclasses.replace(
+        tcfg.diffusion, **(port_diffusion or {})))
     variables = jax_unidiffuser(jcfg, seed=31)
     jh, ph = _hubert_pair(32)
     T = 80                                  # windows at 0, 30 and 46
@@ -130,3 +133,17 @@ def test_three_window_pipeline_matches_jax():
     assert np.isfinite(got).all()
     err = rel_rms(got, ref), np.abs(got - ref).max() / np.abs(ref).max()
     assert err[0] <= 1e-4 and err[1] <= 1e-4, err
+    return pgen
+
+
+def test_three_window_pipeline_matches_jax():
+    _three_window_pipeline({}, {"fused_layer": "chain"})
+
+
+def test_three_window_uncached_pipeline_matches_jax():
+    # bench.py --check's reference path: the fully uncached module forward
+    # (the audio encoder in every call), here with the step kernel
+    pgen = _three_window_pipeline({"fused_layer": "off", "level_cache": False,
+                                   "fused_step": "on"})
+    assert (pgen.use_cache, pgen.use_fast, pgen.step_mode) == (False, False,
+                                                               "kernel")

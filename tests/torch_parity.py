@@ -14,9 +14,15 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from diffsheg_tpu import config as jconfig
 from diffsheg_tpu_torch import config as tconfig
+
+# The parity tests run tiny shapes, often in several pytest workers at
+# once: intra-op threads gain nothing there, and every op's thread barrier
+# waits out the time slices of threads that the other workers displaced.
+torch.set_num_threads(1)
 
 
 def rel_rms(a, b) -> float:
@@ -31,13 +37,13 @@ TINY_MODEL = dict(latent_dim=64, num_layers=2, num_heads=4, ff_size=128,
 def config_pair(preset: str = "beat", model=None, diffusion=None,
                 stream=None, data=None):
     """The same configuration in both packages: a preset with overrides.
-    The JAX side runs the streamlined step composition (``fused_step
-    ='jnp'``), the step the port implements."""
+    Unless ``diffusion`` says otherwise, both run the streamlined step
+    composition (``fused_step='jnp'``)."""
     pair = []
     for mod in (jconfig, tconfig):
         cfg = getattr(mod, f"{preset}_config")()
         over = dict(model=dict(TINY_MODEL, **(model or {})),
-                    diffusion=dict(fused_step="jnp", **(diffusion or {})),
+                    diffusion=dict({"fused_step": "jnp"}, **(diffusion or {})),
                     stream=stream or {}, data=data or {})
         cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                              for k, v in over.items()})
@@ -74,15 +80,21 @@ def torch_unidiffuser(tcfg, variables):
     return load_flax_tree(UniDiffuser(tcfg.model), variables)
 
 
-def jax_window_noise(key, B, T, C, program, repaint: bool):
+def jax_window_noise(key, B, T, C, program, repaint: bool,
+                     model_noise: bool = False):
     """Replay one window's draws: ``rng, k = split(key)``; x_T =
-    normal(k); per step ``key, k_model, k_gt, k_undo = split(key, 4)``."""
+    normal(k); per step ``key, k_model, k_gt, k_undo = split(key, 4)``
+    (the DDIM noise ``normal(k_model)`` only with ``model_noise``, for
+    eta > 0)."""
     rng, k = jax.random.split(key)
     initial = np.asarray(jax.random.normal(k, (B, T, C)))
     steps = {}
     key = rng
     for s, den in enumerate(np.asarray(program.denoise).tolist()):
-        key, _, k_gt, k_undo = jax.random.split(key, 4)
+        key, k_model, k_gt, k_undo = jax.random.split(key, 4)
+        if den and model_noise:
+            steps[(s, "model")] = np.asarray(
+                jax.random.normal(k_model, (B, T, C)))
         if den and repaint:
             steps[(s, "gt")] = np.asarray(jax.random.normal(k_gt, (B, T, C)))
         elif not den:
