@@ -8,20 +8,26 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main paths' shapes, with times: the fused-layer kernels
               (BEAT branches in bf16 and f32, the SHOW classifier-free
-              shape with null rows), linear attention (BEAT and SHOW
-              branch rows in f32 and bf16, the level cache's 750-row audio
-              encoder; gradients too) and the DDIM + RePaint step (BEAT
-              and SHOW, every switch);
+              shape with null rows; their int8 and int4 variants at the
+              BEAT gesture branch in bf16 and f32 and the SHOW shape in
+              bf16), linear attention (BEAT and SHOW branch rows in f32
+              and bf16, the level cache's 750-row audio encoder; gradients
+              too) and the DDIM + RePaint step (BEAT and SHOW, every
+              switch);
 4. stream   — a three-window BEAT stream with the same injected noise
               through the bf16 and f32 branch-kernel paths and phase 6's
               path, held to the port's numerics bands against the f32 fully
               uncached module forward with no kernel in it (bench.py
               --check's reference), the kernel paths also against the f32
               fast path with its kernels swapped for their plain versions;
+              then bench.py --check's quantized rows (int8 per-layer, int8
+              and int4 branch kernel, int8 on a classifier-free model);
 5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
               -> windowed DDIM-25 + RePaint sampler -> motion) at full
               width with seeded random weights, through the branch kernel;
-              then a short stream through the per-layer kernel;
+              then a short stream through the per-layer kernel; then
+              quantized serving: 60 s int8 through the branch kernel, 10 s
+              int8 and int4 through each kernel;
 6. uncached — the same pipeline at f32 through the module forward
               (fused_layer='off') fed by the level cache, with the step
               kernel (fused_step='on'): every self-attention in the
@@ -37,6 +43,7 @@ TF32 is off in every phase that holds an f32 band.
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py --only qkernels   # the quantized kernel cases
 """
 
 from __future__ import annotations
@@ -170,14 +177,22 @@ def random_layers(n, L, F, Cp, c_real, dtype, gen, device):
                           for k, v in f.items()})
 
 
+QUANT_BITS = {"int8": 8, "int4": 4}
+
+
 def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
-                L=512, H=8, F=1024, n_layers=8):
-    """Both kernels at one shape; returns a dict of findings."""
+                quant="none", L=512, H=8, F=1024, n_layers=8):
+    """Both kernels at one shape, unquantized or with the nine matrices as
+    int8 / packed int4 codes (``quant``; the plain version gets the same
+    codes and scales); returns a dict of findings."""
     from diffsheg_tpu_torch.ops.fused_layer import (
         chain_feats, fused_branch, fused_branch_reference, fused_layer,
-        fused_layer_reference, layer_at)
+        fused_layer_reference, layer_at, quantize_layer_params)
     gen = torch.Generator().manual_seed(seed)
     slp = random_layers(n_layers, L, F, Cp, c_real, dtype, gen, dev)
+    ssc = None
+    if quant != "none":
+        slp, ssc = quantize_layer_params(slp, QUANT_BITS[quant])
     x = torch.randn(B, T, L, generator=gen).to(dev, dtype)
     cond = torch.randn(B, T, Cp - L, generator=gen)
     cond[..., c_real - L:] = 0.0
@@ -194,21 +209,23 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     out = {}
 
     # fused_branch: the whole stack
-    got = fused_branch(x, cond, mods, slp, H, c_real, null_emb, null_mask)
+    got = fused_branch(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc)
     ref = fused_branch_reference(x, cond, mods, slp, H, c_real, null_emb,
-                                 null_mask)
+                                 null_mask, ssc)
     torch.cuda.synchronize()
     e_rel, e_abs = rel_rms(got, ref), float((got.float() - ref.float()).abs().max())
     def kernel():
-        fused_branch(x, cond, mods, slp, H, c_real, null_emb, null_mask)
+        fused_branch(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc)
 
     def plain():
         fused_branch_reference(x, cond, mods, slp, H, c_real, null_emb,
-                               null_mask)
+                               null_mask, ssc)
 
     branch_ms, branch_wall = device_ms(kernel, reps), wall_ms(kernel, reps)
     plain_ms = device_ms(plain, max(3, reps // 4))
-    w_bytes = sum(t.numel() * t.element_size() for t in slp)
+    # the bytes as stored: vectors, codes (int4: packed) and scales
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in (*slp, *(ssc or ())))
     io_bytes = sum(t.numel() * t.element_size() for t in (x, cond, mods, x))
     flops = n_layers * 2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L
                                     + 2 * L * F) \
@@ -220,18 +237,19 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
 
     # fused_layer: layer 0 on assembled, padded feats
     lp = layer_at(slp, 0)
+    sc = None if ssc is None else layer_at(ssc, 0)
     feats = chain_feats(x, cond, None if null_emb is None else null_emb[0],
                         null_mask).to(dtype).contiguous()
     ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
-    got = fused_layer(x, feats, ms_, mf_, lp, H, c_real)
-    ref = fused_layer_reference(x, feats, ms_, mf_, lp, H, c_real)
+    got = fused_layer(x, feats, ms_, mf_, lp, H, c_real, sc)
+    ref = fused_layer_reference(x, feats, ms_, mf_, lp, H, c_real, sc)
     torch.cuda.synchronize()
     l_rel, l_abs = rel_rms(got, ref), float((got.float() - ref.float()).abs().max())
     def lkernel():
-        fused_layer(x, feats, ms_, mf_, lp, H, c_real)
+        fused_layer(x, feats, ms_, mf_, lp, H, c_real, sc)
 
     def lplain():
-        fused_layer_reference(x, feats, ms_, mf_, lp, H, c_real)
+        fused_layer_reference(x, feats, ms_, mf_, lp, H, c_real, sc)
 
     layer_ms, layer_wall = device_ms(lkernel, reps), wall_ms(lkernel, reps)
     lplain_ms = device_ms(lplain, max(3, reps // 4))
@@ -241,10 +259,11 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     out["fused_layer"] = dict(
         rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms, wall_ms=layer_wall,
         plain_ms=lplain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
     if name.startswith("beat-ges"):
         from diffsheg_tpu_torch.ops.fused_layer import PHASES, branch_phase_ns
         ns = branch_phase_ns(x, cond, mods, slp, H, c_real, null_emb,
-                             null_mask).mean(0)
+                             null_mask, ssc).mean(0)
         log(f"phases[fused_branch {name}] us/layer: " + " ".join(
             f"{p}={t / 1e3:.2f}" for p, t in zip(PHASES, ns)))
     for k, r in out.items():
@@ -367,6 +386,22 @@ def step_case(name, B, T, C, ov, dev, seed, reps):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def quant_kernel_cases(dev, reps):
+    """The quantized variants: int8 and int4 at the BEAT gesture branch in
+    bf16 and f32, and at the SHOW classifier-free shape in bf16."""
+    no_tf32()
+    results = {}
+    for quant in QUANT_BITS:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            name = f"beat-ges-{tag}-{quant}"
+            results[name] = kernel_case(name, dtype, 1, 34, 1024, 947, False,
+                                        dev, 2, reps, quant)
+        name = f"show-cfg-bf16-{quant}"
+        results[name] = kernel_case(name, torch.bfloat16, 2, 88, 1024, 999,
+                                    True, dev, 3, reps, quant)
+    return results
+
+
 def phase_kernels(dev, reps):
     no_tf32()
     results = {}
@@ -393,6 +428,7 @@ def phase_kernels(dev, reps):
         # SHOW classifier-free: doubled batch, first half null rows
         results[f"show-cfg-{tag}"] = kernel_case(
             f"show-cfg-{tag}", dtype, 2, 88, 1024, 999, True, dev, 3, reps)
+    results.update(quant_kernel_cases(dev, reps))
     return results
 
 
@@ -400,12 +436,18 @@ def phase_kernels(dev, reps):
 # phase 4: stream numerics
 # --------------------------------------------------------------------------
 
-def beat_cfg(dtype: str, fused_layer: str, **diffusion):
+# bench.py --check's classifier-free row (bench.py:120-133): the BEAT
+# model with guidance on, its own seed
+CFG_MODEL = dict(classifier_free=True, cond_scale=1.15)
+
+
+def beat_cfg(dtype: str, fused_layer: str, model=None, **diffusion):
     import dataclasses
     from diffsheg_tpu_torch.config import beat_config
     cfg = beat_config()
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype,
+                                  **(model or {})),
         diffusion=dataclasses.replace(cfg.diffusion, jump_n_sample=2,
                                       fused_layer=fused_layer, **diffusion))
 
@@ -420,52 +462,68 @@ def run_stream(cfg, model, mel, pid, hub, seed, dev):
     return out
 
 
-def phase_stream(dev, model):
-    """A 68-frame stream (windows at 0, 30 and a left-shifted 34) with the
-    same noise through the bf16 and f32 branch-kernel paths and the f32
-    module forward on the cache with the step kernel, held against the f32
-    fully uncached module forward (fused_layer='off', level_cache=False:
-    bench.py --check's reference) with every kernel out of it: its
-    attention is the plain composition (in this process only) and its step
-    the streamlined composition, and no kernel launches in it.  The kernel
-    paths are also held against the f32 fast path with its kernel calls
-    swapped for their plain versions (in this process only)."""
+def reference_stream(cfg, model, mel, pid, hub, dev):
+    """A stream with every kernel out of it: its attention the plain
+    composition (in this process only), its step the streamlined
+    composition; asserts that no kernel launched."""
     import diffsheg_tpu_torch.models.attention as attn
-    import diffsheg_tpu_torch.models.fast_forward as ff
-    from diffsheg_tpu_torch.ops import fused_layer as ops
     from diffsheg_tpu_torch.ops.linear_attention import (
         linear_attention_reference)
-    no_tf32()
-    gen = torch.Generator().manual_seed(7)
-    T = 68
-    mel = torch.randn(1, T, 128, generator=gen).to(dev)
-    hub = torch.randn(1, T, 1024, generator=gen).to(dev)
-    pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
     for fn in counters().values():
         fn.launches = 0
     saved = attn.linear_attention
     attn.linear_attention = (lambda q, k, v, h, use_fused=None:
                              linear_attention_reference(q, k, v, h))
     try:
-        ref = run_stream(beat_cfg("float32", "off", level_cache=False),
-                         model, mel, pid, hub, 5, dev)
+        ref = run_stream(cfg, model, mel, pid, hub, 5, dev)
     finally:
         attn.linear_attention = saved
     expect("kernel-free reference", {n: fn.launches for n, fn in
                                      counters().items()})
+    return ref
+
+
+def plain_swap_stream(cfg, model, mel, pid, hub, dev):
+    """The same fast-path stream with its kernel calls swapped for their
+    plain versions (in this process only)."""
+    import diffsheg_tpu_torch.models.fast_forward as ff
+    from diffsheg_tpu_torch.ops import fused_layer as ops
+    saved = ff.fused_branch, ff.fused_layer
+    ff.fused_branch, ff.fused_layer = (ops.fused_branch_reference,
+                                       ops.fused_layer_reference)
+    try:
+        return run_stream(cfg, model, mel, pid, hub, 5, dev)
+    finally:
+        ff.fused_branch, ff.fused_layer = saved
+
+
+def stream_inputs(dev, T=68):
+    gen = torch.Generator().manual_seed(7)
+    mel = torch.randn(1, T, 128, generator=gen).to(dev)
+    hub = torch.randn(1, T, 1024, generator=gen).to(dev)
+    pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
+    return mel, pid, hub
+
+
+def phase_stream(dev, model):
+    """A 68-frame stream (windows at 0, 30 and a left-shifted 34) with the
+    same noise through the bf16 and f32 branch-kernel paths and the f32
+    module forward on the cache with the step kernel, held against the f32
+    fully uncached module forward (fused_layer='off', level_cache=False:
+    bench.py --check's reference) with every kernel out of it.  The kernel
+    paths are also held against the f32 fast path with its kernel calls
+    swapped for their plain versions."""
+    no_tf32()
+    mel, pid, hub = stream_inputs(dev)
+    ref = reference_stream(beat_cfg("float32", "off", level_cache=False),
+                           model, mel, pid, hub, dev)
     # phase 6's path: the module forward on the cache, the step kernel
     f32o = run_stream(beat_cfg("float32", "off", fused_step="on"), model,
                       mel, pid, hub, 5, dev)
     bf16 = run_stream(beat_cfg("bfloat16", "chain"), model, mel, pid, hub, 5, dev)
     f32k = run_stream(beat_cfg("float32", "chain"), model, mel, pid, hub, 5, dev)
-    saved = ff.fused_branch, ff.fused_layer
-    ff.fused_branch, ff.fused_layer = (ops.fused_branch_reference,
-                                       ops.fused_layer_reference)
-    try:
-        f32p = run_stream(beat_cfg("float32", "chain"), model, mel, pid, hub,
-                          5, dev)
-    finally:
-        ff.fused_branch, ff.fused_layer = saved
+    f32p = plain_swap_stream(beat_cfg("float32", "chain"), model, mel, pid,
+                             hub, dev)
     r16, r32 = rel_rms(bf16, ref), rel_rms(f32k, ref)
     r16p, r32p = rel_rms(bf16, f32p), rel_rms(f32k, f32p)
     r32o = rel_rms(f32o, ref)
@@ -479,7 +537,44 @@ def phase_stream(dev, model):
             and r16p < 2.5e-2 and r32p < 5e-3):
         raise AssertionError(f"stream bands failed: {r16:.3e}, {r32:.3e}, "
                              f"{r32o:.3e}, {r16p:.3e}, {r32p:.3e}")
-    return {"bf16_rel_rms": r16, "f32_rel_rms": r32}
+    phase_quant_stream(dev, model, ref, mel, pid, hub)
+
+
+def phase_quant_stream(dev, model, ref, mel, pid, hub):
+    """bench.py --check's quantized rows (bench.py:90-116, :129-155) on the
+    same 68-frame stream: bf16 int8 through the per-layer kernel ('on'),
+    int8 and int4 through the branch kernel, and int8 through the branch
+    kernel on a classifier-free model against its own f32 kernel-free
+    reference; each also against the same quantized path with its kernel
+    calls swapped for their plain versions, which keeps kernel error apart
+    from quantization drift."""
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    cfg_model = init_unidiffuser(beat_cfg("float32", "off",
+                                          model=CFG_MODEL).model, seed=1)
+    ref_g = reference_stream(beat_cfg("float32", "off", model=CFG_MODEL,
+                                      level_cache=False),
+                             cfg_model, mel, pid, hub, dev)
+    rows = (("int8-on", beat_cfg("bfloat16", "on", quantize="int8"), model,
+             ref, 1e-1),
+            ("chain-int8", beat_cfg("bfloat16", "chain", quantize="int8"),
+             model, ref, 1e-1),
+            ("chain-int4", beat_cfg("bfloat16", "chain", quantize="int4"),
+             model, ref, 5e-1),
+            ("chain-int8-cfg", beat_cfg("bfloat16", "chain", model=CFG_MODEL,
+                                        quantize="int8"),
+             cfg_model, ref_g, 1e-1))
+    failed = []
+    for name, cfg, m, r, tol in rows:
+        got = run_stream(cfg, m, mel, pid, hub, 5, dev)
+        swap = plain_swap_stream(cfg, m, mel, pid, hub, dev)
+        e_ref, e_swap = rel_rms(got, r), rel_rms(got, swap)
+        log(f"stream[68 frames, bf16 {name}]: vs f32 uncached rel_rms="
+            f"{e_ref:.3e} (tol {tol:g}); vs plain-swap rel_rms={e_swap:.3e} "
+            f"(tol 2.5e-2)")
+        if not (torch.isfinite(got).all() and e_ref < tol and e_swap < 2.5e-2):
+            failed.append(f"{name}: {e_ref:.3e}, {e_swap:.3e}")
+    if failed:
+        raise AssertionError(f"quantized stream bands failed: {failed}")
 
 
 # --------------------------------------------------------------------------
@@ -580,8 +675,39 @@ def phase_e2e(dev, model, hubert_fe):
     if not torch.isfinite(out10).all():
         raise AssertionError("auto path: non-finite output")
     expect("auto path", counts10, fused_layer=16 * CALLS_10S)
-    return {"fused_branch": counts["fused_branch"],
-            "fused_layer": counts10["fused_layer"]}
+    launches = {"fused_branch": counts["fused_branch"],
+                "fused_layer": counts10["fused_layer"]}
+    launches.update(phase_quant_e2e(dev, model, hubert_fe))
+    return launches
+
+
+def phase_quant_e2e(dev, model, hubert_fe):
+    """Quantized serving (diffusion.quantize): the 60 s int8 stream through
+    the branch kernel, then 10 s streams of int8 through the per-layer
+    kernel ('auto') and of int4 through both.  Returns each quantized
+    variant's launches on its main path."""
+    launches = {}
+    for quant, layer, secs, name, want in (
+            ("int8", "chain", 60, "fused_branch", 2 * CALLS_60S),
+            ("int8", "auto", 10, "fused_layer", 16 * CALLS_10S),
+            ("int4", "chain", 10, "fused_branch", 2 * CALLS_10S),
+            ("int4", "auto", 10, "fused_layer", 16 * CALLS_10S)):
+        pipe = make_pipeline(beat_cfg("bfloat16", layer, quantize=quant),
+                             model, hubert_fe, dev)
+        torch.cuda.reset_peak_memory_stats()
+        drive(pipe, secs, dev, 15)
+        out, taken, counts = drive(pipe, secs, dev, 16)
+        log(f"e2e[beat {secs} s, bf16, fused_layer={layer}, quantize="
+            f"{quant}]: frames={out.shape[1]} seconds={taken:.3f} "
+            f"fps={out.shape[1] / taken:.1f} launches={counts} "
+            f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        if (tuple(out.shape) != (1, 15 * secs, 192)
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"{quant} {layer}: bad output "
+                                 f"{tuple(out.shape)}")
+        expect(f"{quant} {layer} path", counts, **{name: want})
+        launches[f"{name}_{quant}"] = counts[name]
+    return launches
 
 
 def phase_uncached(dev, model, hubert_fe):
@@ -650,8 +776,10 @@ def phase_uncached(dev, model, hubert_fe):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "stream", "e2e", "uncached"),
-                    default=None, help="run the build and one phase")
+    ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
+                                       "uncached"),
+                    default=None, help="run the build and one phase "
+                    "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
@@ -674,8 +802,11 @@ def main() -> int:
     def run(phase):
         return args.only in (None, phase)
 
-    launches = dict.fromkeys(counters())
-    kres = phase_kernels(dev, args.reps) if run("kernels") else None
+    launches = dict.fromkeys(list(counters()) + [
+        f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")])
+    kres = (phase_kernels(dev, args.reps) if run("kernels") else
+            quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
+            else None)
     if run("stream") or run("e2e") or run("uncached"):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
@@ -694,15 +825,25 @@ def main() -> int:
     if kres is None:
         return 0
     entries = []
-    for name, case, source, line in (
-            ("fused_branch", kres["beat-ges-bf16"]["fused_branch"],
+    rows = [("fused_branch", "beat-ges-bf16", "fused_branch",
              "fused_layer.cu", "ops/fused_layer.py:475"),
-            ("fused_layer", kres["beat-ges-bf16"]["fused_layer"],
+            ("fused_layer", "beat-ges-bf16", "fused_layer",
              "fused_layer.cu", "ops/fused_layer.py:556"),
-            ("fused_linear_attention", kres["attn-beat-f32"],
+            ("fused_linear_attention", "attn-beat-f32", None,
              "linear_attention.cu", "ops/linear_attention.py:99"),
-            ("fused_ddim_repaint_step", kres["step-beat"],
-             "step_math.cu", "ops/step_math.py:153")):
+            ("fused_ddim_repaint_step", "step-beat", None,
+             "step_math.cu", "ops/step_math.py:153")]
+    # the quantized variants (use_quant: the chain kernel's body :374-395,
+    # the per-layer kernel's :492-497), at the BEAT gesture branch in bf16
+    for q in QUANT_BITS:
+        rows += [(f"fused_branch_{q}", f"beat-ges-bf16-{q}", "fused_branch",
+                  "fused_layer.cu", "ops/fused_layer.py:374"),
+                 (f"fused_layer_{q}", f"beat-ges-bf16-{q}", "fused_layer",
+                  "fused_layer.cu", "ops/fused_layer.py:492")]
+    for name, key, sub, source, line in rows:
+        if key not in kres:
+            continue
+        case = kres[key] if sub is None else kres[key][sub]
         entries.append(dict(
             name=name, route="cuda",
             source=f"diffsheg_tpu_torch/csrc/{source}",

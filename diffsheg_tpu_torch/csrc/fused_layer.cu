@@ -41,6 +41,26 @@
 // runs far above the weight-stream bound; PERF.md has the per-phase times
 // chip_smoke.py measures and the next steps.
 //
+// Quantized variants (the Pallas kernels' use_quant, ops/fused_layer.py
+// :374-395 and :492-497; the `sc` branch of _layer_math's mm, :221-248).
+// The kernel is templated on QB in {0, 8, 4} beside the weight dtype W.
+// With QB = 8 the nine weight matrices are int8 codes, with QB = 4 int4
+// codes packed two to a byte (high nibble: left column half of the
+// matrix, low nibble: right half), each with per-column f32 scales.
+// Only the weight side changes: stage_w reads the item's code bytes and
+// writes them to shared memory already converted to W (|code| <= 127 is
+// exact in bf16), so the products run unchanged on the same tensor-core
+// (bf16) or FMA (f32) path, and the epilogue computes acc * s + b, each
+// rounded as _layer_math's `y * s + b`.  No int8 tensor-core product: that
+// would need int8 activations, a different function.  A QB = 4 item reads
+// each packed byte of its slice once and runs two n-tiles, columns c and
+// c + ncol / 2 of one matrix (the QKV product maps each of its three
+// matrices separately), so a product has half as many items and a block
+// runs its two multiplies in series.  The bound falls with the bytes
+// (half of bf16's for int8, a quarter for int4), but the kernel is
+// latency-bound, so int8 runs as fast as QB = 0 and int4 a little slower
+// (PERF.md).  QB = 0 is the unquantized kernel.
+//
 // All eight weight products and both attention contractions are computed
 // here with f32 accumulation (no library GEMM): bf16 products on the
 // tensor cores, f32 products and the attention on CUDA cores.  Numerics
@@ -79,9 +99,19 @@ enum Field {
   N_FIELDS
 };
 
+// the nine weight matrices' scales, in LayerScales order
+constexpr int N_SCALES = 9;
+__host__ __device__ constexpr int scale_of(int field) {
+  return field == FC1_K ? 0 : field == FC2_K ? 1 : field == Q_K ? 2
+       : field == K_K ? 3 : field == V_K ? 4 : field == SA_OUT_K ? 5
+       : field == L1_K ? 6 : field == L2_K ? 7 : 8;
+}
+
 struct Args {
   const void* w[N_FIELDS];      // field base (layer 0)
-  long long wstride[N_FIELDS];  // elements between layers
+  long long wstride[N_FIELDS];  // bytes between layers
+  const void* sc[N_SCALES];     // quantized: (N) f32 scales (layer 0)
+  long long sstride[N_SCALES];  // bytes between layers
   const void* x;                // (M, L)
   const void* feats;            // layer mode (M, Cp); chain mode cond (M, Cp-L)
   const void* mod_sa;           // (B, 2L) of layer 0
@@ -164,6 +194,9 @@ struct Prod {
   const void* wb0;        // their biases (ncol)
   const void* wb1;
   const void* wb2;
+  const float* ws0;       // quantized: their scales (ncol)
+  const float* ws1;
+  const float* ws2;
   int epi;
   const float* res;       // residual (M, N) f32 (E_RES*)
   float* dst;             // f32 output (M, N)
@@ -248,36 +281,120 @@ __device__ void stage_a(const Prod& p, int r0, int rows, W* As, int lda) {
   }
 }
 
-// The weight matrix and bias holding product column n0 (the QKV product
-// walks the columns of three matrices).  No dynamic indexing into p: that
-// would put it in local memory.
-template <typename W>
-__device__ __forceinline__ const W* weight_cols(const Prod& p, int n0,
-                                                const void** wb, int* c0) {
+// Which of the product's (up to three) matrices holds product column n0,
+// and the column within it (the QKV product walks the columns of three
+// matrices).  No dynamic indexing into p: that would put it in local
+// memory.
+struct Cols { int mat, c0; };
+__device__ __forceinline__ Cols cols_of(const Prod& p, int n0) {
   const int mat = n0 / p.ncol;
-  *c0 = n0 - mat * p.ncol;
-  *wb = mat == 0 ? p.wb0 : (mat == 1 ? p.wb1 : p.wb2);
-  return static_cast<const W*>(mat == 0 ? p.wk0 : (mat == 1 ? p.wk1 : p.wk2))
-         + *c0;
+  return {mat, n0 - mat * p.ncol};
+}
+template <typename T>
+__device__ __forceinline__ T pick(int mat, T m0, T m1, T m2) {
+  return mat == 0 ? m0 : (mat == 1 ? m1 : m2);
 }
 
 // Columns per product work item: 8 for bf16 (one mma n-tile), 4 for f32;
-// either way a weight row of the item is 16 bytes.
+// either way a weight row of the item is 16 bytes in shared memory.
 template <typename W> __host__ __device__ constexpr int item_cols() {
   return 16 / (int)sizeof(W);
 }
+// n-tiles per work item: two for packed int4 (both halves of a byte)
+template <int QB> __host__ __device__ constexpr int item_tiles() {
+  return QB == 4 ? 2 : 1;
+}
 
-// Copy work item `item`'s K x tn weight slice (one 16-byte load a row).
-template <typename W>
+// Packed int4 work item -> its matrix and first packed byte column; its
+// two tiles are that matrix's columns b0 .. b0 + tn (high nibbles) and
+// ncol / 2 + b0 .. (low nibbles).
+__device__ __forceinline__ Cols int4_item(const Prod& p, int item, int tn) {
+  const int per = p.ncol / 2 / tn;
+  const int mat = item / per;
+  return {mat, (item - mat * per) * tn};
+}
+
+// One row of an item's codes: tn signed bytes (8 bytes for bf16, 4 for f32).
+__device__ __forceinline__ void load_codes(const int8_t* src, int (&v)[8]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(src);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = (int)(int8_t)(r.x >> (8 * j));
+    v[4 + j] = (int)(int8_t)(r.y >> (8 * j));
+  }
+}
+__device__ __forceinline__ void load_codes(const int8_t* src, int (&v)[4]) {
+  const uint32_t r = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = (int)(int8_t)(r >> (8 * j));
+}
+
+// Codes as 16 bytes of W, exactly: 8 bf16 or 4 f32.
+__device__ __forceinline__ uint32_t bf16_bits(int v) {
+  return __bfloat16_as_ushort(__float2bfloat16((float)v));
+}
+__device__ __forceinline__ uint4 as_w(const int (&v)[8]) {
+  return make_uint4(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                    bf16_bits(v[2]) | bf16_bits(v[3]) << 16,
+                    bf16_bits(v[4]) | bf16_bits(v[5]) << 16,
+                    bf16_bits(v[6]) | bf16_bits(v[7]) << 16);
+}
+__device__ __forceinline__ uint4 as_w(const int (&v)[4]) {
+  return make_uint4(__float_as_uint((float)v[0]), __float_as_uint((float)v[1]),
+                    __float_as_uint((float)v[2]), __float_as_uint((float)v[3]));
+}
+
+// Copy work item `item`'s K x tn weight slice to Ws in W, one row per
+// thread and pass: QB 0 one 16-byte load a row; QB 8 the row's tn code
+// bytes, converted; QB 4 the row's tn packed bytes, split into the
+// high-nibble tile (Ws) and the low-nibble tile (Ws + K * tn).
+template <typename W, int QB>
 __device__ void stage_w(const Prod& p, int item, W* Ws) {
   constexpr int tn = item_cols<W>();
-  const void* wb;
-  int c0;
-  const W* wk = weight_cols<W>(p, item * tn, &wb, &c0);
+  uint4* dst = reinterpret_cast<uint4*>(Ws);
+  if constexpr (QB == 0) {
+    const Cols c = cols_of(p, item * tn);
+    const W* wk = static_cast<const W*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
 #pragma unroll 4
-  for (int k = threadIdx.x; k < p.K; k += NT)
-    reinterpret_cast<uint4*>(Ws)[k] =
-        *reinterpret_cast<const uint4*>(wk + (long long)k * p.ncol);
+    for (int k = threadIdx.x; k < p.K; k += NT)
+      dst[k] = *reinterpret_cast<const uint4*>(wk + (long long)k * p.ncol);
+  } else if constexpr (QB == 8) {
+    const Cols c = cols_of(p, item * tn);
+    const int8_t* wk =
+        static_cast<const int8_t*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
+#pragma unroll 4
+    for (int k = threadIdx.x; k < p.K; k += NT) {
+      int v[tn];
+      load_codes(wk + (long long)k * p.ncol, v);
+      dst[k] = as_w(v);
+    }
+  } else {
+    const Cols c = int4_item(p, item, tn);
+    const int half = p.ncol / 2;
+    const int8_t* wk =
+        static_cast<const int8_t*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
+#pragma unroll 4
+    for (int k = threadIdx.x; k < p.K; k += NT) {
+      int v[tn], hi[tn], lo[tn];
+      load_codes(wk + (long long)k * half, v);
+#pragma unroll
+      for (int j = 0; j < tn; ++j) {
+        hi[j] = v[j] >> 4;                    // byte = 16 hi + (lo & 0xF)
+        lo[j] = ((v[j] & 0xF) ^ 8) - 8;       // sign-extended low nibble
+      }
+      dst[k] = as_w(hi);
+      dst[p.K + k] = as_w(lo);
+    }
+  }
+}
+
+// acc -> the product's output before the epilogue: acc + b, or with
+// quantized weights acc * s + b, rounded as _layer_math's `y * s + b`.
+template <int QB>
+__device__ __forceinline__ float dequant(float acc, const float* s, int c,
+                                         float b) {
+  if constexpr (QB == 0) return acc + b;
+  else return __fadd_rn(__fmul_rn(acc, s[c]), b);
 }
 
 // The product epilogue for output element o of row-major (M, N).
@@ -311,14 +428,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Multiply one work item: the block's staged rows x the item's K x tn
-// slice, then the epilogue.  bf16: each of the 8 warps runs the mma.sync
-// m16n8k16 steps of its K / 8 slice over every 16-row tile and the warps'
-// partial tiles are summed through shared memory.  f32: lane = 4 kg + c
-// (c: the item's column, kg: one of 8 interleaved contraction slices),
-// warp rg owns rows rg + 8 i, FMAs, slices summed with warp shuffles.
+// Multiply one n-tile: the block's staged rows x the K x tn slice Ws of
+// product columns n0 .. n0 + tn, then the epilogue.  bf16: each of the 8
+// warps runs the mma.sync m16n8k16 steps of its K / 8 slice over every
+// 16-row tile and the warps' partial tiles are summed through shared
+// memory.  f32: lane = 4 kg + c (c: the tile's column, kg: one of 8
+// interleaved contraction slices), warp rg owns rows rg + 8 i, FMAs,
+// slices summed with warp shuffles.
+template <int QB>
 __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
-                         int item, const float* As, int lda, const float* Ws,
+                         int n0, const float* As, int lda, const float* Ws,
                          float*) {
   constexpr int tn = item_cols<float>();
   const int K = p.K;
@@ -335,10 +454,9 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     for (int i = 0; i < RB / 8; ++i)
       if (i < nr) acc[i] = fmaf(As[(rg + 8 * i) * lda + k], w, acc[i]);
   }
-  const void* wb;
-  int c0;
-  weight_cols<float>(p, item * tn, &wb, &c0);
-  const float bias = ld<float>(wb, c0 + c);
+  const Cols cc = cols_of(p, n0);
+  const float bias = ld<float>(pick(cc.mat, p.wb0, p.wb1, p.wb2), cc.c0 + c);
+  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
 #pragma unroll
   for (int i = 0; i < RB / 8; ++i) {
     float v = acc[i];
@@ -346,13 +464,14 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     v += __shfl_xor_sync(0xffffffffu, v, 8);
     v += __shfl_xor_sync(0xffffffffu, v, 16);
     if (kg != 0 || i >= nr) continue;
-    epilogue<float>(a, p, (long long)(r0 + rg + 8 * i) * p.N + item * tn + c,
-                    v + bias);
+    epilogue<float>(a, p, (long long)(r0 + rg + 8 * i) * p.N + n0 + c,
+                    dequant<QB>(v, sc, cc.c0 + c, bias));
   }
 }
 
+template <int QB>
 __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
-                         int item, const __nv_bfloat16* As, int lda,
+                         int n0, const __nv_bfloat16* As, int lda,
                          const __nv_bfloat16* Ws, float* part) {
   constexpr int tn = item_cols<__nv_bfloat16>();
   const unsigned short* Wu = reinterpret_cast<const unsigned short*>(Ws);
@@ -390,28 +509,31 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     pr[8 * tn + 1] = d[m][3];
   }
   __syncthreads();
-  const void* wb;
-  int c0;
-  weight_cols<__nv_bfloat16>(p, item * tn, &wb, &c0);
+  const Cols cc = cols_of(p, n0);
+  const void* wb = pick(cc.mat, p.wb0, p.wb1, p.wb2);
+  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
   for (int i = threadIdx.x; i < rows * tn; i += NT) {
     const int r = i / tn, j = i - r * tn;
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * tn + j];
-    epilogue<__nv_bfloat16>(a, p, (long long)(r0 + r) * p.N + item * tn + j,
-                            v + ld<__nv_bfloat16>(wb, c0 + j));
+    epilogue<__nv_bfloat16>(a, p, (long long)(r0 + r) * p.N + n0 + j,
+                            dequant<QB>(v, sc, cc.c0 + j,
+                                        ld<__nv_bfloat16>(wb, cc.c0 + j)));
   }
 }
 
 // One weight product over all M rows.  Work items are column tiles
 // spread over the grid; a block copies up to `rb` operand rows once (row
 // stride K + 8 for bf16, so fragment loads of 8 rows fall in distinct
-// banks), then walks its items: copy the item's weight slice, multiply.
-template <typename W>
+// banks), then walks its items: copy the item's weight slice, multiply
+// (packed int4: both of its tiles).
+template <typename W, int QB>
 __device__ void product(const Args& a, const Prod p, unsigned char* smem) {
   constexpr bool mma = sizeof(W) == 2;
+  constexpr int tn = item_cols<W>();
   const int M = a.B * a.T;
-  const int n_items = p.N / item_cols<W>();
+  const int n_items = p.N / (tn * item_tiles<QB>());
   if ((int)blockIdx.x >= n_items) return;
   const int lda = mma ? p.K + 8 : p.K;
   const int rb = min(RB, (a.a_elems / lda) / (mma ? 16 : 8) * (mma ? 16 : 8));
@@ -424,9 +546,18 @@ __device__ void product(const Args& a, const Prod p, unsigned char* smem) {
     stage_a<W>(p, r0, rows, As, lda);
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       __syncthreads();                            // Ws is free
-      stage_w<W>(p, item, Ws);
+      stage_w<W, QB>(p, item, Ws);
       __syncthreads();
-      multiply(a, p, r0, rows, item, As, lda, Ws, part);
+      if constexpr (QB == 4) {
+        const Cols c = int4_item(p, item, tn);
+        const int n0 = c.mat * p.ncol + c.c0;
+        multiply<QB>(a, p, r0, rows, n0, As, lda, Ws, part);
+        __syncthreads();                          // part is free
+        multiply<QB>(a, p, r0, rows, n0 + p.ncol / 2, As, lda, Ws + p.K * tn,
+                     part);
+      } else {
+        multiply<QB>(a, p, r0, rows, item * tn, As, lda, Ws, part);
+      }
     }
   }
 }
@@ -521,9 +652,14 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
   }
 }
 
-template <typename W>
+// Field f of layer `layer`, and (quantized) the scales of matrix field f.
 __device__ __forceinline__ const void* wp(const Args& a, int f, int layer) {
-  return static_cast<const char*>(a.w[f]) + (size_t)layer * a.wstride[f] * sizeof(W);
+  return static_cast<const char*>(a.w[f]) + layer * a.wstride[f];
+}
+__device__ __forceinline__ const float* sp(const Args& a, int f, int layer) {
+  const int q = scale_of(f);
+  return reinterpret_cast<const float*>(static_cast<const char*>(a.sc[q])
+                                        + layer * a.sstride[q]);
 }
 
 __device__ __forceinline__ void mark(const Args& a, int& n) {
@@ -536,7 +672,7 @@ __device__ __forceinline__ void mark(const Args& a, int& n) {
 }
 
 // Product `i` (0 .. 6, phase order) of one layer.
-template <typename W>
+template <typename W, int QB>
 __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
                                            float* h, float* x1, float* qkv,
                                            float* x2, float* g, W* act,
@@ -544,11 +680,16 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
   const int L = a.L;
   Prod p{};
   auto w = [&](Prod& q, int k0, int k1, int k2) {
-    q.wk0 = wp<W>(a, k0, layer); q.wb0 = wp<W>(a, k0 + 1, layer);
-    q.wk1 = k1 < 0 ? nullptr : wp<W>(a, k1, layer);
-    q.wb1 = k1 < 0 ? nullptr : wp<W>(a, k1 + 1, layer);
-    q.wk2 = k2 < 0 ? nullptr : wp<W>(a, k2, layer);
-    q.wb2 = k2 < 0 ? nullptr : wp<W>(a, k2 + 1, layer);
+    q.wk0 = wp(a, k0, layer); q.wb0 = wp(a, k0 + 1, layer);
+    q.wk1 = k1 < 0 ? nullptr : wp(a, k1, layer);
+    q.wb1 = k1 < 0 ? nullptr : wp(a, k1 + 1, layer);
+    q.wk2 = k2 < 0 ? nullptr : wp(a, k2, layer);
+    q.wb2 = k2 < 0 ? nullptr : wp(a, k2 + 1, layer);
+    if constexpr (QB != 0) {
+      q.ws0 = sp(a, k0, layer);
+      q.ws1 = k1 < 0 ? nullptr : sp(a, k1, layer);
+      q.ws2 = k2 < 0 ? nullptr : sp(a, k2, layer);
+    }
   };
   switch (i) {
     case 0:   // LN(feats) -> fc1 -> SiLU
@@ -577,7 +718,7 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
   return p;
 }
 
-template <typename W>
+template <typename W, int QB>
 __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NT / 32];
@@ -594,7 +735,7 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
   W* act = reinterpret_cast<W*>(g + (size_t)M * L);         // M x max(2L, F)
   W* opA = act + (size_t)M * (2 * L > a.F ? 2 * L : a.F);   // M x max(Cp, L)
   W* opB = opA + (size_t)M * (a.Cp > L ? a.Cp : L);         // M x L
-#define PROD(layer, i) layer_prod<W>(a, layer, i, h, x1, qkv, x2, g, act, opA, opB)
+#define PROD(layer, i) layer_prod<W, QB>(a, layer, i, h, x1, qkv, x2, g, act, opA, opB)
 #define SYNC() do { grid.sync(); mark(a, n); } while (0)
 
   int n = 0;
@@ -608,33 +749,33 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
         + (size_t)layer * a.mod_layer_stride * sizeof(W);
     const void* mffn = static_cast<const char*>(a.mod_ffn)
         + (size_t)layer * a.mod_layer_stride * sizeof(W);
-    row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp<W>(a, FP_NORM_S, layer),
-                 wp<W>(a, FP_NORM_B, layer), nullptr, h, opA, red);
+    row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp(a, FP_NORM_S, layer),
+                 wp(a, FP_NORM_B, layer), nullptr, h, opA, red);
     SYNC();
-    product<W>(a, PROD(layer, 0), smem);
+    product<W, QB>(a, PROD(layer, 0), smem);
     SYNC();
-    product<W>(a, PROD(layer, 1), smem);
+    product<W, QB>(a, PROD(layer, 1), smem);
     SYNC();
-    row_phase<W>(a, R_LN, x1, L, wp<W>(a, SA_NORM_S, layer),
-                 wp<W>(a, SA_NORM_B, layer), nullptr, h, opA, red);
+    row_phase<W>(a, R_LN, x1, L, wp(a, SA_NORM_S, layer),
+                 wp(a, SA_NORM_B, layer), nullptr, h, opA, red);
     SYNC();
-    product<W>(a, PROD(layer, 2), smem);
+    product<W, QB>(a, PROD(layer, 2), smem);
     SYNC();
     attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
     SYNC();
-    row_phase<W>(a, R_LNMOD, y, L, wp<W>(a, SA_SO_S, layer),
-                 wp<W>(a, SA_SO_B, layer), msa, h, opA, red);
+    row_phase<W>(a, R_LNMOD, y, L, wp(a, SA_SO_S, layer),
+                 wp(a, SA_SO_B, layer), msa, h, opA, red);
     SYNC();
-    product<W>(a, PROD(layer, 3), smem);
+    product<W, QB>(a, PROD(layer, 3), smem);
     SYNC();
-    product<W>(a, PROD(layer, 4), smem);
+    product<W, QB>(a, PROD(layer, 4), smem);
     SYNC();
-    product<W>(a, PROD(layer, 5), smem);
+    product<W, QB>(a, PROD(layer, 5), smem);
     SYNC();
-    row_phase<W>(a, R_LNMOD, g, L, wp<W>(a, FF_SO_S, layer),
-                 wp<W>(a, FF_SO_B, layer), mffn, h, opA, red);
+    row_phase<W>(a, R_LNMOD, g, L, wp(a, FF_SO_S, layer),
+                 wp(a, FF_SO_B, layer), mffn, h, opA, red);
     SYNC();
-    product<W>(a, PROD(layer, 6), smem);
+    product<W, QB>(a, PROD(layer, 6), smem);
     if (layer + 1 < a.n_layers || a.trace != nullptr) SYNC();
   }
 #undef PROD
@@ -645,7 +786,7 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
 // of the two), then the weight slice, then (bf16) the warps' partial
 // tiles.  The operand gets up to A_BUDGET bytes: all B*T rows of a K-wide
 // operand when they fit (serving shapes in bf16), else row blocks.
-template <typename W>
+template <typename W, int QB>
 void smem_plan(Args* a, size_t* bytes) {
   const int M = a->B * a->T, hd = a->L / a->H;
   const int kmax = max(max(a->Cp, 2 * a->L), max(a->F, a->L));
@@ -659,11 +800,12 @@ void smem_plan(Args* a, size_t* bytes) {
   const size_t attn = sizeof(float) * ((size_t)2 * a->T * (hd + 1)
                                        + (size_t)a->T * AC + (size_t)hd * AC);
   a->w_off = (int)((max(abytes, attn) + 15) / 16 * 16);
-  a->part_off = a->w_off + (int)(sizeof(W) * (size_t)kmax * (16 / sizeof(W)));
+  a->part_off = a->w_off + (int)(sizeof(W) * (size_t)kmax * item_cols<W>()
+                                 * item_tiles<QB>());
   *bytes = a->part_off + (mma ? sizeof(float) * (NT / 32) * RB * 8 : 0);
 }
 
-template <typename W>
+template <typename W, int QB>
 int launch(const Args& a, cudaStream_t stream) {
   // launch geometry, cached per instantiation: the SM count never changes
   // and the occupancy only with the dynamic shared memory size
@@ -671,10 +813,10 @@ int launch(const Args& a, cudaStream_t stream) {
   static size_t smem_set = 0;
   Args args = a;
   size_t smem = 0;
-  smem_plan<W>(&args, &smem);
+  smem_plan<W, QB>(&args, &smem);
   if (args.a_elems < 16 * max(max(a.Cp, 2 * a.L), max(a.F, a.L)))
     return (int)cudaErrorInvalidValue;          // widths too large to stage
-  void* fn = (void*)fused_layers_kernel<W>;
+  void* fn = (void*)fused_layers_kernel<W, QB>;
   cudaError_t e;
   if (sms == 0) {
     int dev = 0;
@@ -701,13 +843,16 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // ptrs: the N_FIELDS weight bases, then x, feats|cond, mod_sa, mod_ffn,
-//       null_emb, null_mask, out, scratch, trace (0 for absent).  scratch
-//       holds M * 8 L floats then M * (L + max(2 L, F) + max(Cp, L))
-//       weight-dtype elements, M = B * T; trace, when given, receives
+//       null_emb, null_mask, out, scratch, trace (0 for absent), then the
+//       N_SCALES scale bases (0 unquantized).  scratch holds M * 8 L
+//       floats then M * (L + max(2 L, F) + max(Cp, L)) weight-dtype
+//       elements, M = B * T; trace, when given, receives
 //       1 + 12 * n_layers globaltimer stamps (ns), one per phase end.
-// ints: the N_FIELDS per-layer strides, then mod_layer_stride, chain,
-//       n_layers, B, T, L, Cp, c_real, F, H.
-// dtype: 0 = float32, 1 = bfloat16 (weights, x, feats/cond, mods, out).
+// ints: the N_FIELDS per-layer strides in bytes, then mod_layer_stride
+//       (elements), chain, n_layers, B, T, L, Cp, c_real, F, H, qb (0, 8
+//       or 4), then the N_SCALES per-layer scale strides in bytes.
+// dtype: 0 = float32, 1 = bfloat16 (x, feats/cond, mods, out, vectors and
+//       unquantized matrices; the compute dtype of the products).
 extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
                                      const int64_t* ints, void* stream) {
   Args a{};
@@ -725,6 +870,7 @@ extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
   a.out = reinterpret_cast<void*>(ptrs[i++]);
   a.scratch = reinterpret_cast<float*>(ptrs[i++]);
   a.trace = reinterpret_cast<unsigned long long*>(ptrs[i++]);
+  for (int q = 0; q < N_SCALES; ++q) a.sc[q] = reinterpret_cast<const void*>(ptrs[i++]);
   int j = N_FIELDS;
   a.mod_layer_stride = ints[j++];
   a.chain = (int)ints[j++];
@@ -736,7 +882,14 @@ extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
   a.c_real = (int)ints[j++];
   a.F = (int)ints[j++];
   a.H = (int)ints[j++];
+  const int qb = (int)ints[j++];
+  for (int q = 0; q < N_SCALES; ++q) a.sstride[q] = ints[j++];
   if (a.B * a.T > MMAX || a.L / a.H > HDMAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  if (dtype == 1) return qb == 0 ? launch<__nv_bfloat16, 0>(a, s)
+                       : qb == 8 ? launch<__nv_bfloat16, 8>(a, s)
+                       : qb == 4 ? launch<__nv_bfloat16, 4>(a, s)
+                                 : (int)cudaErrorInvalidValue;
+  return qb == 0 ? launch<float, 0>(a, s) : qb == 8 ? launch<float, 8>(a, s)
+       : qb == 4 ? launch<float, 4>(a, s) : (int)cudaErrorInvalidValue;
 }

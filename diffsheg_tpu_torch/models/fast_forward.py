@@ -7,7 +7,8 @@ the x0 bridge between the branches.  The layers run in the fused-layer
 kernels (``ops/fused_layer.py``): one launch per layer
 (``chain=False``, the per-layer kernel) or one per branch
 (``chain=True``, the branch kernel).  Covers classifier-free batch
-doubling with null-condition substitution.
+doubling with null-condition substitution, and weight-only int8 / int4
+transformer stacks (``diffusion.quantize``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,14 @@ from diffsheg_tpu_torch.models.embeddings import positional_encoding
 from diffsheg_tpu_torch.models.level_cache import BranchCache, ModelCache
 from diffsheg_tpu_torch.models.unidiffuser import (UniDiffuser,
                                                    branch_feats_dim)
-from diffsheg_tpu_torch.ops.fused_layer import (LayerParams,
+from diffsheg_tpu_torch.ops.fused_layer import (LayerParams, LayerScales,
                                                 extract_layer_params,
                                                 fused_branch, fused_layer,
-                                                layer_at, stack_layer_params)
+                                                layer_at,
+                                                quantize_layer_params,
+                                                stack_layer_params)
+
+QUANT_BITS = {"int8": 8, "int4": 4}
 
 
 def _round128(n: int) -> int:
@@ -42,6 +47,7 @@ class BranchFast(NamedTuple):
     pe: torch.Tensor                      # (T, L)
     layers: LayerParams                   # stacked over layers
     null_cond_emb: Optional[torch.Tensor]  # (1, c_real)
+    scales: Optional[LayerScales] = None  # quantized matrices' scales
 
 
 class FastParams(NamedTuple):
@@ -51,7 +57,7 @@ class FastParams(NamedTuple):
 
 @torch.no_grad()
 def _extract_branch(cfg: ModelConfig, branch, T: int, c_real: int,
-                    c_pad: int, dtype) -> BranchFast:
+                    c_pad: int, dtype, quant: str = "none") -> BranchFast:
     dev = branch.joint_embed.weight.device
     if cfg.pe_type == "learnable":
         pe = branch.sequence_embedding[:T]
@@ -59,35 +65,47 @@ def _extract_branch(cfg: ModelConfig, branch, T: int, c_real: int,
         pe = torch.from_numpy(positional_encoding(
             "ppe_sinu" if cfg.pe_type == "ppe_sinu_dropout" else cfg.pe_type,
             T, cfg.latent_dim, cfg.max_seq_len))
+    layers = stack_layer_params([
+        extract_layer_params(layer, c_real, c_pad, dtype)
+        for layer in branch.layers])
+    scales = None
+    if quant != "none":
+        # the nine matrices as int8 / packed int4 codes with f32 scales,
+        # quantized in f32 from the model's weights (the JAX package's f32
+        # copies of them: the generator has already cast the model to the
+        # compute dtype, as the JAX generator casts its variables); the
+        # small tensors (joint, out, pe, norms, biases) stay in ``dtype``
+        layers, scales = quantize_layer_params(layers, QUANT_BITS[quant])
     return BranchFast(
         joint_k=branch.joint_embed.weight.t().to(dtype).contiguous(),
         joint_b=branch.joint_embed.bias.to(dtype),
         out_k=branch.out.weight.t().to(dtype).contiguous(),
         out_b=branch.out.bias.to(dtype),
         pe=pe.to(device=dev, dtype=dtype),
-        layers=stack_layer_params([
-            extract_layer_params(layer, c_real, c_pad, dtype)
-            for layer in branch.layers]),
+        layers=layers,
         null_cond_emb=(branch.null_cond_emb.detach().to(dtype)
                        if hasattr(branch, "null_cond_emb") else None),
+        scales=scales,
     )
 
 
 def extract_fast_params(cfg: ModelConfig, model: UniDiffuser, T: int,
                         quant: str = "none") -> FastParams:
     """Model -> kernel-ready weights for both branches (cast to the compute
-    dtype, feats axis padded to a multiple of 128).  Call once per
+    dtype, feats axis padded to a multiple of 128; ``quant`` 'int8' /
+    'int4': the transformer stacks' matrices quantized).  Call once per
     stream."""
-    if quant != "none":
-        raise NotImplementedError(
-            f"diffusion.quantize={quant!r}: quantized weights are not "
-            "ported yet")
+    if quant != "none" and quant not in QUANT_BITS:
+        raise ValueError(f"quant={quant!r}: valid values are 'none', "
+                         "'int8', 'int4'")
     dtype = model.time_embed.fc1.weight.dtype
     ce = branch_feats_dim(cfg, 0)
     cg = branch_feats_dim(cfg, cfg.expression_dim)
     return FastParams(
-        exp=_extract_branch(cfg, model.encoder_exp, T, ce, _round128(ce), dtype),
-        ges=_extract_branch(cfg, model.encoder_ges, T, cg, _round128(cg), dtype))
+        exp=_extract_branch(cfg, model.encoder_exp, T, ce, _round128(ce),
+                            dtype, quant),
+        ges=_extract_branch(cfg, model.encoder_ges, T, cg, _round128(cg),
+                            dtype, quant))
 
 
 def _branch_forward(cfg: ModelConfig, bp: BranchFast, x: torch.Tensor,
@@ -124,7 +142,8 @@ def _branch_forward(cfg: ModelConfig, bp: BranchFast, x: torch.Tensor,
         cond_pad = F.pad(cond, (0, c_pad - c_real)).contiguous()
         h = fused_branch(h.to(compute).contiguous(), cond_pad,
                          mods.contiguous(), bp.layers, cfg.num_heads, c_real,
-                         null_emb=null_emb, null_mask=null_mask)
+                         null_emb=null_emb, null_mask=null_mask,
+                         ssc=bp.scales)
     else:
         null_rows = None if null_mask is None else null_mask[:, None, None] > 0
         for i in range(bp.layers.fp_fc1_k.shape[0]):
@@ -136,7 +155,9 @@ def _branch_forward(cfg: ModelConfig, bp: BranchFast, x: torch.Tensor,
                 feats = F.pad(feats, (0, c_pad - c_real))
             h = fused_layer(h.to(compute).contiguous(), feats.contiguous(),
                             mods[i, 0].contiguous(), mods[i, 1].contiguous(),
-                            layer_at(bp.layers, i), cfg.num_heads, c_real)
+                            layer_at(bp.layers, i), cfg.num_heads, c_real,
+                            sc=None if bp.scales is None
+                            else layer_at(bp.scales, i))
 
     out = (torch.matmul(h.to(compute), bp.out_k) + bp.out_b).float()
     if do_cfg:

@@ -12,6 +12,11 @@ AdaLN -> SiLU -> out + residual.
   assembling concat(h, cond) per layer with the optional classifier-free
   null-row blend.
 
+Both take optional per-output-column scales (:class:`LayerScales`) for
+weight-only int8 or nibble-packed int4 matrices made by
+:func:`quantize_layer_params` (the ``diffusion.quantize`` serving knob):
+each product then dequantizes its f32 accumulator, ``acc * s + b``.
+
 On a CUDA tensor each wrapper launches the hand-written kernel of
 ``csrc/fused_layer.cu`` (built at first use, see ``ops/build.py``) or
 raises; on a CPU tensor it runs the plain PyTorch version
@@ -115,33 +120,104 @@ def extract_layer_params(layer, c_real: int, c_pad: int,
     )
 
 
+class LayerScales(NamedTuple):
+    """Per-output-column f32 dequantization scales of the nine weight
+    matrices (same field names as in LayerParams): ``(N,)`` per layer,
+    ``(n, N)`` stacked.  ``w ~= q * s[None, :]``, so a product dequantizes
+    its accumulator: ``a @ (q * s) == (a @ q) * s``."""
+
+    fp_fc1_k: torch.Tensor
+    fp_fc2_k: torch.Tensor
+    q_k: torch.Tensor
+    k_k: torch.Tensor
+    v_k: torch.Tensor
+    sa_out_k: torch.Tensor
+    ffn_l1_k: torch.Tensor
+    ffn_l2_k: torch.Tensor
+    ffn_out_k: torch.Tensor
+
+
+def quantize_layer_params(lp: LayerParams, bits: int = 8):
+    """Symmetric per-output-column int8 / int4 codes of every weight matrix
+    (the JAX ``quantize_layer_params``); vectors keep their dtype.  One
+    layer or the stacked form (the reduction is over the contraction axis,
+    ``-2``).  Returns ``(lp_quant, LayerScales)``.
+
+    ``bits=4`` packs two codes per int8 byte along the output axis: the
+    left column half in the high nibble, the right half in the low one, so
+    a packed matrix is ``(K, N/2)`` int8 against ``(N,)`` scales.  Codes
+    are clipped to [-7, 7] (int4) or [-127, 127] (int8)."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qmax = 127.0 if bits == 8 else 7.0
+    qs, scales = {}, []
+    for name in LayerScales._fields:
+        w = getattr(lp, name).float()
+        amax = w.abs().amax(dim=-2, keepdim=True)
+        s = torch.clamp(amax, min=1e-30) / qmax
+        q = torch.clamp(torch.round(w / s), -qmax, qmax).to(torch.int32)
+        if bits == 4:
+            n = q.shape[-1]
+            if n % 2:
+                raise ValueError(f"{name}: int4 packing needs an even "
+                                 f"width, got {tuple(q.shape)}")
+            # shifted in int32: hi in [-7, 7] << 4 plus the low nibble
+            # stays inside int8's range, so the cast keeps the value
+            q = (q[..., :n // 2] << 4) | (q[..., n // 2:] & 0xF)
+        qs[name] = q.to(torch.int8).contiguous()
+        scales.append(s.squeeze(-2).contiguous())
+    return lp._replace(**qs), LayerScales(*scales)
+
+
 def stack_layer_params(lps: List[LayerParams]) -> LayerParams:
     """Stack per-layer LayerParams along a new leading layer axis."""
     return LayerParams(*(torch.stack(f).contiguous() for f in zip(*lps)))
 
 
-def layer_at(slp: LayerParams, i: int) -> LayerParams:
-    return LayerParams(*(f[i] for f in slp))
+def layer_at(slp, i: int):
+    """Layer ``i`` of stacked LayerParams or LayerScales."""
+    return type(slp)(*(f[i] for f in slp))
 
 
 # --------------------------------------------------------------------------
 # plain versions (exact transcription of the JAX _layer_math)
 # --------------------------------------------------------------------------
 
+def unpack_int4(w: torch.Tensor):
+    """Nibble-packed int8 ``(K, N/2)`` -> the exact f32 codes of the left
+    (high nibble) and right (low nibble) column halves.  Unpacked in f32,
+    as the JAX kernel does: a left shift of a torch int8 tensor would
+    overflow."""
+    wf = w.float()
+    hi = torch.floor(wf * (1.0 / 16.0))
+    lo = wf - 16.0 * hi
+    return hi, lo - torch.where(lo >= 8.0, 16.0, 0.0)
+
+
 def layer_math(x, feats, mod_sa, mod_ffn, lp: LayerParams, num_heads: int,
-               c_real: int) -> torch.Tensor:
+               c_real: int, sc: Optional[LayerScales] = None) -> torch.Tensor:
     """The whole layer on (B, T, .) rows: f32 activations, product inputs
-    rounded to the weight dtype with f32 accumulation (bf16 values are
-    exact in f32, so an f32 product of the rounded operands is the JAX
-    ``preferred_element_type=f32`` dot)."""
+    rounded to the compute dtype (that of the vectors) with f32
+    accumulation (bf16 values are exact in f32, so an f32 product of the
+    rounded operands is the JAX ``preferred_element_type=f32`` dot).  With
+    ``sc`` the nine matrices are int8 codes (or packed int4, detected from
+    the shape) and each product is ``(a @ q) * s + b``."""
     f32 = torch.float32
     cdtype = lp.fp_norm_scale.dtype
 
     def c(a):  # round to the weight dtype, compute in f32
         return a.to(cdtype).to(f32)
 
-    def mm(a, w, b):
-        return torch.matmul(c(a), w.to(f32)) + b.to(f32)
+    def mm(a, w, b, name=None):
+        s = None if sc is None else getattr(sc, name)
+        if s is None:
+            return torch.matmul(c(a), w.to(f32)) + b.to(f32)
+        if w.shape[-1] * 2 == s.shape[-1]:
+            y = torch.cat([torch.matmul(c(a), half) for half in unpack_int4(w)],
+                          dim=-1)
+        else:
+            y = torch.matmul(c(a), w.to(f32))
+        return y * s.to(f32) + b.to(f32)
 
     def ln(h, scale, bias):
         mu = h.mean(-1, keepdim=True)
@@ -160,36 +236,37 @@ def layer_math(x, feats, mod_sa, mod_ffn, lp: LayerParams, num_heads: int,
     var = (((feats - mu) ** 2) * valid).sum(-1, keepdim=True) / c_real
     nf = ((feats - mu) * torch.rsqrt(var + LN_EPS)
           * lp.fp_norm_scale.to(f32) + lp.fp_norm_bias.to(f32))
-    a1 = silu(mm(nf, lp.fp_fc1_k, lp.fp_fc1_b))
-    x1 = mm(a1, lp.fp_fc2_k, lp.fp_fc2_b) + x
+    a1 = silu(mm(nf, lp.fp_fc1_k, lp.fp_fc1_b, "fp_fc1_k"))
+    x1 = mm(a1, lp.fp_fc2_k, lp.fp_fc2_b, "fp_fc2_k") + x
 
     # linear self-attention (all-ones mask)
     n1 = ln(x1, lp.sa_norm_scale, lp.sa_norm_bias)
     hd = L // num_heads
-    q = mm(n1, lp.q_k, lp.q_b).view(B, T, num_heads, hd).softmax(-1)
-    k = mm(n1, lp.k_k, lp.k_b).view(B, T, num_heads, hd).softmax(1)
-    v = mm(n1, lp.v_k, lp.v_b).view(B, T, num_heads, hd)
+    q = mm(n1, lp.q_k, lp.q_b, "q_k").view(B, T, num_heads, hd).softmax(-1)
+    k = mm(n1, lp.k_k, lp.k_b, "k_k").view(B, T, num_heads, hd).softmax(1)
+    v = mm(n1, lp.v_k, lp.v_b, "v_k").view(B, T, num_heads, hd)
     ctx = torch.einsum("bthd,bthe->bhde", c(k), c(v))
     y = torch.einsum("bthd,bhde->bthe", c(q), c(ctx)).reshape(B, T, L)
 
     scale_sa, shift_sa = mod_sa.to(f32).chunk(2, dim=-1)
     z = ln(y, lp.sa_so_norm_scale, lp.sa_so_norm_bias)
     z = silu(z * (1.0 + scale_sa[:, None]) + shift_sa[:, None])
-    x2 = x1 + mm(z, lp.sa_out_k, lp.sa_out_b)
+    x2 = x1 + mm(z, lp.sa_out_k, lp.sa_out_b, "sa_out_k")
 
-    f = gelu_as(mm(x2, lp.ffn_l1_k, lp.ffn_l1_b))
-    g = mm(f, lp.ffn_l2_k, lp.ffn_l2_b)
+    f = gelu_as(mm(x2, lp.ffn_l1_k, lp.ffn_l1_b, "ffn_l1_k"))
+    g = mm(f, lp.ffn_l2_k, lp.ffn_l2_b, "ffn_l2_k")
     scale_f, shift_f = mod_ffn.to(f32).chunk(2, dim=-1)
     z2 = ln(g, lp.ffn_so_norm_scale, lp.ffn_so_norm_bias)
     z2 = silu(z2 * (1.0 + scale_f[:, None]) + shift_f[:, None])
-    return x2 + mm(z2, lp.ffn_out_k, lp.ffn_out_b)
+    return x2 + mm(z2, lp.ffn_out_k, lp.ffn_out_b, "ffn_out_k")
 
 
 def fused_layer_reference(x, feats, mod_sa, mod_ffn, lp: LayerParams,
-                          num_heads: int, c_real: int) -> torch.Tensor:
+                          num_heads: int, c_real: int,
+                          sc: Optional[LayerScales] = None) -> torch.Tensor:
     """Plain version of :func:`fused_layer`."""
-    return layer_math(x, feats, mod_sa, mod_ffn, lp, num_heads,
-                      c_real).to(x.dtype)
+    return layer_math(x, feats, mod_sa, mod_ffn, lp, num_heads, c_real,
+                      sc).to(x.dtype)
 
 
 def chain_feats(h, cond, null_emb, null_mask) -> torch.Tensor:
@@ -203,8 +280,8 @@ def chain_feats(h, cond, null_emb, null_mask) -> torch.Tensor:
 
 
 def fused_branch_reference(x, cond, mods, slp: LayerParams, num_heads: int,
-                           c_real: int, null_emb=None,
-                           null_mask=None) -> torch.Tensor:
+                           c_real: int, null_emb=None, null_mask=None,
+                           ssc: Optional[LayerScales] = None) -> torch.Tensor:
     """Plain version of :func:`fused_branch`: sequential layers, each
     layer's output rounded to ``x.dtype`` as the kernel's resident state
     is."""
@@ -213,7 +290,8 @@ def fused_branch_reference(x, cond, mods, slp: LayerParams, num_heads: int,
         feats = chain_feats(h, cond, None if null_emb is None else null_emb[0],
                             null_mask)
         h = layer_math(h, feats, mods[i, 0], mods[i, 1], layer_at(slp, i),
-                       num_heads, c_real).to(x.dtype)
+                       num_heads, c_real,
+                       None if ssc is None else layer_at(ssc, i)).to(x.dtype)
     return h
 
 
@@ -249,8 +327,25 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _quant_bits(slp: LayerParams, sc, L: int) -> int:
+    """0 (no scales), 8 (int8 codes) or 4 (packed int4), from fc1's width
+    against its scales' (the JAX kernel's shape rule)."""
+    if sc is None:
+        return 0
+    if not isinstance(sc, LayerScales):
+        raise TypeError(f"scales must be LayerScales, got {type(sc)}")
+    n = slp.fp_fc1_k.shape[-1]
+    if n == 2 * L:
+        return 8
+    if n == L:
+        return 4
+    raise ValueError(f"fp_fc1_k width {n} is neither 2L={2 * L} (int8) nor "
+                     f"L={L} (packed int4)")
+
+
 def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
-            num_heads, c_real, chain, null_emb, null_mask, trace=None):
+            num_heads, c_real, chain, null_emb, null_mask, sc=None,
+            trace=None):
     """Check everything the kernel assumes, allocate, launch."""
     dev, dt = x.device, x.dtype
     if dt not in _DTYPE_CODE:
@@ -266,13 +361,21 @@ def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
                          f"<= Cp (L={L}, c_real={c_real}, Cp={Cp}, F={F})")
     if B * T > _MAX_ROWS:
         raise ValueError(f"B*T={B * T} exceeds {_MAX_ROWS} rows per launch")
+    qb = _quant_bits(slp, sc, L)
     lead = (n_layers,) if chain else ()
     shapes = LayerParams(
         (Cp,), (Cp,), (Cp, 2 * L), (2 * L,), (2 * L, L), (L,), (L,), (L,),
         (L, L), (L,), (L, L), (L,), (L, L), (L,), (L,), (L,), (L, L), (L,),
         (L, F), (F,), (F, L), (L,), (L,), (L,), (L, L), (L,))
     for name, t, shp in zip(LayerParams._fields, slp, shapes):
-        _check(name, t, lead + shp, dt, dev)
+        if qb and name in LayerScales._fields:
+            # codes: (K, N) int8, or (K, N/2) int8 packed; scales (N,) f32
+            _check(name, t, lead + (shp[0], shp[1] // (2 if qb == 4 else 1)),
+                   torch.int8, dev)
+            _check(f"scales.{name}", getattr(sc, name), lead + shp[1:],
+                   torch.float32, dev)
+        else:
+            _check(name, t, lead + shp, dt, dev)
     _check("x", x, (B, T, L), dt, dev)
     _check("feats" if not chain else "cond", feats,
            (B, T, Cp if not chain else Cp - L), dt, dev)
@@ -283,15 +386,22 @@ def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
     M = B * T
     scratch = torch.empty(M * 8 * L * 4 + M * (L + max(2 * L, F) + max(Cp, L))
                           * x.element_size(), dtype=torch.uint8, device=dev)
+    scales = tuple(sc) if qb else ()
     ptrs = [t.data_ptr() for t in slp] + [
         x.data_ptr(), feats.data_ptr(), mod_sa.data_ptr(), mod_ffn.data_ptr(),
         0 if null_emb is None else null_emb.data_ptr(),
         0 if null_mask is None else null_mask.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
-        0 if trace is None else trace.data_ptr()]
-    strides = [t[0].numel() if chain else 0 for t in slp]
-    ints = strides + [mod_layer_stride, int(chain), n_layers, B, T, L, Cp,
-                      c_real, F, num_heads]
+        0 if trace is None else trace.data_ptr()] + (
+        [t.data_ptr() for t in scales] or [0] * len(LayerScales._fields))
+
+    def layer_bytes(t):   # bytes between layers of a stacked field
+        return t[0].numel() * t.element_size() if chain else 0
+
+    ints = [layer_bytes(t) for t in slp] + [
+        mod_layer_stride, int(chain), n_layers, B, T, L, Cp, c_real, F,
+        num_heads, qb] + ([layer_bytes(t) for t in scales]
+                          or [0] * len(LayerScales._fields))
     err = _lib()(_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
                  (ctypes.c_int64 * len(ints))(*ints),
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -313,16 +423,14 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
                 lp: LayerParams,
                 num_heads: int,
                 c_real: int,
-                sc=None) -> torch.Tensor:
-    """One denoiser layer.  CUDA tensors: the kernel of
-    ``csrc/fused_layer.cu`` (replaces the Pallas ``fused_layer``,
-    diffsheg_tpu/ops/fused_layer.py:505).  CPU tensors: the plain
-    version."""
-    if sc is not None:
-        raise NotImplementedError("quantized weights are not ported yet")
+                sc: Optional[LayerScales] = None) -> torch.Tensor:
+    """One denoiser layer; ``sc``: the scales of int8 / packed int4
+    matrices.  CUDA tensors: the kernel of ``csrc/fused_layer.cu``
+    (replaces the Pallas ``fused_layer``, diffsheg_tpu/ops/fused_layer.py:505,
+    both its variants).  CPU tensors: the plain version."""
     if x.device.type == "cpu":
         return fused_layer_reference(x, feats, mod_sa, mod_ffn, lp,
-                                     num_heads, c_real)
+                                     num_heads, c_real, sc)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     outs = []
@@ -331,7 +439,8 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
         for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
             _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype, x.device)
         outs.append(_launch(x[g].contiguous(), feats[g].contiguous(), ms, mf,
-                            0, lp, 1, num_heads, c_real, False, None, None))
+                            0, lp, 1, num_heads, c_real, False, None, None,
+                            sc))
         fused_layer.launches += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -347,16 +456,16 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
                  c_real: int,
                  null_emb: Optional[torch.Tensor] = None,   # (1, Cp)
                  null_mask: Optional[torch.Tensor] = None,  # (B,) 0/1 rows
-                 ssc=None) -> torch.Tensor:
-    """A branch's whole layer stack in one launch.  CUDA tensors: the
-    kernel of ``csrc/fused_layer.cu`` in chain mode (replaces the Pallas
-    ``fused_branch``, diffsheg_tpu/ops/fused_layer.py:398).  CPU tensors:
-    the plain version."""
-    if ssc is not None:
-        raise NotImplementedError("quantized weights are not ported yet")
+                 ssc: Optional[LayerScales] = None,  # stacked (n, N)
+                 ) -> torch.Tensor:
+    """A branch's whole layer stack in one launch; ``ssc``: the stacked
+    scales of int8 / packed int4 matrices.  CUDA tensors: the kernel of
+    ``csrc/fused_layer.cu`` in chain mode (replaces the Pallas
+    ``fused_branch``, diffsheg_tpu/ops/fused_layer.py:398, both its
+    variants).  CPU tensors: the plain version."""
     if x.device.type == "cpu":
         return fused_branch_reference(x, cond, mods, slp, num_heads, c_real,
-                                      null_emb, null_mask)
+                                      null_emb, null_mask, ssc)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n_layers = slp.fp_fc1_k.shape[0]
@@ -371,7 +480,7 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
             null_mask[g].to(torch.float32).contiguous()
         outs.append(_launch(x[g].contiguous(), cond[g].contiguous(), m[0, 0],
                             m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
-                            num_heads, c_real, True, ne, nm))
+                            num_heads, c_real, True, ne, nm, ssc))
         fused_branch.launches += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -384,7 +493,8 @@ PHASES = ("ln_feats", "fc1", "fc2", "ln", "qkv", "attention", "ln_adaln",
 
 
 def branch_phase_ns(x, cond, mods, slp: LayerParams, num_heads: int,
-                    c_real: int, null_emb=None, null_mask=None):
+                    c_real: int, null_emb=None, null_mask=None,
+                    ssc: Optional[LayerScales] = None):
     """One traced launch of the branch kernel (CUDA tensors, batch within
     one launch): the device-clock nanoseconds of each phase, shape
     (num_layers, len(PHASES)).  Block 0 stamps the global timer after
@@ -398,6 +508,6 @@ def branch_phase_ns(x, cond, mods, slp: LayerParams, num_heads: int,
     _launch(x, cond, mods[0, 0], mods[0, 1], 2 * B * 2 * L, slp, n_layers,
             num_heads, c_real, True,
             None if null_emb is None else null_emb.reshape(-1),
-            None if null_mask is None else null_mask.float(), trace)
+            None if null_mask is None else null_mask.float(), ssc, trace)
     stamps = trace.cpu().numpy()
     return (stamps[1:] - stamps[:-1]).reshape(n_layers, len(PHASES))

@@ -14,10 +14,12 @@ generator's, with "on TPU" read as "on CUDA":
   cache; 'off': the module forward ``UniDiffuser.forward``, fed by the
   cache when there is one;
 - ``diffusion.fused_step`` 'off': the general DDIM step; 'auto' / 'jnp':
-  the streamlined step's plain version; 'on': its CUDA kernel.
+  the streamlined step's plain version; 'on': its CUDA kernel;
+- ``diffusion.quantize`` 'int8' / 'int4': weight-only quantized
+  transformer stacks on the fast path (the quantized variants of the
+  fused-layer kernels); a ValueError without the fast path, as in JAX.
 
-Not ported yet, and refused with NotImplementedError: ``quantize``
-int8/int4 and ancestral sampling.
+Not ported yet, and refused with NotImplementedError: ancestral sampling.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ class WindowGenerator:
             raise ValueError(f"diffusion.fused_layer={d.fused_layer!r}")
         if d.fused_step not in STEP_MODES:
             raise ValueError(f"diffusion.fused_step={d.fused_step!r}")
-        if d.quantize != "none":
-            _refuse(f"diffusion.quantize={d.quantize!r}")
+        if d.quantize not in ("none", "int8", "int4"):
+            raise ValueError(f"diffusion.quantize={d.quantize!r}: valid "
+                             "values are 'none', 'int8', 'int4'")
         if d.sampler != "ddim":
             _refuse(f"diffusion.sampler={d.sampler!r}")
         self.cfg = cfg
@@ -98,6 +101,12 @@ class WindowGenerator:
         self.use_cache = d.level_cache and n <= 64
         self.use_fast = self.use_cache and d.fused_layer in ("auto", "on",
                                                              "chain")
+        if d.quantize != "none" and not self.use_fast:
+            raise ValueError(
+                "diffusion.quantize requires the fused-layer fast path "
+                "(diffusion.level_cache=True, at most 64 respaced steps, "
+                "fused_layer 'auto' / 'on' / 'chain'); the module forward "
+                "has no quantized engine")
         self._plain = plain_program(n)
         jl, jns = (1, 1) if d.no_resample else (d.jump_length, d.jump_n_sample)
         self._harmonize = make_step_program(jump_schedule_ddim(n, jl, jns))

@@ -6,8 +6,10 @@ cache and inputs: JAX with the Pallas kernels in interpret mode, the port
 with the kernels' plain versions (CPU).  Covers BEAT (no CFG) and SHOW
 (classifier-free batch doubling with null rows), the per-layer and the
 chain kernel, and weights carried from the unrolled and the
-``scan_layers`` checkpoint layouts.  f32; tolerance 1e-4 relative and
-absolute (two branches of stacked layers, summation order differs).
+``scan_layers`` checkpoint layouts, unquantized and with int8 / int4
+transformer stacks (``diffusion.quantize``, each package quantizing its
+own copy).  f32; tolerance 1e-4 relative and absolute (two branches of
+stacked layers, summation order differs).
 """
 
 import jax
@@ -29,6 +31,16 @@ from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
     ("beat", False, "unrolled"), ("beat", True, "scan"),
     ("show", False, "scan"), ("show", True, "unrolled")])
 def test_fast_step_matches_jax(preset, chain, layout):
+    _check_fast_step(preset, chain, layout, "none")
+
+
+@pytest.mark.parametrize("preset,chain,layout,quant", [
+    ("beat", True, "unrolled", "int8"), ("show", False, "scan", "int4")])
+def test_quantized_fast_step_matches_jax(preset, chain, layout, quant):
+    _check_fast_step(preset, chain, layout, quant)
+
+
+def _check_fast_step(preset, chain, layout, quant):
     from diffsheg_tpu.models.factory import stack_scan_layers
     # SHOW's 88-frame window trimmed to 24 frames keeps the test cheap;
     # classifier-free guidance (cond_scale 1.15) stays on
@@ -55,7 +67,7 @@ def test_fast_step_matches_jax(preset, chain, layout):
     jcache = JC.gather_level(JC.build_level_cache(
         m, jvars, jnp.asarray(levels), jnp.asarray(mel), jnp.asarray(pid),
         jnp.asarray(hub)), 1)
-    jfp = JF.extract_fast_params(m, jvars, T, True)
+    jfp = JF.extract_fast_params(m, jvars, T, True, quant=quant)
     # one jitted call: interpret-mode Pallas dispatched eagerly is slow
     ref = jax.jit(lambda fp, xx, c: JF.fast_unidiffuser_step(
         m, fp, xx, (jnp.full((B, 1, 1), sr), jnp.full((B, 1, 1), srm1)), c,
@@ -65,7 +77,8 @@ def test_fast_step_matches_jax(preset, chain, layout):
     tcache = PC.gather_level(PC.build_level_cache(
         tmodel, torch.tensor(levels), torch.tensor(mel), torch.tensor(pid),
         torch.tensor(hub)), 1)
-    tfp = PF.extract_fast_params(tcfg.model, tmodel, T)
+    tfp = PF.extract_fast_params(tcfg.model, tmodel, T, quant=quant)
+    assert (tfp.ges.scales is None) == (quant == "none")
     got = PF.fast_unidiffuser_step(tcfg.model, tfp, torch.tensor(x),
                                    (sr, srm1), tcache,
                                    cfg_inference=m.uses_cfg_at_inference,
@@ -73,11 +86,3 @@ def test_fast_step_matches_jax(preset, chain, layout):
     assert got.shape == (B, T, m.motion_dim) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
-
-
-def test_quantize_raises():
-    _, tcfg = config_pair("beat")
-    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
-    with pytest.raises(NotImplementedError):
-        PF.extract_fast_params(tcfg.model, init_unidiffuser(tcfg.model), 34,
-                               quant="int8")

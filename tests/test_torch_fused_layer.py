@@ -155,18 +155,6 @@ def test_gelu_matches_jax():
                                atol=1e-6)
 
 
-def test_quantized_weights_raise():
-    _, tlp = both(weights(L + 35, 128, 8), "f32")
-    x = torch.zeros(B, T, L)
-    with pytest.raises(NotImplementedError):
-        P.fused_layer(x, torch.zeros(B, T, 128), torch.zeros(B, 2 * L),
-                      torch.zeros(B, 2 * L), tlp, H, L + 35, sc=object())
-    with pytest.raises(NotImplementedError):
-        P.fused_branch(x, torch.zeros(B, T, 64),
-                       torch.zeros(1, 2, B, 2 * L),
-                       P.stack_layer_params([tlp]), H, L + 35, ssc=object())
-
-
 def test_cpu_tensors_do_not_launch():
     _, tlp = both(weights(128, 128, 9), "f32")
     before = (P.fused_layer.launches, P.fused_branch.launches)
