@@ -13,7 +13,13 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               bf16), linear attention (BEAT and SHOW branch rows in f32
               and bf16, the level cache's 750-row audio encoder; gradients
               too) and the DDIM + RePaint step (BEAT and SHOW, every
-              switch);
+              switch); for the branch kernel at the BEAT gesture shape also
+              where a layer's time goes (``phases[...]``: each phase;
+              ``subphases[...]``: the steps inside it and its wait at the
+              grid barrier, from traced launches), the floor its grid
+              barriers set (``barrier[grid ...]``: the same grid through as
+              many barriers and no work) and the rate of its operand copy
+              out of L2 (``l2copy[...]``);
 4. stream   — a three-window BEAT stream with the same injected noise
               through the bf16 and f32 branch-kernel paths and phase 6's
               path, held to the port's numerics bands against the f32 fully
@@ -44,6 +50,9 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
+    python3 chip_smoke.py --only kernels --ab OTHER.cu [--ab-exact]
+        # first time the fused-layer kernels beside another version of
+        # csrc/fused_layer.cu (e.g. the parent commit's), in one process
 """
 
 from __future__ import annotations
@@ -180,14 +189,12 @@ def random_layers(n, L, F, Cp, c_real, dtype, gen, device):
 QUANT_BITS = {"int8": 8, "int4": 4}
 
 
-def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
-                quant="none", L=512, H=8, F=1024, n_layers=8):
-    """Both kernels at one shape, unquantized or with the nine matrices as
-    int8 / packed int4 codes (``quant``; the plain version gets the same
-    codes and scales); returns a dict of findings."""
-    from diffsheg_tpu_torch.ops.fused_layer import (
-        chain_feats, fused_branch, fused_branch_reference, fused_layer,
-        fused_layer_reference, layer_at, quantize_layer_params)
+def case_inputs(dtype, B, T, Cp, c_real, null, dev, seed, quant="none",
+                L=512, H=8, F=1024, n_layers=8):
+    """Seeded inputs of one fused-layer kernel case: (x, cond, mods, slp,
+    null_emb, null_mask, ssc), the nine matrices unquantized or as int8 /
+    packed int4 codes (``quant``)."""
+    from diffsheg_tpu_torch.ops.fused_layer import quantize_layer_params
     gen = torch.Generator().manual_seed(seed)
     slp = random_layers(n_layers, L, F, Cp, c_real, dtype, gen, dev)
     ssc = None
@@ -205,6 +212,19 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
         ne[:, c_real:] = 0.0
         null_emb = ne.to(dev, dtype)
         null_mask = (torch.arange(B) < B // 2).float().to(dev)
+    return x, cond, mods, slp, null_emb, null_mask, ssc
+
+
+def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
+                quant="none", L=512, H=8, F=1024, n_layers=8):
+    """Both kernels at one shape, unquantized or with the nine matrices as
+    int8 / packed int4 codes (``quant``; the plain version gets the same
+    codes and scales); returns a dict of findings."""
+    from diffsheg_tpu_torch.ops.fused_layer import (
+        chain_feats, fused_branch, fused_branch_reference, fused_layer,
+        fused_layer_reference, layer_at)
+    x, cond, mods, slp, null_emb, null_mask, ssc = case_inputs(
+        dtype, B, T, Cp, c_real, null, dev, seed, quant, L, H, F, n_layers)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     out = {}
 
@@ -261,11 +281,10 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
         plain_ms=lplain_ms, bound_ms=b_ms, bound_by=b_by)
     log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
     if name.startswith("beat-ges"):
-        from diffsheg_tpu_torch.ops.fused_layer import PHASES, branch_phase_ns
-        ns = branch_phase_ns(x, cond, mods, slp, H, c_real, null_emb,
-                             null_mask, ssc).mean(0)
-        log(f"phases[fused_branch {name}] us/layer: " + " ".join(
-            f"{p}={t / 1e3:.2f}" for p, t in zip(PHASES, ns)))
+        trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
+                    ssc)
+    if name in ("beat-ges-bf16", "beat-ges-f32"):
+        probe_lines(name, reps, x, cond, mods, slp, H, c_real)
     for k, r in out.items():
         log(f"kernel[{k} {name}]: rel_rms={r['rel_rms']:.3e} (tol {tol:g}) "
             f"max_abs={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
@@ -276,6 +295,58 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
     return out
+
+
+def trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
+                ssc):
+    """Where a layer's time goes inside the branch kernel, from traced
+    launches: each phase, and inside it block 0's steps and its wait at the
+    grid barrier."""
+    from diffsheg_tpu_torch.ops.fused_layer import (
+        ATTENTION_STEPS, PHASES, PRODUCT_STEPS, branch_phase_ns)
+    ns, sub = (a.mean(0) / 1e3 for a in branch_phase_ns(
+        x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc, reps=5))
+    log(f"phases[fused_branch {name}] us/layer: " + " ".join(
+        f"{p}={t:.2f}" for p, t in zip(PHASES, ns))
+        + f" | sum={ns.sum():.2f}")
+    parts = []
+    for p, steps in zip(PHASES, sub):
+        if p.startswith("ln"):
+            names, steps = ("work", "barrier"), steps[-2:]
+        else:
+            names = (ATTENTION_STEPS if p == "attention" else PRODUCT_STEPS
+                     ) + ("barrier",)
+        parts.append(f"{p}(" + " ".join(
+            f"{k}={t:.2f}" for k, t in zip(names, steps)) + ")")
+    log(f"subphases[fused_branch {name}] us/layer: " + " ".join(parts)
+        + f" | barrier wait, all phases: {sub[:, -1].sum():.2f}")
+
+
+def probe_lines(name, reps, x, cond, mods, slp, H, c_real):
+    """The floor the branch kernel's grid barriers set (the same grid
+    through as many barriers and no work), and the rate at which its
+    blocks copy operand rows from L2 into shared memory."""
+    from diffsheg_tpu_torch.ops.fused_layer import PHASES, kernel_probe
+    n_layers = slp.fp_fc1_k.shape[0]
+    n_sync = 1 + len(PHASES) * n_layers
+    args = (x, cond, mods, slp, H, c_real)
+    launch0, info = kernel_probe("barrier", 0, *args)
+    launchn, _ = kernel_probe("barrier", n_sync, *args)
+    t0, tn = device_ms(launch0, reps), device_ms(launchn, reps)
+    log(f"barrier[grid {info['blocks']} x 256, {name}, "
+        f"{info['smem_bytes']} B shared]: {n_sync} barriers {tn * 1e3:.2f} us, "
+        f"none {t0 * 1e3:.2f} us, each {(tn - t0) * 1e3 / n_sync:.3f} us, "
+        f"per layer {(tn - t0) * 1e3 / n_layers:.2f} us")
+    iters = 50
+    per_block = info["rows"] * info["row_elems"] * x.element_size()
+    launch1, _ = kernel_probe("copy", 1, *args)
+    launchk, _ = kernel_probe("copy", 1 + iters, *args)
+    t1, tk = device_ms(launch1, reps), device_ms(launchk, reps)
+    each_us = (tk - t1) * 1e3 / iters
+    log(f"l2copy[{name}]: {info['blocks']} blocks x {per_block} B "
+        f"({info['rows']} rows x {info['row_elems']}) in {each_us:.3f} us "
+        f"= {info['blocks'] * per_block / each_us / 1e6:.3f} TB/s out of L2 "
+        f"into shared memory; first copy and launch {t1 * 1e3:.2f} us")
 
 
 def attention_case(name, dtype, B, T, D, H, dev, seed, reps):
@@ -430,6 +501,74 @@ def phase_kernels(dev, reps):
             f"show-cfg-{tag}", dtype, 2, 88, 1024, 999, True, dev, 3, reps)
     results.update(quant_kernel_cases(dev, reps))
     return results
+
+
+def phase_ab(dev, reps, others, exact):
+    """The tree's fused-layer kernels beside other versions of their
+    source (``--ab``: each a ``fused_layer.cu`` with the same C interface,
+    e.g. the parent commit's): the same inputs through both in one process,
+    timed in the order other, tree, tree, other, and the outputs compared
+    bit for bit.  With ``exact`` a version whose outputs differ fails."""
+    import ctypes
+    from diffsheg_tpu_torch.ops import build, fused_layer as ops
+    no_tf32()
+    tree = ops._lib()
+
+    def entry(path):
+        fn = ctypes.CDLL(str(build.build([path])[path])).diffsheg_fused_layers
+        fn.argtypes, fn.restype = tree.argtypes, tree.restype
+        return fn
+
+    cases = (("beat-ges-bf16", torch.bfloat16, 1, 34, 947, False, "none"),
+             ("beat-ges-f32", torch.float32, 1, 34, 947, False, "none"),
+             ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 947, False, "int8"),
+             ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 947, False, "int4"),
+             ("show-cfg-bf16", torch.bfloat16, 2, 88, 999, True, "none"))
+    saved = ops._lib
+    try:
+        for path in others:
+            other = entry(path)
+            for name, dtype, B, T, c_real, null, quant in cases:
+                x, cond, mods, slp, ne, nm, ssc = case_inputs(
+                    dtype, B, T, 1024, c_real, null, dev,
+                    3 if null else 2, quant)
+                lp = ops.layer_at(slp, 0)
+                sc = None if ssc is None else ops.layer_at(ssc, 0)
+                feats = ops.chain_feats(x, cond, None if ne is None else ne[0],
+                                        nm).to(dtype).contiguous()
+                ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
+                calls = {
+                    "fused_branch": lambda: ops.fused_branch(
+                        x, cond, mods, slp, 8, c_real, ne, nm, ssc),
+                    "fused_layer": lambda: ops.fused_layer(
+                        x, feats, ms_, mf_, lp, 8, c_real, sc)}
+                plain = {
+                    "fused_branch": ops.fused_branch_reference(
+                        x, cond, mods, slp, 8, c_real, ne, nm, ssc),
+                    "fused_layer": ops.fused_layer_reference(
+                        x, feats, ms_, mf_, lp, 8, c_real, sc)}
+                for kname, call in calls.items():
+                    outs, ms = {}, {}
+                    for which in ("other", "tree", "tree2", "other2"):
+                        fn = other if which.startswith("other") else tree
+                        ops._lib = lambda fn=fn, **_: fn
+                        outs[which] = call()
+                        ms[which] = device_ms(call, reps)
+                    same = torch.equal(outs["other"], outs["tree"])
+                    log(f"ab[{kname} {name}] other={path}: ms other "
+                        f"{ms['other']:.4f} tree {ms['tree']:.4f} tree "
+                        f"{ms['tree2']:.4f} other {ms['other2']:.4f}; outputs "
+                        f"{'bit-identical' if same else 'differ'}, rel_rms "
+                        f"{rel_rms(outs['tree'], outs['other']):.3e}; vs "
+                        f"plain: other {rel_rms(outs['other'], plain[kname]):.3e}"
+                        f" tree {rel_rms(outs['tree'], plain[kname]):.3e}")
+                    if exact and not same:
+                        raise AssertionError(f"{kname} {name}: outputs "
+                                             f"differ from {path}")
+    finally:
+        ops._lib = saved
+        for fn in counters().values():   # the timed calls are no main path
+            fn.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -781,6 +920,12 @@ def main() -> int:
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ab", nargs="+", metavar="CU", default=[],
+                    help="other versions of csrc/fused_layer.cu (paths) to "
+                    "build and time beside the tree's, before any phase")
+    ap.add_argument("--ab-exact", action="store_true",
+                    help="fail unless each --ab version's outputs equal "
+                    "the tree's bit for bit")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -796,12 +941,14 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    build.build(build.BUILDS + tuple(args.ab), verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     def run(phase):
         return args.only in (None, phase)
 
+    if args.ab:
+        phase_ab(dev, args.reps, args.ab, args.ab_exact)
     launches = dict.fromkeys(list(counters()) + [
         f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else

@@ -38,8 +38,23 @@
 //
 // Where it stands: each phase is a short chain of dependent latencies
 // (barrier, operand copy, weight slice, multiply, epilogue), so the kernel
-// runs far above the weight-stream bound; PERF.md has the per-phase times
-// chip_smoke.py measures and the next steps.
+// runs far above the weight-stream bound.  What shortens the chains:
+//   - weights are constants, so a block loads its first weight slice of a
+//     product into registers before the grid barrier that precedes the
+//     product, between the barrier's two halves (barrier_arrive,
+//     fetch_ahead, barrier_wait), and only stores it to shared memory
+//     afterwards: the HBM round trip hides behind the wait;
+//   - a thread asks for what its epilogue needs (bias, scale, residual)
+//     before its products, and a row phase for its vectors' values
+//     together with the row, which it keeps in registers between passes;
+//   - every fragment of an mma step is loaded before the step's products.
+// The operand copy itself moves B*T x K values into every block of the
+// product, ~31 MB a layer at the BEAT shape against 7.9 MB of weights: it
+// is bound by the L2's rate, and asynchronous copies (cp.async, TMA bulk)
+// did not beat plain 16-byte loads (PERF.md has the ladder, the per-phase
+// and in-phase times chip_smoke.py measures, and the next steps).
+// bf16 QB = 0 sits at the 255-register limit: more values in flight in any
+// phase spill (measured), so the phases cannot all be unrolled further.
 //
 // Quantized variants (the Pallas kernels' use_quant, ops/fused_layer.py
 // :374-395 and :492-497; the `sc` branch of _layer_math's mm, :221-248).
@@ -72,13 +87,10 @@
 // C interface (ctypes): diffsheg_fused_layers(dtype, ptrs, ints, stream)
 // returns a cudaError_t code (0 = launched).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -121,11 +133,24 @@ struct Args {
   const float* null_mask;       // (B) or nullptr
   void* out;                    // (M, L)
   float* scratch;               // f32 work buffers, see layout below
+  unsigned* barrier;            // the grid barrier's word, see barrier_arrive
   int chain, n_layers, B, T, L, Cp, c_real, F, H;
   int a_elems;                  // shared-memory operand capacity (elements)
   int w_off, part_off;          // shared-memory offsets (bytes)
-  unsigned long long* trace;    // phase end times (ns) or nullptr
+  unsigned long long* trace;    // globaltimer stamps (ns) or nullptr: one per
+                                // phase end, then NSUB per phase from inside
 };
+
+constexpr int NPHASE = 12;   // phases (grid barriers) per layer
+constexpr int NSUB = 5;      // block 0's stamps inside a phase, see stamp()
+// The stamps are compiled in only with -DDIFFSHEG_TRACE (ops/build.py
+// builds that library beside the plain one), so that a launch that is not
+// traced carries nothing for them.
+#ifdef DIFFSHEG_TRACE
+constexpr bool TRACE = true;
+#else
+constexpr bool TRACE = false;
+#endif
 
 template <typename W> __device__ __forceinline__ float ld(const void* p, long long i);
 template <> __device__ __forceinline__ float ld<float>(const void* p, long long i) {
@@ -205,6 +230,60 @@ struct Prod {
   int last;               // E_RES_FINAL: write args.out instead of dst
 };
 
+#ifdef DIFFSHEG_TRACE
+// Where block 0 writes its stamps inside the current phase: set by its
+// thread 0 when the phase begins and read by no other thread.
+__shared__ unsigned long long* trace_sub;
+#endif
+
+// Stamp k of the current phase (traced launches, block 0, thread 0).  A
+// product stamps 0: operand rows staged, 1: first weight slice staged, 2:
+// first tile accumulated, 3: its epilogue done, 4: every item done; the
+// attention 0: q, k, v staged, 1: both softmaxes, 2: ctx, 3: y, 4: every
+// item done; a row phase only 4.  The phase's own stamp follows the grid
+// barrier, so barrier wait = phase stamp - stamp 4.
+__device__ __forceinline__ void stamp(const Args& a, int k) {
+#ifdef DIFFSHEG_TRACE
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    trace_sub[k] = t;
+  }
+#endif
+}
+
+// Grid-wide barrier of a cooperative launch (every block is resident), in
+// two halves, so that a block can ask for constants of the next phase
+// between arriving and waiting: the loads then neither delay its arrival
+// nor wait behind it.  The algorithm is cooperative_groups' grid.sync():
+// thread 0 of each block adds to one word in global memory, block 0 adds
+// 2^31 - (blocks - 1) and the others 1, so the word's top bit flips when the
+// last block arrives and its low bits return to what they were; a block
+// waits until the top bit differs from the one its own add saw.  The add
+// releases the block's writes (ordered before it by the block barrier), the
+// poll acquires the other blocks'.  The word is zero before the first
+// launch and needs no reset after a launch.
+__device__ __forceinline__ unsigned barrier_arrive(unsigned* word) {
+  unsigned seen = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;"
+                 : "=r"(seen) : "l"(word), "r"(add) : "memory");
+  }
+  return seen;
+}
+__device__ __forceinline__ void barrier_wait(unsigned* word, unsigned seen) {
+  if (threadIdx.x == 0) {
+    unsigned now;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(now) : "l"(word) : "memory");
+    } while (((seen ^ now) & 0x80000000u) == 0);
+  }
+  __syncthreads();
+}
+
 __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -245,26 +324,70 @@ __device__ void row_phase(const Args& a, int mode, const float* src, int K,
   const int M = a.B * a.T;
   const float n = mode == R_FEATS ? (float)a.c_real : (float)K;
   const int kmax = mode == R_FEATS ? a.c_real : K;
+  constexpr int RV = 4;   // a thread's values of a row of up to RV * NT
+  const bool keep = K <= RV * NT;   // columns stay in registers
   for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    // x: the row's values; with them, before the reductions, the vectors'
+    // values that the last pass needs (scale, bias, AdaLN scale and shift)
+    float x[RV], sc[RV], bi[RV], ms[RV], mh[RV];
+    const long long b = m / a.T;
     float s = 0.f;
-    for (int k = threadIdx.x; k < K; k += NT) s += row_src<W>(a, mode, src, K, h, m, k);
+    if (keep) {
+#pragma unroll
+      for (int j = 0; j < RV; ++j) {
+        const int k = threadIdx.x + j * NT;
+        x[j] = k < K ? row_src<W>(a, mode, src, K, h, m, k) : 0.f;
+        if (k < K) {
+          sc[j] = ld<W>(ln_s, k);
+          bi[j] = ld<W>(ln_b, k);
+          if (mode == R_LNMOD) {
+            ms[j] = ld<W>(mod, b * 2 * a.L + k);
+            mh[j] = ld<W>(mod, b * 2 * a.L + a.L + k);
+          }
+          s += x[j];
+        }
+      }
+    } else {
+      for (int k = threadIdx.x; k < K; k += NT)
+        s += row_src<W>(a, mode, src, K, h, m, k);
+    }
     const float mean = block_sum(s, red) / n;
     float q = 0.f;
-    for (int k = threadIdx.x; k < kmax; k += NT) {
-      const float d = row_src<W>(a, mode, src, K, h, m, k) - mean;
-      q += d * d;
+    if (keep) {
+#pragma unroll
+      for (int j = 0; j < RV; ++j)
+        if (threadIdx.x + j * NT < kmax) {
+          const float d = x[j] - mean;
+          q += d * d;
+        }
+    } else {
+      for (int k = threadIdx.x; k < kmax; k += NT) {
+        const float d = row_src<W>(a, mode, src, K, h, m, k) - mean;
+        q += d * d;
+      }
     }
     const float rs = rsqrtf(block_sum(q, red) / n + LN_EPS);
-    const long long b = m / a.T;
-    for (int k = threadIdx.x; k < K; k += NT) {
-      float v = (row_src<W>(a, mode, src, K, h, m, k) - mean) * rs
-                * ld<W>(ln_s, k) + ld<W>(ln_b, k);
-      if (mode == R_LNMOD)
-        v = silu(v * (1.0f + ld<W>(mod, b * 2 * a.L + k))
-                 + ld<W>(mod, b * 2 * a.L + a.L + k));
+    auto emit = [&](int k, float xv, float scale, float bias, float mscale,
+                    float mshift) {
+      float v = (xv - mean) * rs * scale + bias;
+      if (mode == R_LNMOD) v = silu(v * (1.0f + mscale) + mshift);
       dst[(long long)m * K + k] = to_w<W>(v);
+    };
+    if (keep) {
+#pragma unroll
+      for (int j = 0; j < RV; ++j)
+        if (threadIdx.x + j * NT < K)
+          emit(threadIdx.x + j * NT, x[j], sc[j], bi[j], ms[j], mh[j]);
+    } else {
+      for (int k = threadIdx.x; k < K; k += NT) {
+        const bool md = mode == R_LNMOD;
+        emit(k, row_src<W>(a, mode, src, K, h, m, k), ld<W>(ln_s, k),
+             ld<W>(ln_b, k), md ? ld<W>(mod, b * 2 * a.L + k) : 0.f,
+             md ? ld<W>(mod, b * 2 * a.L + a.L + k) : 0.f);
+      }
     }
   }
+  stamp(a, 4);
 }
 
 // Copy operand rows r0 .. r0 + rows to shared memory (row stride lda),
@@ -315,16 +438,14 @@ __device__ __forceinline__ Cols int4_item(const Prod& p, int item, int tn) {
 }
 
 // One row of an item's codes: tn signed bytes (8 bytes for bf16, 4 for f32).
-__device__ __forceinline__ void load_codes(const int8_t* src, int (&v)[8]) {
-  const uint2 r = *reinterpret_cast<const uint2*>(src);
+__device__ __forceinline__ void codes_of(uint2 r, int (&v)[8]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     v[j] = (int)(int8_t)(r.x >> (8 * j));
     v[4 + j] = (int)(int8_t)(r.y >> (8 * j));
   }
 }
-__device__ __forceinline__ void load_codes(const int8_t* src, int (&v)[4]) {
-  const uint32_t r = *reinterpret_cast<const uint32_t*>(src);
+__device__ __forceinline__ void codes_of(uint32_t r, int (&v)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) v[j] = (int)(int8_t)(r >> (8 * j));
 }
@@ -344,74 +465,125 @@ __device__ __forceinline__ uint4 as_w(const int (&v)[4]) {
                     __float_as_uint((float)v[2]), __float_as_uint((float)v[3]));
 }
 
-// Copy work item `item`'s K x tn weight slice to Ws in W, one row per
-// thread and pass: QB 0 one 16-byte load a row; QB 8 the row's tn code
-// bytes, converted; QB 4 the row's tn packed bytes, split into the
-// high-nibble tile (Ws) and the low-nibble tile (Ws + K * tn).
+// A thread's part of a work item's K x tn weight slice, as it lies in
+// global memory: WR rows, one row a pass over the block; a row is 16 bytes
+// of W (QB 0) or tn bytes of int8 codes / packed int4 bytes.  Loading
+// (fetch_w) and converting into shared memory (put_w) are apart so that
+// the loads of a phase's first slice can be issued before the grid barrier
+// that precedes it (weights are constants): they are in flight while the
+// block waits, and the phase begins with the slice in registers.
+constexpr int WR = 4;
+template <typename W, int QB> struct raw_row { using type = uint4; };
+template <> struct raw_row<__nv_bfloat16, 8> { using type = uint2; };
+template <> struct raw_row<__nv_bfloat16, 4> { using type = uint2; };
+template <> struct raw_row<float, 8> { using type = uint32_t; };
+template <> struct raw_row<float, 4> { using type = uint32_t; };
 template <typename W, int QB>
-__device__ void stage_w(const Prod& p, int item, W* Ws) {
+struct Slice {
+  typename raw_row<W, QB>::type r[WR];
+  bool have;        // holds the block's first slice of the coming product
+};
+
+// Rows k0 + threadIdx.x + j * NT (j < WR) of item `item`'s slice.
+template <typename W, int QB>
+__device__ __forceinline__ void fetch_w(const Prod& p, int item, int k0,
+                                        Slice<W, QB>& s) {
+  using Raw = typename raw_row<W, QB>::type;
+  constexpr int tn = item_cols<W>();
+  const Cols c = QB == 4 ? int4_item(p, item, tn) : cols_of(p, item * tn);
+  // bytes: a matrix row, and the item's first column in it
+  const long long row = QB == 0 ? (long long)p.ncol * (int)sizeof(W)
+                      : QB == 8 ? p.ncol : p.ncol / 2;
+  const char* base = static_cast<const char*>(pick(c.mat, p.wk0, p.wk1, p.wk2))
+      + (QB == 0 ? c.c0 * (int)sizeof(W) : c.c0);
+#pragma unroll
+  for (int j = 0; j < WR; ++j) {
+    const int k = k0 + threadIdx.x + j * NT;
+    if (k < p.K) s.r[j] = *reinterpret_cast<const Raw*>(base + k * row);
+  }
+}
+
+// The same rows into Ws, in W: QB 0 as they are; QB 8 the codes converted;
+// QB 4 the packed bytes split into the high-nibble tile (Ws) and the
+// low-nibble tile (Ws + K * tn).
+template <typename W, int QB>
+__device__ __forceinline__ void put_w(const Prod& p, int k0,
+                                      const Slice<W, QB>& s, W* Ws) {
   constexpr int tn = item_cols<W>();
   uint4* dst = reinterpret_cast<uint4*>(Ws);
-  if constexpr (QB == 0) {
-    const Cols c = cols_of(p, item * tn);
-    const W* wk = static_cast<const W*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
-#pragma unroll 4
-    for (int k = threadIdx.x; k < p.K; k += NT)
-      dst[k] = *reinterpret_cast<const uint4*>(wk + (long long)k * p.ncol);
-  } else if constexpr (QB == 8) {
-    const Cols c = cols_of(p, item * tn);
-    const int8_t* wk =
-        static_cast<const int8_t*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
-#pragma unroll 4
-    for (int k = threadIdx.x; k < p.K; k += NT) {
-      int v[tn];
-      load_codes(wk + (long long)k * p.ncol, v);
-      dst[k] = as_w(v);
-    }
-  } else {
-    const Cols c = int4_item(p, item, tn);
-    const int half = p.ncol / 2;
-    const int8_t* wk =
-        static_cast<const int8_t*>(pick(c.mat, p.wk0, p.wk1, p.wk2)) + c.c0;
-#pragma unroll 4
-    for (int k = threadIdx.x; k < p.K; k += NT) {
-      int v[tn], hi[tn], lo[tn];
-      load_codes(wk + (long long)k * half, v);
 #pragma unroll
-      for (int j = 0; j < tn; ++j) {
-        hi[j] = v[j] >> 4;                    // byte = 16 hi + (lo & 0xF)
-        lo[j] = ((v[j] & 0xF) ^ 8) - 8;       // sign-extended low nibble
+  for (int j = 0; j < WR; ++j) {
+    const int k = k0 + threadIdx.x + j * NT;
+    if (k >= p.K) continue;
+    if constexpr (QB == 0) {
+      dst[k] = s.r[j];
+    } else {
+      int v[tn];
+      codes_of(s.r[j], v);
+      if constexpr (QB == 8) {
+        dst[k] = as_w(v);
+      } else {
+        int hi[tn], lo[tn];
+#pragma unroll
+        for (int i = 0; i < tn; ++i) {
+          hi[i] = v[i] >> 4;                    // byte = 16 hi + (lo & 0xF)
+          lo[i] = ((v[i] & 0xF) ^ 8) - 8;       // sign-extended low nibble
+        }
+        dst[k] = as_w(hi);
+        dst[p.K + k] = as_w(lo);
       }
-      dst[k] = as_w(hi);
-      dst[p.K + k] = as_w(lo);
     }
   }
+}
+
+// Copy work item `item`'s whole slice to Ws.
+template <typename W, int QB>
+__device__ void stage_w(const Prod& p, int item, W* Ws) {
+  Slice<W, QB> s;
+  for (int k0 = 0; k0 < p.K; k0 += WR * NT) {
+    fetch_w<W, QB>(p, item, k0, s);
+    put_w<W, QB>(p, k0, s, Ws);
+  }
+}
+
+// Before the grid barrier that precedes product `pn`: ask for this block's
+// first slice of it, if it has one and the slice fits the registers.
+template <typename W, int QB>
+__device__ __forceinline__ void fetch_ahead(const Prod& pn, Slice<W, QB>& s) {
+  s.have = pn.K <= WR * NT
+      && (int)blockIdx.x < pn.N / (item_cols<W>() * item_tiles<QB>());
+  if (s.have) fetch_w<W, QB>(pn, blockIdx.x, 0, s);
 }
 
 // acc -> the product's output before the epilogue: acc + b, or with
 // quantized weights acc * s + b, rounded as _layer_math's `y * s + b`.
 template <int QB>
-__device__ __forceinline__ float dequant(float acc, const float* s, int c,
-                                         float b) {
+__device__ __forceinline__ float dequant(float acc, float s, float b) {
   if constexpr (QB == 0) return acc + b;
-  else return __fadd_rn(__fmul_rn(acc, s[c]), b);
+  else return __fadd_rn(__fmul_rn(acc, s), b);
+}
+template <int QB>
+__device__ __forceinline__ float scale_at(const float* s, int c) {
+  if constexpr (QB == 0) return 1.0f;
+  else return s[c];
 }
 
-// The product epilogue for output element o of row-major (M, N).
+// The product epilogue for output element o of row-major (M, N); res: its
+// residual p.res[o] (E_RES*), fetched by the caller.
 template <typename W>
 __device__ __forceinline__ void epilogue(const Args& a, const Prod& p,
-                                         long long o, float y) {
+                                         long long o, float y, float res) {
   switch (p.epi) {
     case E_SILU_RND: st<W>(p.dst_w, o, silu(y)); break;
     case E_GELU_RND: st<W>(p.dst_w, o, gelu_as(y)); break;
     case E_BIAS: p.dst[o] = y; break;
     case E_RES: {
-      const float out = y + p.res[o];
+      const float out = y + res;
       p.dst[o] = out;
       if (p.dst_w != nullptr) st<W>(p.dst_w, o, out);
     } break;
     case E_RES_FINAL: {
-      const float out = rnd<W>(y + p.res[o]);  // layer output in x.dtype
+      const float out = rnd<W>(y + res);       // layer output in x.dtype
       if (p.last) st<W>(a.out, o, out); else p.dst[o] = out;
     } break;
   }
@@ -438,7 +610,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
 template <int QB>
 __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
                          int n0, const float* As, int lda, const float* Ws,
-                         float*) {
+                         float*, bool first) {
   constexpr int tn = item_cols<float>();
   const int K = p.K;
   const int c = threadIdx.x & (tn - 1);
@@ -454,6 +626,7 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     for (int i = 0; i < RB / 8; ++i)
       if (i < nr) acc[i] = fmaf(As[(rg + 8 * i) * lda + k], w, acc[i]);
   }
+  if (first) stamp(a, 2);
   const Cols cc = cols_of(p, n0);
   const float bias = ld<float>(pick(cc.mat, p.wb0, p.wb1, p.wb2), cc.c0 + c);
   const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
@@ -464,15 +637,48 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     v += __shfl_xor_sync(0xffffffffu, v, 8);
     v += __shfl_xor_sync(0xffffffffu, v, 16);
     if (kg != 0 || i >= nr) continue;
-    epilogue<float>(a, p, (long long)(r0 + rg + 8 * i) * p.N + n0 + c,
-                    dequant<QB>(v, sc, cc.c0 + c, bias));
+    const long long o = (long long)(r0 + rg + 8 * i) * p.N + n0 + c;
+    epilogue<float>(a, p, o,
+                    dequant<QB>(v, scale_at<QB>(sc, cc.c0 + c), bias),
+                    p.res != nullptr ? p.res[o] : 0.f);
+  }
+}
+
+// One warp's mma.sync m16n8k16 steps ks0 .. ks1 of its K slice over MT
+// 16-row tiles.  Every fragment of a step is loaded before its products
+// are issued, and two steps are unrolled, so the shared-memory and
+// tensor-core latencies of a step overlap instead of adding up; each
+// accumulator still sums its steps in order.
+template <int MT>
+__device__ __forceinline__ void mma_slice(float (&d)[RB / 16][4],
+                                          const __nv_bfloat16* As, int lda,
+                                          const unsigned short* Wu, int ks0,
+                                          int ks1, int g, int t) {
+  constexpr int tn = item_cols<__nv_bfloat16>();
+#pragma unroll 2
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const int k0 = ks * 16 + 2 * t;
+    const uint32_t b0 = Wu[k0 * tn + g] | ((uint32_t)Wu[(k0 + 1) * tn + g] << 16);
+    const uint32_t b1 = Wu[(k0 + 8) * tn + g] | ((uint32_t)Wu[(k0 + 9) * tn + g] << 16);
+    uint32_t f[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const __nv_bfloat16* r = As + (m * 16 + g) * lda + k0;
+      f[m][0] = *reinterpret_cast<const uint32_t*>(r);
+      f[m][1] = *reinterpret_cast<const uint32_t*>(r + 8 * lda);
+      f[m][2] = *reinterpret_cast<const uint32_t*>(r + 8);
+      f[m][3] = *reinterpret_cast<const uint32_t*>(r + 8 * lda + 8);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      mma_bf16(d[m], f[m][0], f[m][1], f[m][2], f[m][3], b0, b1);
   }
 }
 
 template <int QB>
 __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
                          int n0, const __nv_bfloat16* As, int lda,
-                         const __nv_bfloat16* Ws, float* part) {
+                         const __nv_bfloat16* Ws, float* part, bool first) {
   constexpr int tn = item_cols<__nv_bfloat16>();
   const unsigned short* Wu = reinterpret_cast<const unsigned short*>(Ws);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -480,25 +686,28 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
   const int ksteps = p.K / 16, kper = (ksteps + 7) / 8;
   const int ks0 = warp * kper, ks1 = min(ksteps, ks0 + kper);
   const int mtiles = (rows + 15) / 16;
+  // the bias, scale and residual of this thread's first output element are
+  // asked for before the products, so they arrive behind them
+  const Cols cc = cols_of(p, n0);
+  const void* wb = pick(cc.mat, p.wb0, p.wb1, p.wb2);
+  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
+  const bool own = (int)threadIdx.x < rows * tn;
+  const int col0 = cc.c0 + (threadIdx.x & (tn - 1));
+  float bias = own ? ld<__nv_bfloat16>(wb, col0) : 0.f;
+  float scale = own ? scale_at<QB>(sc, col0) : 1.f;
+  float res = own && p.res != nullptr
+      ? p.res[(long long)(r0 + threadIdx.x / tn) * p.N + n0
+              + (threadIdx.x & (tn - 1))] : 0.f;
   float d[RB / 16][4];
 #pragma unroll
   for (int m = 0; m < RB / 16; ++m) d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
-  for (int ks = ks0; ks < ks1; ++ks) {
-    const int k0 = ks * 16 + 2 * t;
-    const uint32_t b0 = Wu[k0 * tn + g] | ((uint32_t)Wu[(k0 + 1) * tn + g] << 16);
-    const uint32_t b1 = Wu[(k0 + 8) * tn + g] | ((uint32_t)Wu[(k0 + 9) * tn + g] << 16);
-#pragma unroll
-    for (int m = 0; m < RB / 16; ++m) {
-      if (m >= mtiles) break;
-      const __nv_bfloat16* r = As + (m * 16 + g) * lda + k0;
-      mma_bf16(d[m],
-               *reinterpret_cast<const uint32_t*>(r),
-               *reinterpret_cast<const uint32_t*>(r + 8 * lda),
-               *reinterpret_cast<const uint32_t*>(r + 8),
-               *reinterpret_cast<const uint32_t*>(r + 8 * lda + 8),
-               b0, b1);
-    }
+  switch (mtiles) {
+    case 1: mma_slice<1>(d, As, lda, Wu, ks0, ks1, g, t); break;
+    case 2: mma_slice<2>(d, As, lda, Wu, ks0, ks1, g, t); break;
+    case 3: mma_slice<3>(d, As, lda, Wu, ks0, ks1, g, t); break;
+    default: mma_slice<4>(d, As, lda, Wu, ks0, ks1, g, t); break;
   }
+  if (first) stamp(a, 2);
 #pragma unroll
   for (int m = 0; m < RB / 16; ++m) {
     if (m >= mtiles) break;
@@ -509,17 +718,18 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
     pr[8 * tn + 1] = d[m][3];
   }
   __syncthreads();
-  const Cols cc = cols_of(p, n0);
-  const void* wb = pick(cc.mat, p.wb0, p.wb1, p.wb2);
-  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
   for (int i = threadIdx.x; i < rows * tn; i += NT) {
     const int r = i / tn, j = i - r * tn;
+    const long long o = (long long)(r0 + r) * p.N + n0 + j;
+    if (i >= NT) {
+      bias = ld<__nv_bfloat16>(wb, cc.c0 + j);
+      scale = scale_at<QB>(sc, cc.c0 + j);
+      res = p.res != nullptr ? p.res[o] : 0.f;
+    }
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * tn + j];
-    epilogue<__nv_bfloat16>(a, p, (long long)(r0 + r) * p.N + n0 + j,
-                            dequant<QB>(v, sc, cc.c0 + j,
-                                        ld<__nv_bfloat16>(wb, cc.c0 + j)));
+    epilogue<__nv_bfloat16>(a, p, o, dequant<QB>(v, scale, bias), res);
   }
 }
 
@@ -527,14 +737,16 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
 // spread over the grid; a block copies up to `rb` operand rows once (row
 // stride K + 8 for bf16, so fragment loads of 8 rows fall in distinct
 // banks), then walks its items: copy the item's weight slice, multiply
-// (packed int4: both of its tiles).
+// (packed int4: both of its tiles).  `ahead`: the block's first slice, asked
+// for before the grid barrier (fetch_ahead).
 template <typename W, int QB>
-__device__ void product(const Args& a, const Prod p, unsigned char* smem) {
+__device__ void product(const Args& a, const Prod p, unsigned char* smem,
+                        Slice<W, QB>& ahead) {
   constexpr bool mma = sizeof(W) == 2;
   constexpr int tn = item_cols<W>();
   const int M = a.B * a.T;
   const int n_items = p.N / (tn * item_tiles<QB>());
-  if ((int)blockIdx.x >= n_items) return;
+  if ((int)blockIdx.x >= n_items) return;   // never block 0: no stamps owed
   const int lda = mma ? p.K + 8 : p.K;
   const int rb = min(RB, (a.a_elems / lda) / (mma ? 16 : 8) * (mma ? 16 : 8));
   W* As = reinterpret_cast<W*>(smem);
@@ -545,21 +757,27 @@ __device__ void product(const Args& a, const Prod p, unsigned char* smem) {
     __syncthreads();                              // As is free
     stage_a<W>(p, r0, rows, As, lda);
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const bool first = r0 == 0 && item == (int)blockIdx.x;
       __syncthreads();                            // Ws is free
-      stage_w<W, QB>(p, item, Ws);
+      if (first) stamp(a, 0);
+      if (first && ahead.have) put_w<W, QB>(p, 0, ahead, Ws);
+      else stage_w<W, QB>(p, item, Ws);
       __syncthreads();
+      if (first) stamp(a, 1);
       if constexpr (QB == 4) {
         const Cols c = int4_item(p, item, tn);
         const int n0 = c.mat * p.ncol + c.c0;
-        multiply<QB>(a, p, r0, rows, n0, As, lda, Ws, part);
+        multiply<QB>(a, p, r0, rows, n0, As, lda, Ws, part, first);
         __syncthreads();                          // part is free
         multiply<QB>(a, p, r0, rows, n0 + p.ncol / 2, As, lda, Ws + p.K * tn,
-                     part);
+                     part, false);
       } else {
-        multiply<QB>(a, p, r0, rows, item * tn, As, lda, Ws, part);
+        multiply<QB>(a, p, r0, rows, item * tn, As, lda, Ws, part, first);
       }
+      if (first) stamp(a, 3);
     }
   }
+  stamp(a, 4);
 }
 
 // Linear attention core, per (batch row, head, AC-column chunk of ctx):
@@ -590,6 +808,8 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
       Vs[i] = rnd<W>(base[(long long)t * 3 * L + 2 * L + hh * hd + c * AC + cc]);
     }
     __syncthreads();
+    const bool first = item == (int)blockIdx.x;
+    if (first) stamp(a, 0);
     // softmax(q) over the head's features, one warp per frame
     for (int t = warp; t < T; t += NT / 32) {
       float* q = Qs + t * ld_;
@@ -619,6 +839,7 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
         Ks[t * ld_ + d] = rnd<W>(expf(Ks[t * ld_ + d] - mx) / s);
     }
     __syncthreads();
+    if (first) stamp(a, 1);
     // ctx[:, c] = k'^T v[:, c] and y[:, c] = q' ctx[:, c], four partial
     // sums each to shorten the dependent chains
     for (int i = threadIdx.x; i < hd * AC; i += NT) {
@@ -635,6 +856,7 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
       Cs[i] = rnd<W>((s0 + s1) + (s2 + s3));
     }
     __syncthreads();
+    if (first) stamp(a, 2);
     for (int i = threadIdx.x; i < T * AC; i += NT) {
       const int t = i / AC, cc = i - t * AC;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
@@ -649,7 +871,9 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
       y[((long long)b * T + t) * L + hh * hd + c * AC + cc] = (s0 + s1) + (s2 + s3);
     }
     __syncthreads();
+    if (first) stamp(a, 3);
   }
+  stamp(a, 4);
 }
 
 // Field f of layer `layer`, and (quantized) the scales of matrix field f.
@@ -662,12 +886,17 @@ __device__ __forceinline__ const float* sp(const Args& a, int f, int layer) {
                                         + layer * a.sstride[q]);
 }
 
+// Phase stamp n (after the grid barrier that ends phase n - 1), and where
+// the stamps inside phase n go.
 __device__ __forceinline__ void mark(const Args& a, int& n) {
+#ifdef DIFFSHEG_TRACE
   if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     a.trace[n] = t;
+    trace_sub = a.trace + 1 + NPHASE * a.n_layers + n * NSUB;
   }
+#endif
   ++n;
 }
 
@@ -722,7 +951,6 @@ template <typename W, int QB>
 __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NT / 32];
-  cg::grid_group grid = cg::this_grid();
   const int M = a.B * a.T, L = a.L;
   // scratch: f32 rows (resident state and intermediates), then the
   // products' operands in the weight dtype
@@ -736,9 +964,17 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
   W* opA = act + (size_t)M * (2 * L > a.F ? 2 * L : a.F);   // M x max(Cp, L)
   W* opB = opA + (size_t)M * (a.Cp > L ? a.Cp : L);         // M x L
 #define PROD(layer, i) layer_prod<W, QB>(a, layer, i, h, x1, qkv, x2, g, act, opA, opB)
-#define SYNC() do { grid.sync(); mark(a, n); } while (0)
+#define SYNC() \
+  do { barrier_wait(a.barrier, barrier_arrive(a.barrier)); mark(a, n); } while (0)
+// the barrier before product i, the block's first slice asked for inside it
+#define SYNC_BEFORE(layer, i) do { \
+    const unsigned seen = barrier_arrive(a.barrier); \
+    fetch_ahead<W, QB>(PROD(layer, i), ahead); \
+    barrier_wait(a.barrier, seen); mark(a, n); } while (0)
 
   int n = 0;
+  Slice<W, QB> ahead;
+  ahead.have = false;
   const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
   for (long long i = tid; i < (long long)M * L; i += (long long)gridDim.x * NT)
     h[i] = ld<W>(a.x, i);
@@ -751,34 +987,35 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
         + (size_t)layer * a.mod_layer_stride * sizeof(W);
     row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp(a, FP_NORM_S, layer),
                  wp(a, FP_NORM_B, layer), nullptr, h, opA, red);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 0), smem);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 1), smem);
+    SYNC_BEFORE(layer, 0);
+    product<W, QB>(a, PROD(layer, 0), smem, ahead);
+    SYNC_BEFORE(layer, 1);
+    product<W, QB>(a, PROD(layer, 1), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LN, x1, L, wp(a, SA_NORM_S, layer),
                  wp(a, SA_NORM_B, layer), nullptr, h, opA, red);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 2), smem);
+    SYNC_BEFORE(layer, 2);
+    product<W, QB>(a, PROD(layer, 2), smem, ahead);
     SYNC();
     attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
     SYNC();
     row_phase<W>(a, R_LNMOD, y, L, wp(a, SA_SO_S, layer),
                  wp(a, SA_SO_B, layer), msa, h, opA, red);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 3), smem);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 4), smem);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 5), smem);
+    SYNC_BEFORE(layer, 3);
+    product<W, QB>(a, PROD(layer, 3), smem, ahead);
+    SYNC_BEFORE(layer, 4);
+    product<W, QB>(a, PROD(layer, 4), smem, ahead);
+    SYNC_BEFORE(layer, 5);
+    product<W, QB>(a, PROD(layer, 5), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LNMOD, g, L, wp(a, FF_SO_S, layer),
                  wp(a, FF_SO_B, layer), mffn, h, opA, red);
-    SYNC();
-    product<W, QB>(a, PROD(layer, 6), smem);
-    if (layer + 1 < a.n_layers || a.trace != nullptr) SYNC();
+    SYNC_BEFORE(layer, 6);
+    product<W, QB>(a, PROD(layer, 6), smem, ahead);
+    if (layer + 1 < a.n_layers || (TRACE && a.trace != nullptr)) SYNC();
   }
 #undef PROD
+#undef SYNC_BEFORE
 #undef SYNC
 }
 
@@ -805,16 +1042,18 @@ void smem_plan(Args* a, size_t* bytes) {
   *bytes = a->part_off + (mma ? sizeof(float) * (NT / 32) * RB * 8 : 0);
 }
 
+// Launch geometry of fused_layers_kernel<W, QB> at these widths: fills the
+// shared-memory fields of *args, the dynamic shared memory and the grid.
 template <typename W, int QB>
-int launch(const Args& a, cudaStream_t stream) {
-  // launch geometry, cached per instantiation: the SM count never changes
-  // and the occupancy only with the dynamic shared memory size
+int plan(Args* args, size_t* smem_out, int* grid_out) {
+  // cached per instantiation: the SM count never changes and the
+  // occupancy only with the dynamic shared memory size
   static int sms = 0, occ = 0;
   static size_t smem_set = 0;
-  Args args = a;
+  const Args& a = *args;
   size_t smem = 0;
-  smem_plan<W, QB>(&args, &smem);
-  if (args.a_elems < 16 * max(max(a.Cp, 2 * a.L), max(a.F, a.L)))
+  smem_plan<W, QB>(args, &smem);
+  if (a.a_elems < 16 * max(max(a.Cp, 2 * a.L), max(a.F, a.L)))
     return (int)cudaErrorInvalidValue;          // widths too large to stage
   void* fn = (void*)fused_layers_kernel<W, QB>;
   cudaError_t e;
@@ -833,10 +1072,78 @@ int launch(const Args& a, cudaStream_t stream) {
     smem_set = smem;
   }
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = sms * (occ < 2 ? occ : 2);
+  *smem_out = smem;
+  *grid_out = sms * (occ < 2 ? occ : 2);
+  return 0;
+}
+
+template <typename W>
+int plan_qb(int qb, Args* args, size_t* smem, int* grid) {
+  return qb == 0 ? plan<W, 0>(args, smem, grid)
+       : qb == 8 ? plan<W, 8>(args, smem, grid)
+       : qb == 4 ? plan<W, 4>(args, smem, grid) : (int)cudaErrorInvalidValue;
+}
+
+int cooperative(void* fn, int grid, void** params, size_t smem,
+                cudaStream_t stream) {
+  cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params,
+                                              smem, stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename W, int QB>
+int launch(const Args& a, cudaStream_t stream) {
+  Args args = a;
+  size_t smem = 0;
+  int grid = 0;
+  if (const int e = plan<W, QB>(&args, &smem, &grid)) return e;
   void* params[] = {&args};
-  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params, smem, stream);
-  if (e != cudaSuccess) return (int)e;
+  return cooperative((void*)fused_layers_kernel<W, QB>, grid, params, smem,
+                     stream);
+}
+
+// Probes on the kernel's own grid and dynamic shared memory (chip_smoke.py
+// times them).  The barrier probe runs n grid barriers and nothing else:
+// the floor the layers' barriers set.  The copy probe has every block stage
+// the same `rows` operand rows of K elements n times with the products'
+// own stage_a, as a product phase does; the repeats rotate through
+// COPY_SETS row sets, more than an SM's L1 holds, so each copy comes out
+// of L2 as a product's freshly written operand does.
+constexpr int COPY_SETS = 4;
+__global__ void __launch_bounds__(NT)
+barrier_probe_kernel(int n, unsigned* word) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  for (int i = 0; i < n; ++i) barrier_wait(word, barrier_arrive(word));
+}
+
+template <typename W>
+__global__ void __launch_bounds__(NT)
+copy_probe_kernel(const W* src, int rows, int K, int lda, int n,
+                  float* sink) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Prod p{};
+  p.K = K;
+  W* As = reinterpret_cast<W*>(smem);
+  for (int i = 0; i < n; ++i) {
+    p.A = src + (long long)(i % COPY_SETS) * rows * K;
+    stage_a<W>(p, 0, rows, As, lda);
+    __syncthreads();
+  }
+  if (sink != nullptr) *sink = ld<W>(As, threadIdx.x);   // never taken
+}
+
+template <typename W>
+int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
+               cudaStream_t stream) {
+  const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
+  const int lda = sizeof(W) == 2 ? K + 8 : K;
+  const int rows = min(a.B * a.T, a.a_elems / lda);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          copy_probe_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem))
+    return (int)e;
+  copy_probe_kernel<W><<<grid, NT, smem, stream>>>(
+      static_cast<const W*>(buf), rows, K, lda, n, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -844,17 +1151,22 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // ptrs: the N_FIELDS weight bases, then x, feats|cond, mod_sa, mod_ffn,
 //       null_emb, null_mask, out, scratch, trace (0 for absent), then the
-//       N_SCALES scale bases (0 unquantized).  scratch holds M * 8 L
+//       N_SCALES scale bases (0 unquantized), then the grid barrier's word
+//       (4 bytes, zero before the first launch that uses it, shared only by
+//       launches that cannot run side by side: those of one stream).
+//       scratch holds M * 8 L
 //       floats then M * (L + max(2 L, F) + max(Cp, L)) weight-dtype
 //       elements, M = B * T; trace, when given, receives
-//       1 + 12 * n_layers globaltimer stamps (ns), one per phase end.
+//       1 + 12 * n_layers globaltimer stamps (ns), one per phase end, then
+//       block 0's NSUB = 5 stamps inside each of the 12 * n_layers phases
+//       (see stamp()).
 // ints: the N_FIELDS per-layer strides in bytes, then mod_layer_stride
 //       (elements), chain, n_layers, B, T, L, Cp, c_real, F, H, qb (0, 8
 //       or 4), then the N_SCALES per-layer scale strides in bytes.
 // dtype: 0 = float32, 1 = bfloat16 (x, feats/cond, mods, out, vectors and
 //       unquantized matrices; the compute dtype of the products).
-extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
-                                     const int64_t* ints, void* stream) {
+namespace {
+void parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out) {
   Args a{};
   for (int f = 0; f < N_FIELDS; ++f) {
     a.w[f] = reinterpret_cast<const void*>(ptrs[f]);
@@ -871,6 +1183,7 @@ extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
   a.scratch = reinterpret_cast<float*>(ptrs[i++]);
   a.trace = reinterpret_cast<unsigned long long*>(ptrs[i++]);
   for (int q = 0; q < N_SCALES; ++q) a.sc[q] = reinterpret_cast<const void*>(ptrs[i++]);
+  a.barrier = reinterpret_cast<unsigned*>(ptrs[i++]);
   int j = N_FIELDS;
   a.mod_layer_stride = ints[j++];
   a.chain = (int)ints[j++];
@@ -882,9 +1195,20 @@ extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
   a.c_real = (int)ints[j++];
   a.F = (int)ints[j++];
   a.H = (int)ints[j++];
-  const int qb = (int)ints[j++];
+  *qb_out = (int)ints[j++];
   for (int q = 0; q < N_SCALES; ++q) a.sstride[q] = ints[j++];
-  if (a.B * a.T > MMAX || a.L / a.H > HDMAX) return (int)cudaErrorInvalidValue;
+  *out = a;
+}
+}  // namespace
+
+extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
+                                     const int64_t* ints, void* stream) {
+  Args a{};
+  int qb = 0;
+  parse(ptrs, ints, &a, &qb);
+  if (a.B * a.T > MMAX || a.L / a.H > HDMAX || a.barrier == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (!TRACE && a.trace != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) return qb == 0 ? launch<__nv_bfloat16, 0>(a, s)
                        : qb == 8 ? launch<__nv_bfloat16, 8>(a, s)
@@ -892,4 +1216,42 @@ extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
                                  : (int)cudaErrorInvalidValue;
   return qb == 0 ? launch<float, 0>(a, s) : qb == 8 ? launch<float, 8>(a, s)
        : qb == 4 ? launch<float, 4>(a, s) : (int)cudaErrorInvalidValue;
+}
+
+// The probes above, on the grid and shared memory that a launch with these
+// ptrs and ints would get (out[0]: blocks, out[1]: dynamic shared memory
+// bytes, out[2]: rows x out[3]: elements a block copies per repeat).
+// kind 0: n grid barriers; kind 1: every block copies the same operand rows
+// n times.  buf (kind 1): COPY_SETS * out[2] * out[3] elements of the
+// launch's dtype; n < 0 only fills out.
+extern "C" int diffsheg_fused_layers_probe(int dtype, const uint64_t* ptrs,
+                                           const int64_t* ints, void* stream,
+                                           int kind, int n, uint64_t buf,
+                                           int64_t* out) {
+  Args a{};
+  int qb = 0, grid = 0;
+  size_t smem = 0;
+  parse(ptrs, ints, &a, &qb);
+  const int e = dtype == 1 ? plan_qb<__nv_bfloat16>(qb, &a, &smem, &grid)
+                           : plan_qb<float>(qb, &a, &smem, &grid);
+  if (e != 0) return e;
+  const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
+  out[0] = grid;
+  out[1] = (int64_t)smem;
+  out[2] = min(a.B * a.T, a.a_elems / (dtype == 1 ? K + 8 : K));
+  out[3] = K;
+  if (n < 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == 0) {
+    if (cudaError_t ce = cudaFuncSetAttribute(
+            barrier_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem))
+      return (int)ce;
+    void* params[] = {&n, &a.barrier};
+    return cooperative((void*)barrier_probe_kernel, grid, params, smem, s);
+  }
+  const void* b = reinterpret_cast<const void*>(buf);
+  return dtype == 1
+      ? copy_probe<__nv_bfloat16>(a, smem, grid, n, b, s)
+      : copy_probe<float>(a, smem, grid, n, b, s);
 }

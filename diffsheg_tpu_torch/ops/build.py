@@ -24,6 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "diffsheg_tpu_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fused_layer.cu", "linear_attention.cu", "step_math.cu")
+# "source:flag": a second build of a source with one more flag
+TRACED_FUSED_LAYER = "fused_layer.cu:-DDIFFSHEG_TRACE"
+BUILDS = SOURCES + (TRACED_FUSED_LAYER,)    # every library of the package
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -38,15 +41,27 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit")
 
 
+def _split(source: str):
+    """``"name.cu"`` or ``"name.cu:flag"`` -> (path, extra flags).  A name
+    is a source of ``csrc/``; anything with a directory in it is taken as
+    the path of some other ``.cu`` (a second version of a kernel, built to
+    be timed beside the package's)."""
+    name, _, flag = source.partition(":")
+    path = CSRC / name if os.sep not in name else Path(name).resolve()
+    return path, ((flag,) if flag else ())
+
+
 def _target(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
+    path, extra = _split(source)
+    text = path.read_bytes()
     for dep in sorted(CSRC.glob("*.cuh")):
         text += dep.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{key}.so"
+    key = hashlib.sha256(
+        text + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{path.stem}-{key}.so"
 
 
-def build(sources: Sequence[str] = SOURCES, verbose: bool = False) -> Dict[str, Path]:
+def build(sources: Sequence[str] = BUILDS, verbose: bool = False) -> Dict[str, Path]:
     """Compile every source not yet built, one ``nvcc`` per source, all
     started together.  Returns {source: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -56,10 +71,11 @@ def build(sources: Sequence[str] = SOURCES, verbose: bool = False) -> Dict[str, 
     for s, t in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS]
+        path, extra = _split(s)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, str(CSRC / s)]
+        cmd += ["-o", tmp, str(path)]
         procs.append((s, t, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []

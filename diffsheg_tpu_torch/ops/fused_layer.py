@@ -22,7 +22,10 @@ On a CUDA tensor each wrapper launches the hand-written kernel of
 raises; on a CPU tensor it runs the plain PyTorch version
 (:func:`fused_layer_reference`, :func:`fused_branch_reference`), the
 exact transcription of the JAX ``_layer_math``.  Each wrapper counts its
-kernel launches in ``.launches``.
+kernel launches in ``.launches``.  :func:`branch_phase_ns` and
+:func:`kernel_probe` measure inside the kernel (per-phase and in-phase
+times from a traced build, the grid barriers' floor, the operand copy's
+rate); ``chip_smoke.py`` prints them.
 """
 
 from __future__ import annotations
@@ -302,15 +305,38 @@ def fused_branch_reference(x, cond, mods, slp: LayerParams, num_heads: int,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib():
-    from diffsheg_tpu_torch.ops.build import library
-    lib = library(KERNEL_SOURCE)
-    fn = lib.diffsheg_fused_layers
+def _lib(probe: bool = False, traced: bool = False):
+    """The kernel's C entry (``probe``: the probes' entry); ``traced``: from
+    the library built with the stamps compiled in."""
+    from diffsheg_tpu_torch.ops.build import TRACED_FUSED_LAYER, library
+    lib = library(TRACED_FUSED_LAYER if traced else KERNEL_SOURCE)
+    fn = lib.diffsheg_fused_layers_probe if probe else lib.diffsheg_fused_layers
     if fn.argtypes is None:     # 64-bit stream handle, not ctypes' default int
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
                        ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+        if probe:
+            fn.argtypes += [ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
+                            ctypes.POINTER(ctypes.c_int64)]
         fn.restype = ctypes.c_int
     return fn
+
+
+_barrier_words = {}
+
+
+def _barrier_word(device: torch.device) -> torch.Tensor:
+    """The kernel's grid-barrier word for launches on ``device``'s current
+    stream: zero before the first launch, left as a launch found it up to
+    its top bit, so the launches of a stream, which run one after another,
+    share it (csrc ``barrier_arrive``).  Each stream has a word of its own:
+    two launches that could run side by side never count on the same."""
+    key = (torch.device(device).index,
+           torch.cuda.current_stream(device).cuda_stream)
+    word = _barrier_words.get(key)
+    if word is None:
+        word = _barrier_words[key] = torch.zeros(4, dtype=torch.int32,
+                                                 device=device)
+    return word
 
 
 def _check(name, t, shape, dtype, device):
@@ -343,10 +369,12 @@ def _quant_bits(slp: LayerParams, sc, L: int) -> int:
                      f"L={L} (packed int4)")
 
 
-def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
-            num_heads, c_real, chain, null_emb, null_mask, sc=None,
-            trace=None):
-    """Check everything the kernel assumes, allocate, launch."""
+def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
+          num_heads, c_real, chain, null_emb, null_mask, sc=None, *,
+          trace=None):
+    """Check everything the kernel assumes and allocate; returns the C
+    interface's (dtype code, ptrs, ints), the output and the scratch
+    buffer."""
     dev, dt = x.device, x.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"kernel supports float32/bfloat16, got {dt}")
@@ -393,7 +421,8 @@ def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
         0 if null_mask is None else null_mask.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
         0 if trace is None else trace.data_ptr()] + (
-        [t.data_ptr() for t in scales] or [0] * len(LayerScales._fields))
+        [t.data_ptr() for t in scales] or [0] * len(LayerScales._fields)) + [
+        _barrier_word(dev).data_ptr()]
 
     def layer_bytes(t):   # bytes between layers of a stacked field
         return t[0].numel() * t.element_size() if chain else 0
@@ -402,9 +431,15 @@ def _launch(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
         mod_layer_stride, int(chain), n_layers, B, T, L, Cp, c_real, F,
         num_heads, qb] + ([layer_bytes(t) for t in scales]
                           or [0] * len(LayerScales._fields))
-    err = _lib()(_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
-                 (ctypes.c_int64 * len(ints))(*ints),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    return (_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
+            (ctypes.c_int64 * len(ints))(*ints)), out, scratch
+
+
+def _launch(x, *args, trace=None, **kwargs):
+    """Check, allocate, launch (arguments: see :func:`_pack`)."""
+    cargs, out, _scratch = _pack(x, *args, trace=trace, **kwargs)
+    err = _lib(traced=trace is not None)(
+        *cargs, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused layer kernel launch failed: CUDA error "
                            f"{err}")
@@ -490,24 +525,84 @@ fused_branch.launches = 0
 
 PHASES = ("ln_feats", "fc1", "fc2", "ln", "qkv", "attention", "ln_adaln",
           "sa_out", "ffn_l1", "ffn_l2", "ln_adaln", "ffn_out")
+N_SUB = 5   # block 0's stamps inside a phase (csrc NSUB)
+# what ends at each stamp inside a product phase / the attention phase; the
+# grid barrier then takes the rest of the phase.  Row phases stamp only the
+# last ("work": the whole row pass).
+PRODUCT_STEPS = ("operand", "weights", "multiply", "epilogue", "more_items")
+ATTENTION_STEPS = ("stage", "softmax", "ctx", "y", "more_items")
+
+
+def _branch_args(x, cond, mods, slp, num_heads, c_real, null_emb, null_mask,
+                 ssc):
+    n_layers = slp.fp_fc1_k.shape[0]
+    B, _, L = x.shape
+    return (x, cond, mods[0, 0], mods[0, 1], 2 * B * 2 * L, slp, n_layers,
+            num_heads, c_real, True,
+            None if null_emb is None else null_emb.reshape(-1),
+            None if null_mask is None else null_mask.float(), ssc)
 
 
 def branch_phase_ns(x, cond, mods, slp: LayerParams, num_heads: int,
                     c_real: int, null_emb=None, null_mask=None,
-                    ssc: Optional[LayerScales] = None):
-    """One traced launch of the branch kernel (CUDA tensors, batch within
-    one launch): the device-clock nanoseconds of each phase, shape
-    (num_layers, len(PHASES)).  Block 0 stamps the global timer after
-    every grid barrier, so a phase's time is that of its slowest block.
-    Not counted in ``fused_branch.launches``."""
+                    ssc: Optional[LayerScales] = None, reps: int = 1):
+    """Traced launches of the branch kernel (CUDA tensors, batch within
+    one launch), averaged over ``reps``: the device-clock nanoseconds of
+    each phase, shape (num_layers, len(PHASES)), and of the steps inside
+    it as block 0 saw them, shape (num_layers, len(PHASES), N_SUB + 1):
+    the N_SUB steps named in PRODUCT_STEPS / ATTENTION_STEPS (a row
+    phase's whole pass falls into the last) and then the wait at the grid
+    barrier.  Block 0 stamps the global timer after every grid barrier, so
+    a phase's time is that of its slowest block.  Not counted in
+    ``fused_branch.launches``."""
+    import numpy as np
     n_layers = slp.fp_fc1_k.shape[0]
-    L = x.shape[-1]
-    B = x.shape[0]
-    trace = torch.zeros(1 + len(PHASES) * n_layers, dtype=torch.int64,
-                        device=x.device)
-    _launch(x, cond, mods[0, 0], mods[0, 1], 2 * B * 2 * L, slp, n_layers,
-            num_heads, c_real, True,
-            None if null_emb is None else null_emb.reshape(-1),
-            None if null_mask is None else null_mask.float(), ssc, trace)
-    stamps = trace.cpu().numpy()
-    return (stamps[1:] - stamps[:-1]).reshape(n_layers, len(PHASES))
+    n = len(PHASES) * n_layers
+    steps = np.zeros((n, N_SUB + 1))
+    for _ in range(reps):
+        trace = torch.zeros(1 + n + n * N_SUB, dtype=torch.int64,
+                            device=x.device)
+        _launch(*_branch_args(x, cond, mods, slp, num_heads, c_real, null_emb,
+                              null_mask, ssc), trace=trace)
+        stamps = trace.cpu().numpy()
+        # phase start | block 0's stamps inside | phase end.  A stamp a
+        # phase does not make (a row phase's first four) stays 0: the
+        # running maximum carries the previous one forward, so that step
+        # reads as 0
+        edges = np.concatenate([stamps[:n, None],
+                                stamps[1 + n:].reshape(n, N_SUB),
+                                stamps[1:1 + n, None]], axis=1)
+        steps += np.diff(np.maximum.accumulate(edges, axis=1), axis=1) / reps
+    steps = steps.reshape(n_layers, len(PHASES), N_SUB + 1)
+    return steps.sum(-1), steps
+
+
+def kernel_probe(kind: str, n: int, x, cond, mods, slp: LayerParams,
+                 num_heads: int, c_real: int,
+                 ssc: Optional[LayerScales] = None):
+    """One of the probes of ``csrc/fused_layer.cu``, on the grid and
+    dynamic shared memory the branch kernel gets for these arguments:
+    ``'barrier'`` runs ``n`` grid barriers and nothing else; ``'copy'`` has
+    every block stage the operand rows of the widest product ``n`` times
+    out of L2, all blocks the same rows, as a product phase does.  Returns
+    ``(launch, info)``: a function that launches the probe once, and
+    ``dict(blocks, smem_bytes, rows, row_elems)``, the geometry and what a
+    block copies per repeat.  No launch counter moves."""
+    code = {"barrier": 0, "copy": 1}[kind]
+    cargs, _out, _scratch = _pack(*_branch_args(
+        x, cond, mods, slp, num_heads, c_real, None, None, ssc))
+    fn = _lib(probe=True)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = (ctypes.c_int64 * 4)()
+
+    def call(n_, buf_ptr=0):
+        err = fn(*cargs, stream, code, n_, buf_ptr, out)
+        if err != 0:
+            raise RuntimeError(f"fused layer probe failed: CUDA error {err}")
+
+    call(-1)                                       # geometry only
+    info = dict(blocks=out[0], smem_bytes=out[1], rows=out[2],
+                row_elems=out[3])
+    buf = torch.zeros(4 * out[2] * out[3] if code else 1, dtype=x.dtype,
+                      device=x.device)             # csrc COPY_SETS row sets
+    return (lambda: call(n, buf.data_ptr())), info

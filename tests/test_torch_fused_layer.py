@@ -161,3 +161,16 @@ def test_cpu_tensors_do_not_launch():
     P.fused_layer(torch.zeros(B, T, L), torch.zeros(B, T, 128),
                   torch.zeros(B, 2 * L), torch.zeros(B, 2 * L), tlp, H, 128)
     assert (P.fused_layer.launches, P.fused_branch.launches) == before
+
+
+def test_traced_build_is_a_second_library_of_the_same_source():
+    # the stamps are compiled only into a build of their own, so launches
+    # that are not traced run code without them
+    from diffsheg_tpu_torch.ops import build
+    plain, traced = (build._split(s) for s in (P.KERNEL_SOURCE,
+                                               build.TRACED_FUSED_LAYER))
+    assert plain[0] == traced[0] and plain[0].exists()
+    assert plain[1] == () and traced[1] == ("-DDIFFSHEG_TRACE",)
+    assert build._target(P.KERNEL_SOURCE) != build._target(
+        build.TRACED_FUSED_LAYER)
+    assert set(build.BUILDS) >= {P.KERNEL_SOURCE, build.TRACED_FUSED_LAYER}
