@@ -10,10 +10,12 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               (BEAT branches in bf16 and f32, the SHOW classifier-free
               shape with null rows; their int8 and int4 variants at the
               BEAT gesture branch in bf16 and f32 and the SHOW shape in
-              bf16), linear attention (BEAT and SHOW branch rows in f32
-              and bf16, the level cache's 750-row audio encoder; gradients
-              too) and the DDIM + RePaint step (BEAT and SHOW, every
-              switch); for the branch kernel at the BEAT gesture shape also
+              bf16), linear attention (the BEAT branch rows in f32 and
+              bf16, SHOW classifier-free, the level cache's 750-row audio
+              encoder, a 12-frame and a 512-frame window; an hd-32 shape
+              and an unaligned one that take the general kernels;
+              gradients too) and the DDIM + RePaint step (BEAT and SHOW,
+              every switch; beside an empty launch of its shape); for the branch kernel at the BEAT gesture shape also
               where a layer's time goes (``phases[...]``: each phase;
               ``subphases[...]``: the steps inside it and its wait at the
               grid barrier, from traced launches), the floor its grid
@@ -50,9 +52,10 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
-    python3 chip_smoke.py --only kernels --ab OTHER.cu [--ab-exact]
-        # first time the fused-layer kernels beside another version of
-        # csrc/fused_layer.cu (e.g. the parent commit's), in one process
+    python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
+        # first time a kernel beside another version of its source (e.g.
+        # the parent commit's), in one process; the file name picks the
+        # kernel: fused_layer.cu, linear_attention.cu or step_math.cu
 """
 
 from __future__ import annotations
@@ -144,6 +147,13 @@ def counters():
     return {"fused_branch": fused_branch, "fused_layer": fused_layer,
             "fused_linear_attention": fused_linear_attention,
             "fused_ddim_repaint_step": fused_ddim_repaint_step}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, linear attention's by shape too."""
+    for fn in counters().values():
+        fn.launches = 0
+    counters()["fused_linear_attention"].launches_by_shape.clear()
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -349,21 +359,50 @@ def probe_lines(name, reps, x, cond, mods, slp, H, c_real):
         f"into shared memory; first copy and launch {t1 * 1e3:.2f} us")
 
 
-def attention_case(name, dtype, B, T, D, H, dev, seed, reps):
+# linear attention: branch rows (BEAT B 1, SHOW classifier-free B 2,
+# latent 512, 8 heads), the cache's audio encoder (25 levels x 30 windows
+# of a 60 s stream, width 128, 8 heads), a 12-frame live window and 512
+# frames, past what a block can stage whole
+# (name, dtype, B, T, D, offset): 8 heads; the last two take the kernels
+# that are not specialised to a shape, at hd 32 and with inputs one
+# element past an aligned address (no 16-byte loads: single columns)
+ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
+                   ("beat-bf16", torch.bfloat16, 1, 34, 512, 0),
+                   ("show-cfg-f32", torch.float32, 2, 88, 512, 0),
+                   ("audio-enc-f32", torch.float32, 750, 34, 128, 0),
+                   ("live-t12-f32", torch.float32, 1, 12, 512, 0),
+                   ("long-t512-f32", torch.float32, 1, 512, 512, 0),
+                   ("hd32-f32", torch.float32, 2, 34, 256, 0),
+                   ("unaligned-f32", torch.float32, 1, 34, 512, 1))
+
+
+def attention_inputs(dtype, B, T, D, dev, seed, offset=0):
+    """Seeded q, k, v with the last eighth of the keys masked, as padded
+    frames get; each starts ``offset`` elements into its own buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, T, D, generator=gen) for _ in range(3))
+    mask = torch.ones(B, T, 1)
+    mask[:, T - T // 8:] = 0.0
+    k, v = k + (1.0 - mask) * -1e6, v * mask
+    out = []
+    for a in (q, k, v):
+        buf = torch.empty(offset + a.numel(), device=dev, dtype=dtype)
+        out.append(buf[offset:].view(B, T, D).copy_(a))
+    return tuple(out)
+
+
+def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps):
     """The linear-attention kernel against its plain version.  The
     gradient check only shows that backward runs on the card behind the
     kernel's forward: the backward recomputes through the plain
     composition from the saved inputs, so it matches plain autograd by
-    construction (the VJP itself is held against jax.grad on the CPU)."""
+    construction (the VJP itself is held against jax.grad on the CPU).
+    In bf16 the composition the dispatch runs for bf16 is timed too."""
     from diffsheg_tpu_torch.ops.linear_attention import (
-        fused_linear_attention, fused_linear_attention_reference,
+        _launch_plan, fused_linear_attention, fused_linear_attention_reference,
         linear_attention_reference)
-    gen = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B, T, D, generator=gen) for _ in range(3))
-    mask = torch.ones(B, T, 1)
-    mask[:, T - T // 8:] = 0.0          # masked keys, as padded frames get
-    k, v = k + (1.0 - mask) * -1e6, v * mask
-    q, k, v = (a.to(dev, dtype) for a in (q, k, v))
+    q, k, v = attention_inputs(dtype, B, T, D, dev, seed, offset)
+    gen = torch.Generator().manual_seed(seed + 1)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     got = fused_linear_attention(q, k, v, H)
     ref = fused_linear_attention_reference(q, k, v, H)
@@ -386,13 +425,21 @@ def attention_case(name, dtype, B, T, D, H, dev, seed, reps):
 
     ms, wall = device_ms(kernel, reps), wall_ms(kernel, reps)
     plain_ms = device_ms(plain, reps)
+    comp = ""
+    if dtype == torch.bfloat16:
+        comp_ms = device_ms(lambda: linear_attention_reference(q, k, v, H),
+                            reps)
+        comp = f" bf16_composition_ms={comp_ms:.4f}"
     nbytes = 4 * B * T * D * q.element_size()
     flops = 4 * B * T * D * (D // H)            # both contractions, f32
     b_ms, b_by = bound(nbytes, flops, torch.float32)
+    plan = _launch_plan(B, T, D, H, vec=not offset)
     log(f"kernel[fused_linear_attention {name}]: rel_rms={err:.3e} "
         f"(tol {tol:g}) max_abs={e_abs:.3e} grad_rel_rms={g_err:.3e} "
-        f"ms={ms:.4f} wall_ms={wall:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by})")
+        f"ms={ms:.4f} wall_ms={wall:.4f} plain_ms={plain_ms:.4f}{comp} "
+        f"bound_ms={b_ms:.5f} ({b_by}) plan={plan.mode} grid={plan.grid} "
+        f"heads={plan.heads} splits={plan.splits} threads={plan.threads} "
+        f"tile_rows={plan.tile_rows} vec={plan.vec} smem={plan.smem_bytes}")
     if not (err <= tol and g_err <= tol):
         raise AssertionError(f"fused_linear_attention {name}: {err:.3e}, "
                              f"grad {g_err:.3e} > {tol:g}")
@@ -400,15 +447,18 @@ def attention_case(name, dtype, B, T, D, H, dev, seed, reps):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def step_case(name, B, T, C, ov, dev, seed, reps):
-    """The step kernel against its plain version at every switch: no GT;
-    GT with no tail, a valid and an invalid saved tail, the blend on and
-    off, at a high-noise and a low-noise (blending) level."""
+# the step kernel: BEAT (1, 34, 192), overlap 4; SHOW (1, 88, 232), 10
+STEP_CASES = (("beat", 1, 34, 192, 4, 12), ("show", 1, 88, 232, 10, 13))
+
+
+def step_inputs(B, T, C, ov, dev, seed):
+    """Every switch: no GT; GT with no tail, a valid and an invalid saved
+    tail, the blend on and off, at a high-noise and a low-noise (blending)
+    level.  Returns (each combination's arguments, the timed call's: low
+    level, valid tail, blend)."""
     from diffsheg_tpu_torch.diffusion.respace import (make_respaced_schedule,
                                                       space_timesteps)
     from diffsheg_tpu_torch.diffusion.schedule import get_named_beta_schedule
-    from diffsheg_tpu_torch.ops.step_math import (
-        ddim_repaint_step_reference, fused_ddim_repaint_step)
     gen = torch.Generator().manual_seed(seed)
     x, eps, gt, gtn = (torch.randn(B, T, C, generator=gen).to(dev)
                        for _ in range(4))
@@ -420,19 +470,28 @@ def step_case(name, B, T, C, ov, dev, seed, reps):
                    sched.sqrt_recip_alphas_cumprod[t],
                    sched.sqrt_recipm1_alphas_cumprod[t])
               for lv, t in (("high", 24), ("low", 1))}
-    worst = 0.0
-    combos = [(None, None, None, 0.0, False, "high")]          # no GT
+    combos = [(x, eps, (*levels["high"], 0.0), None, None, None, ov, False)]
     for lv in levels:
         for t_, valid in ((None, 0.0), (tail, 1.0), (tail, 0.0)):
             for blend in (False, True):
-                combos.append((gt, gtn, t_, valid, blend, lv))
-    for g_, n_, t_, valid, blend, lv in combos:
-        args = (x, eps, (*levels[lv], valid), g_, n_, t_, ov, blend)
+                combos.append((x, eps, (*levels[lv], valid), gt, gtn, t_, ov,
+                               blend))
+    return combos, (x, eps, (*levels["low"], 1.0), gt, gtn, tail, ov, True)
+
+
+def step_case(name, B, T, C, ov, dev, seed, reps):
+    """The step kernel against its plain version at every switch, and a
+    kernel that does nothing launched with the same shape (the floor)."""
+    from diffsheg_tpu_torch.ops.step_math import (
+        _step_plan, ddim_repaint_step_reference, empty_launch,
+        fused_ddim_repaint_step)
+    combos, main = step_inputs(B, T, C, ov, dev, seed)
+    worst = 0.0
+    for args in combos:
         got = fused_ddim_repaint_step(*args)
         ref = ddim_repaint_step_reference(*args)
         worst = max(worst, float((got - ref).abs().max()))
     torch.cuda.synchronize()
-    main = (x, eps, (*levels["low"], 1.0), gt, gtn, tail, ov, True)
 
     def kernel():
         fused_ddim_repaint_step(*main)
@@ -440,7 +499,9 @@ def step_case(name, B, T, C, ov, dev, seed, reps):
     def plain():
         ddim_repaint_step_reference(*main)
 
+    plan = _step_plan(B, T, C)
     ms, wall = device_ms(kernel, reps), wall_ms(kernel, reps)
+    floor_ms = device_ms(lambda: empty_launch(plan, dev), reps)
     plain_ms = device_ms(plain, reps)
     # the timed call reads x, eps and the valid tail and writes out; it
     # never reads gt or its noise (the tail takes the head's place)
@@ -449,12 +510,13 @@ def step_case(name, B, T, C, ov, dev, seed, reps):
     b_ms, b_by = bound(nbytes, flops, torch.float32)
     log(f"kernel[fused_ddim_repaint_step {name}]: {len(combos)} switch "
         f"combinations max_abs={worst:.3e} (tol 1e-6) ms={ms:.4f} "
-        f"wall_ms={wall:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
-        f"({b_by})")
+        f"wall_ms={wall:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.7f} "
+        f"({b_by}) empty_launch_ms={floor_ms:.4f} (grid {plan.grid_x} x "
+        f"{plan.grid_y} x {plan.threads}, vec={plan.vec})")
     if not worst <= 1e-6:
         raise AssertionError(f"fused_ddim_repaint_step {name}: {worst:.3e}")
     return dict(max_abs_err=worst, ms=ms, wall_ms=wall, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms)
 
 
 def quant_kernel_cases(dev, reps):
@@ -476,18 +538,12 @@ def quant_kernel_cases(dev, reps):
 def phase_kernels(dev, reps):
     no_tf32()
     results = {}
-    f32, bf16 = torch.float32, torch.bfloat16
-    # linear attention: branch rows (BEAT B 1, SHOW classifier-free B 2,
-    # latent 512, 8 heads) and the cache's audio encoder (25 levels x 30
-    # windows of a 60 s stream, width 128, 8 heads)
-    for name, dt, B, T, D in (("beat-f32", f32, 1, 34, 512),
-                              ("beat-bf16", bf16, 1, 34, 512),
-                              ("show-cfg-f32", f32, 2, 88, 512),
-                              ("audio-enc-f32", f32, 750, 34, 128)):
-        results[f"attn-{name}"] = attention_case(name, dt, B, T, D, 8, dev,
-                                                 11, reps)
-    results["step-beat"] = step_case("beat", 1, 34, 192, 4, dev, 12, reps)
-    results["step-show"] = step_case("show", 1, 88, 232, 10, dev, 13, reps)
+    for name, dt, B, T, D, offset in ATTENTION_CASES:
+        results[f"attn-{name}"] = attention_case(name, dt, B, T, D, offset, 8,
+                                                 dev, 11, reps)
+    for name, B, T, C, ov, seed in STEP_CASES:
+        results[f"step-{name}"] = step_case(name, B, T, C, ov, dev, seed,
+                                            reps)
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         # BEAT expression branch: c_real = 512 + 256 + 128 = Cp
@@ -503,72 +559,128 @@ def phase_kernels(dev, reps):
     return results
 
 
-def phase_ab(dev, reps, others, exact):
-    """The tree's fused-layer kernels beside other versions of their
-    source (``--ab``: each a ``fused_layer.cu`` with the same C interface,
-    e.g. the parent commit's): the same inputs through both in one process,
-    timed in the order other, tree, tree, other, and the outputs compared
-    bit for bit.  With ``exact`` a version whose outputs differ fails."""
+def ab_entry(mod, path):
+    """The C entry of another build (``path``) of ``mod``'s source; it must
+    have the tree's C interface."""
     import ctypes
-    from diffsheg_tpu_torch.ops import build, fused_layer as ops
-    no_tf32()
-    tree = ops._lib()
+    from diffsheg_tpu_torch.ops import build
+    tree = mod._lib()
+    fn = getattr(ctypes.CDLL(str(build.build([path])[path])), tree.__name__)
+    fn.argtypes, fn.restype = tree.argtypes, tree.restype
+    return fn
 
-    def entry(path):
-        fn = ctypes.CDLL(str(build.build([path])[path])).diffsheg_fused_layers
-        fn.argtypes, fn.restype = tree.argtypes, tree.restype
-        return fn
 
+def ab_time(mod, other, call, reps):
+    """``call`` through the other version and the tree's, in the order
+    other, tree, tree, other: ({which: output}, {which: device ms})."""
+    saved, tree = mod._lib, mod._lib()
+    outs, ms = {}, {}
+    try:
+        for which in ("other", "tree", "tree2", "other2"):
+            fn = other if which.startswith("other") else tree
+            mod._lib = lambda fn=fn, **_: fn
+            outs[which] = call()
+            ms[which] = device_ms(call, reps) if reps else 0.0
+    finally:
+        mod._lib = saved
+    return outs, ms
+
+
+def ab_line(what, path, outs, ms, plain, exact):
+    same = torch.equal(outs["other"], outs["tree"])
+    log(f"ab[{what}] other={path}: ms other {ms['other']:.4f} tree "
+        f"{ms['tree']:.4f} tree {ms['tree2']:.4f} other {ms['other2']:.4f}; "
+        f"outputs {'bit-identical' if same else 'differ'}, rel_rms "
+        f"{rel_rms(outs['tree'], outs['other']):.3e}; vs plain: other "
+        f"{rel_rms(outs['other'], plain):.3e} tree "
+        f"{rel_rms(outs['tree'], plain):.3e}")
+    if exact and not same:
+        raise AssertionError(f"{what}: outputs differ from {path}")
+
+
+def ab_fused_layer(dev, reps, path, exact):
+    from diffsheg_tpu_torch.ops import fused_layer as ops
+    other = ab_entry(ops, path)
     cases = (("beat-ges-bf16", torch.bfloat16, 1, 34, 947, False, "none"),
              ("beat-ges-f32", torch.float32, 1, 34, 947, False, "none"),
              ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 947, False, "int8"),
              ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 947, False, "int4"),
              ("show-cfg-bf16", torch.bfloat16, 2, 88, 999, True, "none"))
-    saved = ops._lib
+    for name, dtype, B, T, c_real, null, quant in cases:
+        x, cond, mods, slp, ne, nm, ssc = case_inputs(
+            dtype, B, T, 1024, c_real, null, dev, 3 if null else 2, quant)
+        lp = ops.layer_at(slp, 0)
+        sc = None if ssc is None else ops.layer_at(ssc, 0)
+        feats = ops.chain_feats(x, cond, None if ne is None else ne[0],
+                                nm).to(dtype).contiguous()
+        ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
+        calls = {
+            "fused_branch": (lambda: ops.fused_branch(
+                x, cond, mods, slp, 8, c_real, ne, nm, ssc),
+                ops.fused_branch_reference(x, cond, mods, slp, 8, c_real, ne,
+                                           nm, ssc)),
+            "fused_layer": (lambda: ops.fused_layer(
+                x, feats, ms_, mf_, lp, 8, c_real, sc),
+                ops.fused_layer_reference(x, feats, ms_, mf_, lp, 8, c_real,
+                                          sc))}
+        for kname, (call, plain) in calls.items():
+            outs, ms = ab_time(ops, other, call, reps)
+            ab_line(f"{kname} {name}", path, outs, ms, plain, exact)
+
+
+def ab_attention(dev, reps, path, exact):
+    from diffsheg_tpu_torch.ops import linear_attention as ops
+    other = ab_entry(ops, path)
+    for name, dtype, B, T, D, offset in ATTENTION_CASES:
+        q, k, v = attention_inputs(dtype, B, T, D, dev, 11, offset)
+        outs, ms = ab_time(ops, other,
+                           lambda: ops.fused_linear_attention(q, k, v, 8), reps)
+        ab_line(f"fused_linear_attention {name}", path, outs, ms,
+                ops.fused_linear_attention_reference(q, k, v, 8), exact)
+
+
+def ab_step(dev, reps, path, exact):
+    """Both step shapes, always bit for bit (``exact`` or not): every
+    switch combination compared, the main call (low level, valid tail,
+    blend) timed."""
+    from diffsheg_tpu_torch.ops import step_math as ops
+    other = ab_entry(ops, path)
+    for name, B, T, C, ov, seed in STEP_CASES:
+        combos, main = step_inputs(B, T, C, ov, dev, seed)
+        for args in combos:
+            outs, _ = ab_time(ops, other,
+                              lambda: ops.fused_ddim_repaint_step(*args), 0)
+            if not torch.equal(outs["other"], outs["tree"]):
+                raise AssertionError(f"step {name}: outputs differ from "
+                                     f"{path}")
+        outs, ms = ab_time(ops, other,
+                           lambda: ops.fused_ddim_repaint_step(*main), reps)
+        ab_line(f"fused_ddim_repaint_step {name} ({len(combos)} switch "
+                f"combinations compared)", path, outs, ms,
+                ops.ddim_repaint_step_reference(*main), True)
+
+
+def phase_ab(dev, reps, others, exact):
+    """The tree's kernels beside other versions of their sources (``--ab``:
+    each a ``fused_layer.cu``, ``linear_attention.cu`` or ``step_math.cu``,
+    picked by its file name, e.g. the parent commit's): the same inputs
+    through both in one process, timed in the order other, tree, tree,
+    other, and the outputs compared bit for bit and with the plain
+    version.  With ``exact`` a version whose outputs differ fails."""
+    import os
+    by_source = {"fused_layer.cu": ab_fused_layer,
+                 "linear_attention.cu": ab_attention,
+                 "step_math.cu": ab_step}
+    no_tf32()
     try:
         for path in others:
-            other = entry(path)
-            for name, dtype, B, T, c_real, null, quant in cases:
-                x, cond, mods, slp, ne, nm, ssc = case_inputs(
-                    dtype, B, T, 1024, c_real, null, dev,
-                    3 if null else 2, quant)
-                lp = ops.layer_at(slp, 0)
-                sc = None if ssc is None else ops.layer_at(ssc, 0)
-                feats = ops.chain_feats(x, cond, None if ne is None else ne[0],
-                                        nm).to(dtype).contiguous()
-                ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
-                calls = {
-                    "fused_branch": lambda: ops.fused_branch(
-                        x, cond, mods, slp, 8, c_real, ne, nm, ssc),
-                    "fused_layer": lambda: ops.fused_layer(
-                        x, feats, ms_, mf_, lp, 8, c_real, sc)}
-                plain = {
-                    "fused_branch": ops.fused_branch_reference(
-                        x, cond, mods, slp, 8, c_real, ne, nm, ssc),
-                    "fused_layer": ops.fused_layer_reference(
-                        x, feats, ms_, mf_, lp, 8, c_real, sc)}
-                for kname, call in calls.items():
-                    outs, ms = {}, {}
-                    for which in ("other", "tree", "tree2", "other2"):
-                        fn = other if which.startswith("other") else tree
-                        ops._lib = lambda fn=fn, **_: fn
-                        outs[which] = call()
-                        ms[which] = device_ms(call, reps)
-                    same = torch.equal(outs["other"], outs["tree"])
-                    log(f"ab[{kname} {name}] other={path}: ms other "
-                        f"{ms['other']:.4f} tree {ms['tree']:.4f} tree "
-                        f"{ms['tree2']:.4f} other {ms['other2']:.4f}; outputs "
-                        f"{'bit-identical' if same else 'differ'}, rel_rms "
-                        f"{rel_rms(outs['tree'], outs['other']):.3e}; vs "
-                        f"plain: other {rel_rms(outs['other'], plain[kname]):.3e}"
-                        f" tree {rel_rms(outs['tree'], plain[kname]):.3e}")
-                    if exact and not same:
-                        raise AssertionError(f"{kname} {name}: outputs "
-                                             f"differ from {path}")
+            base = os.path.basename(path)
+            if base not in by_source:
+                raise ValueError(f"--ab {path}: the file name must be one of "
+                                 f"{sorted(by_source)}")
+            by_source[base](dev, reps, path, exact)
     finally:
-        ops._lib = saved
-        for fn in counters().values():   # the timed calls are no main path
-            fn.launches = 0
+        zero_counts()                    # the timed calls are no main path
 
 
 # --------------------------------------------------------------------------
@@ -608,8 +720,7 @@ def reference_stream(cfg, model, mel, pid, hub, dev):
     import diffsheg_tpu_torch.models.attention as attn
     from diffsheg_tpu_torch.ops.linear_attention import (
         linear_attention_reference)
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counts()
     saved = attn.linear_attention
     attn.linear_attention = (lambda q, k, v, h, use_fused=None:
                              linear_attention_reference(q, k, v, h))
@@ -747,8 +858,7 @@ def drive(pipe, secs, dev, seed):
     a16 = torch.from_numpy(synth(secs, 16000)).to(dev)
     pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = pipe(a18, a16, pid, GeneratorNoise(seed, dev))
     torch.cuda.synchronize()
@@ -769,6 +879,8 @@ def expect(what, counts, **want):
 # program (27 each); a 10 s stream: windows at 0, 30, 60, 90, 116
 CALLS_60S = 25 + 29 * 27            # 808
 CALLS_10S = 25 + 4 * 27             # 133
+BEAT_ATTN = (1, 34, 512, 8)         # linear attention's (B, T, D, heads)
+AUDIO_ENC_ATTN = (750, 34, 128, 8)
 
 
 def make_hubert(dev):
@@ -861,16 +973,23 @@ def phase_uncached(dev, model, hubert_fe):
     torch.cuda.reset_peak_memory_stats()
     _, warm_s, _ = drive(pipe, 60, dev, 21)
     out, secs, counts = drive(pipe, 60, dev, 22)
+    shapes = dict(counters()["fused_linear_attention"].launches_by_shape)
     log(f"uncached[beat 60 s, f32, fused_layer=off, level cache, "
         f"fused_step=on]: frames={out.shape[1]} warm_s={warm_s:.3f} "
         f"seconds={secs:.3f} fps={out.shape[1] / secs:.1f} "
-        f"launches={counts} "
+        f"launches={counts} linear_attention_by_shape={shapes} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
     expect("module forward on the cache", counts,
            fused_linear_attention=16 * CALLS_60S + 1,
            fused_ddim_repaint_step=CALLS_60S)
+    # by (B, T, D, heads): the 16 branch self-attentions of each model
+    # call, and the audio encoder once, over 25 levels x 30 windows
+    want = {BEAT_ATTN: 16 * CALLS_60S, AUDIO_ENC_ATTN: 1}
+    if shapes != want:
+        raise AssertionError(f"linear attention by shape: {shapes}, "
+                             f"expected {want}")
     # one model call alone (after the counted run): device time behind a
     # sleep kernel against host time, at a mid level of window 0
     gen = pipe.stream.gen
@@ -907,7 +1026,10 @@ def phase_uncached(dev, model, hubert_fe):
     expect("fully uncached forward", counts10,
            fused_linear_attention=17 * CALLS_10S,
            fused_ddim_repaint_step=CALLS_10S)
-    return {"fused_linear_attention": counts["fused_linear_attention"],
+    # the kernels line's two attention rows, each the launches of its own
+    # shape in the 60 s run
+    return {"fused_linear_attention": shapes[BEAT_ATTN],
+            "fused_linear_attention_audio_enc": shapes[AUDIO_ENC_ATTN],
             "fused_ddim_repaint_step": counts["fused_ddim_repaint_step"]}
 
 
@@ -921,7 +1043,8 @@ def main() -> int:
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ab", nargs="+", metavar="CU", default=[],
-                    help="other versions of csrc/fused_layer.cu (paths) to "
+                    help="other versions (paths) of fused_layer.cu, "
+                    "linear_attention.cu or step_math.cu, by file name, to "
                     "build and time beside the tree's, before any phase")
     ap.add_argument("--ab-exact", action="store_true",
                     help="fail unless each --ab version's outputs equal "
@@ -950,7 +1073,8 @@ def main() -> int:
     if args.ab:
         phase_ab(dev, args.reps, args.ab, args.ab_exact)
     launches = dict.fromkeys(list(counters()) + [
-        f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")])
+        f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")]
+        + ["fused_linear_attention_audio_enc"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
@@ -977,6 +1101,8 @@ def main() -> int:
             ("fused_layer", "beat-ges-bf16", "fused_layer",
              "fused_layer.cu", "ops/fused_layer.py:556"),
             ("fused_linear_attention", "attn-beat-f32", None,
+             "linear_attention.cu", "ops/linear_attention.py:99"),
+            ("fused_linear_attention_audio_enc", "attn-audio-enc-f32", None,
              "linear_attention.cu", "ops/linear_attention.py:99"),
             ("fused_ddim_repaint_step", "step-beat", None,
              "step_math.cu", "ops/step_math.py:153")]

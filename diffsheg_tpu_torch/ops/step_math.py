@@ -16,13 +16,16 @@ on the host as float32 values.
   ``csrc/step_math.cu`` (replacing the Pallas ``fused_ddim_repaint_step``,
   diffsheg_tpu/ops/step_math.py:111) on a CUDA tensor, or raises; on a
   CPU tensor it runs the plain version.  Launches are counted in
-  ``fused_ddim_repaint_step.launches``.
+  ``fused_ddim_repaint_step.launches``.  The launch shape (four channels a
+  thread or one) is :func:`_step_plan`'s choice, made here;
+- :func:`empty_launch` launches a kernel that does nothing, with a plan's
+  shape: the floor under the step kernel's time.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,29 @@ KERNEL_SOURCE = "step_math.cu"
 
 # (ab_prev, r, rm1, prev_valid), each a float32 value
 StepScalars = Tuple[float, float, float, float]
+
+_MAX_THREADS = 256
+_MAX_GRID_Y = 65535
+
+
+class StepPlan(NamedTuple):
+    """Launch shape: ``vec`` four channels a thread (float4) or one;
+    ``grid_x`` blocks of ``threads`` across the channels, ``grid_y``
+    blocks down the B*T frame rows (each walks rows ``grid_y`` apart)."""
+    vec: bool
+    threads: int
+    grid_x: int
+    grid_y: int
+
+
+def _step_plan(B: int, T: int, C: int, aligned: bool = True) -> StepPlan:
+    """Four channels a thread when C % 4 == 0 and every pointer is 16-byte
+    aligned (``aligned``), else one; a block row per frame row."""
+    vec = aligned and C % 4 == 0
+    lanes = C // 4 if vec else C
+    threads = min(_MAX_THREADS, -(-lanes // 32) * 32)
+    return StepPlan(vec, threads, -(-lanes // threads),
+                    min(B * T, _MAX_GRID_Y))
 
 
 def blend_weights(ov: int, device) -> torch.Tensor:
@@ -74,7 +100,7 @@ def _lib():
     fn = library(KERNEL_SOURCE).diffsheg_ddim_repaint_step
     if fn.argtypes is None:     # 64-bit pointers, not ctypes' default int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -121,10 +147,14 @@ def fused_ddim_repaint_step(x, eps_out, scal: StepScalars, gt, gt_noise,
         return 0 if t is None else t.data_ptr()
 
     ab_prev, r, rm1, valid = (float(np.float32(s)) for s in scal)
+    plan = _step_plan(B, T, C, all(
+        t.data_ptr() % 16 == 0 for t in (x, eps_out, gt, gt_noise, prev_tail,
+                                         out) if t is not None))
     err = _lib()(x.data_ptr(), eps_out.data_ptr(), ptr(gt), ptr(gt_noise),
                  ptr(prev_tail), out.data_ptr(), B, T, C, ov, ab_prev, r,
                  rm1, valid, int(has_gt), int(prev_tail is not None),
-                 int(add_blend and has_gt),
+                 int(add_blend and has_gt), int(plan.vec), plan.threads,
+                 plan.grid_x, plan.grid_y,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
@@ -133,3 +163,18 @@ def fused_ddim_repaint_step(x, eps_out, scal: StepScalars, gt, gt_noise,
 
 
 fused_ddim_repaint_step.launches = 0
+
+
+def empty_launch(plan: StepPlan, device) -> None:
+    """A kernel that does nothing, launched with ``plan``'s shape on the
+    current stream of ``device`` (a CUDA device): the floor under a step
+    kernel launch of that shape."""
+    from diffsheg_tpu_torch.ops.build import library
+    fn = library(KERNEL_SOURCE).diffsheg_empty_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(plan.grid_x, plan.grid_y, plan.threads,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty launch failed: CUDA error {err}")

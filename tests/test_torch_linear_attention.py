@@ -36,17 +36,67 @@ def _qkv(B, T, D, seed, masked=False):
     return q, k, v
 
 
-@pytest.mark.parametrize("T,masked", [(34, False), (88, False), (34, True)],
-                         ids=["T34", "T88", "T34_masked"])
-def test_f32_matches_pallas_kernel(T, masked):
-    q, k, v = _qkv(2, T, 64, T, masked)
+@pytest.mark.parametrize("T,masked,D,heads",
+                         [(34, False, 64, H), (88, False, 64, H),
+                          (34, True, 64, H), (12, False, 64, H),
+                          (34, True, 128, 8)],
+                         ids=["T34", "T88", "T34_masked", "T12", "D128_H8"])
+def test_f32_matches_pallas_kernel(T, masked, D, heads):
+    q, k, v = _qkv(2, T, D, T, masked)
     ref = np.asarray(j_fused(
-        *(jnp.asarray(a) for a in (q, k, v)), H, True))
+        *(jnp.asarray(a) for a in (q, k, v)), heads, True))
     before = P.fused_linear_attention.launches
-    got = P.fused_linear_attention(*(torch.tensor(a) for a in (q, k, v)), H)
+    by_shape = dict(P.fused_linear_attention.launches_by_shape)
+    got = P.fused_linear_attention(*(torch.tensor(a) for a in (q, k, v)),
+                                   heads)
     assert P.fused_linear_attention.launches == before   # CPU: no launch
-    assert got.dtype == torch.float32 and got.shape == (2, T, 64)
+    assert P.fused_linear_attention.launches_by_shape == by_shape
+    assert got.dtype == torch.float32 and got.shape == (2, T, D)
     assert rel_rms(got.numpy(), ref) <= 1e-5, rel_rms(got.numpy(), ref)
+
+
+# (B, T, D, H): BEAT's branch rows, SHOW classifier-free, the level
+# cache's audio encoder (hd 16), a 12-frame live window, 512 frames (past
+# whole-T staging), hd 32
+PLAN_SHAPES = [(1, 34, 512, 8), (2, 88, 512, 8), (750, 34, 128, 8),
+               (1, 12, 512, 8), (1, 512, 512, 8), (2, 34, 256, 8)]
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["-".join(map(str, s)) for s in PLAN_SHAPES])
+def test_launch_plan_covers_each_output_once(shape, vec):
+    B, T, D, heads = shape
+    hd = D // heads
+    plan = P._launch_plan(B, T, D, heads, vec=vec)
+    assert plan.vec == vec and plan.smem_bytes <= 232448
+    # tiled exactly when all of T does not fit in a block
+    whole = P._smem_bytes(hd, plan.heads, plan.width, T, True)
+    assert (plan.mode == "tiled") == (whole > 232448)
+    assert plan.tile_rows == T if plan.mode == "staged" else plan.tile_rows < T
+    assert plan.smem_bytes == P._smem_bytes(hd, plan.heads, plan.width,
+                                            plan.tile_rows,
+                                            plan.mode == "staged")
+    count = np.zeros((B, heads, hd), np.int32)
+    for block in range(plan.grid):
+        b, hs, cs = P._block_work(plan, heads, block)
+        count[b, hs.start:hs.stop, cs.start:cs.stop] += 1
+    assert (count == 1).all()
+
+
+def test_launch_plan_modes_and_limits():
+    beat = P._launch_plan(1, 34, 512, 8)
+    assert beat.mode == "staged" and beat.grid > 8      # (row, head) split
+    assert P._launch_plan(1, 512, 512, 8).mode == "tiled"
+    audio = P._launch_plan(750, 34, 128, 8)
+    assert audio.heads > 1 and audio.splits == 1        # narrow heads grouped
+    # a head width that is not a multiple of four takes single columns
+    odd = P._launch_plan(1, 34, 24, 8)
+    assert not odd.vec and odd.width == 3
+    with pytest.raises(ValueError):
+        P._launch_plan(1, 34, 1024, 8)                  # hd 128 > 64
+    with pytest.raises(ValueError):
+        P._launch_plan(1, 34, 500, 8)                   # 8 does not divide D
 
 
 @pytest.mark.parametrize("T", [34, 88])

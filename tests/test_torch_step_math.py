@@ -24,7 +24,8 @@ from diffsheg_tpu.ops.step_math import fused_ddim_repaint_step as j_step  # noqa
 from diffsheg_tpu_torch.diffusion import sampler as PS  # noqa: E402
 from diffsheg_tpu_torch.diffusion.respace import (  # noqa: E402
     make_respaced_schedule as p_respaced, space_timesteps as p_space)
-from diffsheg_tpu_torch.ops.step_math import fused_ddim_repaint_step  # noqa: E402
+from diffsheg_tpu_torch.ops.step_math import (  # noqa: E402
+    _step_plan, fused_ddim_repaint_step)
 
 BETAS = get_named_beta_schedule("linear", 1000)
 J_SCHED, _ = j_respaced(BETAS, j_space(1000, "ddim25"))
@@ -133,3 +134,21 @@ def test_schedule_closed_forms_match_jax(name):
     got = getattr(P_SCHED, name)(torch.tensor(x), t, torch.tensor(y))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6 * np.abs(np.asarray(ref)).max())
+
+
+@pytest.mark.parametrize("C,aligned,vec", [(192, True, True),
+                                           (232, True, True),
+                                           (231, True, False),
+                                           (192, False, False)],
+                         ids=["C192", "C232", "C231", "C192_unaligned"])
+def test_step_launch_plan(C, aligned, vec):
+    # four channels a thread only where C % 4 == 0 and the pointers allow
+    # 16-byte loads; every channel of every frame row is covered
+    B, T = 2, 88
+    plan = _step_plan(B, T, C, aligned)
+    assert plan.vec == vec
+    lanes = C // 4 if vec else C
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    assert (plan.grid_x - 1) * plan.threads < lanes <= plan.grid_x * plan.threads
+    assert plan.grid_y == B * T
+    assert _step_plan(1, 70000, 8).grid_y == 65535     # rows walked in a loop
