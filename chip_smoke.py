@@ -10,7 +10,8 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               (BEAT branches in bf16 and f32, the SHOW classifier-free
               shape with null rows; their int8 and int4 variants at the
               BEAT gesture branch in bf16 and f32 and the SHOW shape in
-              bf16), linear attention (the BEAT branch rows in f32 and
+              bf16; the per-layer kernel at the live shapes, a 12-frame
+              window and 4 speakers of 34 frames, bf16), linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
               encoder, a 12-frame and a 512-frame window; an hd-32 shape
               and an unaligned one that take the general kernels;
@@ -40,7 +41,20 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               (fused_layer='off') fed by the level cache, with the step
               kernel (fused_step='on'): every self-attention in the
               linear-attention kernel; then a 10 s stream with
-              level_cache=False, the audio encoder in every call.
+              level_cache=False, the audio encoder in every call;
+7. live     — the serving daemon: a MotionServer on 127.0.0.1 (port 0),
+              BEAT at full width in bf16 with HuBERT-large, fed by
+              MotionClients in 100 ms chunks, unpaced: 40 s sessions at
+              window 34, window 12 and 4 speakers through the per-layer
+              kernel ('auto'), and 10 s on a server started with
+              diffusion.fused_layer=chain; per session the windows,
+              per-window compute (p50, max: the service time of the
+              pushes that completed a window), HuBERT ms a window, the
+              lookahead W/fps, worst latency (lookahead + max compute),
+              real-time headroom ((step/fps) / p50) and the kernel's host
+              ms a launch; the served session at window 34 against an
+              in-process LiveSession, bit for bit; one window's device
+              busy time under torch.profiler.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -52,6 +66,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
+    python3 chip_smoke.py --only live       # the serving daemon
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -230,9 +245,8 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     """Both kernels at one shape, unquantized or with the nine matrices as
     int8 / packed int4 codes (``quant``; the plain version gets the same
     codes and scales); returns a dict of findings."""
-    from diffsheg_tpu_torch.ops.fused_layer import (
-        chain_feats, fused_branch, fused_branch_reference, fused_layer,
-        fused_layer_reference, layer_at)
+    from diffsheg_tpu_torch.ops.fused_layer import (fused_branch,
+                                                    fused_branch_reference)
     x, cond, mods, slp, null_emb, null_mask, ssc = case_inputs(
         dtype, B, T, Cp, c_real, null, dev, seed, quant, L, H, F, n_layers)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
@@ -257,24 +271,41 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     w_bytes = sum(t.numel() * t.element_size()
                   for t in (*slp, *(ssc or ())))
     io_bytes = sum(t.numel() * t.element_size() for t in (x, cond, mods, x))
-    flops = n_layers * 2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L
-                                    + 2 * L * F) \
-        + n_layers * 4 * B * T * L * (L // H)
+    flops = n_layers * layer_flops(B, T, Cp, L, H, F)
     b_ms, b_by = bound(w_bytes + io_bytes, flops, dtype)
     out["fused_branch"] = dict(
         rel_rms=e_rel, max_abs_err=e_abs, ms=branch_ms, wall_ms=branch_wall,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
-    # fused_layer: layer 0 on assembled, padded feats
+    out["fused_layer"] = layer_result(x, cond, mods, slp, H, c_real,
+                                      null_emb, null_mask, ssc, reps,
+                                      w_bytes / n_layers, flops / n_layers)
+    log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
+    if name.startswith("beat-ges"):
+        trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
+                    ssc)
+    if name in ("beat-ges-bf16", "beat-ges-f32"):
+        probe_lines(name, reps, x, cond, mods, slp, H, c_real)
+    check_lines(name, out, tol)
+    return out
+
+
+def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
+                 reps, layer_bytes, layer_flops):
+    """The per-layer kernel on layer 0 (assembled, padded feats) against
+    its plain version: errors, device and host ms, bound."""
+    from diffsheg_tpu_torch.ops.fused_layer import (
+        chain_feats, fused_layer, fused_layer_reference, layer_at)
     lp = layer_at(slp, 0)
     sc = None if ssc is None else layer_at(ssc, 0)
     feats = chain_feats(x, cond, None if null_emb is None else null_emb[0],
-                        null_mask).to(dtype).contiguous()
+                        null_mask).to(x.dtype).contiguous()
     ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
     got = fused_layer(x, feats, ms_, mf_, lp, H, c_real, sc)
     ref = fused_layer_reference(x, feats, ms_, mf_, lp, H, c_real, sc)
     torch.cuda.synchronize()
     l_rel, l_abs = rel_rms(got, ref), float((got.float() - ref.float()).abs().max())
+
     def lkernel():
         fused_layer(x, feats, ms_, mf_, lp, H, c_real, sc)
 
@@ -283,18 +314,14 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
 
     layer_ms, layer_wall = device_ms(lkernel, reps), wall_ms(lkernel, reps)
     lplain_ms = device_ms(lplain, max(3, reps // 4))
-    lw = w_bytes / n_layers
     lio = sum(t.numel() * t.element_size() for t in (x, feats, ms_, mf_, x))
-    b_ms, b_by = bound(lw + lio, flops / n_layers, dtype)
-    out["fused_layer"] = dict(
-        rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms, wall_ms=layer_wall,
-        plain_ms=lplain_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
-    if name.startswith("beat-ges"):
-        trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
-                    ssc)
-    if name in ("beat-ges-bf16", "beat-ges-f32"):
-        probe_lines(name, reps, x, cond, mods, slp, H, c_real)
+    b_ms, b_by = bound(layer_bytes + lio, layer_flops, x.dtype)
+    return dict(rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms,
+                wall_ms=layer_wall, plain_ms=lplain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_lines(name, out, tol):
     for k, r in out.items():
         log(f"kernel[{k} {name}]: rel_rms={r['rel_rms']:.3e} (tol {tol:g}) "
             f"max_abs={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
@@ -304,6 +331,29 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
         if not r["rel_rms"] <= tol:
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
+
+
+def layer_flops(B, T, Cp, L=512, H=8, F=1024):
+    """One layer's operations: the seven products and the attention."""
+    return (2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L + 2 * L * F)
+            + 4 * B * T * L * (L // H))
+
+
+# the per-layer kernel at the live path's shapes (the gesture branch,
+# bf16): a 12-frame window, and 4 speakers of a 34-frame window
+LIVE_LAYER_CASES = (("live-t12-bf16", 1, 12), ("live-b4-bf16", 4, 34))
+
+
+def live_layer_case(name, B, T, dev, seed, reps):
+    """``fused_layer`` alone at a live shape, held to the bf16 tolerance."""
+    Cp, c_real = 1024, 947
+    x, cond, mods, slp, _, _, _ = case_inputs(
+        torch.bfloat16, B, T, Cp, c_real, False, dev, seed, n_layers=1)
+    w_bytes = sum(t.numel() * t.element_size() for t in slp)
+    out = {"fused_layer": layer_result(x, cond, mods, slp, 8, c_real, None,
+                                       None, None, reps, w_bytes,
+                                       layer_flops(B, T, Cp))}
+    check_lines(name, out, 8e-3)
     return out
 
 
@@ -555,6 +605,8 @@ def phase_kernels(dev, reps):
         # SHOW classifier-free: doubled batch, first half null rows
         results[f"show-cfg-{tag}"] = kernel_case(
             f"show-cfg-{tag}", dtype, 2, 88, 1024, 999, True, dev, 3, reps)
+    for name, B, T in LIVE_LAYER_CASES:
+        results[name] = live_layer_case(name, B, T, dev, 4, reps)
     results.update(quant_kernel_cases(dev, reps))
     return results
 
@@ -1034,11 +1086,234 @@ def phase_uncached(dev, model, hubert_fe):
 
 
 # --------------------------------------------------------------------------
+# phase 7: live sessions through the serving daemon
+# --------------------------------------------------------------------------
+
+class TimedHubert:
+    """The HuBERT extractor with each call timed, synchronised before and
+    after (a window needs its features before it samples)."""
+
+    def __init__(self, fe):
+        self.fe, self.ms = fe, []
+
+    def __getattr__(self, name):
+        return getattr(self.fe, name)
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fe(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def speech_like(secs: int, sr: int, seed: int) -> np.ndarray:
+    """Synthetic speech-like audio: a voice gliding around 160 Hz with two
+    overtones under a 4 Hz syllable envelope, plus seeded noise."""
+    t = np.arange(secs * sr) / sr
+    phase = 2 * np.pi * np.cumsum(160 + 60 * np.sin(2 * np.pi * 0.3 * t)) / sr
+    voice = sum(np.sin(k * phase) / k for k in (1, 2, 3))
+    env = (0.5 + 0.5 * np.sin(2 * np.pi * 4 * t)) ** 2
+    noise = np.random.RandomState(seed).randn(t.size)
+    return (0.2 * voice * env + 0.02 * noise).astype(np.float32)
+
+
+def push_stream(push, secs: int, chunk_s: float = 0.1):
+    """Both streams of ``secs`` of audio in ``chunk_s`` chunks, unpaced:
+    (each push's output, each push's service ms)."""
+    a18, a16 = speech_like(secs, 18000, 1), speech_like(secs, 16000, 2)
+    n18, n16 = int(18000 * chunk_s), int(16000 * chunk_s)
+    outs, ms = [], []
+    for i in range(int(round(secs / chunk_s))):
+        t0 = time.perf_counter()
+        outs.append(push(a18[i * n18:(i + 1) * n18],
+                         a16[i * n16:(i + 1) * n16]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+# (tag, window frames, speakers, seconds, the server's fused_layer)
+LIVE_SESSIONS = (("a", 34, 1, 40, "auto"), ("b", 12, 1, 40, "auto"),
+                 ("c", 34, 4, 40, "auto"), ("d", 34, 1, 10, "chain"))
+LIVE_SEED = 31
+
+
+def launch_wall_ms(kind, B, T, dev, reps):
+    """Host ms per synchronised launch of the per-layer (``layer``) or the
+    branch (``chain``) kernel at a session's shape (gesture branch,
+    bf16)."""
+    from diffsheg_tpu_torch.ops.fused_layer import (chain_feats, fused_branch,
+                                                    fused_layer, layer_at)
+    n = 8 if kind == "chain" else 1
+    x, cond, mods, slp, _, _, _ = case_inputs(torch.bfloat16, B, T, 1024, 947,
+                                              False, dev, 5, n_layers=n)
+    if kind == "chain":
+        return wall_ms(lambda: fused_branch(x, cond, mods, slp, 8, 947), reps)
+    feats = chain_feats(x, cond, None, None).contiguous()
+    ms_, mf_ = mods[0, 0].contiguous(), mods[0, 1].contiguous()
+    lp = layer_at(slp, 0)
+    return wall_ms(lambda: fused_layer(x, feats, ms_, mf_, lp, 8, 947), reps)
+
+
+def live_session(srv, hub, tag, W, B, secs, mode, dev, reps):
+    """One session through a ``MotionClient``, every launch count set to
+    0 just before and read just after; asserts the counts and the output,
+    prints the latency line; returns (motion, pushes' outputs, counts)."""
+    from diffsheg_tpu_torch.ops.fused_layer import _batch_groups
+    from diffsheg_tpu_torch.sampling.streamer import window_starts
+    from diffsheg_tpu_torch.serving.server import MotionClient
+    default = W == srv.cfg.data.n_poses
+    hub.ms.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with MotionClient(*srv.address, timeout=300) as cli:
+        info = cli.start(speakers=list(range(1, 4 * B + 1, 4)),
+                         seed=LIVE_SEED, window_frames=0 if default else W)
+        outs, ms = push_stream(cli.push, secs)
+        motion = cli.finish()
+    secs_taken = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters().items()}
+
+    cfg = srv.cfg
+    ov = cfg.stream.overlap_len if default else min(cfg.stream.overlap_len,
+                                                    W // 2)
+    step, T = W - ov, secs * cfg.data.fps
+    gen = srv._gens[(W, ov)]
+    K = len(window_starts(T, W, step))
+    calls = gen.num_model_calls_plain + (K - 1) * gen.num_model_calls_repaint
+    groups = len(_batch_groups(B, W))
+    want = ({"fused_branch": 2 * calls * groups} if mode == "chain" else
+            {"fused_layer": 2 * cfg.model.num_layers * calls * groups})
+    what = f"({tag}) window {W}, {B} speaker(s), {secs} s, {mode}"
+    if (info["window"] != W or tuple(motion.shape) != (B, T, 192)
+            or not np.isfinite(motion).all()):
+        raise AssertionError(f"live {what}: window {info['window']}, output "
+                             f"{tuple(motion.shape)}")
+    expect(f"live {what}", counts, **want)
+
+    done = [m for o, m in zip(outs, ms) if o.shape[1]]
+    in_pushes = sum(o.shape[1] for o in outs) // step
+    p50, worst = statistics.median(done), max(done)
+    lookahead = W / cfg.data.fps
+    kind = "chain" if mode == "chain" else "layer"
+    lwall = launch_wall_ms(kind, B, W, dev, reps)
+    log(f"live[{what}]: windows={K} ({in_pushes} in pushes) "
+        f"model_calls={calls} compute_ms p50={p50:.2f} max={worst:.2f} "
+        f"first={done[0]:.2f} hubert_ms p50="
+        f"{statistics.median(hub.ms):.2f} (n={len(hub.ms)}) "
+        f"lookahead_s={lookahead:.3f} worst_latency_s="
+        f"{lookahead + worst / 1e3:.3f} headroom="
+        f"{step / cfg.data.fps / (p50 / 1e3):.2f}x session_s={secs_taken:.3f} "
+        f"{'fused_branch' if mode == 'chain' else 'fused_layer'} "
+        f"wall_ms={lwall:.4f} launches={counts}")
+    return motion, outs, counts
+
+
+def window_profile(cfg, model, pid, hubert_fe, gens, dev):
+    """Where a window's time goes: one in-process push that runs windows
+    0 and 1 (the plain and a harmonize program, 52 model calls) timed on
+    the host, and the same push of a second session under torch.profiler
+    for the device's busy time and kernel count."""
+    from torch.profiler import ProfilerActivity, profile
+    from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
+    from diffsheg_tpu_torch.sampling.live import LiveSession
+    # 4.4 s: 66 frames, past window 1's gates (64 frames, its last frame's
+    # analysis span, 68267 samples at 16 kHz), short of window 2's
+    a18, a16 = speech_like(5, 18000, 1)[:79200], speech_like(5, 16000, 2)[:70400]
+
+    def session():
+        return LiveSession.create(cfg, model, pid, GeneratorNoise(3, dev),
+                                  hubert_extractor=hubert_fe, gen_cache=gens,
+                                  device=dev)
+
+    sess = session()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sess.push(a18, a16)
+    wall = (time.perf_counter() - t0) * 1e3
+    sess = session()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sess.push(a18, a16)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time for e in kern) / 1e3
+    if out.shape[1] != 60:
+        raise AssertionError(f"window profile: {out.shape[1]} frames, not 60")
+    log(f"live[one push running windows 0-1, W 34, auto, 52 model calls]: "
+        f"wall_ms={wall:.2f} device busy_ms={busy:.2f} (torch.profiler, "
+        f"{len(kern)} kernels) idle share={1 - busy / wall:.3f}")
+
+
+def phase_live(dev, model, hubert_fe, reps):
+    """The serving daemon on the card: BEAT at full width, bf16, HuBERT-
+    large, a ``MotionServer`` on 127.0.0.1 (port 0) with client geometry
+    and both served geometries prewarmed; sessions (a)-(c) through the
+    per-layer kernel ('auto'), (d) through a second server started with
+    ``--set diffusion.fused_layer=chain``.  Session (a) must equal an
+    in-process ``LiveSession`` bit for bit.  Returns each session's
+    launches of its kernel."""
+    from diffsheg_tpu_torch.cli.main import _apply_overrides
+    from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
+    from diffsheg_tpu_torch.sampling.live import LiveSession
+    from diffsheg_tpu_torch.serving.server import MotionServer
+    t_phase = time.perf_counter()
+    hub = TimedHubert(hubert_fe)
+    base = beat_cfg("bfloat16", "auto")
+    servers = {}
+    launches = {}
+    try:
+        for mode, cfg in (("auto", base), ("chain", _apply_overrides(
+                base, ["diffusion.fused_layer=chain"]))):
+            srv = MotionServer(cfg, model, hubert_extractor=hub, port=0,
+                               client_geometry=True, device=dev, log=log)
+            srv.start_background()
+            servers[mode] = srv
+            srv.prewarm((1,))
+            if mode == "auto":
+                srv.prewarm((1,), window_frames=12)
+        log(f"live: set-up (two servers, prewarmed) "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        for tag, W, B, secs, mode in LIVE_SESSIONS:
+            motion, outs, counts = live_session(servers[mode], hub, tag, W,
+                                                B, secs, mode, dev, reps)
+            launches[tag] = counts
+            if tag != "a":
+                continue
+            pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float()
+            gens = {}
+            sess = LiveSession.create(base, model, pid.to(dev),
+                                      GeneratorNoise(LIVE_SEED, dev),
+                                      hubert_extractor=hub, gen_cache=gens,
+                                      device=dev)
+            own, _ = push_stream(sess.push, secs)
+            own_motion = sess.finish()
+            same = (torch.equal(torch.from_numpy(motion.copy()), own_motion)
+                    and all(torch.equal(torch.from_numpy(a.copy()), b)
+                            for a, b in zip(outs, own)))
+            log(f"live[(a) served vs in-process]: bit-identical={same} "
+                f"max_abs={float((torch.from_numpy(motion.copy()) - own_motion).abs().max()):.3e}")
+            if not same:
+                raise AssertionError("served session (a) differs from the "
+                                     "in-process session")
+            window_profile(base, model, pid.to(dev), hubert_fe, gens, dev)
+    finally:
+        for srv in servers.values():
+            srv.shutdown(drain_seconds=1.0)
+    log(f"live: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"fused_layer_live_w34": launches["a"]["fused_layer"],
+            "fused_layer_live_w12": launches["b"]["fused_layer"],
+            "fused_layer_live_b4": launches["c"]["fused_layer"],
+            "fused_branch_live": launches["d"]["fused_branch"]}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
-                                       "uncached"),
+                                       "uncached", "live"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -1074,17 +1349,18 @@ def main() -> int:
         phase_ab(dev, args.reps, args.ab, args.ab_exact)
     launches = dict.fromkeys(list(counters()) + [
         f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")]
-        + ["fused_linear_attention_audio_enc"])
+        + ["fused_linear_attention_audio_enc", "fused_layer_live_w34",
+           "fused_layer_live_w12", "fused_layer_live_b4", "fused_branch_live"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
-    if run("stream") or run("e2e") or run("uncached"):
+    if run("stream") or run("e2e") or run("uncached") or run("live"):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
         if run("stream"):
             phase_stream(dev, model)
-        if run("e2e") or run("uncached"):
+        if run("e2e") or run("uncached") or run("live"):
             t0 = time.perf_counter()
             hubert_fe = make_hubert(dev)
             log(f"set-up: random HuBERT-large on the card "
@@ -1093,6 +1369,8 @@ def main() -> int:
                 launches.update(phase_e2e(dev, model, hubert_fe))
             if run("uncached"):
                 launches.update(phase_uncached(dev, model, hubert_fe))
+            if run("live"):
+                launches.update(phase_live(dev, model, hubert_fe, args.reps))
     if kres is None:
         return 0
     entries = []
@@ -1113,6 +1391,16 @@ def main() -> int:
                   "fused_layer.cu", "ops/fused_layer.py:374"),
                  (f"fused_layer_{q}", f"beat-ges-bf16-{q}", "fused_layer",
                   "fused_layer.cu", "ops/fused_layer.py:492")]
+    # the live sessions of phase 7: the per-layer kernel at (1, 34),
+    # (1, 12) and (4, 34), and the branch kernel of session (d)
+    rows += [("fused_layer_live_w34", "beat-ges-bf16", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_live_w12", "live-t12-bf16", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_live_b4", "live-b4-bf16", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_live", "beat-ges-bf16", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475")]
     for name, key, sub, source, line in rows:
         if key not in kres:
             continue

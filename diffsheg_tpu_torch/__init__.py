@@ -16,8 +16,13 @@ Subpackages
 - ``ops``        hand-written CUDA kernels (``csrc/``) and their plain
                  PyTorch versions
 - ``audio``      mel frontend, chunked HuBERT runner
-- ``sampling``   window generator, streamer, single-call pipeline
-- ``compat``     weights carried across from a JAX variables tree
+- ``sampling``   window generator, streamer, single-call pipeline, live
+                 session
+- ``serving``    the TCP serving daemon around live sessions, its client
+                 and wire protocol
+- ``compat``     weights from a JAX variables tree, a reference DiffSHEG
+                 ``.tar`` (and back), a HuggingFace HuBERT-large
+- ``cli``        ``python -m diffsheg_tpu_torch.cli serve``
 """
 
 __version__ = "0.1.0"

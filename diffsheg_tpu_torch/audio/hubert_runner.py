@@ -7,6 +7,8 @@ including the remainder, is padded to the same length and encoded in one
 batch, the remainder's pad frames masked out (a 60 s clip's third chunk
 is such a remainder); the frames are stitched, padded or trimmed to
 ``(N - 80) // 320`` and linearly resampled to the motion frame rate.
+:meth:`HubertFeatureExtractor.encode_left_context` is a live session's
+encode of one window with left context.
 """
 
 from __future__ import annotations
@@ -98,3 +100,28 @@ class HubertFeatureExtractor:
         if target_frames is not None:
             seq = linear_resample(seq, target_frames)
         return seq
+
+    @torch.no_grad()
+    def encode_left_context(self, seg, pad_left: int, skip_frames: int,
+                            want: int, target_frames: int) -> torch.Tensor:
+        """One live window's features with left context (JAX
+        ``sampling/live.py:206-243``): ``seg`` (N,) is context ++ window,
+        its first ``pad_left`` samples zero padding while the stream is
+        younger than the context.  Normalises over the real samples only,
+        masks the frames whose receptive field touches the pad
+        (``first_valid = ceil(pad_left / STRIDE)``), encodes, keeps frames
+        ``[skip_frames, skip_frames + want)`` and resamples them to
+        ``target_frames`` -> (1, target_frames, hidden)."""
+        seg = torch.as_tensor(seg, dtype=torch.float32, device=self.device)
+        n = seg.shape[0]
+        valid = (torch.arange(n, device=self.device) >= pad_left).float()
+        n_valid = float(max(n - pad_left, 1))
+        mean = (seg * valid).sum() / n_valid
+        var = (((seg - mean) * valid) ** 2).sum() / n_valid
+        segn = (seg - mean) * torch.rsqrt(var + 1e-7) * valid
+        first_valid = -(-pad_left // STRIDE)
+        mask = (torch.arange(expected_frames(n), device=self.device)
+                >= first_valid)[None]
+        feats = self.model(segn[None], mask)
+        return linear_resample(feats[:, skip_frames:skip_frames + want],
+                               target_frames)

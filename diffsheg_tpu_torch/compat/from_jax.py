@@ -17,6 +17,7 @@ step:
 
 Every parameter and buffer of the module must be filled exactly once, and
 every leaf of the tree must land somewhere; anything else raises.
+:func:`export_flax_tree` is the inverse: a module's weights as such a tree.
 """
 
 from __future__ import annotations
@@ -107,3 +108,38 @@ def load_flax_tree(module: nn.Module, variables: Tree) -> nn.Module:
     if missing:
         raise KeyError(f"not in the tree: {missing}")
     return module
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def export_flax_tree(module: nn.Module) -> Tree:
+    """The inverse of :func:`load_flax_tree`: ``module`` ->
+    ``{"params": ..., "batch_stats": ...}`` of float32 numpy arrays under
+    the Flax names (unrolled ``layer_i`` layout)."""
+    params: Tree = {}
+    stats: Tree = {}
+    if isinstance(module, nn.Linear):
+        params["kernel"] = _np(module.weight).T
+        if module.bias is not None:
+            params["bias"] = _np(module.bias)
+    elif isinstance(module, nn.Conv1d):
+        params["kernel"] = _np(module.weight).transpose(2, 1, 0)
+        if module.bias is not None:
+            params["bias"] = _np(module.bias)
+    elif isinstance(module, (nn.LayerNorm, BatchNorm)):
+        params["scale"] = _np(module.weight)
+        params["bias"] = _np(module.bias)
+        if isinstance(module, BatchNorm):
+            stats["mean"] = _np(module.running_mean)
+            stats["var"] = _np(module.running_var)
+    else:
+        for name, p in module.named_parameters(recurse=False):
+            params[name] = _np(p)
+        for name, child in module.named_children():
+            sub = export_flax_tree(child)
+            params[name] = sub["params"]
+            if sub["batch_stats"]:
+                stats[name] = sub["batch_stats"]
+    return {"params": params, "batch_stats": stats}

@@ -1,0 +1,131 @@
+"""HuggingFace HuBERT checkpoint -> the port's ``HubertModel``.
+
+Counterpart of ``diffsheg_tpu/compat/hubert_ckpt.py`` for the HuBERT-large
+layout (``do_stable_layer_norm=True``, ``feat_extract_norm='layer'``: the
+checkpoint DiffSHEG serves with, hubert-large-ls960-ft).  A torch state
+dict becomes the Flax-named numpy tree that
+``compat/from_jax.py::load_flax_tree`` loads, folding the weight-norm
+parametrization of the positional conv (the legacy ``weight_g`` /
+``weight_v`` names and torch >= 2.1's
+``parametrizations.weight.original0/1``).  The HuBERT-base / wav2vec2-base
+layout (group-norm first conv, post-LN layers) is refused, as
+``models/hubert.py`` refuses to build it.
+
+:func:`load_hf_hubert` reads a local file or directory only (never a hub
+name) and does not import ``transformers``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
+from diffsheg_tpu_torch.models.hubert import HubertConfig, HubertModel
+
+
+def _t(x) -> np.ndarray:
+    """torch tensor / array -> float32 numpy."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _dense(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _t(sd[f"{prefix}.weight"]).T,
+            "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _ln(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _t(sd[f"{prefix}.weight"]),
+            "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _pos_conv_weight(sd: Mapping, prefix: str) -> np.ndarray:
+    """The positional conv's weight, ``weight_norm(conv, dim=2)`` folded:
+    w = g * v / ||v||, the norm over dims (0, 1) per kernel position."""
+    if f"{prefix}.weight" in sd:
+        return _t(sd[f"{prefix}.weight"])
+    if f"{prefix}.weight_g" in sd:
+        g, v = _t(sd[f"{prefix}.weight_g"]), _t(sd[f"{prefix}.weight_v"])
+    else:
+        g = _t(sd[f"{prefix}.parametrizations.weight.original0"])
+        v = _t(sd[f"{prefix}.parametrizations.weight.original1"])
+    norm = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def convert_hubert_state_dict(sd: Mapping[str, Any],
+                              cfg: Optional[HubertConfig] = None
+                              ) -> Dict[str, Any]:
+    """HF HuBERT-large state dict -> ``{'params': ...}`` (Flax names,
+    float32 numpy); a ``hubert.`` prefix (``HubertForCTC``) is dropped."""
+    cfg = cfg or HubertConfig()
+    if not any(k.startswith("feature_extractor") for k in sd) and any(
+            k.startswith("hubert.") for k in sd):
+        sd = {k[len("hubert."):]: v for k, v in sd.items()
+              if k.startswith("hubert.")}
+    if (cfg.conv_norm != "layer" or not cfg.stable_layer_norm
+            or "feature_extractor.conv_layers.1.layer_norm.weight" not in sd):
+        raise NotImplementedError(
+            "the HuBERT-base / wav2vec2-base layout (group-norm first conv, "
+            "post-LN layers) is not ported yet; the port loads the "
+            "HuBERT-large layout")
+    fe: Dict[str, Any] = {}
+    for i in range(len(cfg.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        conv = {"kernel": _t(sd[f"{base}.conv.weight"]).transpose(2, 1, 0)}
+        if f"{base}.conv.bias" in sd:
+            conv["bias"] = _t(sd[f"{base}.conv.bias"])
+        fe[f"conv_{i}"] = conv
+        fe[f"ln_{i}"] = _ln(sd, f"{base}.layer_norm")
+    p: Dict[str, Any] = {
+        "feature_extractor": fe,
+        "feat_proj_ln": _ln(sd, "feature_projection.layer_norm"),
+        "feat_proj": _dense(sd, "feature_projection.projection"),
+        "pos_conv": {"conv": {
+            "kernel": _pos_conv_weight(
+                sd, "encoder.pos_conv_embed.conv").transpose(2, 1, 0),
+            "bias": _t(sd["encoder.pos_conv_embed.conv.bias"])}},
+    }
+    for i in range(cfg.num_layers):
+        base = f"encoder.layers.{i}"
+        p[f"layer_{i}"] = {
+            "attn_ln": _ln(sd, f"{base}.layer_norm"),
+            "attn": {n: _dense(sd, f"{base}.attention.{n}")
+                     for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "ffn_ln": _ln(sd, f"{base}.final_layer_norm"),
+            "fc1": _dense(sd, f"{base}.feed_forward.intermediate_dense"),
+            "fc2": _dense(sd, f"{base}.feed_forward.output_dense"),
+        }
+    p["final_ln"] = _ln(sd, "encoder.layer_norm")
+    return {"params": p}
+
+
+def load_hf_hubert(path: str, cfg: Optional[HubertConfig] = None
+                   ) -> HubertModel:
+    """A HuBERT-large ``HubertModel`` from a local HuggingFace checkpoint:
+    a ``pytorch_model.bin`` / ``model.safetensors`` file, or a directory
+    holding one (``.safetensors`` needs the ``safetensors`` package).
+    On the CPU in float32."""
+    if os.path.isdir(path):
+        names = [n for n in ("model.safetensors", "pytorch_model.bin")
+                 if os.path.exists(os.path.join(path, n))]
+        if not names:
+            raise FileNotFoundError(
+                f"{path}: no model.safetensors or pytorch_model.bin")
+        path = os.path.join(path, names[0])
+    elif not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path}: not a local file or directory (hub names are not "
+            "fetched; download the checkpoint first)")
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = cfg or HubertConfig()
+    return load_flax_tree(HubertModel(cfg), convert_hubert_state_dict(sd, cfg))

@@ -139,6 +139,26 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def resolve(cfg: Config) -> Config:
+    """The cross-field constants the reference sets in code: without the
+    hands (``data.remove_hand``) the pose shrinks (BEAT 141 -> 33, SHOW
+    129 -> 39), and on SHOW ``data.audio_feat`` picks the audio width
+    (mel ``n_mels``, mfcc ``n_mfcc``, raw 1).  Only widths still at their
+    preset defaults are rewritten, so an explicit override wins."""
+    model = cfg.model
+    if cfg.data.remove_hand:
+        is_beat = cfg.data.dataset_name == "beat"
+        full, no_hand = (141, 33) if is_beat else (129, 39)
+        if model.pose_dim == full:
+            model = dataclasses.replace(model, pose_dim=no_hand)
+    feat_dim = {"mel": cfg.data.n_mels, "mfcc": cfg.data.n_mfcc,
+                "raw": 1}.get(cfg.data.audio_feat)
+    if (feat_dim is not None and cfg.data.dataset_name != "beat"
+            and model.audio_dim == 128 and model.audio_dim != feat_dim):
+        model = dataclasses.replace(model, audio_dim=feat_dim)
+    return cfg.replace(model=model) if model is not cfg.model else cfg
+
+
 def beat_config(**overrides) -> Config:
     """BEAT preset: 141-d gesture + 51-d face @ 15 fps, 34-frame windows."""
     cfg = Config(

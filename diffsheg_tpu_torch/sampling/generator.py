@@ -25,6 +25,7 @@ Not ported yet, and refused with NotImplementedError: ancestral sampling.
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Optional
 
 import numpy as np
@@ -114,6 +115,10 @@ class WindowGenerator:
         self.spec = RepaintSpec(overlap_len=stream.overlap_len,
                                 add_blend=stream.add_blend,
                                 same_overlap_noisy=stream.same_overlap_noisy)
+        # make_fast's weights by window length; sessions on other threads
+        # share the generator (serving/server.py)
+        self._fast = {}
+        self._fast_lock = threading.Lock()
 
     # -- cache and fast-path weights ---------------------------------------
     # Each returns None where it does not apply (no cache, no fast path).
@@ -138,10 +143,16 @@ class WindowGenerator:
         return combine(self.cache_static(pid), self.cache_audio(mel, hubert))
 
     def make_fast(self, T: int):
+        """The fast path's kernel-ready weights for windows of ``T``
+        frames, built once per window length and kept (the generator's
+        model does not change); None without the fast path."""
         if not self.use_fast:
             return None
-        return extract_fast_params(self.cfg.model, self.model, T,
-                                   self.cfg.diffusion.quantize)
+        with self._fast_lock:
+            if T not in self._fast:
+                self._fast[T] = extract_fast_params(
+                    self.cfg.model, self.model, T, self.cfg.diffusion.quantize)
+            return self._fast[T]
 
     # -- sampling ------------------------------------------------------------
     def _denoise_fn(self, cache: Optional[ModelCache], fast, mel, pid,

@@ -5,17 +5,26 @@ conditioning into ``n_poses``-frame windows advancing by ``n_poses -
 overlap_len``; pin each continuation window's first ``overlap_len`` frames
 toward the previous window's output with RePaint; the final window is
 shifted left to end at the sequence end, and only its new frames are
-emitted.  :meth:`StreamingGenerator.generate_fused` computes what the JAX
-``generate_fused`` computes — where they apply, the fast-path weights and
-the static cache once per stream and the audio cache for all windows in
-one batch; the same per-window noise order — with a Python loop over
-windows in place of ``lax.scan``.
+emitted.  Two modes, as in JAX:
+
+- :meth:`StreamingGenerator.generate`, the host window loop (one
+  ``WindowGenerator.generate`` a window, the program a live session
+  walks);
+- :meth:`StreamingGenerator.generate_fused`, which computes what the JAX
+  ``generate_fused`` computes — where they apply, the fast-path weights
+  and the static cache once per stream and the audio cache for all
+  windows in one batch; the same per-window noise order — with a Python
+  loop over windows in place of ``lax.scan``.
+
+Both take ``stream.fix_very_first`` (window 0 pinned toward zeros) and
+``stream.same_overlap_noisy`` (saved noisy tails carried between windows).
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -23,6 +32,21 @@ from diffsheg_tpu_torch.diffusion.sampler import NoiseSource
 from diffsheg_tpu_torch.models.factory import denoised_channels
 from diffsheg_tpu_torch.models.level_cache import AudioCache, combine
 from diffsheg_tpu_torch.sampling.generator import WindowGenerator
+
+
+def get_windows(x: np.ndarray, size: int, step: int) -> List[np.ndarray]:
+    """Reference-compatible window slicing over axis 1 (windows every
+    ``step`` frames, a shorter last window where frames remain), for
+    dataset tooling and parity tests; the streamer uses
+    :func:`window_starts`."""
+    seq_len = x.shape[1]
+    if seq_len <= size:
+        return [x]
+    win_num = (seq_len - (size - step)) / float(step)
+    out = [x[:, m * step: m * step + size] for m in range(int(win_num))]
+    if win_num != int(win_num):
+        out.append(x[:, int(win_num) * step:])
+    return out
 
 
 def window_starts(seq_len: int, size: int, step: int) -> List[int]:
@@ -46,11 +70,46 @@ class StreamingGenerator:
     noise source."""
 
     def __init__(self, gen: WindowGenerator):
-        if gen.cfg.stream.fix_very_first:
-            raise NotImplementedError(
-                "stream.fix_very_first is not ported yet")
         self.gen = gen
         self.cfg = gen.cfg
+
+    @torch.no_grad()
+    def generate(self, mel, person_id, noise: NoiseSource,
+                 hubert=None) -> torch.Tensor:
+        """The host window loop: mel (B, T, n_mels), person_id (B, style),
+        hubert (B, T, H) -> (B, T, motion_dim) float32."""
+        cfg, gen = self.cfg, self.gen
+        size = cfg.data.n_poses
+        overlap = cfg.stream.overlap_len
+        step = size - overlap
+        B, T = mel.shape[0], mel.shape[1]
+        if T <= size:
+            return self._short_sequence(mel, person_id, noise, hubert, T)
+
+        starts = window_starts(T, size, step)
+        chunks: List[torch.Tensor] = []
+        emitted = 0
+        gt_head = None
+        prev_tails = None
+        for k, s in enumerate(starts):
+            mel_w = mel[:, s:s + size]
+            hub_w = None if hubert is None else hubert[:, s:s + size]
+            if k == 0 and cfg.stream.fix_very_first and overlap > 0:
+                gt_head = torch.zeros((B, overlap, denoised_channels(cfg.model)))
+            out = gen.generate(mel_w, person_id, noise, hub_w,
+                               gt_head=gt_head, prev_saved_tails=prev_tails,
+                               window=k)
+            if isinstance(out, tuple):      # same_overlap_noisy
+                out, prev_tails = out
+            is_last = k == len(starts) - 1
+            keep_to = size if is_last else step
+            chunks.append(out[:, emitted - s:keep_to])
+            emitted = s + keep_to
+            if not is_last:
+                # the next window's head matches frames [next, next + overlap)
+                tail_from = starts[k + 1] - s
+                gt_head = out[:, tail_from:tail_from + overlap]
+        return torch.cat(chunks, dim=1)
 
     @torch.no_grad()
     def generate_fused(self, mel, person_id, noise: NoiseSource,
@@ -105,8 +164,16 @@ class StreamingGenerator:
 
         tails = None
         valid = False
-        out = gen.sample_plain(mel_all[0], person_id, hub_w(0), noise, 0,
-                               cache=cache_at(0), fast=fast)
+        if cfg.stream.fix_very_first and overlap > 0:
+            out, t0 = gen.sample_repaint(
+                mel_all[0], person_id, hub_w(0),
+                torch.zeros((B, size, C), device=dev), noise, 0,
+                cache=cache_at(0), fast=fast)
+            if track_tails:
+                tails, valid = t0, True
+        else:
+            out = gen.sample_plain(mel_all[0], person_id, hub_w(0), noise, 0,
+                                   cache=cache_at(0), fast=fast)
 
         res = torch.zeros((B, T, C), device=dev)
         res[:, :step] = out[:, :step]

@@ -1,0 +1,120 @@
+"""The port's command line (``python -m diffsheg_tpu_torch.cli serve``).
+
+``--set`` parses as the JAX CLI's does (the same strings, the same
+resulting fields, the same refusals); ``serve --device cpu`` builds a
+``MotionServer`` from its flags (``serve_forever`` patched to run the
+accept loop in a thread and return as SIGTERM does), drains and closes
+it, loads a reference ``.tar`` and refuses a checkpoint directory.
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SETS = [
+    [],
+    ["model.latent_dim=256", "model.add_hubert=false"],
+    ["diffusion.fused_layer=chain", "diffusion.quantize=int8",
+     "diffusion.jump_n_sample=2", "stream.overlap_len=6"],
+    ["model.cond_scale=1.5", "model.classifier_free=yes",
+     "stream.fix_very_first=1", "data.n_poses=12"],
+    ["data.remove_hand=true"],
+]
+BAD = ["model.latent_dim", "latent_dim=3", "modle.latent_dim=3",
+       "model.latnet_dim=3", "model.latent_dim=big"]
+
+TINY = ["--set", "model.latent_dim=32", "--set", "model.num_layers=1",
+        "--set", "model.num_heads=2", "--set", "model.ff_size=64",
+        "--set", "model.add_hubert=false"]
+
+
+def _fields(cfg, sections=("model", "diffusion", "stream", "data")):
+    return {s: dataclasses.asdict(getattr(cfg, s)) for s in sections}
+
+
+@pytest.mark.parametrize("dataset", ["beat", "show"])
+@pytest.mark.parametrize("sets", SETS, ids=[",".join(s) or "none"
+                                           for s in SETS])
+def test_set_overrides_match_jax(dataset, sets):
+    import diffsheg_tpu.cli.main as J
+    import diffsheg_tpu_torch.cli.main as P
+
+    class Args:
+        set = sets
+    Args.dataset = dataset
+    ours, ref = _fields(P._base_config(Args)), _fields(J._base_config(Args))
+    for section, fields in ours.items():
+        for name, value in fields.items():
+            assert value == ref[section][name], (section, name)
+
+
+@pytest.mark.parametrize("item", BAD)
+def test_bad_overrides_refused_as_jax_does(item):
+    import diffsheg_tpu.cli.main as J
+    import diffsheg_tpu_torch.cli.main as P
+    from diffsheg_tpu.config import beat_config as jbeat
+    from diffsheg_tpu_torch.config import beat_config as pbeat
+    with pytest.raises(SystemExit) as ours:
+        P._apply_overrides(pbeat(), [item])
+    with pytest.raises(SystemExit) as ref:
+        J._apply_overrides(jbeat(), [item])
+    assert (str(ours.value).split(" Valid ")[0]
+            == str(ref.value).split(" Valid ")[0])
+
+
+def _patched_server(monkeypatch):
+    """``serve_forever`` runs the accept loop in a thread and returns as
+    SIGTERM's handler does (KeyboardInterrupt), so ``serve`` drains and
+    closes the server it built."""
+    from diffsheg_tpu_torch.serving.server import MotionServer
+    built = []
+
+    def serve_forever(self):
+        built.append(self)
+        self.start_background()
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(MotionServer, "serve_forever", serve_forever)
+    return built
+
+
+def test_serve_builds_server_from_flags(monkeypatch, capsys):
+    from diffsheg_tpu_torch.cli.main import main
+    built = _patched_server(monkeypatch)
+    rc = main(["serve", "--device", "cpu", "--port", "0", "--max-sessions",
+               "3", "--max-batch", "5", "--idle-timeout", "7",
+               "--client-geometry", "--max-stream-seconds", "9",
+               "--prewarm", "1"] + TINY)
+    assert rc == 0
+    (srv,) = built
+    assert srv.device.type == "cpu"
+    assert (srv.max_batch, srv.idle_timeout, srv.client_geometry,
+            srv.max_stream_seconds) == (5, 7.0, True, 9.0)
+    assert srv.cfg.model.latent_dim == 32 and srv.hubert_fe is None
+    assert len(srv._gens) == 1 and srv._pinned        # prewarmed
+    err = capsys.readouterr().err
+    assert "no checkpoint given" in err
+
+
+def test_serve_loads_reference_tar_and_refuses_directory(monkeypatch,
+                                                         tmp_path):
+    from diffsheg_tpu_torch.cli.main import _base_config, main
+    from diffsheg_tpu_torch.compat.torch_ckpt import save_reference_checkpoint
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+
+    class Args:
+        dataset = "beat"
+        set = TINY[1::2]
+    model = init_unidiffuser(_base_config(Args).model, seed=4)
+    path = save_reference_checkpoint(model, str(tmp_path / "m.tar"))
+    built = _patched_server(monkeypatch)
+    assert main(["serve", "--device", "cpu", "--port", "0",
+                 "--checkpoint", path] + TINY) == 0
+    (srv,) = built
+    assert torch.equal(srv.model.encoder_ges.out.weight,
+                       model.encoder_ges.out.weight)
+    with pytest.raises(SystemExit, match="Orbax"):
+        main(["serve", "--device", "cpu", "--port", "0",
+              "--checkpoint", str(tmp_path)] + TINY)

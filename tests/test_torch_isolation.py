@@ -65,15 +65,20 @@ def test_kernel_sources_are_package_data():
     assert not build._loaded
 
 
-@pytest.mark.parametrize("entry", ["generator", "hubert", "mel"])
+@pytest.mark.parametrize("entry", ["generator", "hubert", "mel", "live",
+                                   "server", "cli"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
     from diffsheg_tpu_torch.audio.mel import MelFrontend
+    from diffsheg_tpu_torch.cli.main import main
     from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
     from diffsheg_tpu_torch.models.hubert import HubertConfig
     from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
     from diffsheg_tpu_torch.sampling.generator import WindowGenerator
+    from diffsheg_tpu_torch.sampling.live import LiveSession
+    from diffsheg_tpu_torch.serving.server import MotionServer
     tiny_hub = HubertConfig(hidden_size=16, num_layers=1, num_heads=2,
                             intermediate_size=32, conv_dim=(8,) * 7)
     import dataclasses
@@ -81,11 +86,36 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, latent_dim=32, num_layers=1, num_heads=2, ff_size=64,
         hubert_dim=16, hubert_latent_dim=8))
+    pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float()
+
+    def server(**kw):
+        srv = MotionServer(cfg, init_unidiffuser(cfg.model), port=0,
+                           log=lambda *a: None, **kw)
+        srv._server.server_close()
+        return srv
+
+    def cli(**kw):
+        # stop as SIGTERM does before serving; the drain closes the socket
+        def interrupt(self):
+            raise KeyboardInterrupt
+        monkeypatch.setattr(MotionServer, "serve_forever", interrupt)
+        monkeypatch.setattr(MotionServer, "shutdown",
+                            lambda self: self._server.server_close())
+        dev = ["--device", kw["device"]] if kw else []
+        return main(["serve", "--port", "0", "--set", "model.latent_dim=32",
+                     "--set", "model.num_layers=1",
+                     "--set", "model.add_hubert=false"] + dev)
+
     make = {
         "generator": lambda **kw: WindowGenerator(
             cfg, init_unidiffuser(cfg.model), **kw),
         "hubert": lambda **kw: HubertFeatureExtractor(tiny_hub, **kw),
         "mel": lambda **kw: MelFrontend(**kw),
+        "live": lambda **kw: LiveSession.create(
+            cfg, init_unidiffuser(cfg.model), pid,
+            GeneratorNoise(0, kw.get("device", "cpu")), **kw),
+        "server": server,
+        "cli": cli,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -110,6 +140,8 @@ def test_walk_covers_the_slice():
                 "models.level_cache", "models.fast_forward", "models.hubert",
                 "ops.fused_layer", "ops.linear_attention", "ops.step_math",
                 "sampling.generator", "sampling.streamer",
-                "sampling.pipeline", "audio.mel", "audio.hubert_runner",
-                "compat.from_jax"):
+                "sampling.pipeline", "sampling.live", "audio.mel",
+                "audio.hubert_runner", "compat.from_jax",
+                "compat.torch_ckpt", "compat.hubert_ckpt",
+                "serving.protocol", "serving.server", "cli.main"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod

@@ -232,8 +232,13 @@ def test_unported_stream_and_hubert_modes_raise():
     from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
     from diffsheg_tpu_torch.sampling.streamer import StreamingGenerator
     _, tcfg = config_pair("beat")
+    # stream.fix_very_first is ported (tests/test_torch_live.py holds it
+    # against JAX); ancestral sampling is the stream mode still refused
     cfg = tcfg.replace(stream=dataclasses.replace(tcfg.stream,
                                                   fix_very_first=True))
+    StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
+    cfg = tcfg.replace(diffusion=dataclasses.replace(tcfg.diffusion,
+                                                     sampler="ancestral"))
     with pytest.raises(NotImplementedError):
         StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
     with pytest.raises(NotImplementedError):

@@ -102,15 +102,19 @@ def jax_window_noise(key, B, T, C, program, repaint: bool,
     return initial, steps
 
 
-def stream_noise(rng, n_windows, B, T, C, plain, harmonize):
+def stream_noise(rng, n_windows, B, T, C, plain, harmonize,
+                 first_repaint: bool = False):
     """The TableNoise of a stream: window keys chained off ``rng`` as the
-    JAX streamer and pipeline do; window 0 runs the plain program."""
+    JAX streamer, pipeline and live session do; window 0 runs the plain
+    program, or with ``first_repaint`` (``stream.fix_very_first``) the
+    harmonize program."""
     from diffsheg_tpu_torch.diffusion.sampler import TableNoise
     initial, steps = {}, {}
     for w in range(n_windows):
         rng, k = jax.random.split(rng)
-        prog = plain if w == 0 else harmonize
-        initial[w], st = jax_window_noise(k, B, T, C, prog, w > 0)
+        repaint = w > 0 or first_repaint
+        prog = harmonize if repaint else plain
+        initial[w], st = jax_window_noise(k, B, T, C, prog, repaint)
         steps.update({(w, s, kind): v for (s, kind), v in st.items()})
     return TableNoise(initial, steps)
 
