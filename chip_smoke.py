@@ -13,9 +13,12 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               bf16; the per-layer kernel at the live shapes, a 12-frame
               window and 4 speakers of 34 frames, bf16), linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
-              encoder, a 12-frame and a 512-frame window; an hd-32 shape
-              and an unaligned one that take the general kernels;
-              gradients too) and the DDIM + RePaint step (BEAT and SHOW,
+              encoder and its batch-1 shape, a 12-frame and a 512-frame
+              window; the decoder's cross-attention, queries from a normed
+              latent and unmasked keys and values from a normed
+              condition; an hd-32 shape and an unaligned one that take
+              the general kernels; gradients too) and the DDIM + RePaint
+              step (BEAT, SHOW and the gesture-only model's 141 channels,
               every switch; beside an empty launch of its shape); for the branch kernel at the BEAT gesture shape also
               where a layer's time goes (``phases[...]``: each phase;
               ``subphases[...]``: the steps inside it and its wait at the
@@ -54,7 +57,19 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               real-time headroom ((step/fps) / p50) and the kernel's host
               ms a launch; the served session at window 34 against an
               in-process LiveSession, bit for bit; one window's device
-              busy time under torch.profiler.
+              busy time under torch.profiler;
+8. variants — every model variant the port builds, by init_denoiser at
+              BEAT's full width in f32 under the default generator
+              settings (the uncached module forward): (a) the decoder base
+              with the step kernel, (b) a learned-range variance head
+              sampled ancestrally, (c) the gesture-only model conditioned
+              on text and emotion labels with the step kernel, (d) the
+              learned-range model through DDIM with the step kernel on
+              the mean half of its output; a 10 s
+              pipeline stream each with exact launch counts, FPS, kernels
+              and host ms a model call, and a 68-frame stream against the
+              same path with its kernels swapped for their plain versions
+              (f32 rel-RMS <= 5e-3).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -67,6 +82,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
     python3 chip_smoke.py --only live       # the serving daemon
+    python3 chip_smoke.py --only variants   # every model variant
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -420,6 +436,7 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("beat-bf16", torch.bfloat16, 1, 34, 512, 0),
                    ("show-cfg-f32", torch.float32, 2, 88, 512, 0),
                    ("audio-enc-f32", torch.float32, 750, 34, 128, 0),
+                   ("audio-enc-b1-f32", torch.float32, 1, 34, 128, 0),
                    ("live-t12-f32", torch.float32, 1, 12, 512, 0),
                    ("long-t512-f32", torch.float32, 1, 512, 512, 0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
@@ -441,7 +458,22 @@ def attention_inputs(dtype, B, T, D, dev, seed, offset=0):
     return tuple(out)
 
 
-def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps):
+def cross_attention_inputs(B, T, D, C, dev, seed):
+    """The decoder's cross-attention operands: q from a LayerNormed latent,
+    k and v from a LayerNormed (B, T, C) condition, through seeded
+    projections; nothing masked."""
+    gen = torch.Generator().manual_seed(seed)
+    ln = torch.nn.functional.layer_norm
+    x = ln(torch.randn(B, T, D, generator=gen), (D,))
+    cond = ln(torch.randn(B, T, C, generator=gen), (C,))
+    wq = torch.randn(D, D, generator=gen) / D ** 0.5
+    wk, wv = (torch.randn(C, D, generator=gen) / C ** 0.5 for _ in range(2))
+    return tuple(a.contiguous().to(dev)
+                 for a in (x @ wq, cond @ wk, cond @ wv))
+
+
+def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps,
+                   qkv=None):
     """The linear-attention kernel against its plain version.  The
     gradient check only shows that backward runs on the card behind the
     kernel's forward: the backward recomputes through the plain
@@ -451,7 +483,7 @@ def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps):
     from diffsheg_tpu_torch.ops.linear_attention import (
         _launch_plan, fused_linear_attention, fused_linear_attention_reference,
         linear_attention_reference)
-    q, k, v = attention_inputs(dtype, B, T, D, dev, seed, offset)
+    q, k, v = qkv or attention_inputs(dtype, B, T, D, dev, seed, offset)
     gen = torch.Generator().manual_seed(seed + 1)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     got = fused_linear_attention(q, k, v, H)
@@ -497,8 +529,10 @@ def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-# the step kernel: BEAT (1, 34, 192), overlap 4; SHOW (1, 88, 232), 10
-STEP_CASES = (("beat", 1, 34, 192, 4, 12), ("show", 1, 88, 232, 10, 13))
+# the step kernel: BEAT (1, 34, 192), overlap 4; SHOW (1, 88, 232), 10;
+# and the gesture-only model's (1, 34, 141), 4
+STEP_CASES = (("beat", 1, 34, 192, 4, 12), ("show", 1, 88, 232, 10, 13),
+              ("beat-ges", 1, 34, 141, 4, 14))
 
 
 def step_inputs(B, T, C, ov, dev, seed):
@@ -591,6 +625,11 @@ def phase_kernels(dev, reps):
     for name, dt, B, T, D, offset in ATTENTION_CASES:
         results[f"attn-{name}"] = attention_case(name, dt, B, T, D, offset, 8,
                                                  dev, 11, reps)
+    # the decoder's cross-attention over the gesture branch's condition
+    # (audio latent 256 + HuBERT 128 + expression 51)
+    results["attn-cross-beat-f32"] = attention_case(
+        "cross-beat-f32", torch.float32, 1, 34, 512, 0, 8, dev, 11, reps,
+        qkv=cross_attention_inputs(1, 34, 512, 435, dev, 16))
     for name, B, T, C, ov, seed in STEP_CASES:
         results[f"step-{name}"] = step_case(name, B, T, C, ov, dev, seed,
                                             reps)
@@ -692,7 +731,7 @@ def ab_attention(dev, reps, path, exact):
 
 
 def ab_step(dev, reps, path, exact):
-    """Both step shapes, always bit for bit (``exact`` or not): every
+    """Every step shape, always bit for bit (``exact`` or not): every
     switch combination compared, the main call (low level, valid tail,
     blend) timed."""
     from diffsheg_tpu_torch.ops import step_math as ops
@@ -1309,11 +1348,147 @@ def phase_live(dev, model, hubert_fe, reps):
 
 
 # --------------------------------------------------------------------------
+# phase 8: every model variant through the module forward
+# --------------------------------------------------------------------------
+
+# (tag, model overrides, diffusion overrides, linear-attention launches a
+# model call at the branch rows and at the audio encoder, step launches a
+# call): (a) the decoder base, 16 self- and 16 cross-attentions (its memory
+# has the window's length) and the audio encoder; (b) a learned-variance
+# model sampled ancestrally, no step kernel; (c) one branch, no audio
+# encoder, conditioned on text and emotion labels; (d) the learned-variance
+# model through DDIM, the step kernel on the mean half of its output
+VARIANTS = (
+    ("a", dict(model_base="transformer_decoder"), dict(fused_step="on"),
+     32, 1, 1),
+    ("b", dict(learned_variance=True),
+     dict(var_type="learned_range", sampler="ancestral"), 16, 1, 0),
+    ("c", dict(branch_mode="gesture_only", add_text_cond=True,
+               add_emo_cond=True), dict(fused_step="on"), 8, 0, 1),
+    ("d", dict(learned_variance=True),
+     dict(var_type="learned_range", fused_step="on"), 16, 1, 1),
+)
+BEAT_AUDIO_ATTN = (1, 34, 128, 8)   # the audio encoder, once a model call
+
+
+@torch.no_grad()
+def bound_variance_head(model, seed):
+    """The variance half of each branch's output head: zero weights and a
+    seeded uniform [-1, 1) bias, a per-channel constant where a trained
+    head's output lies.  A random head's raw output grows with the
+    sample, which a random model's epsilon inflates, until exp(log_var /
+    2) overflows float32 within a window."""
+    gen = torch.Generator().manual_seed(seed)
+    for branch in (model.encoder_exp, model.encoder_ges):
+        n = branch.input_feats
+        branch.out.weight[n:] = 0.0
+        branch.out.bias[n:] = 2.0 * torch.rand(n, generator=gen) - 1.0
+    return model
+
+
+def variant_model(tag, model_over):
+    from diffsheg_tpu_torch.models.factory import init_denoiser
+    model = init_denoiser(beat_cfg("float32", "auto", model=model_over).model,
+                          seed=8)
+    return (bound_variance_head(model, 9)
+            if model_over.get("learned_variance") else model)
+
+
+def variant_plain_swap(cfg, model, mel, pid, hub, dev):
+    """A 68-frame stream with every kernel of the module forward swapped
+    for its plain version (in this process only): the attention
+    composition, the streamlined step composition; asserts that no kernel
+    launched."""
+    import diffsheg_tpu_torch.diffusion.sampler as smp
+    import diffsheg_tpu_torch.models.attention as attn
+    from diffsheg_tpu_torch.ops.linear_attention import (
+        linear_attention_reference)
+    zero_counts()
+    saved = attn.linear_attention, smp.fused_ddim_repaint_step
+    attn.linear_attention = (lambda q, k, v, h, use_fused=None:
+                             linear_attention_reference(q, k, v, h))
+    smp.fused_ddim_repaint_step = smp.ddim_repaint_step_reference
+    try:
+        out = run_stream(cfg, model, mel, pid, hub, 5, dev)
+    finally:
+        attn.linear_attention, smp.fused_ddim_repaint_step = saved
+    expect("plain-swap variant stream", {n: fn.launches for n, fn in
+                                         counters().items()})
+    return out
+
+
+def phase_variants(dev, hubert_fe):
+    """Each variant built by ``init_denoiser`` at BEAT's full width (f32,
+    seeded random weights) under the default generator settings
+    (level_cache=True, fused_layer='auto'), which run these models
+    uncached through the module forward: a 10 s ``FusedPipeline`` stream
+    with exact launch counts (every linear attention in the kernel, each
+    denoise step of (a), (c) and (d) in the step kernel); then a 68-frame
+    stream against the same path with its kernels swapped for their plain
+    versions, f32 rel-RMS <= 5e-3.  Returns each path's launches by
+    shape."""
+    no_tf32()
+    t_phase = time.perf_counter()
+    launches = {}
+    mel, pid, hub = stream_inputs(dev)
+    for tag, model_over, diff_over, per_call, audio, step in VARIANTS:
+        cfg = beat_cfg("float32", "auto", model=model_over, **diff_over)
+        model = variant_model(tag, model_over)
+        pipe = make_pipeline(cfg, model, hubert_fe, dev)
+        gen = pipe.stream.gen
+        if gen.use_cache or gen.use_fast:
+            raise AssertionError(f"variant ({tag}): took the level cache")
+        drive(pipe, 10, dev, 31)
+        out, secs, counts = drive(pipe, 10, dev, 32)
+        shapes = dict(counters()["fused_linear_attention"].launches_by_shape)
+        C = 141 if model_over.get("branch_mode") == "gesture_only" else 192
+        log(f"variants[({tag}) {model_over} {diff_over}, beat 10 s, f32]: "
+            f"frames={out.shape[1]} seconds={secs:.3f} "
+            f"fps={out.shape[1] / secs:.1f} model_calls={CALLS_10S} "
+            f"kernels_per_call={sum(counts.values()) / CALLS_10S:.2f} "
+            f"host_ms_per_call={secs / CALLS_10S * 1e3:.3f} "
+            f"launches={counts} linear_attention_by_shape={shapes}")
+        if tuple(out.shape) != (1, 150, C) or not torch.isfinite(out).all():
+            raise AssertionError(f"variant ({tag}): bad output "
+                                 f"{tuple(out.shape)}")
+        expect(f"variant ({tag})", counts,
+               fused_linear_attention=(per_call + audio) * CALLS_10S,
+               fused_ddim_repaint_step=step * CALLS_10S)
+        want = {BEAT_ATTN: per_call * CALLS_10S}
+        if audio:
+            want[BEAT_AUDIO_ATTN] = audio * CALLS_10S
+        if shapes != want:
+            raise AssertionError(f"variant ({tag}): linear attention by "
+                                 f"shape {shapes}, expected {want}")
+        launches[tag] = dict(shapes, step=counts["fused_ddim_repaint_step"])
+
+        got = run_stream(cfg, model, mel, pid, hub, 5, dev)
+        ref = variant_plain_swap(cfg, model, mel, pid, hub, dev)
+        err = rel_rms(got, ref)
+        log(f"variants[({tag}) 68 frames]: vs plain-swap rel_rms={err:.3e} "
+            f"(tol 5e-3); |x| max {float(ref.abs().max()):.3e}")
+        if not (torch.isfinite(got).all() and torch.isfinite(ref).all()
+                and err <= 5e-3):
+            raise AssertionError(f"variant ({tag}) stream band: {err:.3e}")
+    log(f"variants: phase {time.perf_counter() - t_phase:.1f} s")
+    a, b, c, d = (launches[t] for t in "abcd")
+    return {"fused_linear_attention_decoder": a[BEAT_ATTN],
+            "fused_linear_attention_decoder_audio_enc": a[BEAT_AUDIO_ATTN],
+            "fused_ddim_repaint_step_decoder": a["step"],
+            "fused_linear_attention_learned_var": b[BEAT_ATTN],
+            "fused_linear_attention_learned_var_audio_enc":
+                b[BEAT_AUDIO_ATTN],
+            "fused_linear_attention_single": c[BEAT_ATTN],
+            "fused_ddim_repaint_step_single": c["step"],
+            "fused_ddim_repaint_step_learned_var": d["step"]}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
-                                       "uncached", "live"),
+                                       "uncached", "live", "variants"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -1350,17 +1525,26 @@ def main() -> int:
     launches = dict.fromkeys(list(counters()) + [
         f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")]
         + ["fused_linear_attention_audio_enc", "fused_layer_live_w34",
-           "fused_layer_live_w12", "fused_layer_live_b4", "fused_branch_live"])
+           "fused_layer_live_w12", "fused_layer_live_b4", "fused_branch_live",
+           "fused_linear_attention_decoder",
+           "fused_linear_attention_decoder_audio_enc",
+           "fused_ddim_repaint_step_decoder",
+           "fused_linear_attention_learned_var",
+           "fused_linear_attention_learned_var_audio_enc",
+           "fused_linear_attention_single",
+           "fused_ddim_repaint_step_single",
+           "fused_ddim_repaint_step_learned_var"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
-    if run("stream") or run("e2e") or run("uncached") or run("live"):
+    if any(run(p) for p in ("stream", "e2e", "uncached", "live",
+                            "variants")):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
         if run("stream"):
             phase_stream(dev, model)
-        if run("e2e") or run("uncached") or run("live"):
+        if any(run(p) for p in ("e2e", "uncached", "live", "variants")):
             t0 = time.perf_counter()
             hubert_fe = make_hubert(dev)
             log(f"set-up: random HuBERT-large on the card "
@@ -1371,6 +1555,8 @@ def main() -> int:
                 launches.update(phase_uncached(dev, model, hubert_fe))
             if run("live"):
                 launches.update(phase_live(dev, model, hubert_fe, args.reps))
+            if run("variants"):
+                launches.update(phase_variants(dev, hubert_fe))
     if kres is None:
         return 0
     entries = []
@@ -1401,6 +1587,29 @@ def main() -> int:
               "fused_layer.cu", "ops/fused_layer.py:556"),
              ("fused_branch_live", "beat-ges-bf16", "fused_branch",
               "fused_layer.cu", "ops/fused_layer.py:475")]
+    # phase 8's variants through the module forward at f32: (a) the decoder
+    # (its self- and cross-attentions at the branch rows, timed at the
+    # cross-attention case; its audio encoder at batch 1), (b) the
+    # learned-variance model, (c) the gesture-only model's step, (d) the
+    # step on a learned-variance model's mean half
+    rows += [("fused_linear_attention_decoder", "attn-cross-beat-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_linear_attention_decoder_audio_enc",
+              "attn-audio-enc-b1-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_ddim_repaint_step_decoder", "step-beat", None,
+              "step_math.cu", "ops/step_math.py:153"),
+             ("fused_linear_attention_learned_var", "attn-beat-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_linear_attention_learned_var_audio_enc",
+              "attn-audio-enc-b1-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_single", "attn-beat-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_ddim_repaint_step_single", "step-beat-ges", None,
+              "step_math.cu", "ops/step_math.py:153"),
+             ("fused_ddim_repaint_step_learned_var", "step-beat", None,
+              "step_math.cu", "ops/step_math.py:153")]
     for name, key, sub, source, line in rows:
         if key not in kres:
             continue

@@ -77,11 +77,13 @@ def _base_config(args) -> Config:
 
 
 def _load_model(cfg: Config, checkpoint: Optional[str]):
-    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    """The model ``cfg`` describes (any ``branch_mode`` / ``model_base``),
+    random or from a reference ``.tar``."""
+    from diffsheg_tpu_torch.models.factory import init_denoiser
     if not checkpoint:
         print("WARNING: no checkpoint given, using random init",
               file=sys.stderr)
-        return init_unidiffuser(cfg.model, seed=0)
+        return init_denoiser(cfg.model, seed=0)
     if os.path.isdir(checkpoint):
         raise SystemExit(
             f"--checkpoint {checkpoint}: a directory (an Orbax checkpoint) "

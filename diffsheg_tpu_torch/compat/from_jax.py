@@ -11,6 +11,7 @@ step:
     weights (out, in / groups, k);
   - ``LayerNorm`` / ``BatchNorm`` scale and bias become weight and bias,
     and BatchNorm ``batch_stats`` mean / var the running statistics;
+  - ``Embed`` tables (``embedding``) become ``nn.Embedding`` weights;
   - both layer layouts load: unrolled ``layer_i`` subtrees and the
     ``scan_layers`` form, one ``layers/layer`` subtree whose leaves carry
     a leading layer axis.
@@ -56,6 +57,9 @@ def _fill(mod: nn.Module, p: Tree, bs: Optional[Tree], filled: set,
              path + "/kernel")
         if "bias" in p:
             _set(mod.bias, p["bias"], filled, path + "/bias")
+        return
+    if isinstance(mod, nn.Embedding):
+        _set(mod.weight, p["embedding"], filled, path + "/embedding")
         return
     if isinstance(mod, (nn.LayerNorm, BatchNorm)):
         _set(mod.weight, p["scale"], filled, path + "/scale")
@@ -128,6 +132,8 @@ def export_flax_tree(module: nn.Module) -> Tree:
         params["kernel"] = _np(module.weight).transpose(2, 1, 0)
         if module.bias is not None:
             params["bias"] = _np(module.bias)
+    elif isinstance(module, nn.Embedding):
+        params["embedding"] = _np(module.weight)
     elif isinstance(module, (nn.LayerNorm, BatchNorm)):
         params["scale"] = _np(module.weight)
         params["bias"] = _np(module.bias)

@@ -11,13 +11,17 @@ onto the port's modules.  Key mapping (reference -> Flax names):
   encoder_{exp,ges}.hubert_encoder.{0,1,3} -> hubert_encoder.{conv1,bn,conv2}
   encoder_{exp,ges}.{time,pid}_embed.{0,2} -> {time,pid}_embed.{fc1,fc2}
   ...temporal_decoder_blocks.N.feat_proj.{0,1,3} -> layer_N.feat_proj.{norm,fc1,fc2}
+  ...temporal_decoder_blocks.N.ca_block.*  -> layer_N.ca_block.* (the
+        decoder base: norm, text_norm, query, key, value, proj_out)
   ...proj_out.emb_layers.1 / out_layers.2  -> proj_out.emb_proj / out_proj
   everything else                          -> the same name
 
 Layouts: torch Linear (out, in) -> Flax kernel (in, out); Conv1d (out,
 in/groups, k) -> (k, in/groups, out); BatchNorm weight/bias -> scale/bias,
 running statistics into ``batch_stats``.  The export direction
-(:func:`export_unidiffuser_state_dict`) is the exact inverse.
+(:func:`export_unidiffuser_state_dict`) is the exact inverse; like JAX's,
+it refuses what has no reference layout (a single branch, text or emotion
+encoders).
 """
 
 from __future__ import annotations
@@ -63,18 +67,28 @@ def _time_mlp(sd, prefix) -> Dict[str, Any]:
     return {"fc1": _linear(sd, f"{prefix}.0"), "fc2": _linear(sd, f"{prefix}.2")}
 
 
+def _attention(sd, prefix) -> Dict[str, Any]:
+    """sa_block / ca_block: norm, q / k / v, proj_out; the cross-attention
+    adds text_norm."""
+    out = {"norm": _layernorm(sd, f"{prefix}.norm"),
+           "query": _linear(sd, f"{prefix}.query"),
+           "key": _linear(sd, f"{prefix}.key"),
+           "value": _linear(sd, f"{prefix}.value"),
+           "proj_out": _stylization(sd, f"{prefix}.proj_out")}
+    if f"{prefix}.text_norm.weight" in sd:
+        out["text_norm"] = _layernorm(sd, f"{prefix}.text_norm")
+    return out
+
+
 def _layer(sd, prefix) -> Dict[str, Any]:
-    sa = f"{prefix}.sa_block"
     out = {
-        "sa_block": {"norm": _layernorm(sd, f"{sa}.norm"),
-                     "query": _linear(sd, f"{sa}.query"),
-                     "key": _linear(sd, f"{sa}.key"),
-                     "value": _linear(sd, f"{sa}.value"),
-                     "proj_out": _stylization(sd, f"{sa}.proj_out")},
+        "sa_block": _attention(sd, f"{prefix}.sa_block"),
         "ffn": {"linear1": _linear(sd, f"{prefix}.ffn.linear1"),
                 "linear2": _linear(sd, f"{prefix}.ffn.linear2"),
                 "proj_out": _stylization(sd, f"{prefix}.ffn.proj_out")},
     }
+    if f"{prefix}.ca_block.norm.weight" in sd:      # transformer_decoder
+        out["ca_block"] = _attention(sd, f"{prefix}.ca_block")
     if f"{prefix}.feat_proj.0.weight" in sd:   # LN, Linear, SiLU, Linear
         out["feat_proj"] = {"norm": _layernorm(sd, f"{prefix}.feat_proj.0"),
                             "fc1": _linear(sd, f"{prefix}.feat_proj.1"),
@@ -163,12 +177,19 @@ def _inv_time_mlp(sd, prefix, p) -> None:
     _inv_linear(sd, f"{prefix}.2", p["fc2"])
 
 
-def _inv_layer(sd, prefix, p) -> None:
-    sa = p["sa_block"]
-    _inv_layernorm(sd, f"{prefix}.sa_block.norm", sa["norm"])
+def _inv_attention(sd, prefix, p) -> None:
+    _inv_layernorm(sd, f"{prefix}.norm", p["norm"])
+    if "text_norm" in p:
+        _inv_layernorm(sd, f"{prefix}.text_norm", p["text_norm"])
     for name in ("query", "key", "value"):
-        _inv_linear(sd, f"{prefix}.sa_block.{name}", sa[name])
-    _inv_stylization(sd, f"{prefix}.sa_block.proj_out", sa["proj_out"])
+        _inv_linear(sd, f"{prefix}.{name}", p[name])
+    _inv_stylization(sd, f"{prefix}.proj_out", p["proj_out"])
+
+
+def _inv_layer(sd, prefix, p) -> None:
+    _inv_attention(sd, f"{prefix}.sa_block", p["sa_block"])
+    if "ca_block" in p:
+        _inv_attention(sd, f"{prefix}.ca_block", p["ca_block"])
     ffn = p["ffn"]
     _inv_linear(sd, f"{prefix}.ffn.linear1", ffn["linear1"])
     _inv_linear(sd, f"{prefix}.ffn.linear2", ffn["linear2"])
@@ -211,9 +232,25 @@ def _inv_branch(sd, prefix, params, stats) -> None:
 
 def export_unidiffuser_state_dict(model: UniDiffuser) -> Dict[str, np.ndarray]:
     """The port's ``UniDiffuser`` -> reference state dict (float32 numpy
-    values under the reference's module names)."""
+    values under the reference's module names).  Raises ValueError, as
+    JAX's export does, for a model with no reference layout."""
+    if not isinstance(model, UniDiffuser):
+        raise ValueError(
+            "cannot export: only the two-branch UniDiffuser "
+            "(model.branch_mode='joint') maps onto the reference checkpoint "
+            "layout; single-branch models have no upstream equivalent")
     tree = export_flax_tree(model)
     params, stats = tree["params"], tree["batch_stats"]
+    unconvertible = sorted(
+        f"{b}.{k}" for b in ("encoder_exp", "encoder_ges")
+        for k in ("text_embed", "text_tcn", "emotion_embed", "emotion_tail")
+        if k in params[b])
+    if unconvertible:
+        raise ValueError(
+            f"cannot export: {unconvertible} have no reference layout — "
+            "the upstream addTextCond/addEmoCond path references modules it "
+            "never defines, so these weights would be silently dropped by "
+            "a strict=False load")
     sd: Dict[str, np.ndarray] = {}
     _inv_time_mlp(sd, "time_embed", params["time_embed"])
     _inv_layer(sd, "encoder_aud", params["encoder_aud"])
@@ -236,7 +273,7 @@ def save_reference_checkpoint(model: UniDiffuser, path: str, epoch: int = 0,
 def expected_reference_keys(cfg: ModelConfig, num_layers: int = None
                             ) -> Dict[str, Tuple[int, ...]]:
     """The reference state dict's keys and shapes for a UniDiffuser built
-    with ``cfg``."""
+    with ``cfg`` (either ``model_base``, a learned-variance head too)."""
     L = cfg.latent_dim
     E = cfg.time_embed_dim
     A = cfg.audio_dim
@@ -257,15 +294,25 @@ def expected_reference_keys(cfg: ModelConfig, num_layers: int = None
         ln(f"{prefix}.norm", d)
         linear(f"{prefix}.out_layers.2", d, d)
 
+    def attention(prefix, d, memory=None):
+        ln(f"{prefix}.norm", d)
+        if memory is not None:
+            ln(f"{prefix}.text_norm", memory)
+        linear(f"{prefix}.query", d, d)
+        for name in ("key", "value"):
+            linear(f"{prefix}.{name}", memory or d, d)
+        styl(f"{prefix}.proj_out", d)
+
+    decoder = cfg.model_base == "transformer_decoder"
+
     def layer(prefix, d, pre_proj=None):
-        if pre_proj is not None:
+        if pre_proj is not None and not decoder:
             ln(f"{prefix}.feat_proj.0", pre_proj)
             linear(f"{prefix}.feat_proj.1", pre_proj, 2 * d)
             linear(f"{prefix}.feat_proj.3", 2 * d, d)
-        ln(f"{prefix}.sa_block.norm", d)
-        for name in ("query", "key", "value"):
-            linear(f"{prefix}.sa_block.{name}", d, d)
-        styl(f"{prefix}.sa_block.proj_out", d)
+        attention(f"{prefix}.sa_block", d)
+        if pre_proj is not None and decoder:
+            attention(f"{prefix}.ca_block", d, memory=pre_proj - d)
         linear(f"{prefix}.ffn.linear1", d, cfg.ff_size)
         linear(f"{prefix}.ffn.linear2", cfg.ff_size, d)
         styl(f"{prefix}.ffn.proj_out", d)
@@ -299,5 +346,5 @@ def expected_reference_keys(cfg: ModelConfig, num_layers: int = None
             keys[f"{p}.null_cond_emb"] = (1, pre_proj)
         for i in range(num_layers):
             layer(f"{p}.temporal_decoder_blocks.{i}", L, pre_proj=pre_proj)
-        linear(f"{p}.out", L, feats)
+        linear(f"{p}.out", L, feats * (2 if cfg.learned_variance else 1))
     return keys

@@ -14,9 +14,12 @@ from dataclasses import dataclass, field
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Denoiser (UniDiffuser) architecture: latent 512, 8 layers, 8 heads,
-    ffn 1024, mel 128 -> audio latent 256, HuBERT 1024 -> 128 conv
-    encoder."""
+    """Denoiser architecture: latent 512, 8 layers, 8 heads, ffn 1024,
+    mel 128 -> audio latent 256, HuBERT 1024 -> 128 conv encoder.
+    ``branch_mode`` picks the joint UniDiffuser or a single branch;
+    ``model_base`` the per-layer condition concat ('transformer_encoder')
+    or cross-attention ('transformer_decoder'); ``learned_variance`` the
+    2C output head."""
 
     pose_dim: int = 141
     expression_dim: int = 51
@@ -77,10 +80,12 @@ class DiffusionConfig:
 
     num_steps: int = 1000
     beta_schedule: str = "linear"        # {'linear','cosine'}
-    mean_type: str = "epsilon"
+    mean_type: str = "epsilon"           # {'epsilon','start_x','previous_x'}
+    # {'fixed_small','fixed_large','learned','learned_range'}; the learned
+    # two need model.learned_variance=True
     var_type: str = "fixed_small"
     respacing: str = "ddim25"
-    sampler: str = "ddim"
+    sampler: str = "ddim"                # {'ddim','ancestral'}
     clip_denoised: bool = False
     jump_length: int = 3
     jump_n_sample: int = 5
@@ -139,12 +144,32 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def check_variance_coupling(cfg: Config) -> None:
+    """A learned-variance head and a learned ``var_type`` come as a pair:
+    the sampler splits the 2C output exactly when ``var_type`` is learned,
+    and the model emits 2C channels exactly when ``model.learned_variance``.
+    Raises a ValueError for either without the other."""
+    learned = cfg.diffusion.var_type in ("learned", "learned_range")
+    if cfg.model.learned_variance and not learned:
+        raise ValueError(
+            "model.learned_variance=True needs diffusion.var_type="
+            "'learned' or 'learned_range' (got "
+            f"{cfg.diffusion.var_type!r}) — the 2C output must be split")
+    if learned and not cfg.model.learned_variance:
+        raise ValueError(
+            f"diffusion.var_type={cfg.diffusion.var_type!r} needs "
+            "model.learned_variance=True — the model must emit a variance "
+            "head")
+
+
 def resolve(cfg: Config) -> Config:
     """The cross-field constants the reference sets in code: without the
     hands (``data.remove_hand``) the pose shrinks (BEAT 141 -> 33, SHOW
     129 -> 39), and on SHOW ``data.audio_feat`` picks the audio width
     (mel ``n_mels``, mfcc ``n_mfcc``, raw 1).  Only widths still at their
-    preset defaults are rewritten, so an explicit override wins."""
+    preset defaults are rewritten, so an explicit override wins.  Checks
+    the variance coupling first (:func:`check_variance_coupling`)."""
+    check_variance_coupling(cfg)
     model = cfg.model
     if cfg.data.remove_hand:
         is_beat = cfg.data.dataset_name == "beat"

@@ -1,12 +1,15 @@
-"""DDIM + RePaint reverse process for one window.
+"""DDIM + RePaint and ancestral reverse processes for one window.
 
-Counterpart of ``ddim_sample_program`` in ``diffsheg_tpu/diffusion/sampler.py``:
-the general DDIM step (``mean_type`` epsilon / start_x / previous_x,
+Counterpart of ``diffsheg_tpu/diffusion/sampler.py``.
+:func:`ddim_sample_program`: the general DDIM step (``mean_type`` epsilon / start_x / previous_x,
 ``clip_denoised``, ``eta``) with the RePaint overlap projection and its
 low-noise linear blend, or, for the serving configuration (epsilon, no
 clipping, eta = 0), the streamlined step of ``ops/step_math.py`` as its
 plain version or its CUDA kernel; optional saved noisy tails
-(``same_overlap_noisy``).  The step program runs as a host loop.
+(``same_overlap_noisy``).  :func:`ancestral_sample_program`: the
+ancestral ``p_sample`` step with every ``var_type``
+(:func:`model_log_variance`) and the RePaint projection before the model
+call.  A step program runs as a host loop.
 
 Noise comes from an injectable :class:`NoiseSource`.  PyTorch cannot
 replay JAX's threefry draws, so the tests hand the sampler a
@@ -16,7 +19,11 @@ Draws are addressed by (window, step, kind) where the JAX chain is: per
 window ``rng, k = split(window_key)``, ``noise = normal(k)``; per step
 ``key, k_model, k_gt, k_undo = split(key, 4)``, the DDIM noise
 ``normal(k_model)`` (drawn only where eta > 0 adds it), the RePaint GT
-noise ``normal(k_gt)`` and the undo noise ``normal(k_undo)``.
+noise ``normal(k_gt)`` and the undo noise ``normal(k_undo)``.  The
+ancestral chain splits ``key, k_gt, k_trans, k_undo = split(key, 4)``: on
+each denoise step the GT noise (under RePaint, the first step too, where
+it goes unused) and the transition noise ``normal(k_trans)`` (at t = 0
+too, where it is scaled by 0), on each undo step the undo noise.
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from diffsheg_tpu_torch.diffusion.jump import StepProgram
+from diffsheg_tpu_torch.diffusion.jump import StepProgram, plain_program
 from diffsheg_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diffsheg_tpu_torch.diffusion.vlb import learned_range_logvar
 from diffsheg_tpu_torch.ops.step_math import (blend_weights,
                                               ddim_repaint_step_reference,
                                               fused_ddim_repaint_step)
@@ -47,8 +55,9 @@ class NoiseSource:
     def step(self, window: int, step: int, kind: str, shape,
              device) -> torch.Tensor:
         """``kind`` 'model' (DDIM noise of a denoise step at eta > 0), 'gt'
-        (RePaint GT noise of a denoise step) or 'undo' (re-noising of an
-        undo step)."""
+        (RePaint GT noise of a denoise step), 'trans' (transition noise of
+        an ancestral denoise step) or 'undo' (re-noising of an undo
+        step)."""
         raise NotImplementedError
 
 
@@ -105,6 +114,23 @@ def split_model_output(model_out: torch.Tensor, var_type: str):
         C = model_out.shape[-1] // 2
         return model_out[..., :C], model_out[..., C:]
     return model_out, None
+
+
+def model_log_variance(sched: DiffusionSchedule, var_type: str,
+                       var_raw: Optional[torch.Tensor], t: int):
+    """The log-variance of p(x_{t-1} | x_t) at level ``t``: the model's
+    raw variance ('learned'), its interpolation ('learned_range'), or the
+    schedule's posterior ('fixed_small') or beta ('fixed_large') value as
+    a python float."""
+    if var_type == "learned":
+        return var_raw
+    if var_type == "learned_range":
+        return learned_range_logvar(sched, var_raw, t)
+    if var_type == "fixed_small":
+        return float(sched.posterior_log_variance_clipped[t])
+    if var_type == "fixed_large":
+        return float(sched.log_large_variance[t])
+    raise ValueError(var_type)
 
 
 def _pred_xstart(sched: DiffusionSchedule, mean_type: str, x, t: int,
@@ -211,8 +237,10 @@ def ddim_sample_program(
         out, _ = split_model_output(denoise_fn(x, t), var_type)
         prev_tail = prev_saved_tails[t] if use_prev else None
         if use_fast:
+            # a learned-variance output's mean half is a strided view; the
+            # kernel takes contiguous operands
             x = step_fn(
-                x, out, (sched.alphas_cumprod_prev[t],
+                x, out.contiguous(), (sched.alphas_cumprod_prev[t],
                          sched.sqrt_recip_alphas_cumprod[t],
                          sched.sqrt_recipm1_alphas_cumprod[t], float(valid)),
                 gt if do_repaint else None,
@@ -232,3 +260,60 @@ def ddim_sample_program(
         if track_tails:
             tails[t] = x[:, -ov:]
     return x, tails
+
+
+def ancestral_sample_program(
+    sched: DiffusionSchedule,
+    denoise_fn: DenoiseFn,
+    program: Optional[StepProgram],
+    noise: NoiseSource,
+    window: int,
+    shape: Tuple[int, int, int],
+    device,
+    repaint: Optional[RepaintSpec] = None,
+    gt: Optional[torch.Tensor] = None,
+    mean_type: str = "epsilon",
+    var_type: str = "fixed_small",
+    clip_denoised: bool = False,
+) -> torch.Tensor:
+    """Ancestral sampling from the window's initial noise (JAX
+    ``ancestral_sample_program``): ``program`` None walks every level
+    descending; a jump program re-noises its undo steps at ``t + 1``
+    (which the jump programs keep below ``num_steps``).  Each denoise step
+    is ``mean + exp(log_var / 2) * noise`` (the noise term scaled by 0 at
+    t = 0), the mean the posterior mean of the predicted x0 or, for
+    'previous_x', the model output.  With ``repaint`` and ``gt`` the
+    overlap head of ``x`` is replaced by noised GT *before* the model
+    call, from the second denoise step on."""
+    if program is None:
+        program = plain_program(sched.num_steps)
+    do_repaint = repaint is not None and repaint.overlap_len > 0 and gt is not None
+    x = noise.initial(window, shape, device)
+    started = False
+    f32 = np.float32
+    for s, (t, is_denoise) in enumerate(zip(program.t.tolist(),
+                                            program.denoise.tolist())):
+        if not is_denoise:
+            x = sched.undo(x, t + 1, noise.step(window, s, "undo", shape, device))
+            continue
+        if do_repaint:
+            gt_noise = noise.step(window, s, "gt", shape, device)
+            if started:
+                ov = repaint.overlap_len
+                ab = f32(sched.alphas_cumprod[t])
+                head = (float(np.sqrt(ab)) * gt[:, :ov]
+                        + float(np.sqrt(f32(1.0) - ab)) * gt_noise[:, :ov])
+                x = torch.cat([head, x[:, ov:]], dim=1)
+        out, var_raw = split_model_output(denoise_fn(x, t), var_type)
+        x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
+        mean = (out if mean_type == "previous_x"
+                else sched.q_posterior_mean(x0, x, t))
+        log_var = model_log_variance(sched, var_type, var_raw, t)
+        if isinstance(log_var, float):
+            std = float(np.exp(f32(0.5) * f32(log_var)))
+        else:
+            std = torch.exp(0.5 * log_var)
+        trans = noise.step(window, s, "trans", shape, device)
+        x = mean + float(t != 0) * std * trans
+        started = True
+    return x

@@ -3,8 +3,9 @@
 Counterpart of ``diffsheg_tpu/diffusion/schedule.py``: every per-timestep
 coefficient is computed once on the host in float64 and kept as a float32
 table.  The sampler's loop runs on the host and reads its scalars from
-these tables, and the closed forms (``predict_*``, ``undo``) take one
-level as a python int.
+these tables: the closed forms (``q_posterior_mean``, ``predict_*``) take
+one level as a python int, or (B,) levels as a tensor; ``undo`` one
+level.
 """
 
 from __future__ import annotations
@@ -56,26 +57,41 @@ class DiffusionSchedule(NamedTuple):
     def num_steps(self) -> int:
         return self.betas.shape[0]
 
-    # closed forms at one level ``t`` (python int), scalars in float32 as
-    # the JAX tables are gathered
-    def predict_xstart_from_eps(self, x_t, t: int, eps):
-        return (float(self.sqrt_recip_alphas_cumprod[t]) * x_t
-                - float(self.sqrt_recipm1_alphas_cumprod[t]) * eps)
+    # closed forms at one level ``t`` (python int: scalars in float32 as
+    # the JAX tables are gathered) or at (B,) levels (a tensor, as the VLB
+    # terms take them)
+    def q_posterior_mean(self, x_start, x_t, t):
+        return (gather(self.posterior_mean_coef1, t, x_t) * x_start
+                + gather(self.posterior_mean_coef2, t, x_t) * x_t)
 
-    def predict_eps_from_xstart(self, x_t, t: int, x0):
-        return ((float(self.sqrt_recip_alphas_cumprod[t]) * x_t - x0)
-                / float(self.sqrt_recipm1_alphas_cumprod[t]))
+    def predict_xstart_from_eps(self, x_t, t, eps):
+        return (gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+                - gather(self.sqrt_recipm1_alphas_cumprod, t, x_t) * eps)
 
-    def predict_xstart_from_xprev(self, x_t, t: int, xprev):
-        c1 = self.posterior_mean_coef1[t]
-        return (float(np.float32(1.0) / c1) * xprev
-                - float(self.posterior_mean_coef2[t] / c1) * x_t)
+    def predict_eps_from_xstart(self, x_t, t, x0):
+        return ((gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t - x0)
+                / gather(self.sqrt_recipm1_alphas_cumprod, t, x_t))
+
+    def predict_xstart_from_xprev(self, x_t, t, xprev):
+        c1 = self.posterior_mean_coef1
+        return (gather(np.float32(1.0) / c1, t, x_t) * xprev
+                - gather(self.posterior_mean_coef2 / c1, t, x_t) * x_t)
 
     def undo(self, x: torch.Tensor, t: int, noise: torch.Tensor) -> torch.Tensor:
         """RePaint re-noising: one forward-diffusion step at level ``t``."""
         beta = np.float32(self.betas[t])
         return (float(np.sqrt(np.float32(1.0) - beta)) * x
                 + float(np.sqrt(beta)) * noise)
+
+
+def gather(table: np.ndarray, t, like: torch.Tensor):
+    """``table[t]`` to broadcast against ``like``: a python float for one
+    level ``t`` (a python int), or for (B,) levels ``t`` (a tensor) a
+    float32 tensor of shape (B, 1, ...) on ``like``'s device."""
+    if isinstance(t, (int, np.integer)):
+        return float(table[t])
+    out = torch.as_tensor(table, device=like.device)[t.to(like.device).long()]
+    return out.reshape(out.shape + (1,) * (like.ndim - out.ndim))
 
 
 def make_schedule(betas: np.ndarray) -> DiffusionSchedule:

@@ -1,4 +1,4 @@
-"""Linear (efficient) temporal self-attention.
+"""Linear (efficient) temporal self- and cross-attention.
 
 Counterpart of ``diffsheg_tpu/models/attention.py``: Q is softmax-normalised
 over the per-head features, K over time, and
@@ -8,8 +8,11 @@ over the per-head features, K over time, and
 
 with the reference's masking: the key logits get ``(1 - mask) * -1e6``
 before the time softmax and the values are zeroed outside the mask.  The
-core goes through ``ops/linear_attention.py::linear_attention``: the CUDA
-kernel for f32 activations on the card, the composition otherwise.
+cross-attention (``model_base='transformer_decoder'``) takes its queries
+from the normed latent and its keys and values from a separately normed
+memory, unmasked.  The core goes through
+``ops/linear_attention.py::linear_attention``: the CUDA kernel for f32
+activations on the card, the composition otherwise.
 """
 
 from __future__ import annotations
@@ -49,4 +52,27 @@ class LinearTemporalSelfAttention(nn.Module):
             key = key + (1.0 - mask) * -1_000_000.0
             value = value * mask
         y = linear_attention(query, key, value, self.num_heads)
+        return x + self.proj_out(y, emb, mod)
+
+
+class LinearTemporalCrossAttention(nn.Module):
+    """LN(x) -> Q, LN(xf) -> K/V over the memory ``xf`` (B, T, cond_dim)
+    -> unmasked linear attention -> stylization, plus the residual."""
+
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 cond_dim: int):
+        super().__init__()
+        from diffsheg_tpu_torch.models.blocks import StylizationBlock
+        self.num_heads = num_heads
+        self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
+        self.text_norm = nn.LayerNorm(cond_dim, eps=LN_EPS)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(cond_dim, latent_dim)
+        self.value = nn.Linear(cond_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+
+    def forward(self, x, xf, emb, mod: Optional[torch.Tensor] = None):
+        xn, xfn = self.norm(x), self.text_norm(xf)
+        y = linear_attention(self.query(xn), self.key(xfn), self.value(xfn),
+                             self.num_heads)
         return x + self.proj_out(y, emb, mod)

@@ -11,7 +11,9 @@ the Flax parameter tree so weights carry across by name
 - ``CondProjection``: LN -> Dense(2L) -> SiLU -> Dense(L).
 - ``DiffusionTransformerLayer``: condition re-injection (concat, the
   classifier-free null-condition substitution, MLP projection and
-  residual) then linear self-attention and FFN.  This is the module
+  residual) then linear self-attention and FFN; or, with
+  ``model_base='transformer_decoder'``, self-attention, linear
+  cross-attention over the condition, and FFN.  This is the module
   forward; the sampler's fast path runs the same layers in the fused-layer
   kernels (``ops/fused_layer.py``).
 """
@@ -24,7 +26,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from diffsheg_tpu_torch.models.attention import LinearTemporalSelfAttention
+from diffsheg_tpu_torch.models.attention import (LinearTemporalCrossAttention,
+                                                LinearTemporalSelfAttention)
 
 LN_EPS = 1e-5
 
@@ -77,15 +80,25 @@ class DiffusionTransformerLayer(nn.Module):
     """One denoiser layer.  ``feats_dim`` is the concat width (latent +
     condition); ``None`` builds the condition-free layer of the audio
     encoder, whose residual doubles the input (a reference quirk kept for
-    checkpoint parity)."""
+    checkpoint parity).  ``model_base='transformer_decoder'`` replaces the
+    concat projection by a cross-attention over the condition
+    (``ca_block``) after the self-attention; it has no null-condition
+    path."""
 
     def __init__(self, latent_dim: int, ffn_dim: int, num_heads: int,
-                 time_embed_dim: int, feats_dim: Optional[int] = None):
+                 time_embed_dim: int, feats_dim: Optional[int] = None,
+                 model_base: str = "transformer_encoder"):
         super().__init__()
-        if feats_dim is not None:
+        if model_base not in ("transformer_encoder", "transformer_decoder"):
+            raise ValueError(f"model_base={model_base!r}")
+        self.decoder = model_base == "transformer_decoder"
+        if feats_dim is not None and not self.decoder:
             self.feat_proj = CondProjection(feats_dim, latent_dim)
         self.sa_block = LinearTemporalSelfAttention(latent_dim, num_heads,
                                                     time_embed_dim)
+        if feats_dim is not None and self.decoder:
+            self.ca_block = LinearTemporalCrossAttention(
+                latent_dim, num_heads, time_embed_dim, feats_dim - latent_dim)
         self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim)
 
     def forward(self, x, cond: Optional[torch.Tensor],
@@ -97,6 +110,12 @@ class DiffusionTransformerLayer(nn.Module):
         """x (B, T, L); cond (B, T, C) or None; emb (B, E) or None when
         ``mods`` (2, B, 2L) come from the cache; ``null_cond_mask`` (B,)
         bool rows whose concat is replaced by ``null_cond_emb`` (1, L+C)."""
+        if self.decoder:
+            x = self.sa_block(x, emb, src_mask,
+                              None if mods is None else mods[0])
+            if cond is not None:
+                x = self.ca_block(x, cond, emb)
+            return self.ffn(x, emb, None if mods is None else mods[1])
         if cond is not None:
             feats = torch.cat([x, cond], dim=-1)
             if null_cond_mask is not None:

@@ -3,7 +3,9 @@
 Counterpart of ``diffsheg_tpu/models/denoiser.py``: ``TimeEmbedMLP``,
 ``HubertConvEncoder`` and the branch ``MotionDenoiser``, whose module
 forward runs uncached or fed by one level of the timestep-level cache
-(``models/level_cache.py``).  The sampler's fast path
+(``models/level_cache.py``).  A branch may add text and emotion labels to
+its condition, cross-attend to it (``model_base='transformer_decoder'``)
+and emit a 2C learned-variance output.  The sampler's fast path
 (``models/fast_forward.py``) runs the same weights through the fused
 kernels instead.  Attribute names follow the Flax parameter tree
 (``layer_0`` ...); a ``scan_layers`` tree loads into the same modules.
@@ -79,11 +81,14 @@ class HubertConvEncoder(nn.Module):
 
 class MotionDenoiser(nn.Module):
     """One branch's parameters: time (+speaker) embedding, speech-feature
-    encoder, audio projection, joint embedding, ``num_layers`` transformer
-    layers, output head, and the classifier-free null condition.
+    encoder, text and emotion encoders, audio projection, joint embedding,
+    ``num_layers`` transformer layers, output head (2 x ``input_feats``
+    channels with ``learned_variance``), and the classifier-free null
+    condition.
 
     ``feats_dim`` is the per-layer concat width: latent + audio latent
-    (+ encoded HuBERT) (+ expression condition on the gesture branch).
+    (+ encoded HuBERT) (+ ``word_f`` with ``text``) (+ ``emotion_f`` with
+    ``emotion``) (+ expression condition on the gesture branch).
     """
 
     def __init__(self, input_feats: int, feats_dim: int, *, latent_dim: int,
@@ -92,15 +97,22 @@ class MotionDenoiser(nn.Module):
                  hubert_dim: int, hubert_latent_dim: int, speech_mode: str,
                  use_pid_embed: bool, classifier_free: bool, pe_type: str,
                  cond_scale: float = 1.0, max_seq_len: int = 600,
-                 max_frames: int = 240):
+                 max_frames: int = 240,
+                 model_base: str = "transformer_encoder",
+                 learned_variance: bool = False, text: bool = False,
+                 emotion: bool = False, word_f: int = 128,
+                 emotion_f: int = 8, word_vocab: int = 2048,
+                 num_emotions: int = 8):
         super().__init__()
         E = 4 * latent_dim
         self.num_layers = num_layers
         self.latent_dim = latent_dim
+        self.input_feats = input_feats
         self.pe_type = pe_type
         self.max_seq_len = max_seq_len
         self.classifier_free = classifier_free
         self.cond_scale = cond_scale
+        self.learned_variance = learned_variance
         self._pe_cache = {}
         self.time_embed = TimeEmbedMLP(latent_dim, E)
         if use_pid_embed:
@@ -109,12 +121,19 @@ class MotionDenoiser(nn.Module):
             self.hubert_encoder = HubertConvEncoder(hubert_dim, hubert_latent_dim)
         elif speech_mode == "linear":
             self.hubert_encoder = nn.Linear(hubert_dim, hubert_latent_dim)
+        if text:      # Embed (labels clamped at 0) -> k3 SAME conv
+            self.text_embed = nn.Embedding(word_vocab, word_f)
+            self.text_tcn = nn.Conv1d(word_f, word_f, 3, padding=1)
+        if emotion:
+            self.emotion_embed = nn.Embedding(num_emotions, emotion_f)
+            self.emotion_tail = nn.Conv1d(emotion_f, emotion_f, 3, padding=1)
         self.audio_proj = nn.Linear(audio_dim, aud_latent_dim)
         self.joint_embed = nn.Linear(input_feats, latent_dim)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DiffusionTransformerLayer(
-                latent_dim, ff_size, num_heads, E, feats_dim))
-        self.out = nn.Linear(latent_dim, input_feats)
+                latent_dim, ff_size, num_heads, E, feats_dim, model_base))
+        self.out = nn.Linear(latent_dim,
+                             input_feats * (2 if learned_variance else 1))
         if classifier_free:
             self.null_cond_emb = nn.Parameter(torch.zeros(1, feats_dim))
         if pe_type == "learnable":
@@ -136,23 +155,32 @@ class MotionDenoiser(nn.Module):
                     device=device, dtype=dtype)
         return self._pe_cache[key]
 
+    @staticmethod
+    def _labels(embed, conv, labels, dtype):
+        """(B, T) int labels -> embedded, then the k3 SAME conv."""
+        e = embed(labels.clamp(min=0).long()).to(dtype)
+        return conv(e.transpose(1, 2)).transpose(1, 2)
+
     def forward(self, x, t, audio, person_id, hubert=None, exp_cond=None,
-                src_mask=None, cfg_inference: bool = False,
+                word=None, emo=None, src_mask=None,
+                cfg_inference: bool = False,
                 cache: Optional[BranchCache] = None) -> torch.Tensor:
         """The branch's module forward (JAX ``MotionDenoiser.__call__`` at
         inference): x (B, T, input_feats) noisy channels, t (B,)
-        original-process timesteps, audio (B, T, audio_dim) the mel ++
-        encoded-audio features (unused with ``cache``), person_id (B,
-        style), hubert (B, T, hubert_dim) or None, exp_cond (B, T, E) or
-        None, src_mask (B, T, 1) or None for all frames valid.
-        ``cache`` (one level of the timestep-level cache) supplies the
-        audio latent, the encoded HuBERT features and every stylization
-        modulation.  Returns the f32 output, classifier-free guided when
-        ``cfg_inference``."""
+        original-process timesteps, audio (B, T, audio_dim) the audio
+        features (unused with ``cache``), person_id (B, style), hubert (B,
+        T, hubert_dim) or None, exp_cond (B, T, E) or None, word / emo (B,
+        T) int labels or None, src_mask (B, T, 1) or None for all frames
+        valid.  ``cache`` (one level of the timestep-level cache) supplies
+        the audio latent, the encoded HuBERT features and every
+        stylization modulation.  Returns the f32 output, classifier-free
+        guided when ``cfg_inference`` (with a learned-variance head, the
+        mean half only; the variance half is the conditional pass's)."""
         B, T, _ = x.shape
         compute = self.joint_embed.weight.dtype
 
-        # concat order: HuBERT features, then the expression condition
+        # concat order: HuBERT features, text, emotion, then the expression
+        # condition
         cond_parts = []
         if cache is not None:
             if cache.hubert_lat is not None:
@@ -161,6 +189,12 @@ class MotionDenoiser(nn.Module):
             h = hubert.to(compute)
             cond_parts.append(self.hubert_encoder(h)
                               if hasattr(self, "hubert_encoder") else h)
+        if word is not None:
+            cond_parts.append(self._labels(self.text_embed, self.text_tcn,
+                                           word, compute))
+        if emo is not None:
+            cond_parts.append(self._labels(self.emotion_embed,
+                                           self.emotion_tail, emo, compute))
         if exp_cond is not None:
             cond_parts.append(exp_cond.to(compute))
 
@@ -209,5 +243,11 @@ class MotionDenoiser(nn.Module):
         out = self.out(h).float()
         if do_cfg:
             uncond, cond_out = out[:B], out[B:]
-            out = uncond + self.cond_scale * (cond_out - uncond)
+            if self.learned_variance:
+                n = self.input_feats
+                mean = uncond[..., :n] + self.cond_scale * (
+                    cond_out[..., :n] - uncond[..., :n])
+                out = torch.cat([mean, cond_out[..., n:]], dim=-1)
+            else:
+                out = uncond + self.cond_scale * (cond_out - uncond)
         return out

@@ -20,7 +20,8 @@ from torch.nn import functional as F
 
 from diffsheg_tpu_torch.config import ModelConfig
 from diffsheg_tpu_torch.models.embeddings import positional_encoding
-from diffsheg_tpu_torch.models.level_cache import BranchCache, ModelCache
+from diffsheg_tpu_torch.models.level_cache import (BranchCache, ModelCache,
+                                                   supports_level_cache)
 from diffsheg_tpu_torch.models.unidiffuser import (UniDiffuser,
                                                    branch_feats_dim)
 from diffsheg_tpu_torch.ops.fused_layer import (LayerParams, LayerScales,
@@ -35,6 +36,11 @@ QUANT_BITS = {"int8": 8, "int4": 4}
 
 def _round128(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def supports_fast_forward(cfg: ModelConfig) -> bool:
+    """The level cache's configurations (the cache supplies its inputs)."""
+    return supports_level_cache(cfg)
 
 
 class BranchFast(NamedTuple):

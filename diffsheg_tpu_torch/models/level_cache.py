@@ -21,9 +21,22 @@ from typing import NamedTuple, Optional
 import torch
 from torch.nn import functional as F
 
+from diffsheg_tpu_torch.config import ModelConfig
 from diffsheg_tpu_torch.models.denoiser import BranchCache
 from diffsheg_tpu_torch.models.embeddings import timestep_embedding
 from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser, speech_mode
+
+
+def supports_level_cache(cfg: ModelConfig) -> bool:
+    """The cache covers the joint encoder-base model without text or
+    emotion conditioning or a learned-variance head; every other
+    configuration runs the uncached module forward, as in JAX (the decoder
+    cross-attends to the raw condition, and a learned-variance head changes
+    the output width and the x0 bridge)."""
+    return (cfg.branch_mode == "joint" and not cfg.add_text_cond
+            and not cfg.add_emo_cond
+            and cfg.model_base == "transformer_encoder"
+            and not cfg.learned_variance)
 
 
 class ModelCache(NamedTuple):

@@ -242,9 +242,12 @@ fused_linear_attention.launches_by_shape = collections.Counter()
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int,
                      use_fused: Optional[bool] = None) -> torch.Tensor:
-    """The kernel for f32 self-attention on the card (``use_fused=None``),
-    the composition otherwise; cross-attention shapes always take the
-    composition."""
+    """The kernel for f32 activations on the card (``use_fused=None``),
+    the composition otherwise.  A memory of another shape than the queries
+    (``q.shape != k.shape``: a cross-attention over a memory of another
+    length) always takes the composition, as in JAX; the decoder's
+    cross-attention, whose memory has the window's length, takes the
+    kernel."""
     if use_fused is None:
         use_fused = q.is_cuda and q.dtype == torch.float32
     if q.shape != k.shape:

@@ -3,23 +3,28 @@
 Counterpart of ``diffsheg_tpu/sampling/generator.py``.  A window runs
 either the *plain* program (every respaced step, the first window) or the
 *harmonize* program (RePaint jump schedule from 60% depth, continuation
-windows, with the overlap projection).  The selection logic is the JAX
-generator's, with "on TPU" read as "on CUDA":
+windows, with the overlap projection).  The model is any that
+``models/factory.py::build_denoiser`` builds.  The selection logic is the
+JAX generator's, with "on TPU" read as "on CUDA":
 
-- ``diffusion.level_cache`` with at most 64 respaced steps: the
-  timestep-level cache (``models/level_cache.py``); longer schedules and
-  ``level_cache=False`` run the uncached forward;
+- ``diffusion.sampler`` 'ddim' (the DDIM step) or 'ancestral' (the
+  ancestral ``p_sample`` step, every ``var_type``; no
+  ``stream.same_overlap_noisy``);
+- ``diffusion.level_cache`` with at most 64 respaced steps, for a
+  UniDiffuser the cache covers (``level_cache.supports_level_cache``):
+  the timestep-level cache (``models/level_cache.py``); longer schedules,
+  other models and ``level_cache=False`` run the uncached forward;
 - ``diffusion.fused_layer`` 'auto' / 'on' (the per-layer kernel) or
   'chain' (the branch kernel): the fused fast path, which consumes the
-  cache; 'off': the module forward ``UniDiffuser.forward``, fed by the
-  cache when there is one;
+  cache; 'off': the module forward, fed by the cache when there is one;
 - ``diffusion.fused_step`` 'off': the general DDIM step; 'auto' / 'jnp':
-  the streamlined step's plain version; 'on': its CUDA kernel;
+  the streamlined step's plain version; 'on': its CUDA kernel (for a
+  learned-variance model on the mean half of its output);
 - ``diffusion.quantize`` 'int8' / 'int4': weight-only quantized
   transformer stacks on the fast path (the quantized variants of the
   fused-layer kernels); a ValueError without the fast path, as in JAX.
 
-Not ported yet, and refused with NotImplementedError: ancestral sampling.
+A model conditioned on text or emotion labels samples with zero labels.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from diffsheg_tpu_torch.config import Config
+from diffsheg_tpu_torch.config import Config, check_variance_coupling
 from diffsheg_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from diffsheg_tpu_torch.diffusion.jump import (jump_schedule_ddim,
                                                make_step_program,
@@ -39,37 +44,37 @@ from diffsheg_tpu_torch.diffusion.jump import (jump_schedule_ddim,
 from diffsheg_tpu_torch.diffusion.respace import (make_respaced_schedule,
                                                   space_timesteps)
 from diffsheg_tpu_torch.diffusion.sampler import (NoiseSource, RepaintSpec,
+                                                  ancestral_sample_program,
                                                   ddim_sample_program)
 from diffsheg_tpu_torch.diffusion.schedule import (get_named_beta_schedule,
                                                    make_schedule)
 from diffsheg_tpu_torch.models.factory import ablate_inputs, denoised_channels
 from diffsheg_tpu_torch.models.fast_forward import (extract_fast_params,
-                                                    fast_unidiffuser_step)
+                                                    fast_unidiffuser_step,
+                                                    supports_fast_forward)
 from diffsheg_tpu_torch.models.level_cache import (AudioCache, ModelCache,
                                                    StaticCache,
                                                    build_audio_cache,
                                                    build_static_cache,
-                                                   combine, gather_level)
+                                                   combine, gather_level,
+                                                   supports_level_cache)
 from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
 
 # diffusion.fused_step -> the sampler's step mode
 STEP_MODES = {"off": "none", "auto": "jnp", "jnp": "jnp", "on": "kernel"}
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not ported to diffsheg_tpu_torch yet")
-
-
 class WindowGenerator:
-    """Window-level sampling for a UniDiffuser.
+    """Window-level sampling for a model of ``build_denoiser``.
 
     The model is copied, cast to ``cfg.model.compute_dtype`` (weights stored
     in the compute dtype, as the JAX generator does) and moved to
     ``device`` (default: the GPU).
     """
 
-    def __init__(self, cfg: Config, model: UniDiffuser,
+    def __init__(self, cfg: Config, model: torch.nn.Module,
                  device: DeviceLike = None):
+        check_variance_coupling(cfg)
         d, stream = cfg.diffusion, cfg.stream
         if d.fused_layer not in ("auto", "on", "chain", "off"):
             raise ValueError(f"diffusion.fused_layer={d.fused_layer!r}")
@@ -78,8 +83,17 @@ class WindowGenerator:
         if d.quantize not in ("none", "int8", "int4"):
             raise ValueError(f"diffusion.quantize={d.quantize!r}: valid "
                              "values are 'none', 'int8', 'int4'")
-        if d.sampler != "ddim":
-            _refuse(f"diffusion.sampler={d.sampler!r}")
+        if d.sampler not in ("ddim", "ancestral"):
+            raise ValueError(
+                f"diffusion.sampler={d.sampler!r}: valid samplers are "
+                "'ddim', 'ancestral'")
+        self.ancestral = d.sampler == "ancestral"
+        if self.ancestral and stream.same_overlap_noisy:
+            raise ValueError(
+                "diffusion.sampler='ancestral' does not support "
+                "stream.same_overlap_noisy — the reference's p_sample "
+                "inpaint (gaussian_diffusion.py:729-745) has no noisy-"
+                "overlap reuse; it is a ddim_sample feature (:1034-1060)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.model.compute_dtype)
@@ -97,11 +111,13 @@ class WindowGenerator:
             self.timestep_map = np.arange(d.num_steps, dtype=np.int32)
         self.t_levels = torch.as_tensor(self.timestep_map, device=self.device)
         n = self.schedule.num_steps
-        # the level cache covers sampling-friendly step counts; the
-        # uncached forward is the general path
-        self.use_cache = d.level_cache and n <= 64
-        self.use_fast = self.use_cache and d.fused_layer in ("auto", "on",
-                                                             "chain")
+        # the level cache covers the joint encoder model at sampling-
+        # friendly step counts; the uncached forward is the general path
+        mcfg = cfg.model
+        self.use_cache = (d.level_cache and isinstance(self.model, UniDiffuser)
+                          and supports_level_cache(mcfg) and n <= 64)
+        self.use_fast = (self.use_cache and supports_fast_forward(mcfg)
+                         and d.fused_layer in ("auto", "on", "chain"))
         if d.quantize != "none" and not self.use_fast:
             raise ValueError(
                 "diffusion.quantize requires the fused-layer fast path "
@@ -161,6 +177,14 @@ class WindowGenerator:
         cache when there is one) on the window's conditioning."""
         mcfg, sched = self.cfg.model, self.schedule
         mel, pid = ablate_inputs(mcfg, mel, pid)
+        # a model conditioned on labels gets zero labels (the training
+        # sentinel's clamp), as none come with the audio
+        kw = {}
+        for name, on in (("word", mcfg.add_text_cond),
+                         ("emo", mcfg.add_emo_cond)):
+            if on:
+                kw[name] = torch.zeros(mel.shape[:2], dtype=torch.long,
+                                       device=mel.device)
 
         @torch.no_grad()
         def fn(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -172,20 +196,33 @@ class WindowGenerator:
                     mcfg, fast, x, sqrt_alphas, level,
                     cfg_inference=mcfg.uses_cfg_at_inference,
                     chain=self.chain)
+            extra = kw if level is None else dict(kw, cache=level)
             return self.model(
                 x, self.t_levels[t].expand(x.shape[0]), sqrt_alphas, mel,
                 pid, hubert=hubert, cfg_inference=mcfg.uses_cfg_at_inference,
-                cache=level)
+                **extra)
         return fn
 
     def _sample(self, program, mel, pid, hubert, noise, window, cache, fast,
-                **kw):
+                repaint=None, gt=None, **kw):
+        """``(sample, saved_tails)``; the ancestral program keeps the
+        (levels, B, overlap, C) tails carry, zero."""
         d = self.cfg.diffusion
+        fn = self._denoise_fn(cache, fast, mel, pid, hubert)
+        shape = self._shape(mel)
+        common = dict(mean_type=d.mean_type, var_type=d.var_type,
+                      clip_denoised=d.clip_denoised)
+        if self.ancestral:
+            x = ancestral_sample_program(
+                self.schedule, fn, program, noise, window, shape,
+                self.device, repaint=repaint, gt=gt, **common)
+            ov = self.spec.overlap_len
+            return x, torch.zeros((self.schedule.num_steps + 1, shape[0],
+                                   ov, shape[2]), device=self.device)
         return ddim_sample_program(
-            self.schedule, self._denoise_fn(cache, fast, mel, pid, hubert),
-            program, noise, window, self._shape(mel), self.device,
-            mean_type=d.mean_type, var_type=d.var_type,
-            clip_denoised=d.clip_denoised, fused_step=self.step_mode, **kw)
+            self.schedule, fn, program, noise, window, shape, self.device,
+            repaint=repaint, gt=gt, fused_step=self.step_mode, **common,
+            **kw)
 
     def _shape(self, mel):
         return (mel.shape[0], mel.shape[1], denoised_channels(self.cfg.model))

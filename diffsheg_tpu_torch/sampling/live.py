@@ -79,7 +79,8 @@ class LiveSession:
                hubert_extractor=None, gen_cache: Optional[dict] = None,
                retain: bool = True, hubert_ctx_s: float = 0.0,
                device: DeviceLike = None) -> "LiveSession":
-        """Build a session for the port's ``UniDiffuser`` ``model``,
+        """Build a session for ``model`` (any model of
+        ``models/factory.py::build_denoiser``),
         optionally at a reduced window (``window_frames``; the denoiser is
         window-length-agnostic, and the live lookahead is one window:
         2.27 s at 34 frames, 0.8 s at 12).  ``overlap`` overrides the

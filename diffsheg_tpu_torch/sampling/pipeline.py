@@ -34,7 +34,8 @@ class FusedPipeline:
     def __call__(self, audio_mel, audio_16k: Optional[torch.Tensor],
                  person_id: torch.Tensor, noise: NoiseSource) -> torch.Tensor:
         """audio_mel (1, N) at the mel rate; audio_16k (1, N16) or None;
-        person_id (B, style_dim).  Returns (B, T, motion_dim) float32."""
+        person_id (B, style_dim).  Returns (B, T, C) float32, C the
+        model's ``denoised_channels``."""
         mel = self.frontend(audio_mel)
         T = mel.shape[1]
         hub = (self.hubert(audio_16k, target_frames=T)

@@ -77,7 +77,8 @@ class StreamingGenerator:
     def generate(self, mel, person_id, noise: NoiseSource,
                  hubert=None) -> torch.Tensor:
         """The host window loop: mel (B, T, n_mels), person_id (B, style),
-        hubert (B, T, H) -> (B, T, motion_dim) float32."""
+        hubert (B, T, H) -> (B, T, C) float32, C the model's
+        ``denoised_channels``."""
         cfg, gen = self.cfg, self.gen
         size = cfg.data.n_poses
         overlap = cfg.stream.overlap_len
@@ -115,7 +116,7 @@ class StreamingGenerator:
     def generate_fused(self, mel, person_id, noise: NoiseSource,
                        hubert=None) -> torch.Tensor:
         """mel (B, T, n_mels), person_id (B, style), hubert (B, T, H) ->
-        (B, T, motion_dim) float32."""
+        (B, T, C) float32, C the model's ``denoised_channels``."""
         cfg, gen = self.cfg, self.gen
         dev = gen.device
         mel = mel.to(dev)

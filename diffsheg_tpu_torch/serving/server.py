@@ -57,7 +57,8 @@ from diffsheg_tpu_torch.serving import protocol as proto
 class MotionServer:
     """Own the model and configuration and serve live sessions over TCP.
 
-    ``model`` is the port's ``UniDiffuser``; sessions run on ``device``
+    ``model`` is any model of ``models/factory.py::build_denoiser``
+    (``cfg.model`` describes it); sessions run on ``device``
     (default: the GPU).  Window generators are cached per (window,
     overlap) and shared across sessions — a generator is pure (the RePaint
     tails are threaded through arguments), so a reconnect with the same

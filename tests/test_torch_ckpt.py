@@ -5,7 +5,9 @@
   every parameter and buffer bit-equal to ``load_flax_tree`` of the same
   variables; the port's export equals JAX's key for key; the expected
   keys agree; a ``.tar`` round trip is exact, and the JAX loader reads
-  the port's ``.tar`` back to the original variables.
+  the port's ``.tar`` back to the original variables; the same for the
+  decoder base (its ``ca_block`` cross-attentions, ``text_norm`` included),
+  and both exports refuse what has no reference layout.
 - HuggingFace HuBERT (``compat/hubert_ckpt.py``): a tiny
   ``transformers.HubertModel`` (HuBERT-large layout, random weights, built
   from a config here; nothing is downloaded) converts to the same tree as
@@ -20,7 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import config_pair, jax_unidiffuser, torch_unidiffuser  # noqa: E402
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          torch_denoiser)
 
 MODELS = {"conv-hubert": {},
           "cfg-no-hubert": dict(add_hubert=False, classifier_free=True),
@@ -46,8 +49,8 @@ def _assert_same_module(a, b):
 @pytest.fixture(scope="module", params=list(MODELS), ids=list(MODELS))
 def model_pair(request):
     jcfg, tcfg = config_pair(model=MODELS[request.param])
-    variables = jax_unidiffuser(jcfg, 3)
-    return jcfg, tcfg, variables, torch_unidiffuser(tcfg, variables)
+    variables = jax_denoiser(jcfg, 3)
+    return jcfg, tcfg, variables, torch_denoiser(tcfg, variables)
 
 
 def test_reference_state_dict_loads_bit_equal(model_pair):
@@ -91,6 +94,59 @@ def test_tar_round_trip(model_pair, tmp_path):
     back = dict(_leaves(jax.tree.map(np.asarray, jload(path, jcfg.model))))
     for name, leaf in _leaves(variables):
         np.testing.assert_array_equal(back[name], leaf, err_msg=name)
+
+
+@pytest.mark.parametrize("model", [
+    dict(model_base="transformer_decoder"),
+    dict(model_base="transformer_decoder", classifier_free=True,
+         learned_variance=True, add_hubert=False)],
+    ids=["decoder", "decoder-cfg-learned-var"])
+def test_decoder_reference_layout_round_trip(model, tmp_path):
+    from diffsheg_tpu.compat.torch_ckpt import (
+        export_unidiffuser_state_dict as jexp,
+        load_reference_checkpoint as jload)
+    from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
+    from diffsheg_tpu_torch.compat.torch_ckpt import (
+        convert_unidiffuser_state_dict, expected_reference_keys,
+        export_unidiffuser_state_dict, load_reference_checkpoint,
+        save_reference_checkpoint)
+    from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
+    jcfg, tcfg = config_pair(model=model)
+    variables = jax_denoiser(jcfg, 5)
+    ported = torch_denoiser(tcfg, variables)
+    got, want = export_unidiffuser_state_dict(ported), jexp(variables)
+    assert got.keys() == want.keys()
+    assert any(".ca_block.text_norm." in k for k in want)
+    assert not any(".feat_proj." in k for k in want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert expected_reference_keys(tcfg.model) == {k: v.shape
+                                                   for k, v in want.items()}
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in want.items()}
+    _assert_same_module(load_flax_tree(
+        UniDiffuser(tcfg.model),
+        convert_unidiffuser_state_dict(sd, tcfg.model)), ported)
+    path = save_reference_checkpoint(ported, str(tmp_path / "d.tar"))
+    _assert_same_module(load_reference_checkpoint(path, tcfg.model), ported)
+    back = dict(_leaves(jax.tree.map(np.asarray, jload(path, jcfg.model))))
+    for name, leaf in _leaves(variables):
+        np.testing.assert_array_equal(back[name], leaf, err_msg=name)
+
+
+@pytest.mark.parametrize("model", [dict(branch_mode="gesture_only"),
+                                   dict(add_text_cond=True, word_vocab=20)],
+                         ids=["single-branch", "text"])
+def test_export_refuses_what_jax_refuses(model):
+    from diffsheg_tpu.compat.torch_ckpt import (
+        export_unidiffuser_state_dict as jexp)
+    from diffsheg_tpu_torch.compat.torch_ckpt import (
+        export_unidiffuser_state_dict)
+    jcfg, tcfg = config_pair(model=dict(model, add_hubert=False))
+    variables = jax_denoiser(jcfg, 6)
+    with pytest.raises(ValueError, match="cannot export"):
+        jexp(variables)
+    with pytest.raises(ValueError, match="cannot export"):
+        export_unidiffuser_state_dict(torch_denoiser(tcfg, variables))
 
 
 # -- HuggingFace HuBERT ------------------------------------------------------

@@ -98,6 +98,31 @@ def test_serve_builds_server_from_flags(monkeypatch, capsys):
     assert "no checkpoint given" in err
 
 
+@pytest.mark.parametrize("sets", [
+    ["model.model_base=transformer_decoder"],
+    ["diffusion.sampler=ancestral", "model.learned_variance=true",
+     "diffusion.var_type=learned_range"],
+    ["model.branch_mode=gesture_only", "model.add_text_cond=true"],
+], ids=["decoder", "ancestral_learned_range", "gesture_only_text"])
+def test_serve_builds_every_model_variant(monkeypatch, sets):
+    # the model comes from init_denoiser, as the JAX CLI builds it, and a
+    # prewarm session samples it
+    from diffsheg_tpu_torch.cli.main import main
+    built = _patched_server(monkeypatch)
+    extra = [a for item in sets for a in ("--set", item)]
+    assert main(["serve", "--device", "cpu", "--port", "0", "--prewarm",
+                 "1"] + TINY + extra) == 0
+    (srv,) = built
+    (gen,) = srv._gens.values()
+    m = srv.cfg.model
+    assert not gen.use_cache
+    assert gen.ancestral == (srv.cfg.diffusion.sampler == "ancestral")
+    if m.model_base == "transformer_decoder":
+        assert hasattr(srv.model.encoder_ges.layer_0, "ca_block")
+    if m.branch_mode == "gesture_only":
+        assert hasattr(srv.model.encoder, "text_embed")
+
+
 def test_serve_loads_reference_tar_and_refuses_directory(monkeypatch,
                                                          tmp_path):
     from diffsheg_tpu_torch.cli.main import _base_config, main

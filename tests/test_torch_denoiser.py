@@ -24,8 +24,8 @@ torch = pytest.importorskip("torch")
 from diffsheg_tpu.models import level_cache as J  # noqa: E402
 from diffsheg_tpu.models.unidiffuser import UniDiffuser as JU  # noqa: E402
 from diffsheg_tpu_torch.models import level_cache as P  # noqa: E402
-from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
-                          rel_rms, torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          rel_rms, torch_denoiser)
 
 LEVELS = np.array([0, 40, 480, 960], np.int32)
 LEVEL = 2
@@ -34,7 +34,7 @@ SQRT_ALPHAS = (1.3, 0.8)
 
 def _setup(preset, model, seed):
     jcfg, tcfg = config_pair(preset, model=model)
-    variables = jax_unidiffuser(jcfg, seed=seed)
+    variables = jax_denoiser(jcfg, seed=seed)
     m, T, B = jcfg.model, jcfg.data.n_poses, 2
     rng = np.random.RandomState(seed + 1)
     d = dict(x=rng.randn(B, T, m.motion_dim).astype(np.float32),
@@ -83,7 +83,7 @@ def test_forward_matches_jax(preset, model, cached):
     if preset == "show":
         assert jcfg.model.uses_cfg_at_inference
     ref = _jax_forward(jcfg, variables, d, cached)
-    got = _port_forward(tcfg, torch_unidiffuser(tcfg, variables), d, cached)
+    got = _port_forward(tcfg, torch_denoiser(tcfg, variables), d, cached)
     assert got.shape == ref.shape == d["x"].shape
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
@@ -91,7 +91,7 @@ def test_forward_matches_jax(preset, model, cached):
 def test_cache_fed_forward_equals_uncached():
     # the cache holds exactly what the uncached forward computes per call
     _, tcfg, variables, d = _setup("beat", {}, seed=43)
-    model = torch_unidiffuser(tcfg, variables)
+    model = torch_denoiser(tcfg, variables)
     np.testing.assert_allclose(_port_forward(tcfg, model, d, True),
                                _port_forward(tcfg, model, d, False),
                                rtol=1e-5, atol=1e-5)
@@ -102,7 +102,7 @@ def test_bf16_forward_within_band_of_jax_f32():
     ref = _jax_forward(jcfg, variables, d, False)
     tcfg = tcfg.replace(model=dataclasses.replace(tcfg.model,
                                                   compute_dtype="bfloat16"))
-    model = torch_unidiffuser(tcfg, variables).to(torch.bfloat16)
+    model = torch_denoiser(tcfg, variables).to(torch.bfloat16)
     got = _port_forward(tcfg, model, d, False)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     assert rel_rms(got, ref) <= 2.5e-2, rel_rms(got, ref)

@@ -23,8 +23,8 @@ from diffsheg_tpu.models import fast_forward as JF  # noqa: E402
 from diffsheg_tpu.models import level_cache as JC  # noqa: E402
 from diffsheg_tpu_torch.models import fast_forward as PF  # noqa: E402
 from diffsheg_tpu_torch.models import level_cache as PC  # noqa: E402
-from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
-                          torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          torch_denoiser)
 
 
 @pytest.mark.parametrize("preset,chain,layout", [
@@ -48,13 +48,13 @@ def _check_fast_step(preset, chain, layout, quant):
     jcfg, tcfg = config_pair(preset, data=data)
     m = jcfg.model
     B, T = 2, jcfg.data.n_poses
-    variables = jax_unidiffuser(jcfg, seed=11)
+    variables = jax_denoiser(jcfg, seed=11)
     jvars = jax.tree.map(jnp.asarray, variables)
     tvars = variables
     if layout == "scan":
         tvars = dict(variables, params=jax.tree.map(
             np.asarray, stack_scan_layers(variables["params"], m.num_layers)))
-    tmodel = torch_unidiffuser(tcfg, tvars)
+    tmodel = torch_denoiser(tcfg, tvars)
 
     rng = np.random.RandomState(12)
     mel = rng.randn(B, T, m.audio_dim).astype(np.float32)

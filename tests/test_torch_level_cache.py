@@ -16,8 +16,8 @@ torch = pytest.importorskip("torch")
 
 from diffsheg_tpu.models import level_cache as J  # noqa: E402
 from diffsheg_tpu_torch.models import level_cache as P  # noqa: E402
-from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
-                          torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          torch_denoiser)
 
 
 def _inputs(cfg, B, seed):
@@ -39,9 +39,9 @@ def _close(got, ref):
                          ids=["beat", "expr_id_off", "linear_hubert"])
 def test_cache_fields_match(model):
     jcfg, tcfg = config_pair("beat", model=model)
-    variables = jax_unidiffuser(jcfg, seed=3)
+    variables = jax_denoiser(jcfg, seed=3)
     jvars = jax.tree.map(jnp.asarray, variables)
-    tmodel = torch_unidiffuser(tcfg, variables)
+    tmodel = torch_denoiser(tcfg, variables)
     levels = np.array([0, 40, 480, 960], np.int32)
     mel, pid, hub = _inputs(jcfg, 3, 4)
 
@@ -69,12 +69,12 @@ def test_cache_fields_match(model):
 def test_scan_layout_loads_the_same_weights():
     from diffsheg_tpu.models.factory import stack_scan_layers
     jcfg, tcfg = config_pair("beat")
-    variables = jax_unidiffuser(jcfg, seed=5)
+    variables = jax_denoiser(jcfg, seed=5)
     stacked = dict(variables, params=jax.tree.map(
         np.asarray, stack_scan_layers(variables["params"], jcfg.model.num_layers)))
     assert "layers" in stacked["params"]["encoder_ges"]
-    a = torch_unidiffuser(tcfg, variables).state_dict()
-    b = torch_unidiffuser(tcfg, stacked).state_dict()
+    a = torch_denoiser(tcfg, variables).state_dict()
+    b = torch_denoiser(tcfg, stacked).state_dict()
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k

@@ -24,8 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from diffsheg_tpu_torch.diffusion.sampler import NoiseSource, TableNoise  # noqa: E402
-from torch_parity import (config_pair, jax_unidiffuser, jax_window_noise,  # noqa: E402
-                          perturb, rel_rms, torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser, jax_window_noise,  # noqa: E402
+                          perturb, rel_rms, torch_denoiser)
 
 C = 192
 HUB = dict(hidden_size=48, num_layers=1, num_heads=2, intermediate_size=32,
@@ -92,8 +92,8 @@ class Pair:
         from diffsheg_tpu.sampling.generator import WindowGenerator as JG
         from diffsheg_tpu_torch.sampling.generator import WindowGenerator as PG
         self.jcfg, self.tcfg = config_pair(model=model, stream=stream)
-        self.variables = jax_unidiffuser(self.jcfg, seed)
-        self.tmodel = torch_unidiffuser(self.tcfg, self.variables)
+        self.variables = jax_denoiser(self.jcfg, seed)
+        self.tmodel = torch_denoiser(self.tcfg, self.variables)
         self.jgen = JG(self.jcfg, jax.tree.map(jnp.asarray, self.variables))
         self.pgen = PG(self.tcfg, self.tmodel, device="cpu")
 

@@ -24,8 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import (config_pair, jax_unidiffuser, perturb,  # noqa: E402
-                          rel_rms, stream_noise, torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser, perturb,  # noqa: E402
+                          rel_rms, stream_noise, torch_denoiser)
 
 HUB = dict(hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32,
            conv_dim=(8, 8, 8, 8, 8, 8, 8))
@@ -108,7 +108,7 @@ def _three_window_pipeline(diffusion, port_diffusion=None):
                              diffusion=dict(jump_n_sample=2, **diffusion))
     tcfg = tcfg.replace(diffusion=dataclasses.replace(
         tcfg.diffusion, **(port_diffusion or {})))
-    variables = jax_unidiffuser(jcfg, seed=31)
+    variables = jax_denoiser(jcfg, seed=31)
     jh, ph = _hubert_pair(32)
     T = 80                                  # windows at 0, 30 and 46
     starts = window_starts(T, 34, 30)
@@ -123,7 +123,7 @@ def _three_window_pipeline(diffusion, port_diffusion=None):
     ref = np.asarray(jpipe(jnp.asarray(a18), jnp.asarray(a16),
                            jnp.asarray(pid), rng))
 
-    pgen = PG(tcfg, torch_unidiffuser(tcfg, variables), device="cpu")
+    pgen = PG(tcfg, torch_denoiser(tcfg, variables), device="cpu")
     ppipe = PP(PS(pgen), PM(sr=18000, hop=1200, device="cpu"), ph)
     noise = stream_noise(rng, len(starts), 2, 34, jcfg.model.motion_dim,
                          jgen._plain, jgen._harmonize)

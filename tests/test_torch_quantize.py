@@ -25,8 +25,8 @@ from diffsheg_tpu.ops import fused_layer as J  # noqa: E402
 from diffsheg_tpu_torch.ops import fused_layer as P  # noqa: E402
 from test_torch_fused_layer import (B, H, L, T, arr, both, check,  # noqa: E402
                                     weights)
-from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
-                          jax_window_noise, rel_rms, torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          jax_window_noise, rel_rms, torch_denoiser)
 
 BITS = {"int8": 8, "int4": 4}
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -178,9 +178,9 @@ def test_quantized_window_matches_jax(quant, fused_layer):
     from diffsheg_tpu_torch.sampling.generator import WindowGenerator as PGen
     jcfg, tcfg = config_pair("beat", diffusion=dict(quantize=quant,
                                                     fused_layer=fused_layer))
-    variables = jax_unidiffuser(jcfg, seed=49)
+    variables = jax_denoiser(jcfg, seed=49)
     jgen = JGen(jcfg, jax.tree.map(jnp.asarray, variables))
-    pgen = PGen(tcfg, torch_unidiffuser(tcfg, variables), device="cpu")
+    pgen = PGen(tcfg, torch_denoiser(tcfg, variables), device="cpu")
     assert jgen._use_fused_layer and pgen.use_fast
     m = jcfg.model
     B_, T_ = 1, jcfg.data.n_poses

@@ -22,16 +22,16 @@ torch = pytest.importorskip("torch")
 from diffsheg_tpu.sampling.generator import WindowGenerator as JGen  # noqa: E402
 from diffsheg_tpu_torch.diffusion.sampler import TableNoise  # noqa: E402
 from diffsheg_tpu_torch.sampling.generator import WindowGenerator as PGen  # noqa: E402
-from torch_parity import (config_pair, jax_unidiffuser,  # noqa: E402
-                          jax_window_noise, rel_rms, torch_unidiffuser)
+from torch_parity import (config_pair, jax_denoiser,  # noqa: E402
+                          jax_window_noise, rel_rms, torch_denoiser)
 
 
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tcfg = config_pair("beat", diffusion={"jump_n_sample": 2})
-    variables = jax_unidiffuser(jcfg, seed=21)
+    variables = jax_denoiser(jcfg, seed=21)
     jgen = JGen(jcfg, jax.tree.map(jnp.asarray, variables))
-    pgen = PGen(tcfg, torch_unidiffuser(tcfg, variables), device="cpu")
+    pgen = PGen(tcfg, torch_denoiser(tcfg, variables), device="cpu")
     m = jcfg.model
     B, T = 2, jcfg.data.n_poses
     rng = np.random.RandomState(22)
@@ -84,14 +84,20 @@ def test_model_call_counts(setup):
 
 
 def test_unported_modes_raise():
+    # ancestral sampling is ported (tests/test_torch_ancestral.py holds it
+    # against JAX); what stays refused is JAX's own refusal, ancestral
+    # with saved noisy tails, a ValueError as in JAX
     import dataclasses
     _, tcfg = config_pair("beat")
     from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
     model = init_unidiffuser(tcfg.model)
-    for over in ({"sampler": "ancestral"},):
-        cfg = tcfg.replace(diffusion=dataclasses.replace(tcfg.diffusion, **over))
-        with pytest.raises(NotImplementedError):
-            PGen(cfg, model, device="cpu")
+    cfg = tcfg.replace(diffusion=dataclasses.replace(tcfg.diffusion,
+                                                     sampler="ancestral"))
+    assert PGen(cfg, model, device="cpu").ancestral
+    cfg = cfg.replace(stream=dataclasses.replace(cfg.stream,
+                                                 same_overlap_noisy=True))
+    with pytest.raises(ValueError, match="same_overlap_noisy"):
+        PGen(cfg, model, device="cpu")
 
 
 @pytest.mark.parametrize("over,cache,fast,step", [
@@ -178,9 +184,9 @@ def test_module_forward_stream_matches_jax(name):
     from torch_parity import stream_noise
     jcfg, tcfg = config_pair("beat", diffusion=dict(jump_n_sample=2,
                                                     **STREAMS[name]))
-    variables = jax_unidiffuser(jcfg, seed=30)
+    variables = jax_denoiser(jcfg, seed=30)
     jgen = JGen(jcfg, jax.tree.map(jnp.asarray, variables))
-    pgen = PGen(tcfg, torch_unidiffuser(tcfg, variables), device="cpu")
+    pgen = PGen(tcfg, torch_denoiser(tcfg, variables), device="cpu")
     assert not pgen.use_fast and pgen.use_cache == jgen._use_level_cache
     m = jcfg.model
     rng = np.random.RandomState(31)
@@ -207,9 +213,9 @@ def test_stream_with_saved_tails_matches_jax():
     from torch_parity import stream_noise
     jcfg, tcfg = config_pair("beat", diffusion={"jump_n_sample": 2},
                              stream={"same_overlap_noisy": True})
-    variables = jax_unidiffuser(jcfg, seed=24)
+    variables = jax_denoiser(jcfg, seed=24)
     jgen = JGen(jcfg, jax.tree.map(jnp.asarray, variables))
-    pgen = PGen(tcfg, torch_unidiffuser(tcfg, variables), device="cpu")
+    pgen = PGen(tcfg, torch_denoiser(tcfg, variables), device="cpu")
     m = jcfg.model
     rng = np.random.RandomState(25)
     T = 64
@@ -232,14 +238,19 @@ def test_unported_stream_and_hubert_modes_raise():
     from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
     from diffsheg_tpu_torch.sampling.streamer import StreamingGenerator
     _, tcfg = config_pair("beat")
-    # stream.fix_very_first is ported (tests/test_torch_live.py holds it
-    # against JAX); ancestral sampling is the stream mode still refused
+    # stream.fix_very_first and ancestral streams are ported
+    # (tests/test_torch_live.py and tests/test_torch_ancestral.py hold them
+    # against JAX); ancestral with saved noisy tails is refused as JAX
+    # refuses it, and the HuBERT-base layout is not ported
     cfg = tcfg.replace(stream=dataclasses.replace(tcfg.stream,
                                                   fix_very_first=True))
     StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
     cfg = tcfg.replace(diffusion=dataclasses.replace(tcfg.diffusion,
                                                      sampler="ancestral"))
-    with pytest.raises(NotImplementedError):
+    StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
+    cfg = cfg.replace(stream=dataclasses.replace(cfg.stream,
+                                                 same_overlap_noisy=True))
+    with pytest.raises(ValueError, match="same_overlap_noisy"):
         StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
     with pytest.raises(NotImplementedError):
         HubertModel(HubertConfig(conv_norm="group_first",

@@ -65,32 +65,48 @@ def perturb(tree, seed: int, scale: float = 0.1):
     return walk(tree)
 
 
-def jax_unidiffuser(jcfg, seed: int = 0):
-    """Perturbed UniDiffuser variables (numpy tree) for a JAX config."""
-    from diffsheg_tpu.models.unidiffuser import init_unidiffuser
-    _, variables = init_unidiffuser(jcfg.model, jcfg.data.n_poses,
-                                    jax.random.PRNGKey(seed))
+def jax_denoiser(jcfg, seed: int = 0):
+    """Perturbed variables (numpy tree) of the JAX model of any
+    ``branch_mode`` (``models/factory.py::init_denoiser``)."""
+    from diffsheg_tpu.models.factory import init_denoiser
+    _, variables = init_denoiser(jcfg.model, jcfg.data.n_poses,
+                                 jax.random.PRNGKey(seed))
     variables = jax.tree.map(np.asarray, dict(variables))
     return {k: perturb(v, seed + 100) for k, v in variables.items()}
 
 
-def torch_unidiffuser(tcfg, variables):
+def torch_denoiser(tcfg, variables):
     from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
-    from diffsheg_tpu_torch.models.unidiffuser import UniDiffuser
-    return load_flax_tree(UniDiffuser(tcfg.model), variables)
+    from diffsheg_tpu_torch.models.factory import build_denoiser
+    return load_flax_tree(build_denoiser(tcfg.model), variables)
 
 
 def jax_window_noise(key, B, T, C, program, repaint: bool,
-                     model_noise: bool = False):
+                     model_noise: bool = False, sampler: str = "ddim"):
     """Replay one window's draws: ``rng, k = split(key)``; x_T =
     normal(k); per step ``key, k_model, k_gt, k_undo = split(key, 4)``
     (the DDIM noise ``normal(k_model)`` only with ``model_noise``, for
-    eta > 0)."""
+    eta > 0).  ``sampler='ancestral'`` replays the ancestral chain: per
+    step ``key, k_gt, k_trans, k_undo = split(key, 4)``, the GT noise on
+    every denoise step under RePaint, the transition noise on every
+    denoise step."""
     rng, k = jax.random.split(key)
     initial = np.asarray(jax.random.normal(k, (B, T, C)))
     steps = {}
     key = rng
     for s, den in enumerate(np.asarray(program.denoise).tolist()):
+        if sampler == "ancestral":
+            key, k_gt, k_trans, k_undo = jax.random.split(key, 4)
+            if den:
+                if repaint:
+                    steps[(s, "gt")] = np.asarray(
+                        jax.random.normal(k_gt, (B, T, C)))
+                steps[(s, "trans")] = np.asarray(
+                    jax.random.normal(k_trans, (B, T, C)))
+            else:
+                steps[(s, "undo")] = np.asarray(
+                    jax.random.normal(k_undo, (B, T, C)))
+            continue
         key, k_model, k_gt, k_undo = jax.random.split(key, 4)
         if den and model_noise:
             steps[(s, "model")] = np.asarray(
@@ -103,7 +119,7 @@ def jax_window_noise(key, B, T, C, program, repaint: bool,
 
 
 def stream_noise(rng, n_windows, B, T, C, plain, harmonize,
-                 first_repaint: bool = False):
+                 first_repaint: bool = False, sampler: str = "ddim"):
     """The TableNoise of a stream: window keys chained off ``rng`` as the
     JAX streamer, pipeline and live session do; window 0 runs the plain
     program, or with ``first_repaint`` (``stream.fix_very_first``) the
@@ -114,7 +130,8 @@ def stream_noise(rng, n_windows, B, T, C, plain, harmonize,
         rng, k = jax.random.split(rng)
         repaint = w > 0 or first_repaint
         prog = harmonize if repaint else plain
-        initial[w], st = jax_window_noise(k, B, T, C, prog, repaint)
+        initial[w], st = jax_window_noise(k, B, T, C, prog, repaint,
+                                          sampler=sampler)
         steps.update({(w, s, kind): v for (s, kind), v in st.items()})
     return TableNoise(initial, steps)
 
