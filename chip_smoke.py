@@ -11,9 +11,11 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               shape with null rows; their int8 and int4 variants at the
               BEAT gesture branch in bf16 and f32 and the SHOW shape in
               bf16; the per-layer kernel at the live shapes, a 12-frame
-              window and 4 speakers of 34 frames, bf16), linear attention (the BEAT branch rows in f32 and
+              window and 4 speakers of 34 frames, bf16; cli generate's 4
+              speaker styles of 34 frames, f32), linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
-              encoder and its batch-1 shape, a 12-frame and a 512-frame
+              encoder, its batch-1 shape and cli generate's 3000-row
+              (4 speakers), 125-row (10 s) and SHOW 100-row shapes, a 12-frame and a 512-frame
               window; the decoder's cross-attention, queries from a normed
               latent and unmasked keys and values from a normed
               condition; an hd-32 shape and an unaligned one that take
@@ -69,7 +71,25 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               pipeline stream each with exact launch counts, FPS, kernels
               and host ms a model call, and a 68-frame stream against the
               same path with its kernels swapped for their plain versions
-              (f32 rel-RMS <= 5e-3).
+              (f32 rel-RMS <= 5e-3);
+9. generate — ``python -m diffsheg_tpu_torch.cli generate`` in-process, in
+              a temporary directory holding a 60 s speech-like wav, seeded
+              BEAT statistics, a BEAT template BVH and the phases' model
+              exported once to a reference .tar (``--checkpoint``), BEAT
+              at full width with a random HuBERT-large: (a) the defaults
+              (f32, the per-layer kernel) with 4 speaker styles in one
+              batch, ``--warmup --template-bvh --player``; (b) the bench's
+              configuration (bf16, 'chain', jump_n_sample 2); (c) the
+              staged path (``stream.single_dispatch=false``), 10 s; (d)
+              SHOW, 10 s; each with exact launch counts (zeroed after the
+              warmup), FPS and RTF as the command prints them, its stages
+              and the export's host seconds a clip; every BVH parsed back,
+              every face JSON and npy checked; (a)'s motion against a
+              direct CustomAudioPipeline.generate, bit for bit; the
+              exporter's euler conversion on the card against the CPU
+              (1e-4 degrees weighed by the split's conditioning, |cos|
+              of the middle angle); a HuBERT-base extractor (768 x 12) on the card
+              against the CPU (f32 rel-RMS <= 1e-5).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -83,6 +103,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
     python3 chip_smoke.py --only live       # the serving daemon
     python3 chip_smoke.py --only variants   # every model variant
+    python3 chip_smoke.py --only generate   # cli generate, wav to BVH
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -93,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -355,21 +377,25 @@ def layer_flops(B, T, Cp, L=512, H=8, F=1024):
             + 4 * B * T * L * (L // H))
 
 
-# the per-layer kernel at the live path's shapes (the gesture branch,
-# bf16): a 12-frame window, and 4 speakers of a 34-frame window
-LIVE_LAYER_CASES = (("live-t12-bf16", 1, 12), ("live-b4-bf16", 4, 34))
+# the per-layer kernel at the gesture branch's shapes of other main paths:
+# the live path's (bf16) 12-frame window and 4 speakers of a 34-frame
+# window; cli generate's default, 4 speaker styles of a 34-frame window in
+# f32
+LIVE_LAYER_CASES = (("live-t12-bf16", 1, 12, torch.bfloat16),
+                    ("live-b4-bf16", 4, 34, torch.bfloat16),
+                    ("layer-beat-4spk-f32", 4, 34, torch.float32))
 
 
-def live_layer_case(name, B, T, dev, seed, reps):
-    """``fused_layer`` alone at a live shape, held to the bf16 tolerance."""
+def live_layer_case(name, B, T, dtype, dev, seed, reps):
+    """``fused_layer`` alone at one shape, held to its dtype's tolerance."""
     Cp, c_real = 1024, 947
     x, cond, mods, slp, _, _, _ = case_inputs(
-        torch.bfloat16, B, T, Cp, c_real, False, dev, seed, n_layers=1)
+        dtype, B, T, Cp, c_real, False, dev, seed, n_layers=1)
     w_bytes = sum(t.numel() * t.element_size() for t in slp)
     out = {"fused_layer": layer_result(x, cond, mods, slp, 8, c_real, None,
                                        None, None, reps, w_bytes,
                                        layer_flops(B, T, Cp))}
-    check_lines(name, out, 8e-3)
+    check_lines(name, out, 1e-5 if dtype == torch.float32 else 8e-3)
     return out
 
 
@@ -427,8 +453,10 @@ def probe_lines(name, reps, x, cond, mods, slp, H, c_real):
 
 # linear attention: branch rows (BEAT B 1, SHOW classifier-free B 2,
 # latent 512, 8 heads), the cache's audio encoder (25 levels x 30 windows
-# of a 60 s stream, width 128, 8 heads), a 12-frame live window and 512
-# frames, past what a block can stage whole
+# of a 60 s stream, width 128, 8 heads; cli generate's 4 speaker styles of
+# it, a 10 s stream of 5 windows and SHOW's 10 s of 4 windows of 88
+# frames), a 12-frame live window and 512 frames, past what a block can
+# stage whole
 # (name, dtype, B, T, D, offset): 8 heads; the last two take the kernels
 # that are not specialised to a shape, at hd 32 and with inputs one
 # element past an aligned address (no 16-byte loads: single columns)
@@ -437,6 +465,9 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("show-cfg-f32", torch.float32, 2, 88, 512, 0),
                    ("audio-enc-f32", torch.float32, 750, 34, 128, 0),
                    ("audio-enc-b1-f32", torch.float32, 1, 34, 128, 0),
+                   ("audio-enc-4spk-f32", torch.float32, 3000, 34, 128, 0),
+                   ("audio-enc-10s-f32", torch.float32, 125, 34, 128, 0),
+                   ("show-audio-enc-f32", torch.float32, 100, 88, 128, 0),
                    ("live-t12-f32", torch.float32, 1, 12, 512, 0),
                    ("long-t512-f32", torch.float32, 1, 512, 512, 0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
@@ -644,8 +675,8 @@ def phase_kernels(dev, reps):
         # SHOW classifier-free: doubled batch, first half null rows
         results[f"show-cfg-{tag}"] = kernel_case(
             f"show-cfg-{tag}", dtype, 2, 88, 1024, 999, True, dev, 3, reps)
-    for name, B, T in LIVE_LAYER_CASES:
-        results[name] = live_layer_case(name, B, T, dev, 4, reps)
+    for name, B, T, dtype in LIVE_LAYER_CASES:
+        results[name] = live_layer_case(name, B, T, dtype, dev, 4, reps)
     results.update(quant_kernel_cases(dev, reps))
     return results
 
@@ -1484,11 +1515,372 @@ def phase_variants(dev, hubert_fe):
 
 
 # --------------------------------------------------------------------------
+# phase 9: custom-audio generation through the command line
+# --------------------------------------------------------------------------
+
+def write_wav(path, x, sr):
+    """16-bit mono PCM."""
+    import wave
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return path
+
+
+def beat_template(path):
+    """A template BVH of the 228-channel BEAT skeleton: every joint in one
+    chain, unit offsets, a root with translation, one frame of zeros."""
+    from diffsheg_tpu_torch.geometry.joints import BEAT_JOINT_ORDER
+    lines = ["HIERARCHY"]
+    for d, name in enumerate(BEAT_JOINT_ORDER):
+        pad = "  " * d
+        ch = ("CHANNELS 6 Xposition Yposition Zposition "
+              "Zrotation Xrotation Yrotation" if d == 0 else
+              "CHANNELS 3 Zrotation Xrotation Yrotation")
+        lines += [f"{pad}{'ROOT' if d == 0 else 'JOINT'} {name}", f"{pad}{{",
+                  f"{pad}  OFFSET 0.0 1.0 0.0", f"{pad}  {ch}"]
+    nj = len(BEAT_JOINT_ORDER)
+    lines += ["  " * nj + "End Site", "  " * nj + "{",
+              "  " * nj + "  OFFSET 0 0.1 0", "  " * nj + "}"]
+    lines += ["  " * (d - 1) + "}" for d in range(nj, 0, -1)]
+    lines += ["MOTION", "Frames: 1", "Frame Time: 0.06666667",
+              " ".join(["0.0"] * 228)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def beat_stats(path, seed):
+    """Seeded BEAT statistics, std in [0.5, 1.5]."""
+    from diffsheg_tpu_torch.data.beat import BeatStats
+    rng = np.random.RandomState(seed)
+    BeatStats(rng.randn(141), 0.5 + rng.rand(141), 0.3 * rng.randn(141),
+              0.5 + rng.rand(141), rng.rand(51),
+              0.5 + rng.rand(51)).save(path)
+    return BeatStats.load(path)
+
+
+def show_stats(path, seed):
+    """Seeded TalkSHOW statistics (the reference's raw dict layout)."""
+    from diffsheg_tpu_torch.data.show import ShowStats
+    rng = np.random.RandomState(seed)
+    raw = {"pose_mean": 0.3 * rng.randn(165), "pose_std": 0.5 + rng.rand(165),
+           "expression_mean": 0.3 * rng.randn(100),
+           "expression_std": 0.5 + rng.rand(100)}
+    np.save(os.path.join(path, "talkshow_mean_std.npy"), raw,
+            allow_pickle=True)
+    return ShowStats.from_raw_dict(raw)
+
+
+class CliRun:
+    """``cli.main.main(argv)`` in-process with every launch count set to 0
+    after ``--warmup``'s call (``CustomAudioPipeline.warmup``) and read
+    when the command returns; records the pipeline, the timed call's
+    result, the export's host seconds and what the command printed."""
+
+    def __init__(self):
+        from diffsheg_tpu_torch.cli import generate as g
+        self.g = g
+        self.pipe = self.result = None
+        self.export_s = 0.0
+
+    def __call__(self, argv):
+        import contextlib
+        import io
+        g, run = self.g, self
+        warmup, generate = g.CustomAudioPipeline.warmup, g.CustomAudioPipeline.generate
+        exports = (g.CustomAudioPipeline.export_beat,
+                   g.CustomAudioPipeline.export_show)
+
+        def warm(self, *a, **kw):
+            warmup(self, *a, **kw)
+            torch.cuda.synchronize()
+            zero_counts()
+
+        def gen(self, *a, **kw):
+            run.pipe, run.result = self, generate(self, *a, **kw)
+            return run.result
+
+        def timed(fn):
+            def wrapped(self, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(self, *a, **kw)
+                run.export_s += time.perf_counter() - t0
+                return out
+            return wrapped
+
+        g.CustomAudioPipeline.warmup, g.CustomAudioPipeline.generate = warm, gen
+        g.CustomAudioPipeline.export_beat, g.CustomAudioPipeline.export_show = (
+            timed(f) for f in exports)
+        from diffsheg_tpu_torch.cli.main import main
+        out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = main(argv)
+        finally:
+            g.CustomAudioPipeline.warmup, g.CustomAudioPipeline.generate = (
+                warmup, generate)
+            (g.CustomAudioPipeline.export_beat,
+             g.CustomAudioPipeline.export_show) = exports
+        self.seconds = time.perf_counter() - t0
+        self.counts = {name: fn.launches for name, fn in counters().items()}
+        self.shapes = dict(counters()["fused_linear_attention"]
+                           .launches_by_shape)
+        self.printed = out.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"cli generate {argv}: exit {rc}")
+        return self
+
+
+# cli generate at its defaults (jump_n_sample 5: a continuation window runs
+# 63 model calls): 60 s of BEAT, 30 windows; 10 s, 5 windows; SHOW 10 s at
+# 30 fps, windows of 88 frames at 0, 78, 156 and a left-shifted 212
+GEN_CALLS_60S = 25 + 29 * 63        # 1852
+GEN_CALLS_10S = 25 + 4 * 63         # 277
+GEN_CALLS_SHOW_10S = 25 + 3 * 63    # 214
+
+
+def generate_line(tag, run, frames):
+    head = next(ln for ln in run.printed if ln.startswith("generated"))
+    n_files = len(run.printed) - 1
+    log(f"generate[{tag}]: {head} | command_s={run.seconds:.3f} "
+        f"export_host_s={run.export_s:.3f} "
+        f"({run.export_s / max(1, run.result.motion.shape[0]):.3f} a clip) "
+        f"frames={frames} launches={run.counts} "
+        f"linear_attention_by_shape={run.shapes} files={n_files}")
+
+
+def check_attention_shapes(what, shapes, want):
+    if shapes != want:
+        raise AssertionError(f"{what}: linear attention by shape {shapes}, "
+                             f"expected {want}")
+
+
+def check_beat_files(run, out_dir, stats, name, speakers, frames):
+    """Every clip's npy equals motion * std + mean; its BVH parses back to
+    (frames, 228), finite; its face JSON has 51 names and ``frames``
+    frames; its player exists."""
+    from diffsheg_tpu_torch.geometry.bvh import parse_bvh_file
+    motion = run.result.motion
+    for b in range(len(speakers)):
+        base = os.path.join(out_dir, f"{name}_{b}")
+        npy = np.load(base + ".npy")
+        if not np.array_equal(npy, motion[b] * stats.motion_std
+                              + stats.motion_mean):
+            raise AssertionError(f"{base}.npy != motion * std + mean")
+        bvh = parse_bvh_file(base + ".bvh").frames
+        if bvh.shape != (frames, 228) or not np.isfinite(bvh).all():
+            raise AssertionError(f"{base}.bvh: {bvh.shape}, finite "
+                                 f"{np.isfinite(bvh).all()}")
+        with open(base + "_face.json") as f:
+            face = json.load(f)
+        if len(face["names"]) != 51 or len(face["frames"]) != frames:
+            raise AssertionError(f"{base}_face.json: {len(face['names'])} "
+                                 f"names, {len(face['frames'])} frames")
+        if not os.path.getsize(base + "_player.html"):
+            raise AssertionError(f"{base}_player.html is empty")
+
+
+def exporter_on_card(stats, dev):
+    """The exporter's euler conversion on the card against the same
+    function on the CPU over 900 frames x 47 joints, on unit-scale
+    normalized motion through the statistics (a random model's samples
+    reach ~1e5, where a 1e5 rad axis-angle's angles are f32 argument
+    reduction noise on any device).  Each angle comes from asin or atan2
+    of matrix entries whose size is |cos(middle angle)|, so the round-off
+    of two f32 implementations grows as 1 / |cos| (at +-90 degrees the
+    split between the first and third angle is arbitrary): the difference
+    in degrees, times |cos| of the joint's middle angle, within 1e-4 for
+    every joint; the raw difference is printed by bands of |cos|."""
+    from diffsheg_tpu_torch.sampling.export import BeatMotionExporter
+    motion = np.random.RandomState(91).randn(900, 192).astype(np.float32)
+    pose = (motion * stats.motion_std + stats.motion_mean)[:, :141]
+    card, cpu = (BeatMotionExporter(141, 15.0, stats.motion_mean,
+                                    stats.motion_std, device=d)
+                 for d in (dev, "cpu"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.euler_degrees(pose)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = cpu.euler_degrees(pose)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got, ref = (a.reshape(900, 47, 3).astype(np.float64) for a in (got, ref))
+    cos = np.abs(np.cos(np.deg2rad(ref[..., 1])))
+    diff = np.abs(got - ref).max(-1)
+    scaled = float((diff * cos).max())
+    bands = []
+    for lo, hi in ((0.9, 1.01), (0.5, 0.9), (0.3, 0.5), (0.1, 0.3),
+                   (0.01, 0.1), (0.0, 0.01)):
+        m = (cos >= lo) & (cos < hi)
+        bands.append(f"|cos| {lo:g}-{min(hi, 1):g}: n={int(m.sum())} "
+                     f"max={float(diff[m].max()) if m.any() else 0.0:.3e}")
+    log(f"generate[exporter on the card]: 900 x 47 joints, max |deg| card "
+        f"- cpu x |cos(middle)| {scaled:.3e} (tol 1e-4); raw max |deg| by "
+        f"band: " + "; ".join(bands) + f"; conversion ms card "
+        f"{card_ms:.2f} cpu {cpu_ms:.2f}")
+    if not (np.isfinite(got).all() and scaled <= 1e-4):
+        raise AssertionError(f"exporter on the card: {scaled:.3e} deg "
+                             f"(conditioning-weighed)")
+
+
+def hubert_base_on_card(dev):
+    """A HuBERT-base-geometry extractor (768 x 12, seeded random weights)
+    on 10 s of audio on the card against its CPU run, f32."""
+    from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
+    from diffsheg_tpu_torch.models.factory import random_init_
+    from diffsheg_tpu_torch.models.hubert import (HubertModel,
+                                                  wav2vec2_base_config)
+    import copy
+    model = random_init_(HubertModel(wav2vec2_base_config()), 5)
+    audio = speech_like(10, 16000, 9)
+    cpu = HubertFeatureExtractor(model=copy.deepcopy(model), device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu(audio, target_frames=150)
+    cpu_s = time.perf_counter() - t0
+    card = HubertFeatureExtractor(model=model, device=dev)
+    card(audio, target_frames=150)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card(audio, target_frames=150)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    err = rel_rms(got.cpu(), ref)
+    log(f"generate[HuBERT-base 768 x 12, 10 s]: rel_rms card vs cpu "
+        f"{err:.3e} (tol 1e-5) shape={tuple(got.shape)} card_ms="
+        f"{card_ms:.2f} cpu_s={cpu_s:.2f}")
+    if tuple(got.shape) != (1, 150, 768) or not err <= 1e-5:
+        raise AssertionError(f"HuBERT-base on the card: {err:.3e}")
+
+
+def phase_generate(dev, model):
+    """``python -m diffsheg_tpu_torch.cli generate`` in-process on the
+    card, in a temporary directory with a 60 s speech-like wav, seeded
+    BEAT statistics, a BEAT template BVH and the model exported once to a
+    reference ``.tar``: (a) the defaults (f32, fused_layer 'auto', the
+    per-layer kernel) with 4 speaker styles, ``--warmup``,
+    ``--template-bvh`` and ``--player``; (b) the bench's configuration
+    (bf16, 'chain', jump_n_sample 2), one speaker; (c) the staged path
+    (``stream.single_dispatch=false``), 10 s; (d) SHOW, 10 s.  Launch
+    counts exactly, files checked; (a)'s motion against a direct
+    ``CustomAudioPipeline.generate`` bit for bit; the exporter on the card;
+    a HuBERT-base extractor on the card against the CPU."""
+    import tempfile
+    from diffsheg_tpu_torch.cli.generate import CustomAudioPipeline
+    from diffsheg_tpu_torch.compat.torch_ckpt import save_reference_checkpoint
+    from diffsheg_tpu_torch.config import beat_config
+    no_tf32()
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav60 = write_wav(os.path.join(tmp, "speech.wav"),
+                          speech_like(60, 16000, 41), 16000)
+        wav10 = write_wav(os.path.join(tmp, "short.wav"),
+                          speech_like(10, 16000, 42), 16000)
+        stats_dir = os.path.join(tmp, "stats")
+        stats = beat_stats(stats_dir, 43)
+        tmpl = beat_template(os.path.join(tmp, "template.bvh"))
+        tar = save_reference_checkpoint(model, os.path.join(tmp, "beat.tar"))
+        common = ["generate", "--checkpoint", tar, "--stats-dir", stats_dir,
+                  "--warmup"]
+
+        # (a) the defaults, four speaker styles in one batch
+        out_a = os.path.join(tmp, "a")
+        speakers = [1, 3, 5, 7]
+        a = CliRun()(common + ["--audio", wav60, "--out-dir", out_a,
+                               "--speakers", "1,3,5,7", "--template-bvh",
+                               tmpl, "--player"])
+        generate_line("(a) beat 60 s, f32, auto, 4 speakers", a, 900)
+        if a.result.motion.shape != (4, 900, 192) or not np.isfinite(
+                a.result.motion).all():
+            raise AssertionError(f"(a): motion {a.result.motion.shape}")
+        expect("generate (a)", a.counts, fused_layer=16 * GEN_CALLS_60S,
+               fused_linear_attention=1)
+        check_attention_shapes("generate (a)", a.shapes,
+                               {(3000, 34, 128, 8): 1})
+        check_beat_files(a, out_a, stats, "speech", speakers, 900)
+        log("generate[(a) files]: " + " ".join(
+            os.path.basename(p) for p in a.printed[1:]))
+        launches["fused_layer_generate"] = a.counts["fused_layer"]
+        launches["fused_linear_attention_generate_audio_enc"] = a.counts[
+            "fused_linear_attention"]
+        # the CLI adds nothing to the motion: the same model (not through
+        # the .tar) and HuBERT, a direct pipeline call with the same seed
+        cfg = beat_config()
+        direct = CustomAudioPipeline(
+            cfg, model, hubert_model=a.pipe.hubert_extractor.model,
+            motion_mean=stats.motion_mean, motion_std=stats.motion_std,
+            device=dev).generate(wav60, speakers, seed=0)
+        same = np.array_equal(direct.motion, a.result.motion)
+        log(f"generate[(a) against CustomAudioPipeline.generate]: "
+            f"bit-equal={same}")
+        if not same:
+            raise AssertionError("cli generate's motion differs from a "
+                                 "direct CustomAudioPipeline.generate")
+        del direct, a
+
+        # (b) the bench's configuration
+        b = CliRun()(common + ["--audio", wav60, "--out-dir",
+                               os.path.join(tmp, "b"), "--speakers", "1",
+                               "--set", "model.compute_dtype=bfloat16",
+                               "--set", "diffusion.fused_layer=chain",
+                               "--set", "diffusion.jump_n_sample=2"])
+        generate_line("(b) beat 60 s, bf16, chain, jump_n_sample 2", b, 900)
+        expect("generate (b)", b.counts, fused_branch=2 * CALLS_60S)
+        launches["fused_branch_generate"] = b.counts["fused_branch"]
+
+        # (c) the staged path: mel, HuBERT and sampler stages
+        c = CliRun()(common + ["--audio", wav10, "--out-dir",
+                               os.path.join(tmp, "c"), "--speakers", "1",
+                               "--set", "stream.single_dispatch=false"])
+        generate_line("(c) beat 10 s, f32, auto, staged", c, 150)
+        if set(c.result.stages) != {"mel", "hubert", "sampler", "total"}:
+            raise AssertionError(f"(c): stages {c.result.stages}")
+        expect("generate (c)", c.counts, fused_layer=16 * GEN_CALLS_10S,
+               fused_linear_attention=1)
+        check_attention_shapes("generate (c)", c.shapes,
+                               {(125, 34, 128, 8): 1})
+        launches["fused_layer_generate_staged"] = c.counts["fused_layer"]
+        launches["fused_linear_attention_generate_staged_audio_enc"] = (
+            c.counts["fused_linear_attention"])
+
+        # (d) SHOW: classifier-free guidance doubles the rows
+        show_dir = os.path.join(tmp, "show_stats")
+        os.makedirs(show_dir)
+        sstats = show_stats(show_dir, 44)
+        d = CliRun()(["generate", "--dataset", "show", "--stats-dir",
+                      show_dir, "--warmup", "--audio", wav10, "--out-dir",
+                      os.path.join(tmp, "d"), "--speakers", "1"])
+        generate_line("(d) show 10 s, f32, auto", d, 300)
+        expect("generate (d)", d.counts,
+               fused_layer=16 * GEN_CALLS_SHOW_10S, fused_linear_attention=1)
+        check_attention_shapes("generate (d)", d.shapes,
+                               {(100, 88, 128, 8): 1})
+        npy = np.load(os.path.join(tmp, "d", "short_0.npy"))
+        want = d.result.motion[0] * sstats.motion_std + sstats.motion_mean
+        if npy.shape != (300, 232) or not np.array_equal(npy, want):
+            raise AssertionError(f"(d): npy {npy.shape} != inv_standardize")
+        launches["fused_layer_generate_show"] = d.counts["fused_layer"]
+        launches["fused_linear_attention_generate_show_audio_enc"] = (
+            d.counts["fused_linear_attention"])
+
+        exporter_on_card(stats, dev)
+    hubert_base_on_card(dev)
+    log(f"generate: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
-                                       "uncached", "live", "variants"),
+                                       "uncached", "live", "variants",
+                                       "generate"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -1533,12 +1925,17 @@ def main() -> int:
            "fused_linear_attention_learned_var_audio_enc",
            "fused_linear_attention_single",
            "fused_ddim_repaint_step_single",
-           "fused_ddim_repaint_step_learned_var"])
+           "fused_ddim_repaint_step_learned_var",
+           "fused_layer_generate", "fused_branch_generate",
+           "fused_layer_generate_staged", "fused_layer_generate_show",
+           "fused_linear_attention_generate_audio_enc",
+           "fused_linear_attention_generate_staged_audio_enc",
+           "fused_linear_attention_generate_show_audio_enc"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
     if any(run(p) for p in ("stream", "e2e", "uncached", "live",
-                            "variants")):
+                            "variants", "generate")):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
@@ -1557,6 +1954,9 @@ def main() -> int:
                 launches.update(phase_live(dev, model, hubert_fe, args.reps))
             if run("variants"):
                 launches.update(phase_variants(dev, hubert_fe))
+            del hubert_fe
+        if run("generate"):
+            launches.update(phase_generate(dev, model))
     if kres is None:
         return 0
     entries = []
@@ -1610,6 +2010,26 @@ def main() -> int:
               "step_math.cu", "ops/step_math.py:153"),
              ("fused_ddim_repaint_step_learned_var", "step-beat", None,
               "step_math.cu", "ops/step_math.py:153")]
+    # phase 9, cli generate: (a) the defaults, f32, 4 speaker styles (the
+    # per-layer kernel at (4, 34), the audio encoder at 4 x 25 x 30 rows),
+    # (b) the bench's bf16 chain, (c) the staged 10 s stream, (d) SHOW
+    rows += [("fused_layer_generate", "layer-beat-4spk-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_generate", "beat-ges-bf16", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_layer_generate_staged", "beat-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_generate_show", "show-cfg-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_generate_audio_enc",
+              "attn-audio-enc-4spk-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_generate_staged_audio_enc",
+              "attn-audio-enc-10s-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_generate_show_audio_enc",
+              "attn-show-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99")]
     for name, key, sub, source, line in rows:
         if key not in kres:
             continue

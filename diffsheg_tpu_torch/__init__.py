@@ -15,14 +15,20 @@ Subpackages
                  HuBERT encoder
 - ``ops``        hand-written CUDA kernels (``csrc/``) and their plain
                  PyTorch versions
-- ``audio``      mel frontend, chunked HuBERT runner
+- ``audio``      wav IO, mel frontend, chunked HuBERT runner
 - ``sampling``   window generator, streamer, single-call pipeline, live
-                 session
+                 session, motion export (npy / BVH / face JSON)
 - ``serving``    the TCP serving daemon around live sessions, its client
                  and wire protocol
+- ``geometry``   rotation conversions (torch), BVH IO and forward
+                 kinematics, joint tables, face JSON
+- ``data``       dataset normalization statistics
+- ``viz``        the self-contained HTML motion player
+- ``utils``      stage timing, device traces, smoothing filters
 - ``compat``     weights from a JAX variables tree, a reference DiffSHEG
-                 ``.tar`` (and back), a HuggingFace HuBERT-large
-- ``cli``        ``python -m diffsheg_tpu_torch.cli serve``
+                 ``.tar`` (and back), a HuggingFace HuBERT (large or base)
+- ``cli``        ``python -m diffsheg_tpu_torch.cli generate | serve |
+                 export-ckpt | view``
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,23 @@
-"""Command-line entry point of the port.
+"""Command-line entry points of the port.
 
-Counterpart of ``diffsheg_tpu/cli/main.py`` for the serving daemon:
+Counterpart of ``diffsheg_tpu/cli/main.py`` for serving and inference:
 
+  python -m diffsheg_tpu_torch.cli generate --dataset beat --audio clip.wav \\
+      --checkpoint model.tar --hubert-checkpoint hubert-large/ \\
+      --stats-dir stats/ --template-bvh template.bvh --speakers 1,3,5,7
   python -m diffsheg_tpu_torch.cli serve --dataset beat \\
       --checkpoint model.tar --hubert-checkpoint hubert-large/ --prewarm 1
+  python -m diffsheg_tpu_torch.cli export-ckpt --checkpoint model.tar \\
+      --out copy.tar
+  python -m diffsheg_tpu_torch.cli view --bvh out/clip_0.bvh
 
-with the JAX command's flags, ``--device {cuda,cpu}`` (default ``cuda``;
+with the JAX commands' flags, ``--device {cuda,cpu}`` (default ``cuda``;
 it raises without a card) where JAX has ``--platform``, and any config
 field reachable through ``--set section.field=value``.  ``--checkpoint``
 takes a reference ``.tar`` (``compat/torch_ckpt.py``); Orbax directories
-are the JAX package's format.  The other subcommands are not ported yet.
+are the JAX package's format (their restore comes with the training side
+of the port).  Training, evaluation, cache building and ``doctor`` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -93,6 +101,95 @@ def _load_model(cfg: Config, checkpoint: Optional[str]):
     return load_reference_checkpoint(checkpoint, cfg.model)
 
 
+def _load_hubert(cfg: Config, path: Optional[str]):
+    """The HuBERT weights of ``--hubert-checkpoint`` (a local HF
+    checkpoint), or None."""
+    if not (path and cfg.model.add_hubert):
+        return None
+    from diffsheg_tpu_torch.compat.hubert_ckpt import load_hf_hubert
+    return load_hf_hubert(path)
+
+
+def _load_stats(args):
+    """Dataset-appropriate normalization stats (or None)."""
+    if not args.stats_dir:
+        return None
+    if args.dataset == "show":
+        from diffsheg_tpu_torch.data.show import ShowStats
+        path = args.stats_dir
+        if not path.endswith(".npy"):
+            path = os.path.join(path, "talkshow_mean_std.npy")
+        return ShowStats.load(path)
+    from diffsheg_tpu_torch.data.beat import BeatStats
+    return BeatStats.load(args.stats_dir)
+
+
+def cmd_generate(args) -> int:
+    """Custom-audio generation: a wav to motion for each speaker style,
+    exported as npy + BVH + face JSON (BEAT, with stats) or npy (SHOW)."""
+    from diffsheg_tpu_torch.cli.generate import CustomAudioPipeline
+    from diffsheg_tpu_torch.device import resolve_device
+    device = resolve_device(args.device)
+    cfg = _base_config(args)
+    speakers = [int(s) for s in args.speakers.split(",")]
+    bad = [s for s in speakers if not 0 <= s < cfg.model.style_dim]
+    if bad:
+        raise SystemExit(
+            f"speaker ids {bad} out of range for style_dim="
+            f"{cfg.model.style_dim} ({args.dataset}); pass --speakers "
+            f"in [0, {cfg.model.style_dim - 1}]")
+    stats = _load_stats(args)
+    mean = stats.motion_mean if stats is not None else None
+    std = stats.motion_std if stats is not None else None
+    pipe = CustomAudioPipeline(cfg, _load_model(cfg, args.checkpoint),
+                               hubert_model=_load_hubert(
+                                   cfg, args.hubert_checkpoint),
+                               motion_mean=mean, motion_std=std,
+                               device=device)
+    if args.warmup:
+        from diffsheg_tpu_torch.audio.wav import load_wav
+        y, sr = load_wav(args.audio)
+        pipe.warmup(len(y) / sr, num_speakers=len(speakers))
+    res = pipe.generate(args.audio, speakers, seed=args.seed)
+    print(f"generated {res.motion.shape} | {res.fps:.1f} FPS "
+          f"({res.rtf:.2f}x real-time) | stages: "
+          + " ".join(f"{k}={v:.3f}s" for k, v in res.stages.items()))
+    name = os.path.splitext(os.path.basename(args.audio))[0]
+    if args.dataset == "beat" and mean is not None:
+        files = pipe.export_beat(res.motion, args.out_dir, name,
+                                 template_bvh=args.template_bvh,
+                                 player=args.player)
+    else:
+        files = pipe.export_show(res.motion, args.out_dir, name,
+                                 stats=stats)
+    print("\n".join(files))
+    return 0
+
+
+def cmd_export_ckpt(args) -> int:
+    """Re-export a model's weights as a reference-format ``.tar`` (what
+    the upstream torch harness loads)."""
+    from diffsheg_tpu_torch.compat.torch_ckpt import save_reference_checkpoint
+    cfg = _base_config(args)
+    model = _load_model(cfg, args.checkpoint)
+    path = save_reference_checkpoint(model, args.out, epoch=args.epoch)
+    print(f"exported: {path}")
+    return 0
+
+
+def cmd_view(args) -> int:
+    """Write the self-contained HTML player for an exported BVH (+ face
+    JSON)."""
+    from diffsheg_tpu_torch.viz.player import export_bvh_player
+    if args.stride < 1:
+        raise SystemExit(f"--stride must be >= 1, got {args.stride}")
+    out = args.out or (os.path.splitext(args.bvh)[0] + "_player.html")
+    path = export_bvh_player(args.bvh, out, face_json=args.face,
+                             stride=args.stride)
+    print(f"player: {path}")
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Streaming serving daemon: one TCP connection = one live session
     (push audio chunks, receive motion as windows complete)."""
@@ -104,15 +201,12 @@ def cmd_serve(args) -> int:
     hubert_fe = None
     if cfg.model.add_hubert:
         from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
-        hubert = None
-        if args.hubert_checkpoint:
-            from diffsheg_tpu_torch.compat.hubert_ckpt import load_hf_hubert
-            hubert = load_hf_hubert(args.hubert_checkpoint)
-        else:
+        if not args.hubert_checkpoint:
             print("WARNING: model.add_hubert is on but no "
                   "--hubert-checkpoint was given — speech features come "
                   "from a RANDOM-INIT encoder.", file=sys.stderr)
-        hubert_fe = HubertFeatureExtractor(model=hubert, device=device)
+        hubert_fe = HubertFeatureExtractor(
+            model=_load_hubert(cfg, args.hubert_checkpoint), device=device)
 
     from diffsheg_tpu_torch.serving.server import MotionServer
     server = MotionServer(cfg, model, hubert_extractor=hubert_fe,
@@ -150,6 +244,59 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="diffsheg_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--dataset", choices=["beat", "show"],
+                        default="beat")
+        sp.add_argument("--set", action="append", default=[],
+                        help="config override section.field=value")
+        sp.add_argument("--seed", type=int, default=0)
+
+    sp = sub.add_parser("generate", help="custom-audio generation")
+    common(sp)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where it runs (cuda raises without a card)")
+    sp.add_argument("--audio", required=True)
+    sp.add_argument("--checkpoint",
+                    help="reference DiffSHEG checkpoint (.tar); without it "
+                         "the weights are random")
+    sp.add_argument("--stats-dir")
+    sp.add_argument("--out-dir", default="outputs")
+    sp.add_argument("--speakers", default="1,3,5,7",
+                    help="comma-separated speaker indices")
+    sp.add_argument("--template-bvh")
+    sp.add_argument("--player", action="store_true",
+                    help="also write a self-contained HTML player per clip "
+                         "(needs --template-bvh)")
+    sp.add_argument("--warmup", action="store_true",
+                    help="run once on synthetic audio of the same length "
+                         "first, so the reported RTF is steady-state")
+    sp.add_argument("--hubert-checkpoint",
+                    help="local HF HuBERT-large weights (pytorch_model.bin / "
+                         "model.safetensors, or their directory); required "
+                         "for faithful output when model.add_hubert is on")
+    sp.set_defaults(fn=cmd_generate)
+
+    sp = sub.add_parser(
+        "export-ckpt", help="export weights as a reference-format .tar "
+                            "(run them in the upstream torch harness)")
+    common(sp)
+    sp.add_argument("--checkpoint", required=True,
+                    help="a reference .tar to re-export")
+    sp.add_argument("--out", required=True, help="output .tar path")
+    sp.add_argument("--epoch", type=int, default=0,
+                    help="epoch number recorded in the tar")
+    sp.set_defaults(fn=cmd_export_ckpt)
+
+    sp = sub.add_parser(
+        "view", help="self-contained HTML motion player for an exported BVH")
+    sp.add_argument("--bvh", required=True)
+    sp.add_argument("--face", help="matching face JSON (blendshape bars)")
+    sp.add_argument("--out", help="output .html (default: <bvh>_player.html)")
+    sp.add_argument("--stride", type=int, default=1,
+                    help="frame subsampling for long clips")
+    sp.set_defaults(fn=cmd_view)
+
     sp = sub.add_parser(
         "serve", help="streaming speech-to-motion serving daemon (TCP; one "
                       "connection = one live session)")

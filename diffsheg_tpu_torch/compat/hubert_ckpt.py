@@ -1,15 +1,16 @@
 """HuggingFace HuBERT checkpoint -> the port's ``HubertModel``.
 
-Counterpart of ``diffsheg_tpu/compat/hubert_ckpt.py`` for the HuBERT-large
-layout (``do_stable_layer_norm=True``, ``feat_extract_norm='layer'``: the
-checkpoint DiffSHEG serves with, hubert-large-ls960-ft).  A torch state
+Counterpart of ``diffsheg_tpu/compat/hubert_ckpt.py`` for both layouts:
+HuBERT-large (``do_stable_layer_norm=True``, ``feat_extract_norm='layer'``:
+the checkpoint DiffSHEG serves with, hubert-large-ls960-ft) and
+HuBERT-base / wav2vec2-base (``feat_extract_norm='group'``: the first
+conv's GroupNorm becomes ``gn_scale`` / ``gn_bias``; post-LN layers keep
+the same key names), picked by the ``HubertConfig`` given.  A torch state
 dict becomes the Flax-named numpy tree that
 ``compat/from_jax.py::load_flax_tree`` loads, folding the weight-norm
 parametrization of the positional conv (the legacy ``weight_g`` /
 ``weight_v`` names and torch >= 2.1's
-``parametrizations.weight.original0/1``).  The HuBERT-base / wav2vec2-base
-layout (group-norm first conv, post-LN layers) is refused, as
-``models/hubert.py`` refuses to build it.
+``parametrizations.weight.original0/1``).
 
 :func:`load_hf_hubert` reads a local file or directory only (never a hub
 name) and does not import ``transformers``.
@@ -61,19 +62,14 @@ def _pos_conv_weight(sd: Mapping, prefix: str) -> np.ndarray:
 def convert_hubert_state_dict(sd: Mapping[str, Any],
                               cfg: Optional[HubertConfig] = None
                               ) -> Dict[str, Any]:
-    """HF HuBERT-large state dict -> ``{'params': ...}`` (Flax names,
-    float32 numpy); a ``hubert.`` prefix (``HubertForCTC``) is dropped."""
+    """HF HuBERT state dict -> ``{'params': ...}`` (Flax names, float32
+    numpy) for the layout of ``cfg`` (default HuBERT-large); a ``hubert.``
+    prefix (``HubertForCTC``) is dropped."""
     cfg = cfg or HubertConfig()
     if not any(k.startswith("feature_extractor") for k in sd) and any(
             k.startswith("hubert.") for k in sd):
         sd = {k[len("hubert."):]: v for k, v in sd.items()
               if k.startswith("hubert.")}
-    if (cfg.conv_norm != "layer" or not cfg.stable_layer_norm
-            or "feature_extractor.conv_layers.1.layer_norm.weight" not in sd):
-        raise NotImplementedError(
-            "the HuBERT-base / wav2vec2-base layout (group-norm first conv, "
-            "post-LN layers) is not ported yet; the port loads the "
-            "HuBERT-large layout")
     fe: Dict[str, Any] = {}
     for i in range(len(cfg.conv_dim)):
         base = f"feature_extractor.conv_layers.{i}"
@@ -81,7 +77,11 @@ def convert_hubert_state_dict(sd: Mapping[str, Any],
         if f"{base}.conv.bias" in sd:
             conv["bias"] = _t(sd[f"{base}.conv.bias"])
         fe[f"conv_{i}"] = conv
-        fe[f"ln_{i}"] = _ln(sd, f"{base}.layer_norm")
+        if cfg.conv_norm != "group_first":
+            fe[f"ln_{i}"] = _ln(sd, f"{base}.layer_norm")
+        elif i == 0:    # the GroupNorm's affine parameters
+            fe["gn_scale"] = _t(sd[f"{base}.layer_norm.weight"])
+            fe["gn_bias"] = _t(sd[f"{base}.layer_norm.bias"])
     p: Dict[str, Any] = {
         "feature_extractor": fe,
         "feat_proj_ln": _ln(sd, "feature_projection.layer_norm"),
@@ -93,6 +93,8 @@ def convert_hubert_state_dict(sd: Mapping[str, Any],
     }
     for i in range(cfg.num_layers):
         base = f"encoder.layers.{i}"
+        # pre-LN and post-LN share the key names: 'layer_norm' is the
+        # attention-side norm, 'final_layer_norm' the ffn-side one
         p[f"layer_{i}"] = {
             "attn_ln": _ln(sd, f"{base}.layer_norm"),
             "attn": {n: _dense(sd, f"{base}.attention.{n}")
@@ -107,10 +109,12 @@ def convert_hubert_state_dict(sd: Mapping[str, Any],
 
 def load_hf_hubert(path: str, cfg: Optional[HubertConfig] = None
                    ) -> HubertModel:
-    """A HuBERT-large ``HubertModel`` from a local HuggingFace checkpoint:
-    a ``pytorch_model.bin`` / ``model.safetensors`` file, or a directory
-    holding one (``.safetensors`` needs the ``safetensors`` package).
-    On the CPU in float32."""
+    """A ``HubertModel`` of ``cfg``'s layout (default HuBERT-large;
+    ``models/hubert.py::wav2vec2_base_config`` for the base layout) from a
+    local HuggingFace checkpoint: a ``pytorch_model.bin`` /
+    ``model.safetensors`` file, or a directory holding one
+    (``.safetensors`` needs the ``safetensors`` package).  On the CPU in
+    float32."""
     if os.path.isdir(path):
         names = [n for n in ("model.safetensors", "pytorch_model.bin")
                  if os.path.exists(os.path.join(path, n))]

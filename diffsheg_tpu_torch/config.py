@@ -104,6 +104,10 @@ class StreamConfig:
     """Arbitrary-length windowed-outpainting generation."""
 
     overlap_len: int = 4
+    # custom-audio generation (cli/generate.py): mel + HuBERT + sampler in
+    # one pipeline call; False: staged, each stage timed (the reference's
+    # per-stage RTF)
+    single_dispatch: bool = True
     add_blend: bool = True
     fix_very_first: bool = False
     no_repaint: bool = False

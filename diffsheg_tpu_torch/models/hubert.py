@@ -1,11 +1,13 @@
-"""HuBERT encoder (hubert-large-ls960-ft architecture).
+"""HuBERT encoder: the hubert-large-ls960-ft and wav2vec2-base layouts.
 
-Counterpart of ``diffsheg_tpu/models/hubert.py`` for hubert-large: a
-7-layer conv feature extractor with per-layer LayerNorm, LN + projection,
-a grouped-conv positional embedding, 24 pre-LN transformer layers (16
-heads, FFN 4096), final LayerNorm.  The wav2vec2-base family (first-layer
-GroupNorm, post-LN layers) is not ported yet.  Attribute names follow the
-Flax parameter tree.
+Counterpart of ``diffsheg_tpu/models/hubert.py``.  HuBERT-large: a 7-layer
+conv feature extractor with per-layer LayerNorm, LN + projection, a
+grouped-conv positional embedding, 24 pre-LN transformer layers (16
+heads, FFN 4096), final LayerNorm.  The wav2vec2-base / HuBERT-base family
+(:func:`wav2vec2_base_config`): bias-free convs with a per-channel
+GroupNorm over time on the first conv only, the encoder LayerNorm after
+the positional conv (none at the end) and post-LN layers.  Attribute
+names follow the Flax parameter tree.
 """
 
 from __future__ import annotations
@@ -32,9 +34,19 @@ class HubertConfig:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     conv_norm: str = "layer"        # {"layer", "group_first"}
-    conv_bias: bool = True
-    stable_layer_norm: bool = True  # pre-LN (hubert-large)
+    conv_bias: bool = True          # wav2vec2-base convs are bias-free
+    stable_layer_norm: bool = True  # True: pre-LN (hubert-large); False:
+                                    # post-LN (wav2vec2-base)
     dtype: str = "float32"
+
+
+def wav2vec2_base_config() -> HubertConfig:
+    """facebook/wav2vec2-base-960h geometry (HuBERT-base too): 768-d, 12
+    post-LN layers, group-norm first conv, bias-free convs."""
+    return HubertConfig(
+        hidden_size=768, num_layers=12, num_heads=12,
+        intermediate_size=3072, conv_norm="group_first",
+        stable_layer_norm=False, conv_bias=False)
 
 
 def gelu(x):
@@ -42,24 +54,39 @@ def gelu(x):
 
 
 class ConvFeatureExtractor(nn.Module):
-    """Strided conv stack, each conv followed by LayerNorm and GELU."""
+    """Strided conv stack, each conv followed by GELU: with a LayerNorm
+    before it on every conv ('layer'), or a GroupNorm on the first conv
+    only ('group_first')."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         self.cfg = cfg
+        self.group_first = cfg.conv_norm == "group_first"
         c_in = 1
         for i, (c, k, s) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel,
                                           cfg.conv_stride)):
             self.add_module(f"conv_{i}", nn.Conv1d(c_in, c, k, stride=s,
                                                    bias=cfg.conv_bias))
-            self.add_module(f"ln_{i}", nn.LayerNorm(c, eps=LN_EPS))
+            if not self.group_first:
+                self.add_module(f"ln_{i}", nn.LayerNorm(c, eps=LN_EPS))
             c_in = c
+        if self.group_first:
+            self.gn_scale = nn.Parameter(torch.ones(cfg.conv_dim[0]))
+            self.gn_bias = nn.Parameter(torch.zeros(cfg.conv_dim[0]))
 
     def forward(self, x):                       # (B, N) -> (B, T, C)
         h = x[:, None].to(self.conv_0.weight.dtype)
         for i in range(len(self.cfg.conv_dim)):
             h = getattr(self, f"conv_{i}")(h)   # (B, C, T)
-            h = getattr(self, f"ln_{i}")(h.transpose(1, 2)).transpose(1, 2)
+            if not self.group_first:
+                h = getattr(self, f"ln_{i}")(h.transpose(1, 2)).transpose(1, 2)
+            elif i == 0:
+                # GroupNorm(C groups, C channels): each channel over all
+                # time steps, a padded row's pad samples included
+                mean = h.mean(-1, keepdim=True)
+                var = h.var(-1, keepdim=True, unbiased=False)
+                h = (h - mean) * torch.rsqrt(var + LN_EPS)
+                h = h * self.gn_scale[:, None] + self.gn_bias[:, None]
             h = gelu(h)
         return h.transpose(1, 2)
 
@@ -112,10 +139,12 @@ class HubertSelfAttention(nn.Module):
 
 
 class HubertEncoderLayer(nn.Module):
-    """Pre-LN transformer layer."""
+    """Transformer layer: pre-LN (``stable_layer_norm``, hubert-large) or
+    post-LN (wav2vec2-base)."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.pre_ln = cfg.stable_layer_norm
         self.attn = HubertSelfAttention(cfg)
         self.attn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
         self.ffn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
@@ -123,22 +152,23 @@ class HubertEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x, frame_mask=None):
-        x = x + self.attn(self.attn_ln(x), frame_mask)
-        return x + self.fc2(gelu(self.fc1(self.ffn_ln(x))))
+        if self.pre_ln:
+            x = x + self.attn(self.attn_ln(x), frame_mask)
+            return x + self.fc2(gelu(self.fc1(self.ffn_ln(x))))
+        x = self.attn_ln(x + self.attn(x, frame_mask))
+        return self.ffn_ln(x + self.fc2(gelu(self.fc1(x))))
 
 
 class HubertModel(nn.Module):
     """Waveform (B, N) at 16 kHz -> hidden states (B, T, H),
     T = (N - 400) // 320 + 1.  ``frame_mask`` (B, T) bool marks valid frames
     of right-padded rows: pad frames are zeroed before the positional conv
-    and excluded from attention."""
+    and excluded from attention.  The encoder LayerNorm ``final_ln`` comes
+    after the layers (pre-LN) or before them, after the positional conv
+    (post-LN)."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        if cfg.conv_norm != "layer" or not cfg.stable_layer_norm:
-            raise NotImplementedError(
-                "the wav2vec2-base family (group-norm convs, post-LN "
-                "layers) is not ported yet")
         self.cfg = cfg
         self.feature_extractor = ConvFeatureExtractor(cfg)
         self.feat_proj_ln = nn.LayerNorm(cfg.conv_dim[-1], eps=LN_EPS)
@@ -153,9 +183,11 @@ class HubertModel(nn.Module):
         if frame_mask is not None:
             h = h * frame_mask[..., None].to(h.dtype)
         h = h + self.pos_conv(h)
+        if not self.cfg.stable_layer_norm:
+            h = self.final_ln(h)
         for i in range(self.cfg.num_layers):
             h = getattr(self, f"layer_{i}")(h, frame_mask)
-        return self.final_ln(h)
+        return self.final_ln(h) if self.cfg.stable_layer_norm else h
 
 
 def normalize_waveform(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

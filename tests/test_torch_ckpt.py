@@ -242,7 +242,29 @@ def test_load_hf_hubert_from_local_files(fmt, tmp_path):
 
 
 def test_hubert_base_layout_raises():
+    # the HuBERT-base layout was refused; it now converts, key for key as
+    # JAX converts it, and the model matches HF's forward
+    # (tests/test_torch_hubert_base.py holds it against JAX)
+    import dataclasses
+    from diffsheg_tpu.compat.hubert_ckpt import convert_hubert_state_dict as jconv
+    from diffsheg_tpu.models.hubert import HubertConfig as JC
+    from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
     from diffsheg_tpu_torch.compat.hubert_ckpt import convert_hubert_state_dict
-    sd = _hf(layout="base").state_dict()
-    with pytest.raises(NotImplementedError, match="HuBERT-base"):
-        convert_hubert_state_dict(sd, _port_cfg())
+    from diffsheg_tpu_torch.models.hubert import HubertModel
+    hf = _hf(layout="base")
+    sd = hf.state_dict()
+    base = dict(conv_norm="group_first", stable_layer_norm=False)
+    cfg = dataclasses.replace(_port_cfg(), **base)
+    tree = convert_hubert_state_dict(sd, cfg)
+    want = dict(_leaves(jconv(sd, JC(**HUB, **base))))
+    got = dict(_leaves(tree))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    port = load_flax_tree(HubertModel(cfg), tree).eval()
+    x = torch.from_numpy(np.random.RandomState(3).randn(1, 8000)
+                         .astype(np.float32))
+    with torch.no_grad():
+        ref = hf(x).last_hidden_state
+        out = port(x)
+    assert float((out - ref).norm() / ref.norm()) <= 1e-5

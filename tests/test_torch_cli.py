@@ -21,6 +21,7 @@ SETS = [
     ["model.cond_scale=1.5", "model.classifier_free=yes",
      "stream.fix_very_first=1", "data.n_poses=12"],
     ["data.remove_hand=true"],
+    ["stream.single_dispatch=false", "stream.same_overlap_noisy=true"],
 ]
 BAD = ["model.latent_dim", "latent_dim=3", "modle.latent_dim=3",
        "model.latnet_dim=3", "model.latent_dim=big"]

@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -66,16 +67,19 @@ def test_kernel_sources_are_package_data():
 
 
 @pytest.mark.parametrize("entry", ["generator", "hubert", "mel", "live",
-                                   "server", "cli"])
-def test_entry_points_default_to_cuda(entry, monkeypatch):
+                                   "server", "cli", "export", "generate",
+                                   "cli-generate"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
     from diffsheg_tpu_torch.audio.mel import MelFrontend
+    from diffsheg_tpu_torch.cli.generate import CustomAudioPipeline
     from diffsheg_tpu_torch.cli.main import main
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
-    from diffsheg_tpu_torch.models.hubert import HubertConfig
+    from diffsheg_tpu_torch.models.hubert import HubertConfig, HubertModel
     from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    from diffsheg_tpu_torch.sampling.export import BeatMotionExporter
     from diffsheg_tpu_torch.sampling.generator import WindowGenerator
     from diffsheg_tpu_torch.sampling.live import LiveSession
     from diffsheg_tpu_torch.serving.server import MotionServer
@@ -106,6 +110,21 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
                      "--set", "model.num_layers=1",
                      "--set", "model.add_hubert=false"] + dev)
 
+    def cli_generate(**kw):
+        import wave
+        wav = str(tmp_path / "a.wav")
+        with wave.open(wav, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(b"\0\0" * 16000)
+        dev = ["--device", kw["device"]] if kw else []
+        return main(["generate", "--audio", wav, "--speakers", "1",
+                     "--out-dir", str(tmp_path / "out"),
+                     "--set", "model.latent_dim=32",
+                     "--set", "model.num_layers=1",
+                     "--set", "model.add_hubert=false"] + dev)
+
     make = {
         "generator": lambda **kw: WindowGenerator(
             cfg, init_unidiffuser(cfg.model), **kw),
@@ -116,6 +135,12 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             GeneratorNoise(0, kw.get("device", "cpu")), **kw),
         "server": server,
         "cli": cli,
+        "export": lambda **kw: BeatMotionExporter(
+            141, 15.0, np.zeros(192), np.ones(192), **kw),
+        "generate": lambda **kw: CustomAudioPipeline(
+            cfg, init_unidiffuser(cfg.model),
+            hubert_model=HubertModel(tiny_hub), **kw),
+        "cli-generate": cli_generate,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -143,5 +168,42 @@ def test_walk_covers_the_slice():
                 "sampling.pipeline", "sampling.live", "audio.mel",
                 "audio.hubert_runner", "compat.from_jax",
                 "compat.torch_ckpt", "compat.hubert_ckpt",
-                "serving.protocol", "serving.server", "cli.main"):
+                "serving.protocol", "serving.server", "cli.main",
+                "audio.wav", "utils.profiling", "utils.filters",
+                "geometry.rotations", "geometry.quaternion",
+                "geometry.joints", "geometry.bvh", "geometry.face",
+                "data.beat", "data.show", "viz.player", "sampling.export",
+                "cli.generate"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod
+
+
+# the modules the port keeps as its own numpy copies: the same public
+# functions, classes and constants as the JAX package's (no import of it)
+OWN_COPIES = {"geometry/joints.py": None, "geometry/bvh.py": None,
+              "geometry/face.py": None, "viz/player.py": None,
+              "audio/wav.py": None,
+              "data/beat.py": {"BEAT_HAND_FREE_CHANNELS", "BeatStats"},
+              "data/show.py": {"ShowStats", "extract_gesture",
+                               "split_smplx_pose", "standardize",
+                               "inv_standardize"}}
+
+
+def _public_names(path):
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [
+                node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", sorted(OWN_COPIES))
+def test_own_copies_carry_the_jax_modules_names(rel):
+    ours = _public_names(os.path.join(ROOT, "diffsheg_tpu_torch", rel))
+    ref = _public_names(os.path.join(ROOT, "diffsheg_tpu", rel))
+    want = OWN_COPIES[rel] or ref
+    assert want <= ref and want <= ours, sorted(want - ours)

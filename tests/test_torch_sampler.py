@@ -241,7 +241,8 @@ def test_unported_stream_and_hubert_modes_raise():
     # stream.fix_very_first and ancestral streams are ported
     # (tests/test_torch_live.py and tests/test_torch_ancestral.py hold them
     # against JAX); ancestral with saved noisy tails is refused as JAX
-    # refuses it, and the HuBERT-base layout is not ported
+    # refuses it; the HuBERT-base layout builds
+    # (tests/test_torch_hubert_base.py holds it against JAX)
     cfg = tcfg.replace(stream=dataclasses.replace(tcfg.stream,
                                                   fix_very_first=True))
     StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
@@ -252,6 +253,11 @@ def test_unported_stream_and_hubert_modes_raise():
                                                  same_overlap_noisy=True))
     with pytest.raises(ValueError, match="same_overlap_noisy"):
         StreamingGenerator(PGen(cfg, init_unidiffuser(cfg.model), device="cpu"))
-    with pytest.raises(NotImplementedError):
-        HubertModel(HubertConfig(conv_norm="group_first",
-                                 stable_layer_norm=False))
+    base = HubertModel(HubertConfig(conv_norm="group_first",
+                                    stable_layer_norm=False, conv_bias=False,
+                                    hidden_size=16, num_layers=1, num_heads=2,
+                                    intermediate_size=32, conv_dim=(8,) * 7))
+    assert base.feature_extractor.gn_scale.shape == (8,)
+    with torch.no_grad():
+        out = base(torch.zeros(1, 800))
+    assert out.shape == (1, 2, 16) and torch.isfinite(out).all()

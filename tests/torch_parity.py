@@ -138,3 +138,27 @@ def stream_noise(rng, n_windows, B, T, C, plain, harmonize,
 
 def jnp_f32(x):
     return jnp.asarray(np.asarray(x, np.float32))
+
+
+def beat_template_text(frames: int = 3, seed: int = 0) -> str:
+    """A 228-channel BEAT skeleton: a chain of every joint, a root with
+    translation, ZXY rotations, an end site, ``frames`` random frames."""
+    from diffsheg_tpu_torch.geometry.joints import BEAT_JOINT_ORDER
+    rng = np.random.RandomState(seed)
+    lines = ["HIERARCHY"]
+    for d, name in enumerate(BEAT_JOINT_ORDER):
+        pad = "  " * d
+        off = " ".join("%.4f" % v for v in rng.randn(3))
+        lines += [f"{pad}{'ROOT' if d == 0 else 'JOINT'} {name}", f"{pad}{{",
+                  f"{pad}  OFFSET {off}",
+                  f"{pad}  CHANNELS 6 Xposition Yposition Zposition "
+                  "Zrotation Xrotation Yrotation" if d == 0 else
+                  f"{pad}  CHANNELS 3 Zrotation Xrotation Yrotation"]
+    nj = len(BEAT_JOINT_ORDER)
+    lines += ["  " * nj + "End Site", "  " * nj + "{",
+              "  " * nj + "  OFFSET 0 0.1 0", "  " * nj + "}"]
+    lines += ["  " * (d - 1) + "}" for d in range(nj, 0, -1)]
+    lines += ["MOTION", f"Frames: {frames}", "Frame Time: 0.06666667"]
+    lines += [" ".join("%.5f" % v for v in rng.uniform(-60, 60, 228))
+              for _ in range(frames)]
+    return "\n".join(lines) + "\n"
