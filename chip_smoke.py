@@ -380,10 +380,11 @@ def layer_flops(B, T, Cp, L=512, H=8, F=1024):
 # the per-layer kernel at the gesture branch's shapes of other main paths:
 # the live path's (bf16) 12-frame window and 4 speakers of a 34-frame
 # window; cli generate's default, 4 speaker styles of a 34-frame window in
-# f32
+# f32; one launch of training's evaluation, 7 windows of 34 frames in f32
 LIVE_LAYER_CASES = (("live-t12-bf16", 1, 12, torch.bfloat16),
                     ("live-b4-bf16", 4, 34, torch.bfloat16),
-                    ("layer-beat-4spk-f32", 4, 34, torch.float32))
+                    ("layer-beat-4spk-f32", 4, 34, torch.float32),
+                    ("layer-eval-beat-f32", 7, 34, torch.float32))
 
 
 def live_layer_case(name, B, T, dtype, dev, seed, reps):
@@ -470,6 +471,9 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("show-audio-enc-f32", torch.float32, 100, 88, 128, 0),
                    ("live-t12-f32", torch.float32, 1, 12, 512, 0),
                    ("long-t512-f32", torch.float32, 1, 512, 512, 0),
+                   ("train-beat-f32", torch.float32, 2500, 34, 512, 0),
+                   ("train-audio-enc-f32", torch.float32, 2500, 34, 128, 0),
+                   ("eval-audio-enc-f32", torch.float32, 1600, 34, 128, 0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
                    ("unaligned-f32", torch.float32, 1, 34, 512, 1))
 
@@ -1874,13 +1878,378 @@ def phase_generate(dev, model):
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 10: training
+# --------------------------------------------------------------------------
+
+TRAIN_WINDOWS = 5000                # two steps an epoch at the batch
+TRAIN_BATCH = 2500                  # beat_config().train.batch_size
+TRAIN_ATTN = (TRAIN_BATCH, 34, 512, 8)
+TRAIN_AUDIO_ATTN = (TRAIN_BATCH, 34, 128, 8)
+EVAL_BATCH = 64
+EVAL_AUDIO_ATTN = (25 * EVAL_BATCH, 34, 128, 8)   # the level cache's rows
+# the per-layer kernel takes at most 256 rows a launch: 7 windows of 34
+# frames, so a layer of the 64-window batch is 10 launches (9 of 7
+# windows, 1 of 1)
+EVAL_LAYER_LAUNCHES = 25 * 16 * 10
+
+
+def write_beat_caches(root, n, seed):
+    """A synthetic BEAT train cache of ``n`` 34-frame windows with every
+    field at its width (the raw 16 kHz audio included), and a HuBERT
+    cache of 34 frames x 1024 a window, through the port's CacheWriter;
+    returns (cache, hubert cache)."""
+    from diffsheg_tpu_torch.data.cache import CacheWriter
+    rng = np.random.default_rng(seed)
+    T, S = 34, 36266                 # 34 frames at 15 fps of 16 kHz audio
+
+    def normal(*shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    f = {"pose": normal(n, T, 141), "pose_axis_angle": normal(n, T, 141),
+         "audio": normal(n, S, scale=0.1), "mel": normal(n, T, 128),
+         "facial": normal(n, T, 51),
+         "sem": rng.random((n, T), dtype=np.float32),
+         "id": rng.integers(0, 30, (n, 1)).astype(np.int32),
+         "word": rng.integers(-1, 2048, (n, T)).astype(np.int32),
+         "emo": rng.integers(0, 8, (n, T)).astype(np.int32)}
+    hub = normal(n, T, 1024, scale=0.5)
+    cache, hcache = os.path.join(root, "cache"), os.path.join(root, "hubert")
+    w = CacheWriter(cache, meta={"n_poses": T})
+    for i in range(n):
+        w.add({k: v[i] for k, v in f.items()})
+    w.finalize()
+    w = CacheWriter(hcache)
+    for i in range(n):
+        w.add({"hubert": hub[i]})
+    w.finalize()
+    return cache, hcache
+
+
+def flat_params(model_or_state_dict) -> torch.Tensor:
+    sd = (model_or_state_dict.state_dict()
+          if isinstance(model_or_state_dict, torch.nn.Module)
+          else model_or_state_dict)
+    return torch.cat([v.detach().float().flatten().cpu()
+                      for k, v in sd.items() if "running_" not in k])
+
+
+class TrainRecorder:
+    """Times the trainer's steps (device-synchronised) and the loader's
+    batches (on its thread), and keeps each step's loss terms, while
+    ``cli train`` runs in this process."""
+
+    def __init__(self):
+        import diffsheg_tpu_torch.train.trainer as trainer_mod
+        from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+        self.mod, self.loader_cls = trainer_mod, ShardedBatchLoader
+        self.steps, self.loads = [], []
+
+    def __enter__(self):
+        make, make_batch = self.mod.make_train_step, self.loader_cls._make
+        self.saved = make, make_batch
+
+        def timed_make(*a, **k):
+            fn = make(*a, **k)
+
+            def step(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, terms = fn(state, batch)
+                torch.cuda.synchronize()
+                self.steps.append(((time.perf_counter() - t0) * 1e3,
+                                   terms._asdict()))
+                return state, terms
+            return step
+
+        def timed_batch(loader, rows):
+            t0 = time.perf_counter()
+            out = make_batch(loader, rows)
+            self.loads.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.mod.make_train_step = timed_make
+        self.loader_cls._make = timed_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step, self.loader_cls._make = self.saved
+
+
+def train_run(tag, argv, steps, dev):
+    """One in-process ``cli train``; its launches asserted exactly, its
+    steps' times and loss terms printed; returns the recorder."""
+    from diffsheg_tpu_torch.cli.main import main
+    attn = counters()["fused_linear_attention"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with TrainRecorder() as rec:
+        main(argv)
+    secs = time.perf_counter() - t0
+    expect(f"train {tag}", {n: fn.launches for n, fn in counters().items()},
+           fused_linear_attention=33 * steps)
+    check_attention_shapes(f"train {tag}", attn.launches_by_shape,
+                           {TRAIN_ATTN: 32 * steps,
+                            TRAIN_AUDIO_ATTN: steps})
+    if len(rec.steps) != steps:
+        raise AssertionError(f"train {tag}: {len(rec.steps)} steps, "
+                             f"expected {steps}")
+    ms = [m for m, _ in rec.steps]
+    med = statistics.median(ms[1:] if len(ms) > 1 else ms)
+    for i, (m, terms) in enumerate(rec.steps):
+        log(f"train[{tag}] step {i}: {m:.1f} ms " + " ".join(
+            f"{k}={v:.6g}" for k, v in terms.items()))
+    log(f"train[{tag}]: {steps} steps in {secs:.1f} s of command; step ms "
+        f"median (after the first) {med:.1f}, first {ms[0]:.1f}; "
+        f"{TRAIN_BATCH / med * 1e3:.1f} windows/s, "
+        f"{TRAIN_BATCH * 34 / med * 1e3:.0f} frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loader "
+        f"{statistics.median(rec.loads):.1f} ms a batch "
+        f"({len(rec.loads)} batches); launches {attn.launches} "
+        f"({dict(attn.launches_by_shape)})")
+    return rec
+
+
+def train_band(what, a_terms, b_terms, a_params, b_params, tol):
+    """Loss terms (relative, each step) and parameters (rel-RMS over all
+    of them as one vector) of two runs of the same steps."""
+    t_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(a_terms, b_terms) for k in b if b[k] != 0)
+    p_err = rel_rms(a_params, b_params)
+    log(f"train[{what}]: loss terms rel {t_err:.3e}, parameters rel_rms "
+        f"{p_err:.3e} (tol {tol:g})")
+    if not (t_err <= tol and p_err <= tol):
+        raise AssertionError(f"train {what}: {t_err:.3e} / {p_err:.3e} > "
+                             f"{tol:g}")
+
+
+def injected_steps(cfg, batch, ts, noises, dev, plain=False):
+    """Three injected-randomness steps from ``cfg``'s model with seeded
+    random weights (the same for every ``cfg`` of one architecture); with
+    ``plain`` the linear-attention kernel swapped for its plain version
+    (in this process only).  Returns (terms, parameters after)."""
+    import diffsheg_tpu_torch.models.attention as attn
+    from diffsheg_tpu_torch.diffusion.schedule import (
+        get_named_beta_schedule, make_schedule)
+    from diffsheg_tpu_torch.models.factory import init_denoiser
+    from diffsheg_tpu_torch.ops.linear_attention import (
+        linear_attention_reference)
+    from diffsheg_tpu_torch.train.step import (create_train_state,
+                                               make_train_step)
+    sched = make_schedule(get_named_beta_schedule("linear", 1000))
+    state = create_train_state(cfg, init_denoiser(cfg.model, seed=3), dev)
+    step = make_train_step(cfg, sched, inject_randoms=True)
+    saved = attn.linear_attention
+    if plain:
+        attn.linear_attention = (lambda q, k, v, h, use_fused=None:
+                                 linear_attention_reference(q, k, v, h))
+    terms = []
+    try:
+        for t, n in zip(ts, noises):
+            state, tm = step(state, batch, t, n)
+            terms.append({k: float(v) for k, v in tm._asdict().items()})
+    finally:
+        attn.linear_attention = saved
+    torch.cuda.synchronize()
+    return terms, flat_params(state.model)
+
+
+KERNEL_KINDS = (("matrix products", ("gemm", "cutlass", "xmma", "sm90_",
+                                     "sm80_", "cublas")),
+                ("linear-attention kernel", ("linear_attention",)),
+                ("convolutions", ("conv", "cudnn", "implicit")),
+                ("norms", ("norm",)),
+                ("softmax", ("softmax",)),
+                ("reductions", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "copy",
+                                 "fill", "index", "cat")))
+
+
+def train_profile(dev):
+    """Where one training step's time goes, at the published batch with
+    remat: its wall time and, under torch.profiler, the device's busy
+    time by kind of kernel and the largest kernels."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.diffusion.schedule import (
+        get_named_beta_schedule, make_schedule)
+    from diffsheg_tpu_torch.models.factory import init_denoiser
+    from diffsheg_tpu_torch.train.step import (create_train_state,
+                                               make_train_step)
+    cfg = beat_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=True))
+    state = create_train_state(cfg, init_denoiser(cfg.model, seed=5), dev)
+    step = make_train_step(cfg, make_schedule(get_named_beta_schedule(
+        "linear", 1000)))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B = TRAIN_BATCH
+    batch = {"motion": torch.randn(B, 34, 192, generator=gen, device=dev),
+             "mel": torch.randn(B, 34, 128, generator=gen, device=dev),
+             "pid": torch.nn.functional.one_hot(
+                 torch.arange(B, device=dev) % 30, 30).float(),
+             "hubert": torch.randn(B, 34, 1024, generator=gen, device=dev),
+             "sem": torch.rand(B, 34, generator=gen, device=dev)}
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time for e in kern) / 1e3
+    by_kind, by_name = {}, {}
+    for e in kern:
+        low = e.name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(x in low for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    log(f"train[one step, batch {B}, remat, profiled]: wall_ms={wall:.1f} "
+        f"device busy_ms={busy:.1f} ({len(kern)} kernels) idle "
+        f"share={1 - busy / wall:.3f}; by kind: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"train[profile]: {ms:.1f} ms ({ms / busy:.1%}) {name[:110]}")
+    del state, batch
+
+
+def phase_train(dev):
+    """(a) ``cli train`` at the published width and batch; (b) the kernel
+    against its plain version inside the step, remat against none; (c)
+    ``Trainer.evaluate`` through the per-layer kernel."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from diffsheg_tpu_torch.config import beat_config
+    no_tf32()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cache, hcache = write_beat_caches(tmp, TRAIN_WINDOWS, 40)
+        log(f"train: caches of {TRAIN_WINDOWS} windows written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        common = ["train", "--device", "cuda", "--train-cache", cache,
+                  "--hubert-cache", hcache, "--set", "model.remat=true",
+                  "--set", "train.log_every=1"]
+        # (a) 2 epochs, then --resume for a third; against 3 uninterrupted
+        w1, w3 = os.path.join(tmp, "run"), os.path.join(tmp, "run3")
+        r1 = train_run("2 epochs", common + ["--workdir", w1, "--epochs",
+                                             "2"], 4, dev)
+        r2 = train_run("resumed 3rd", common + ["--workdir", w1, "--epochs",
+                                                "3", "--resume"], 2, dev)
+        r3 = train_run("3 epochs", common + ["--workdir", w3, "--epochs",
+                                             "3"], 6, dev)
+        launches["fused_linear_attention_train"] = 32 * 4
+        launches["fused_linear_attention_train_audio_enc"] = 4
+        with open(os.path.join(w1, "metrics.jsonl")) as f:
+            logged = [json.loads(x) for x in f if '"total"' in x]
+        if len(logged) != 6:
+            raise AssertionError(f"metrics.jsonl: {len(logged)} step records")
+        end = [torch.load(os.path.join(w, "ckpt", "latest", "3", "state.pt"),
+                          map_location="cpu", weights_only=True)["model"]
+               for w in (w1, w3)]
+        train_band("resumed vs uninterrupted",
+                   [t for _, t in r2.steps], [t for _, t in r3.steps[4:]],
+                   flat_params(end[0]), flat_params(end[1]), 1e-6)
+        shutil.rmtree(w1)
+        shutil.rmtree(w3)
+        train_profile(dev)
+
+        # (b) batch 256: kernel against plain, remat against no remat
+        cfg = beat_config()
+        remat = cfg.replace(model=dataclasses.replace(cfg.model, remat=True))
+        gen = torch.Generator().manual_seed(41)
+        B = 256
+        batch = {"motion": torch.randn(B, 34, 192, generator=gen),
+                 "mel": torch.randn(B, 34, 128, generator=gen),
+                 "pid": torch.nn.functional.one_hot(
+                     torch.arange(B) % 30, 30).float(),
+                 "hubert": 0.5 * torch.randn(B, 34, 1024, generator=gen),
+                 "sem": torch.rand(B, 34, generator=gen)}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        ts = [torch.randint(0, 1000, (B,), generator=gen).to(dev)
+              for _ in range(3)]
+        noises = [torch.randn(B, 34, 192, generator=gen).to(dev)
+                  for _ in range(3)]
+        zero_counts()
+        k_terms, k_params = injected_steps(remat, batch, ts, noises, dev)
+        expect("train (b) kernel", {n: fn.launches for n, fn in
+                                    counters().items()},
+               fused_linear_attention=3 * 33)
+        zero_counts()
+        p_terms, p_params = injected_steps(remat, batch, ts, noises, dev,
+                                           plain=True)
+        expect("train (b) plain", {n: fn.launches for n, fn in
+                                   counters().items()})
+        n_terms, n_params = injected_steps(cfg, batch, ts, noises, dev)
+        train_band("(b) kernel vs plain, batch 256", k_terms, p_terms,
+                   k_params, p_params, 1e-5)
+        train_band("(b) remat vs none, batch 256", k_terms, n_terms,
+                   k_params, n_params, 1e-6)
+        del batch, k_params, p_params, n_params
+
+        # (c) evaluation on 64 windows, one step, again
+        from diffsheg_tpu_torch.data.beat import BeatDataset
+        from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+        from diffsheg_tpu_torch.train.trainer import Trainer
+        vcache, vhub = write_beat_caches(os.path.join(tmp, "val"),
+                                         EVAL_BATCH, 42)
+        ds = BeatDataset(vcache, hubert_cache_dir=vhub)
+        loader = ShardedBatchLoader(ds, global_batch_size=EVAL_BATCH,
+                                    prefetch=0)
+        tr = Trainer(cfg, os.path.join(tmp, "eval"), device=dev)
+        res = []
+        for i in range(2):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = tr.evaluate(loader, seed=5)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            expect(f"evaluate {i}", {n: fn.launches for n, fn in
+                                     counters().items()},
+                   fused_layer=EVAL_LAYER_LAUNCHES,
+                   fused_linear_attention=1)
+            check_attention_shapes(
+                f"evaluate {i}",
+                counters()["fused_linear_attention"].launches_by_shape,
+                {EVAL_AUDIO_ATTN: 1})
+            log(f"train[evaluate {i}]: {secs:.2f} s " + " ".join(
+                f"{k}={v:.6g}" for k, v in r.as_dict().items()))
+            vals = [r.mse, r.pck, r.pck2, r.diversity]
+            if not all(np.isfinite(v) for v in vals):
+                raise AssertionError(f"evaluate {i}: {r}")
+            res.append(vals)
+            if i == 0:
+                b = tr._on_device(tr._to_model_batch(
+                    ds.batch(np.arange(EVAL_BATCH))))
+                tr.state, _ = tr._step_full(tr.state, b)
+        if res[0] == res[1]:
+            raise AssertionError("the evaluation after a training step "
+                                 "equals the one before it")
+        launches["fused_layer_eval"] = EVAL_LAYER_LAUNCHES
+        launches["fused_linear_attention_eval_audio_enc"] = 1
+    log(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
                                        "uncached", "live", "variants",
-                                       "generate"),
+                                       "generate", "train"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -1930,7 +2299,10 @@ def main() -> int:
            "fused_layer_generate_staged", "fused_layer_generate_show",
            "fused_linear_attention_generate_audio_enc",
            "fused_linear_attention_generate_staged_audio_enc",
-           "fused_linear_attention_generate_show_audio_enc"])
+           "fused_linear_attention_generate_show_audio_enc",
+           "fused_linear_attention_train",
+           "fused_linear_attention_train_audio_enc", "fused_layer_eval",
+           "fused_linear_attention_eval_audio_enc"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
@@ -1957,6 +2329,8 @@ def main() -> int:
             del hubert_fe
         if run("generate"):
             launches.update(phase_generate(dev, model))
+    if run("train"):
+        launches.update(phase_train(dev))
     if kres is None:
         return 0
     entries = []
@@ -2029,6 +2403,20 @@ def main() -> int:
               "ops/linear_attention.py:99"),
              ("fused_linear_attention_generate_show_audio_enc",
               "attn-show-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99")]
+    # phase 10, training: the forward of every self-attention of a step at
+    # batch 2500 (the first 2 epochs' launches), and the evaluation's
+    # per-layer kernel (at (7, 34), 9 of its 10 launches a layer) and
+    # level-cache audio encoder
+    rows += [("fused_linear_attention_train", "attn-train-beat-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_linear_attention_train_audio_enc",
+              "attn-train-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_eval", "layer-eval-beat-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_eval_audio_enc",
+              "attn-eval-audio-enc-f32", None, "linear_attention.cu",
               "ops/linear_attention.py:99")]
     for name, key, sub, source, line in rows:
         if key not in kres:

@@ -1,4 +1,4 @@
-"""diffsheg_tpu_torch — the DiffSHEG serving pipeline in PyTorch + CUDA.
+"""diffsheg_tpu_torch — DiffSHEG serving and training in PyTorch + CUDA.
 
 A port of ``diffsheg_tpu`` (JAX/Pallas, TPU) to PyTorch on NVIDIA Hopper.
 Module paths mirror the JAX package so each counterpart is easy to find;
@@ -10,7 +10,8 @@ any module of ``diffsheg_tpu``.
 Subpackages
 -----------
 - ``config``     frozen dataclass configuration (own copy)
-- ``diffusion``  schedules, respacing, RePaint step programs, DDIM sampler
+- ``diffusion``  schedules, respacing, RePaint step programs, DDIM and
+                 ancestral samplers, training losses, timestep samplers
 - ``models``     denoiser modules, timestep-level cache, fast-path forward,
                  HuBERT encoder
 - ``ops``        hand-written CUDA kernels (``csrc/``) and their plain
@@ -22,13 +23,18 @@ Subpackages
                  and wire protocol
 - ``geometry``   rotation conversions (torch), BVH IO and forward
                  kinematics, joint tables, face JSON
-- ``data``       dataset normalization statistics
+- ``data``       array caches, BEAT / SHOW window datasets and their
+                 statistics, the sharded batch loader
+- ``train``      the training step, the trainer loop, checkpoints
+- ``eval``       MSE, PCK, diversity, Frechet distance
 - ``viz``        the self-contained HTML motion player
-- ``utils``      stage timing, device traces, smoothing filters
-- ``compat``     weights from a JAX variables tree, a reference DiffSHEG
-                 ``.tar`` (and back), a HuggingFace HuBERT (large or base)
-- ``cli``        ``python -m diffsheg_tpu_torch.cli generate | serve |
-                 export-ckpt | view``
+- ``utils``      metric logging, stage timing, device traces, smoothing
+                 filters
+- ``compat``     weights (or a whole train state) from JAX, a reference
+                 DiffSHEG ``.tar`` (and back), a HuggingFace HuBERT (large
+                 or base)
+- ``cli``        ``python -m diffsheg_tpu_torch.cli train | generate |
+                 serve | export-ckpt | view``
 """
 
 __version__ = "0.1.0"

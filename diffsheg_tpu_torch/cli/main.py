@@ -1,7 +1,9 @@
 """Command-line entry points of the port.
 
-Counterpart of ``diffsheg_tpu/cli/main.py`` for serving and inference:
+Counterpart of ``diffsheg_tpu/cli/main.py``:
 
+  python -m diffsheg_tpu_torch.cli train --dataset beat --workdir runs/beat \\
+      --train-cache cache/train --hubert-cache cache/hubert --resume
   python -m diffsheg_tpu_torch.cli generate --dataset beat --audio clip.wav \\
       --checkpoint model.tar --hubert-checkpoint hubert-large/ \\
       --stats-dir stats/ --template-bvh template.bvh --speakers 1,3,5,7
@@ -14,10 +16,11 @@ Counterpart of ``diffsheg_tpu/cli/main.py`` for serving and inference:
 with the JAX commands' flags, ``--device {cuda,cpu}`` (default ``cuda``;
 it raises without a card) where JAX has ``--platform``, and any config
 field reachable through ``--set section.field=value``.  ``--checkpoint``
-takes a reference ``.tar`` (``compat/torch_ckpt.py``); Orbax directories
-are the JAX package's format (their restore comes with the training side
-of the port).  Training, evaluation, cache building and ``doctor`` are
-not ported yet.
+takes a reference ``.tar`` (``compat/torch_ckpt.py``) or a training
+checkpoint directory of the port (``<workdir>/ckpt``, its newest
+``latest`` step); Orbax directories are the JAX package's format and are
+refused.  Cache building (``build-cache``), ``eval``, ``test-stream`` and
+``doctor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -86,17 +89,27 @@ def _base_config(args) -> Config:
 
 def _load_model(cfg: Config, checkpoint: Optional[str]):
     """The model ``cfg`` describes (any ``branch_mode`` / ``model_base``),
-    random or from a reference ``.tar``."""
-    from diffsheg_tpu_torch.models.factory import init_denoiser
+    random, from a reference ``.tar``, or from the newest checkpoint of a
+    training directory of the port."""
+    from diffsheg_tpu_torch.models.factory import build_denoiser, init_denoiser
     if not checkpoint:
         print("WARNING: no checkpoint given, using random init",
               file=sys.stderr)
         return init_denoiser(cfg.model, seed=0)
     if os.path.isdir(checkpoint):
-        raise SystemExit(
-            f"--checkpoint {checkpoint}: a directory (an Orbax checkpoint) "
-            "is the JAX package's format; export it as a reference .tar "
-            "(python -m diffsheg_tpu.cli export-ckpt) and pass the .tar")
+        from diffsheg_tpu_torch.train.checkpoint import load_model_weights
+        if not os.path.isdir(os.path.join(checkpoint, "latest")):
+            raise SystemExit(
+                f"--checkpoint {checkpoint}: not a training checkpoint "
+                "directory of the port (latest/<step>/state.pt); a "
+                "directory (an Orbax checkpoint) is the JAX package's "
+                "format: export it as a reference .tar (python -m "
+                "diffsheg_tpu.cli export-ckpt) and pass the .tar")
+        try:
+            return load_model_weights(checkpoint,
+                                      build_denoiser(cfg.model))
+        except ValueError as e:
+            raise SystemExit(f"--checkpoint {checkpoint}: {e}") from None
     from diffsheg_tpu_torch.compat.torch_ckpt import load_reference_checkpoint
     return load_reference_checkpoint(checkpoint, cfg.model)
 
@@ -122,6 +135,64 @@ def _load_stats(args):
         return ShowStats.load(path)
     from diffsheg_tpu_torch.data.beat import BeatStats
     return BeatStats.load(args.stats_dir)
+
+
+def _open_dataset(args, cfg, cache_path, hubert_cache=None):
+    if args.dataset == "show":
+        from diffsheg_tpu_torch.data.show import ShowDataset
+        if not args.stats_dir:
+            raise SystemExit("--stats-dir required for show (a "
+                             "talkshow_mean_std.npy file or its directory)")
+        return ShowDataset(cache_path, _load_stats(args),
+                           hubert_cache_dir=hubert_cache,
+                           remove_hand=cfg.data.remove_hand,
+                           audio_feat=cfg.data.audio_feat,
+                           n_mfcc=cfg.data.n_mfcc)
+    from diffsheg_tpu_torch.data.beat import BeatDataset
+    return BeatDataset(cache_path, _load_stats(args),
+                       hubert_cache_dir=hubert_cache,
+                       remove_hand=cfg.data.remove_hand)
+
+
+def cmd_train(args) -> int:
+    """Train from a cache: epochs of the training step, metrics.jsonl,
+    checkpoints under ``<workdir>/ckpt``, periodic evaluation on
+    ``--val-cache``."""
+    from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+    from diffsheg_tpu_torch.device import resolve_device
+    from diffsheg_tpu_torch.train.trainer import Trainer, check_trainable
+    device = resolve_device(args.device)
+    if args.fgd_checkpoint:
+        raise SystemExit(
+            "--fgd-checkpoint needs the FGD feature net, which the port "
+            "does not have yet; without it evaluation reports fgd as NaN")
+    cfg = _base_config(args)
+    try:
+        check_trainable(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    train_ds = _open_dataset(args, cfg, args.train_cache,
+                             hubert_cache=args.hubert_cache)
+    val_ds = (_open_dataset(args, cfg, args.val_cache)
+              if args.val_cache else None)
+    batch = min(cfg.train.batch_size, len(train_ds))
+
+    def loader(ds):
+        return ShardedBatchLoader(ds, global_batch_size=batch,
+                                  seed=cfg.train.seed)
+
+    trainer = Trainer(cfg, args.workdir, device=device)
+    if args.resume:
+        trainer.try_resume()
+    trainer.fit(loader(train_ds), loader(val_ds) if val_ds else None,
+                num_epochs=args.epochs or None)
+    return 0
+
+
+def cmd_build_cache(args) -> int:
+    raise SystemExit(
+        "build-cache is not ported yet: build the cache with python -m "
+        "diffsheg_tpu.cli build-cache; the port reads its caches")
 
 
 def cmd_generate(args) -> int:
@@ -252,14 +323,43 @@ def build_parser() -> argparse.ArgumentParser:
                         help="config override section.field=value")
         sp.add_argument("--seed", type=int, default=0)
 
+    sp = sub.add_parser("train", help="train a model")
+    common(sp)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where it runs (cuda raises without a card)")
+    sp.add_argument("--workdir", required=True)
+    sp.add_argument("--train-cache", required=True)
+    sp.add_argument("--val-cache")
+    sp.add_argument("--hubert-cache",
+                    help="a cache whose 'hubert' field holds each training "
+                         "window's HuBERT features")
+    sp.add_argument("--stats-dir")
+    sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--epochs", type=int, default=0)
+    sp.add_argument("--fgd-checkpoint",
+                    help="reference FGD autoencoder (refused: the port has "
+                         "no FGD net yet)")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("build-cache", help="build a dataset cache (not "
+                                            "ported yet)")
+    common(sp)
+    sp.add_argument("--data-root", required=True)
+    sp.add_argument("--split", default="train")
+    sp.add_argument("--stats-dir")
+    sp.add_argument("--out")
+    sp.set_defaults(fn=cmd_build_cache)
+
     sp = sub.add_parser("generate", help="custom-audio generation")
     common(sp)
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where it runs (cuda raises without a card)")
     sp.add_argument("--audio", required=True)
     sp.add_argument("--checkpoint",
-                    help="reference DiffSHEG checkpoint (.tar); without it "
-                         "the weights are random")
+                    help="reference DiffSHEG checkpoint (.tar) or the "
+                         "port's training checkpoint directory "
+                         "(<workdir>/ckpt); without it the weights are "
+                         "random")
     sp.add_argument("--stats-dir")
     sp.add_argument("--out-dir", default="outputs")
     sp.add_argument("--speakers", default="1,3,5,7",
@@ -282,7 +382,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "(run them in the upstream torch harness)")
     common(sp)
     sp.add_argument("--checkpoint", required=True,
-                    help="a reference .tar to re-export")
+                    help="a reference .tar or the port's training "
+                         "checkpoint directory to export")
     sp.add_argument("--out", required=True, help="output .tar path")
     sp.add_argument("--epoch", type=int, default=0,
                     help="epoch number recorded in the tar")
@@ -306,8 +407,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where sessions run (cuda raises without a card)")
     sp.add_argument("--checkpoint",
-                    help="reference DiffSHEG checkpoint (.tar); without it "
-                         "the weights are random")
+                    help="reference DiffSHEG checkpoint (.tar) or the "
+                         "port's training checkpoint directory "
+                         "(<workdir>/ckpt); without it the weights are "
+                         "random")
     sp.add_argument("--hubert-checkpoint",
                     help="local HF HuBERT-large weights (pytorch_model.bin / "
                          "model.safetensors, or their directory)")

@@ -19,10 +19,14 @@ step:
 Every parameter and buffer of the module must be filled exactly once, and
 every leaf of the tree must land somewhere; anything else raises.
 :func:`export_flax_tree` is the inverse: a module's weights as such a tree.
+:func:`load_flax_train_state` carries a whole JAX ``TrainState`` (weights,
+optimizer moments, learning rate, step, sampler history) into the port's,
+so that a run started in JAX continues in the port.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -149,3 +153,41 @@ def export_flax_tree(module: nn.Module) -> Tree:
             if sub["batch_stats"]:
                 stats[name] = sub["batch_stats"]
     return {"params": params, "batch_stats": stats}
+
+
+def load_flax_train_state(state, jax_state):
+    """Fill the port's ``train.step.TrainState`` ``state`` (from
+    ``create_train_state`` for the same config) from a JAX ``TrainState``
+    as numpy (``jax.tree.map(np.asarray, state)``): params and
+    ``batch_stats`` into the model; the optax ``(clip, inject_hyperparams
+    (adam))`` state's ``mu`` / ``nu`` / ``count`` into Adam's moments and
+    step counts, laid out as the weights (each leaf through the same
+    transposes), and its ``learning_rate`` into the optimizer; the step;
+    and the loss-aware sampler's history.  Returns ``state``."""
+    from diffsheg_tpu_torch.diffusion.timestep_sampler import LossAwareState
+    model, opt = state.model, state.optimizer
+    stats = jax_state.batch_stats or {}
+    load_flax_tree(model, {"params": jax_state.params, "batch_stats": stats})
+    inject = jax_state.opt_state[1]
+    adam = inject.inner_state[0]
+    moments = {}
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        scratch = load_flax_tree(copy.deepcopy(model),
+                                 {"params": tree, "batch_stats": stats})
+        moments[key] = dict(scratch.named_parameters())
+    count = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    for name, p in model.named_parameters():
+        opt.state[p] = {"step": count.clone(),
+                        **{k: m[name].detach().clone().to(p.device)
+                           for k, m in moments.items()}}
+    lr = float(np.asarray(inject.hyperparams["learning_rate"]))
+    for group in opt.param_groups:
+        group["lr"] = lr
+    state.step = int(np.asarray(jax_state.step))
+    t_state = jax_state.t_state
+    if state.t_state is not None and hasattr(t_state, "history"):
+        dev = state.t_state.history.device
+        state.t_state = LossAwareState(
+            torch.tensor(np.asarray(t_state.history, np.float32), device=dev),
+            torch.tensor(np.asarray(t_state.counts, np.int32), device=dev))
+    return state

@@ -1,14 +1,15 @@
 """Typed configuration for diffsheg_tpu_torch.
 
-The port's own copy of the serving-relevant part of
-``diffsheg_tpu/config.py``: the same frozen dataclasses, field names,
-defaults and presets, so a configuration reads the same in both packages.
-Training and mesh settings are not part of the port yet.
+The port's own copy of ``diffsheg_tpu/config.py``: the same frozen
+dataclasses, field names, defaults and presets, so a configuration reads
+the same in both packages (``DiffusionConfig.scan_unroll``, a knob of
+JAX's compiled sampler loop, has no counterpart).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 
 
@@ -135,17 +136,79 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation: Adam at ``lr`` after a global-norm clip at
+    ``grad_clip``; the loss ``eps_weight * eps MSE + vel_weight * velocity
+    MSE + x0_weight * Huber(x0)`` (the last two from epoch
+    ``vel_loss_start``; ``use_sem_weighting`` scales the x0 term by the
+    semantic score + 1), plus the VLB term for ``loss_type`` 'kl' /
+    'rescaled_kl' or a learned variance head."""
+
+    batch_size: int = 2500
+    num_epochs: int = 1000
+    lr: float = 2e-4
+    grad_clip: float = 0.5
+    eps_weight: float = 1000.0
+    vel_weight: float = 1.0
+    x0_weight: float = 100.0
+    huber_beta: float = 0.1
+    loss_type: str = "mse"     # {'mse','rescaled_mse','kl','rescaled_kl'}
+    vel_loss_start: int = -1
+    use_sem_weighting: bool = True
+    log_every: int = 50
+    save_every_epochs: int = 20
+    eval_every_epochs: int = 40
+    seed: int = 0
+    checkpoints_dir: str = "checkpoints"
+    timestep_sampler: str = "uniform"  # {'uniform','loss-second-moment'}
+    # mel + HuBERT inside the step from the cache's raw audio (JAX only)
+    on_device_frontend: bool = False
+    debug_nans: bool = False   # torch.autograd anomaly detection
+    debug: bool = False        # one batch an epoch
+    reset_lr: bool = False     # on resume, force the optimizer lr to ``lr``
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device layout (the JAX package's mesh); the port trains on one
+    device, so both parallel degrees must stay at -1 / 1."""
+
+    data_axis: str = "data"
+    fsdp_axis: str = "fsdp"
+    data_parallel: int = -1    # -1 = all devices
+    fsdp_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class Config:
-    """Top-level serving config."""
+    """Top-level config."""
 
     name: str = "beat_diffsheg_tpu"
     model: ModelConfig = field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "Config":
+        raw = json.loads(text)
+        return Config(
+            name=raw.get("name", "unnamed"),
+            model=ModelConfig(**raw.get("model", {})),
+            diffusion=DiffusionConfig(**raw.get("diffusion", {})),
+            stream=StreamConfig(**raw.get("stream", {})),
+            data=DataConfig(**raw.get("data", {})),
+            train=TrainConfig(**raw.get("train", {})),
+            mesh=MeshConfig(**raw.get("mesh", {})),
+        )
 
 
 def check_variance_coupling(cfg: Config) -> None:
@@ -196,6 +259,7 @@ def beat_config(**overrides) -> Config:
         data=DataConfig(dataset_name="beat", fps=15, n_poses=34, stride=10,
                         speaker_dim=30, mel_sr=18000, mel_hop=1200),
         stream=StreamConfig(overlap_len=4),
+        train=TrainConfig(batch_size=2500, num_epochs=1000),
     )
     return cfg.replace(**overrides) if overrides else cfg
 
@@ -211,5 +275,7 @@ def show_config(**overrides) -> Config:
                         stride=10, speaker_dim=4, mel_sr=18000, mel_hop=600,
                         data_root="data/SHOW", cache_name="talkshow_cache"),
         stream=StreamConfig(overlap_len=10),
+        train=TrainConfig(batch_size=950, num_epochs=4000,
+                          use_sem_weighting=False),
     )
     return cfg.replace(**overrides) if overrides else cfg

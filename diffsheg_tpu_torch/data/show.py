@@ -1,19 +1,22 @@
-"""SHOW / TalkSHOW normalization statistics and channel carpentry.
+"""SHOW / TalkSHOW statistics, channel carpentry and the window dataset.
 
-The port's own copy of the statistics part of ``diffsheg_tpu/data/show.py``
-(numpy only): the SMPL-X split, :func:`extract_gesture`,
-:class:`ShowStats` and (inverse) standardization, which the SHOW export
-uses.  Standardization keeps the reference's quirk: the expression *std*
+The port's own copy of ``diffsheg_tpu/data/show.py`` without the cache
+builder (numpy only): the SMPL-X split, :func:`extract_gesture`,
+:func:`combine_expression`, :class:`ShowStats` and (inverse)
+standardization, which the SHOW export uses, and :class:`ShowDataset`.
+Standardization keeps the reference's quirk: the expression *std*
 vector's first 3 entries are the jaw *mean* (reference show.py:46-47).
-The dataset comes with the training side of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+from diffsheg_tpu_torch.data.beat import hubert_batch
+from diffsheg_tpu_torch.data.cache import ArrayCache
 
 # SMPL-X layout (show.py:83)
 _POSE_SPLITS = (3, 3, 3, 3, 63, 90)       # jaw, leye, reye, global, body, hands
@@ -33,6 +36,12 @@ def split_smplx_pose(pose: np.ndarray) -> Dict[str, np.ndarray]:
     return dict(jaw=jaw, leye=leye, reye=reye, global_orient=global_orient,
                 low=(low1, low2, low3, low4), up=(up1, up2, up3, up4),
                 hands=hands)
+
+
+def combine_expression(pose: np.ndarray, expression: np.ndarray) -> np.ndarray:
+    """jaw(3) ++ expression(100) -> (..., 103)."""
+    jaw = split_smplx_pose(pose)["jaw"]
+    return np.concatenate([jaw, expression], axis=-1)
 
 
 def extract_gesture(pose: np.ndarray) -> np.ndarray:
@@ -91,3 +100,72 @@ def inv_standardize(x: np.ndarray, mean: np.ndarray, std: np.ndarray
     """(show.py:157-162); used on generated output before export
     (ddpm_show_trainer.py:719-724,913-918)."""
     return x * std + mean
+
+
+class ShowDataset:
+    """Cache-backed SHOW dataset.
+
+    Cache fields: pose (165), expression (100), mel, mfcc (optional),
+    audio, speaker (one-hot 4); ``hubert_cache_dir`` as for
+    ``BeatDataset``.  Items: gesture (129, or 39 with ``remove_hand``),
+    expression (103), motion (232), mel (the ``audio_feat``: mel, the
+    cached mfcc, or 'raw' 16 kHz audio mean-pooled per frame), speaker.
+    """
+
+    def __init__(self, cache_dir: str, stats: ShowStats,
+                 hubert_cache_dir: Optional[str] = None,
+                 remove_hand: bool = False, audio_feat: str = "mel",
+                 n_mfcc: int = 64):
+        self.cache = ArrayCache(cache_dir)
+        self.stats = stats
+        self.remove_hand = remove_hand
+        self.audio_feat = audio_feat
+        self.n_mfcc = n_mfcc
+        self.hubert = (ArrayCache(hubert_cache_dir)
+                       if hubert_cache_dir else None)
+
+    def __len__(self) -> int:
+        return len(self.cache)
+
+    def _aud_feat(self, s: Dict[str, np.ndarray], n_frames: int
+                  ) -> np.ndarray:
+        if self.audio_feat == "mel":
+            return s["mel"].astype(np.float32)
+        if self.audio_feat == "mfcc":
+            if "mfcc" in s:
+                return s["mfcc"].astype(np.float32)
+            raise ValueError(
+                "data.audio_feat='mfcc' on a cache without an 'mfcc' field "
+                "needs the MFCC frontend, which the port does not have; "
+                "rebuild the cache with the field")
+        if self.audio_feat == "raw":
+            a = np.asarray(s["audio"], dtype=np.float32)
+            n = (len(a) // n_frames) * n_frames
+            return a[:n].reshape(n_frames, -1).mean(-1, keepdims=True)
+        raise ValueError(f"unknown audio_feat {self.audio_feat!r}")
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        s = self.cache[idx]
+        gesture = standardize(extract_gesture(s["pose"]),
+                              self.stats.pose_mean, self.stats.pose_std)
+        expr = standardize(combine_expression(s["pose"], s["expression"]),
+                           self.stats.expression_mean,
+                           self.stats.expression_std)
+        if self.remove_hand:
+            gesture = gesture[..., :39]
+        out = {
+            "gesture": gesture.astype(np.float32),
+            "expression": expr.astype(np.float32),
+            "motion": np.concatenate([gesture, expr], axis=-1)
+                        .astype(np.float32),
+            "mel": self._aud_feat(s, gesture.shape[0]),
+            "speaker": s["speaker"].astype(np.float32),
+        }
+        if self.hubert is not None:
+            out["hubert"] = hubert_batch(self.hubert, np.asarray([idx]),
+                                         gesture.shape[0])[0]
+        return out
+
+    def batch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        items = [self[int(i)] for i in indices]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}

@@ -5,7 +5,7 @@ coefficient is computed once on the host in float64 and kept as a float32
 table.  The sampler's loop runs on the host and reads its scalars from
 these tables: the closed forms (``q_posterior_mean``, ``predict_*``) take
 one level as a python int, or (B,) levels as a tensor; ``undo`` one
-level.
+level; ``q_sample`` is the forward process the training loss noises with.
 """
 
 from __future__ import annotations
@@ -59,7 +59,13 @@ class DiffusionSchedule(NamedTuple):
 
     # closed forms at one level ``t`` (python int: scalars in float32 as
     # the JAX tables are gathered) or at (B,) levels (a tensor, as the VLB
-    # terms take them)
+    # terms and the training loss take them)
+    def q_sample(self, x_start, t, noise):
+        """Forward diffusion: x_t ~ q(x_t | x_0) with the given noise."""
+        return (gather(self.sqrt_alphas_cumprod, t, x_start) * x_start
+                + gather(self.sqrt_one_minus_alphas_cumprod, t, x_start)
+                * noise)
+
     def q_posterior_mean(self, x_start, x_t, t):
         return (gather(self.posterior_mean_coef1, t, x_t) * x_start
                 + gather(self.posterior_mean_coef2, t, x_t) * x_t)

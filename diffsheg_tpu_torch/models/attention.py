@@ -33,7 +33,8 @@ class LinearTemporalSelfAttention(nn.Module):
     residual.  ``src_mask`` (B, T, 1) of ones and zeros, or None for all
     ones; ``mod`` (B, 2L) a precomputed stylization modulation."""
 
-    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
         from diffsheg_tpu_torch.models.blocks import StylizationBlock
         self.num_heads = num_heads
@@ -41,10 +42,10 @@ class LinearTemporalSelfAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb, src_mask: Optional[torch.Tensor] = None,
-                mod: Optional[torch.Tensor] = None):
+                mod: Optional[torch.Tensor] = None, train: bool = False):
         xn = self.norm(x)
         query, key, value = self.query(xn), self.key(xn), self.value(xn)
         if src_mask is not None:
@@ -52,7 +53,7 @@ class LinearTemporalSelfAttention(nn.Module):
             key = key + (1.0 - mask) * -1_000_000.0
             value = value * mask
         y = linear_attention(query, key, value, self.num_heads)
-        return x + self.proj_out(y, emb, mod)
+        return x + self.proj_out(y, emb, mod, train=train)
 
 
 class LinearTemporalCrossAttention(nn.Module):
@@ -60,7 +61,7 @@ class LinearTemporalCrossAttention(nn.Module):
     -> unmasked linear attention -> stylization, plus the residual."""
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
-                 cond_dim: int):
+                 cond_dim: int, dropout: float = 0.0):
         super().__init__()
         from diffsheg_tpu_torch.models.blocks import StylizationBlock
         self.num_heads = num_heads
@@ -69,10 +70,11 @@ class LinearTemporalCrossAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(cond_dim, latent_dim)
         self.value = nn.Linear(cond_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, xf, emb, mod: Optional[torch.Tensor] = None):
+    def forward(self, x, xf, emb, mod: Optional[torch.Tensor] = None,
+                train: bool = False):
         xn, xfn = self.norm(x), self.text_norm(xf)
         y = linear_attention(self.query(xn), self.key(xfn), self.value(xfn),
                              self.num_heads)
-        return x + self.proj_out(y, emb, mod)
+        return x + self.proj_out(y, emb, mod, train=train)

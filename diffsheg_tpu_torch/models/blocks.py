@@ -4,10 +4,10 @@ Counterpart of ``diffsheg_tpu/models/blocks.py``; attribute names follow
 the Flax parameter tree so weights carry across by name
 (``compat/from_jax.py``).
 
-- ``StylizationBlock``: AdaLN modulation ``out(silu(norm(h) * (1 + scale)
-  + shift))`` from the time(+speaker) embedding or a precomputed ``mod``
-  from the timestep-level cache.
-- ``FFN``: GELU MLP with a stylization residual.
+- ``StylizationBlock``: AdaLN modulation ``out(dropout(silu(norm(h) *
+  (1 + scale) + shift)))`` from the time(+speaker) embedding or a
+  precomputed ``mod`` from the timestep-level cache.
+- ``FFN``: GELU MLP (dropout after the GELU) with a stylization residual.
 - ``CondProjection``: LN -> Dense(2L) -> SiLU -> Dense(L).
 - ``DiffusionTransformerLayer``: condition re-injection (concat, the
   classifier-free null-condition substitution, MLP projection and
@@ -16,6 +16,10 @@ the Flax parameter tree so weights carry across by name
   cross-attention over the condition, and FFN.  This is the module
   forward; the sampler's fast path runs the same layers in the fused-layer
   kernels (``ops/fused_layer.py``).
+
+Every forward takes ``train``: dropout (probability ``dropout``, from
+torch's global generator) runs only with ``train=True``, as Flax's
+``deterministic=not train``.
 """
 
 from __future__ import annotations
@@ -36,33 +40,45 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
+    """Inverted dropout (kept entries scaled by 1 / (1 - p)) only in
+    training; the identity otherwise and at ``p == 0``."""
+    return F.dropout(x, p, training=True) if train and p > 0 else x
+
+
 class StylizationBlock(nn.Module):
-    def __init__(self, latent_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.emb_proj = nn.Linear(time_embed_dim, 2 * latent_dim)
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.out_proj = nn.Linear(latent_dim, latent_dim)
 
     def forward(self, h, emb: Optional[torch.Tensor],
-                mod: Optional[torch.Tensor] = None):
+                mod: Optional[torch.Tensor] = None, train: bool = False):
         # emb (B, E) -> mod (B, 2L), unless the cache supplies it
         if mod is None:
             mod = self.emb_proj(F.silu(emb))
         scale, shift = mod[:, None, :].chunk(2, dim=-1)
         h = self.norm(h) * (1.0 + scale) + shift
-        return self.out_proj(F.silu(h))
+        return self.out_proj(dropout(F.silu(h), self.dropout, train))
 
 
 class FFN(nn.Module):
-    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, emb, mod: Optional[torch.Tensor] = None):
-        y = self.linear2(gelu_exact(self.linear1(x)))
-        return x + self.proj_out(y, emb, mod)
+    def forward(self, x, emb, mod: Optional[torch.Tensor] = None,
+                train: bool = False):
+        y = self.linear2(dropout(gelu_exact(self.linear1(x)), self.dropout,
+                                 train))
+        return x + self.proj_out(y, emb, mod, train=train)
 
 
 class CondProjection(nn.Module):
@@ -87,7 +103,8 @@ class DiffusionTransformerLayer(nn.Module):
 
     def __init__(self, latent_dim: int, ffn_dim: int, num_heads: int,
                  time_embed_dim: int, feats_dim: Optional[int] = None,
-                 model_base: str = "transformer_encoder"):
+                 model_base: str = "transformer_encoder",
+                 dropout: float = 0.0):
         super().__init__()
         if model_base not in ("transformer_encoder", "transformer_decoder"):
             raise ValueError(f"model_base={model_base!r}")
@@ -95,27 +112,29 @@ class DiffusionTransformerLayer(nn.Module):
         if feats_dim is not None and not self.decoder:
             self.feat_proj = CondProjection(feats_dim, latent_dim)
         self.sa_block = LinearTemporalSelfAttention(latent_dim, num_heads,
-                                                    time_embed_dim)
+                                                    time_embed_dim, dropout)
         if feats_dim is not None and self.decoder:
             self.ca_block = LinearTemporalCrossAttention(
-                latent_dim, num_heads, time_embed_dim, feats_dim - latent_dim)
-        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim)
+                latent_dim, num_heads, time_embed_dim, feats_dim - latent_dim,
+                dropout)
+        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim, dropout)
 
     def forward(self, x, cond: Optional[torch.Tensor],
                 emb: Optional[torch.Tensor],
                 src_mask: Optional[torch.Tensor] = None,
                 null_cond_mask: Optional[torch.Tensor] = None,
                 null_cond_emb: Optional[torch.Tensor] = None,
-                mods: Optional[torch.Tensor] = None):
+                mods: Optional[torch.Tensor] = None, train: bool = False):
         """x (B, T, L); cond (B, T, C) or None; emb (B, E) or None when
         ``mods`` (2, B, 2L) come from the cache; ``null_cond_mask`` (B,)
         bool rows whose concat is replaced by ``null_cond_emb`` (1, L+C)."""
         if self.decoder:
             x = self.sa_block(x, emb, src_mask,
-                              None if mods is None else mods[0])
+                              None if mods is None else mods[0], train=train)
             if cond is not None:
-                x = self.ca_block(x, cond, emb)
-            return self.ffn(x, emb, None if mods is None else mods[1])
+                x = self.ca_block(x, cond, emb, train=train)
+            return self.ffn(x, emb, None if mods is None else mods[1],
+                            train=train)
         if cond is not None:
             feats = torch.cat([x, cond], dim=-1)
             if null_cond_mask is not None:
@@ -124,5 +143,7 @@ class DiffusionTransformerLayer(nn.Module):
             x = self.feat_proj(feats) + x
         else:
             x = x + x
-        x = self.sa_block(x, emb, src_mask, None if mods is None else mods[0])
-        return self.ffn(x, emb, None if mods is None else mods[1])
+        x = self.sa_block(x, emb, src_mask, None if mods is None else mods[0],
+                          train=train)
+        return self.ffn(x, emb, None if mods is None else mods[1],
+                        train=train)

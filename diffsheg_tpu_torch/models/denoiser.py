@@ -3,7 +3,9 @@
 Counterpart of ``diffsheg_tpu/models/denoiser.py``: ``TimeEmbedMLP``,
 ``HubertConvEncoder`` and the branch ``MotionDenoiser``, whose module
 forward runs uncached or fed by one level of the timestep-level cache
-(``models/level_cache.py``).  A branch may add text and emotion labels to
+(``models/level_cache.py``), and in training (``train=True``: BatchNorm
+on batch statistics, dropout, the classifier-free null rows, and with
+``remat`` each transformer layer recomputed in the backward pass).  A branch may add text and emotion labels to
 its condition, cross-attend to it (``model_base='transformer_decoder'``)
 and emit a 2C learned-variance output.  The sampler's fast path
 (``models/fast_forward.py``) runs the same weights through the fused
@@ -15,11 +17,15 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from diffsheg_tpu_torch.models.blocks import DiffusionTransformerLayer, gelu_exact
+from diffsheg_tpu_torch.models.blocks import (DiffusionTransformerLayer,
+                                              dropout, gelu_exact)
 from diffsheg_tpu_torch.models.embeddings import (positional_encoding,
                                                   timestep_embedding)
 
@@ -32,6 +38,29 @@ class BranchCache(NamedTuple):
     mods: torch.Tensor                   # (Lv, num_layers, 2, B, 2*latent)
     audio_lat: torch.Tensor              # (Lv, B, T, aud_latent)
     hubert_lat: Optional[torch.Tensor]   # (B, T, hubert_latent)
+
+
+def null_rows(batch: int, prob: float) -> torch.Tensor:
+    """The training null-condition rows, ``linspace(0, 1, batch) < prob``
+    in f32 as JAX computes it: entry i < batch - 1 is i * f32(1 / (batch
+    - 1)) (a product with the reciprocal, which rounds some entries one
+    ulp off i / (batch - 1)), the last entry exactly 1.  A deterministic
+    first fraction of the batch, not a Bernoulli draw."""
+    recip = np.float32(1.0) / np.float32(max(batch - 1, 1))
+    pos = np.arange(batch, dtype=np.float32) * recip
+    pos[-1] = 1.0 if batch > 1 else 0.0
+    return torch.from_numpy(pos < np.float32(prob))
+
+
+def remat(layer: nn.Module, args: tuple) -> torch.Tensor:
+    """``layer(*args)``, its activations recomputed in the backward pass
+    instead of kept (dropout draws replayed).  The layer's parameters are
+    bound now, so the recompute uses the same tensors even when they were
+    swapped in by a ``functional_call`` (the bf16 training copies) that
+    has returned by then."""
+    params = dict(layer.named_parameters())
+    return checkpoint(lambda *a: functional_call(layer, params, a), *args,
+                      use_reentrant=False)
 
 
 class TimeEmbedMLP(nn.Module):
@@ -47,20 +76,42 @@ class TimeEmbedMLP(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias``."""
+    """BatchNorm over the last (channel) axis, as Flax's
+    ``BatchNorm(momentum=0.9)``.  Inference: ``(x - mean) * rsqrt(var +
+    eps) * weight + bias`` on the running statistics.  Training: the same
+    on the batch's statistics over every other axis, in f32, the variance
+    the biased E[x^2] - E[x]^2; the running statistics move by
+    ``momentum * running + (1 - momentum) * batch`` with that same biased
+    variance (``nn.BatchNorm1d`` would store the unbiased one), in place,
+    once per forward (the module sits outside the recomputed layers)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return ((x - self.running_mean)
+                    * torch.rsqrt(self.running_var + self.eps)
+                    * self.weight + self.bias)
+        xf = x.float()
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1.0 - m) * var.detach())
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        return (y + self.bias.float()).to(x.dtype)
 
 
 class HubertConvEncoder(nn.Module):
@@ -73,9 +124,9 @@ class HubertConvEncoder(nn.Module):
         self.bn = BatchNorm(out_dim)
         self.conv2 = nn.Conv1d(out_dim, out_dim, 3, padding=1, bias=False)
 
-    def forward(self, x):                         # (B, T, C)
+    def forward(self, x, train: bool = False):    # (B, T, C)
         h = self.conv1(x.transpose(1, 2)).transpose(1, 2)
-        h = gelu_exact(self.bn(h))
+        h = gelu_exact(self.bn(h, train))
         return self.conv2(h.transpose(1, 2)).transpose(1, 2)
 
 
@@ -89,6 +140,9 @@ class MotionDenoiser(nn.Module):
     ``feats_dim`` is the per-layer concat width: latent + audio latent
     (+ encoded HuBERT) (+ ``word_f`` with ``text``) (+ ``emotion_f`` with
     ``emotion``) (+ expression condition on the gesture branch).
+    ``dropout`` is the blocks' dropout probability, ``null_cond_prob`` the
+    share of classifier-free null rows in training, ``remat`` recomputes
+    each transformer layer in the backward pass.
     """
 
     def __init__(self, input_feats: int, feats_dim: int, *, latent_dim: int,
@@ -102,7 +156,8 @@ class MotionDenoiser(nn.Module):
                  learned_variance: bool = False, text: bool = False,
                  emotion: bool = False, word_f: int = 128,
                  emotion_f: int = 8, word_vocab: int = 2048,
-                 num_emotions: int = 8):
+                 num_emotions: int = 8, dropout: float = 0.0,
+                 null_cond_prob: float = 0.2, remat: bool = False):
         super().__init__()
         E = 4 * latent_dim
         self.num_layers = num_layers
@@ -113,6 +168,8 @@ class MotionDenoiser(nn.Module):
         self.classifier_free = classifier_free
         self.cond_scale = cond_scale
         self.learned_variance = learned_variance
+        self.null_cond_prob = null_cond_prob
+        self.remat = remat
         self._pe_cache = {}
         self.time_embed = TimeEmbedMLP(latent_dim, E)
         if use_pid_embed:
@@ -131,7 +188,8 @@ class MotionDenoiser(nn.Module):
         self.joint_embed = nn.Linear(input_feats, latent_dim)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DiffusionTransformerLayer(
-                latent_dim, ff_size, num_heads, E, feats_dim, model_base))
+                latent_dim, ff_size, num_heads, E, feats_dim, model_base,
+                dropout))
         self.out = nn.Linear(latent_dim,
                              input_feats * (2 if learned_variance else 1))
         if classifier_free:
@@ -164,9 +222,10 @@ class MotionDenoiser(nn.Module):
     def forward(self, x, t, audio, person_id, hubert=None, exp_cond=None,
                 word=None, emo=None, src_mask=None,
                 cfg_inference: bool = False,
-                cache: Optional[BranchCache] = None) -> torch.Tensor:
-        """The branch's module forward (JAX ``MotionDenoiser.__call__`` at
-        inference): x (B, T, input_feats) noisy channels, t (B,)
+                cache: Optional[BranchCache] = None,
+                train: bool = False) -> torch.Tensor:
+        """The branch's module forward (JAX ``MotionDenoiser.__call__``):
+        x (B, T, input_feats) noisy channels, t (B,)
         original-process timesteps, audio (B, T, audio_dim) the audio
         features (unused with ``cache``), person_id (B, style), hubert (B,
         T, hubert_dim) or None, exp_cond (B, T, E) or None, word / emo (B,
@@ -175,7 +234,8 @@ class MotionDenoiser(nn.Module):
         the audio latent, the encoded HuBERT features and every
         stylization modulation.  Returns the f32 output, classifier-free
         guided when ``cfg_inference`` (with a learned-variance head, the
-        mean half only; the variance half is the conditional pass's)."""
+        mean half only; the variance half is the conditional pass's).
+        ``train``: the training forward (see the module docstring)."""
         B, T, _ = x.shape
         compute = self.joint_embed.weight.dtype
 
@@ -187,8 +247,12 @@ class MotionDenoiser(nn.Module):
                 cond_parts.append(cache.hubert_lat)
         elif hubert is not None:
             h = hubert.to(compute)
-            cond_parts.append(self.hubert_encoder(h)
-                              if hasattr(self, "hubert_encoder") else h)
+            enc = getattr(self, "hubert_encoder", None)
+            if isinstance(enc, HubertConvEncoder):
+                h = enc(h, train)
+            elif enc is not None:
+                h = enc(h)
+            cond_parts.append(h)
         if word is not None:
             cond_parts.append(self._labels(self.text_embed, self.text_tcn,
                                            word, compute))
@@ -201,6 +265,8 @@ class MotionDenoiser(nn.Module):
         do_cfg = (cfg_inference and self.classifier_free
                   and self.cond_scale != 1.0)
         null_cond_mask = None
+        if self.classifier_free and train:
+            null_cond_mask = null_rows(B, self.null_cond_prob).to(x.device)
         if do_cfg:
             x, t = torch.cat([x, x]), torch.cat([t, t])
             if cache is None:
@@ -225,6 +291,9 @@ class MotionDenoiser(nn.Module):
             h = h + self.sequence_embedding[None, :T].to(compute)
         else:
             h = h + self._pe_table(T, h.device, compute)[None]
+            if self.pe_type == "ppe_sinu_dropout":
+                # the reference PPE's own dropout, 0.1 whatever ``dropout``
+                h = dropout(h, 0.1, train)
 
         mods = None
         if cache is not None:
@@ -238,8 +307,9 @@ class MotionDenoiser(nn.Module):
 
         null_emb = getattr(self, "null_cond_emb", None)
         for i, layer in enumerate(self.layers):
-            h = layer(h, cond, emb, src_mask, null_cond_mask, null_emb,
-                      None if mods is None else mods[i])
+            args = (h, cond, emb, src_mask, null_cond_mask, null_emb,
+                    None if mods is None else mods[i], train)
+            h = remat(layer, args) if self.remat and train else layer(*args)
         out = self.out(h).float()
         if do_cfg:
             uncond, cond_out = out[:B], out[B:]

@@ -11,7 +11,8 @@ picks the model:
                              expression (``exp_cond``)
 
 Every model takes the same call ``(x, t, sqrt_alphas, audio_mel,
-person_id, hubert=..., word=..., emo=..., cfg_inference=...)``.
+person_id, hubert=..., word=..., emo=..., cfg_inference=...,
+train=...)``.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class SingleBranchDenoiser(nn.Module):
                 exp_cond: Optional[torch.Tensor] = None,
                 word: Optional[torch.Tensor] = None,
                 emo: Optional[torch.Tensor] = None,
-                cfg_inference: bool = False) -> torch.Tensor:
+                cfg_inference: bool = False,
+                train: bool = False) -> torch.Tensor:
         """As ``UniDiffuser.forward`` (``sqrt_alphas`` unused); ``exp_cond``
         (B, T, expression_dim) is required by 'exp_condition_gesture' and
         ignored otherwise."""
@@ -79,7 +81,7 @@ class SingleBranchDenoiser(nn.Module):
                       else None),
             word=word if c.add_text_cond else None,
             emo=emo if c.add_emo_cond else None,
-            cfg_inference=cfg_inference)
+            cfg_inference=cfg_inference, train=train)
 
 
 def build_denoiser(cfg: ModelConfig) -> nn.Module:

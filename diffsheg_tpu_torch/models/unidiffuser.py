@@ -63,7 +63,9 @@ def branch_kwargs(cfg: ModelConfig) -> dict:
                 learned_variance=cfg.learned_variance,
                 text=cfg.add_text_cond, emotion=cfg.add_emo_cond,
                 word_f=cfg.word_f, emotion_f=cfg.emotion_f,
-                word_vocab=cfg.word_vocab, num_emotions=cfg.num_emotions)
+                word_vocab=cfg.word_vocab, num_emotions=cfg.num_emotions,
+                dropout=cfg.dropout, null_cond_prob=cfg.null_cond_prob,
+                remat=cfg.remat)
 
 
 class UniDiffuser(nn.Module):
@@ -74,7 +76,8 @@ class UniDiffuser(nn.Module):
         self.time_embed = TimeEmbedMLP(L, cfg.time_embed_dim)
         # the audio encoder is an encoder-base layer whatever model_base
         self.encoder_aud = DiffusionTransformerLayer(
-            cfg.audio_dim, cfg.ff_size, cfg.num_heads, cfg.time_embed_dim)
+            cfg.audio_dim, cfg.ff_size, cfg.num_heads, cfg.time_embed_dim,
+            dropout=cfg.dropout)
         kw = dict(branch_kwargs(cfg), audio_dim=2 * cfg.audio_dim)
         self.encoder_exp = MotionDenoiser(
             cfg.expression_dim, branch_feats_dim(cfg, 0),
@@ -89,14 +92,16 @@ class UniDiffuser(nn.Module):
                 hubert: Optional[torch.Tensor] = None,
                 word: Optional[torch.Tensor] = None,
                 emo: Optional[torch.Tensor] = None,
-                cfg_inference: bool = False, cache=None) -> torch.Tensor:
+                cfg_inference: bool = False, cache=None,
+                train: bool = False) -> torch.Tensor:
         """x (B, T, pose+expr) noisy motion, t (B,) original-process
         timesteps, ``sqrt_alphas`` the (sqrt(1/ab), sqrt(1/ab-1)) pair at
         the level (floats or tensors broadcastable to x), audio_mel (B, T,
         audio_dim), person_id (B, style), hubert (B, T, hubert_dim) or
         None, word / emo (B, T) int labels (read when the config
         conditions on them); ``cache`` one level of a
-        ``level_cache.ModelCache``.  Returns the f32 (gesture ++
+        ``level_cache.ModelCache``; ``train`` the training forward
+        (``models/denoiser.py``).  Returns the f32 (gesture ++
         expression) output: the epsilon, or with a learned-variance head
         the 2C layout of the module docstring."""
         c = self.cfg
@@ -106,7 +111,7 @@ class UniDiffuser(nn.Module):
             emb = self.time_embed(
                 timestep_embedding(t, c.latent_dim).to(dtype))
             mel = audio_mel.to(dtype)
-            audio_feat = self.encoder_aud(mel, None, emb)
+            audio_feat = self.encoder_aud(mel, None, emb, train=train)
             audio_emb = torch.cat([mel, audio_feat], dim=-1)
 
         labels = dict(word=word if c.add_text_cond else None,
@@ -115,7 +120,7 @@ class UniDiffuser(nn.Module):
         exp_out = self.encoder_exp(
             expression, t, audio_emb, person_id, hubert=hubert,
             cfg_inference=cfg_inference,
-            cache=None if cache is None else cache.exp, **labels)
+            cache=None if cache is None else cache.exp, train=train, **labels)
         # with a learned-variance head each branch emits mean ++ raw var
         exp_eps = exp_out[..., :c.expression_dim]
         sr, srm1 = sqrt_alphas
@@ -123,7 +128,7 @@ class UniDiffuser(nn.Module):
         ges_out = self.encoder_ges(
             gesture, t, audio_emb, person_id, hubert=hubert,
             exp_cond=expr_x0, cfg_inference=cfg_inference,
-            cache=None if cache is None else cache.ges, **labels)
+            cache=None if cache is None else cache.ges, train=train, **labels)
         if c.learned_variance:
             return torch.cat([ges_out[..., :c.pose_dim], exp_eps,
                               ges_out[..., c.pose_dim:],

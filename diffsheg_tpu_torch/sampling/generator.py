@@ -158,10 +158,19 @@ class WindowGenerator:
             return None
         return combine(self.cache_static(pid), self.cache_audio(mel, hubert))
 
+    def load_weights(self, model: torch.nn.Module) -> None:
+        """Take ``model``'s current weights and BatchNorm statistics into
+        the generator's copy (cast to its dtype) and drop the fast-path
+        weights built from the old ones: how a trainer evaluates each
+        epoch's model on one generator."""
+        self.model.load_state_dict(model.state_dict())
+        with self._fast_lock:
+            self._fast.clear()
+
     def make_fast(self, T: int):
         """The fast path's kernel-ready weights for windows of ``T``
-        frames, built once per window length and kept (the generator's
-        model does not change); None without the fast path."""
+        frames, built once per window length and kept until
+        :meth:`load_weights`; None without the fast path."""
         if not self.use_fast:
             return None
         with self._fast_lock:

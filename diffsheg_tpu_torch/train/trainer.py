@@ -1,0 +1,319 @@
+"""Training driver: epochs, logging, periodic evaluation, checkpoints.
+
+Counterpart of ``diffsheg_tpu/train/trainer.py`` on one device (the card
+unless the caller asks for the CPU):
+
+  - each epoch runs the step of ``train/step.py`` over a
+    ``data/loader.py::ShardedBatchLoader``; the velocity and x0 terms
+    join the loss from epoch ``train.vel_loss_start``;
+  - the loss terms go to ``<workdir>/metrics.jsonl`` every ``log_every``
+    steps (``utils/logging.py``);
+  - checkpoints (``train/checkpoint.py``) every epoch (latest, 3 kept),
+    every ``save_every_epochs`` (tagged), and on the best MSE / PCK;
+  - every ``eval_every_epochs`` the window generator samples the val
+    split (DDIM, the plain program) and scores MSE, PCK, PCK@2 and
+    diversity (``eval/metrics.py``); FGD needs the FGD feature net, which
+    the port does not have, and stays NaN.
+
+Refused, as the port cannot run them yet: ``train.on_device_frontend``,
+``mesh.data_parallel`` / ``mesh.fsdp_parallel`` above 1, and more than
+one process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from diffsheg_tpu_torch.config import Config
+from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+from diffsheg_tpu_torch.device import DeviceLike, resolve_device
+from diffsheg_tpu_torch.diffusion.schedule import (get_named_beta_schedule,
+                                                   make_schedule)
+from diffsheg_tpu_torch.models.factory import build_denoiser, random_init_
+from diffsheg_tpu_torch.train.checkpoint import CheckpointManager
+from diffsheg_tpu_torch.train.step import (TrainState, create_train_state,
+                                           make_train_step,
+                                           reset_learning_rate, step_seeds)
+from diffsheg_tpu_torch.utils.logging import MetricLogger
+
+
+@dataclasses.dataclass
+class EvalResult:
+    fgd: float = float("nan")
+    mse: float = float("nan")
+    # PCK at threshold 0.5 (the reference's, in normalized units) and at
+    # 2.0, which still moves while a young model's pck@0.5 sits at its
+    # floor-imposed ceiling
+    pck: float = float("nan")
+    pck2: float = float("nan")
+    diversity: float = float("nan")
+
+    def as_dict(self) -> Dict[str, float]:
+        return dataclasses.asdict(self)
+
+
+def check_trainable(cfg: Config) -> None:
+    """Raise for what the port's trainer cannot run yet."""
+    if cfg.train.on_device_frontend:
+        raise ValueError(
+            "train.on_device_frontend needs the on-device speech frontend "
+            "(mel + HuBERT inside the step), which the port does not have; "
+            "train on the cache's mel and a --hubert-cache")
+    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.fsdp_parallel != 1:
+        raise ValueError(
+            f"mesh.data_parallel={cfg.mesh.data_parallel}, "
+            f"mesh.fsdp_parallel={cfg.mesh.fsdp_parallel}: the port trains "
+            "on one device; data-parallel and FSDP training need "
+            "torch.distributed, which it does not have yet")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        world = max(world, torch.distributed.get_world_size())
+    if world > 1:
+        raise ValueError(
+            f"{world} processes: the port trains in one process on one "
+            "device; multi-process training needs torch.distributed, which "
+            "it does not have yet")
+
+
+class Trainer:
+    """Owns the train state, its steps, the checkpoint manager and the
+    epoch loop.  The model starts from the Flax initialisation's
+    distributions (zero output projections) seeded by ``train.seed``."""
+
+    def __init__(self, cfg: Config, workdir: str,
+                 logger: Optional[MetricLogger] = None,
+                 device: DeviceLike = None):
+        check_trainable(cfg)
+        self.cfg = cfg
+        self.workdir = workdir
+        self.device = resolve_device(device)
+        if cfg.train.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        self.logger = logger or MetricLogger(workdir, name=cfg.name)
+        model = random_init_(build_denoiser(cfg.model), cfg.train.seed,
+                             perturb=0.0)
+        self.schedule = make_schedule(get_named_beta_schedule(
+            cfg.diffusion.beta_schedule, cfg.diffusion.num_steps))
+        self.state: TrainState = create_train_state(cfg, model, self.device)
+        # two step variants: the epoch-gated velocity / x0 terms
+        self._step_full = make_train_step(cfg, self.schedule,
+                                          vel_loss_active=True)
+        self._step_eps = make_train_step(cfg, self.schedule,
+                                         vel_loss_active=False)
+        self.ckpt = CheckpointManager(f"{workdir}/ckpt")
+        self.epoch = 0
+        self.total_it = 0
+        self._generator = None  # built at the first evaluation
+        os.makedirs(workdir, exist_ok=True)
+        with open(os.path.join(workdir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+
+    # -- checkpoint --------------------------------------------------------
+    def try_resume(self) -> bool:
+        """Resume from the newest checkpoint; False when there is none."""
+        restored = self.ckpt.restore_latest(self.state)
+        if restored is None:
+            return False
+        _, meta = restored
+        self.epoch = int(meta.get("epoch", 0))
+        self.total_it = int(meta.get("total_it", 0))
+        if self.cfg.train.reset_lr:
+            reset_learning_rate(self.state.optimizer, self.cfg.train.lr)
+            self.logger.log_text(f"reset_lr: optimizer lr forced to "
+                                 f"{self.cfg.train.lr}")
+        self.logger.log_text(f"resumed at epoch {self.epoch} "
+                             f"(it {self.total_it})")
+        return True
+
+    def _meta(self) -> Dict:
+        return {"epoch": self.epoch, "total_it": self.total_it,
+                "config": self.cfg.to_json()}
+
+    # -- core loops --------------------------------------------------------
+    def _on_device(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.floating):
+                v = v.astype(np.float32, copy=False)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return out
+
+    def train_epoch(self, loader: ShardedBatchLoader) -> Dict[str, float]:
+        cfg = self.cfg.train
+        vel_on = cfg.vel_loss_start < 0 or self.epoch >= cfg.vel_loss_start
+        step_fn = self._step_full if vel_on else self._step_eps
+        loader.set_epoch(self.epoch)
+        sums: Dict[str, float] = {}
+        count = 0
+        t0 = time.time()
+        for batch in loader:
+            batch = self._on_device(self._to_model_batch(batch))
+            self.state, terms = step_fn(self.state, batch)
+            self.total_it += 1
+            count += 1
+            if cfg.debug and count >= 1:  # smoke mode: one batch
+                break
+            if self.total_it % cfg.log_every == 0:
+                vals = {k: float(v) for k, v in terms._asdict().items()}
+                for k, v in vals.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                self.logger.log_metrics(
+                    step=self.total_it,
+                    metrics={**vals, "epoch": self.epoch,
+                             "it_per_s": count / (time.time() - t0)})
+        self.epoch += 1
+        n = max(1, count // max(1, cfg.log_every))
+        return {k: v / n for k, v in sums.items()}
+
+    def _to_model_batch(self, batch: Dict[str, np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+        """Dataset dict -> the step's batch {motion, mel, pid, hubert?,
+        sem?, exp_cond?, word?, emo?}."""
+        mode = self.cfg.model.branch_mode
+        if mode == "expression_only" and "facial" in batch:
+            motion = batch["facial"]
+        elif mode in ("gesture_only", "exp_condition_gesture") \
+                and "pose_axis_angle" in batch:
+            motion = batch["pose_axis_angle"]
+        else:
+            motion = batch["motion"]
+        out = {"motion": motion, "mel": batch["mel"]}
+        if mode == "exp_condition_gesture":
+            out["exp_cond"] = batch["facial"]
+        if "pid" in batch:
+            out["pid"] = batch["pid"]
+        elif "speaker" in batch:
+            out["pid"] = batch["speaker"]
+        else:
+            S = self.cfg.model.style_dim
+            ids = batch["id"].reshape(-1).astype(np.int32)
+            out["pid"] = np.eye(S, dtype=np.float32)[ids % S]
+        if "hubert" in batch:
+            out["hubert"] = batch["hubert"]
+        elif self.cfg.model.add_hubert:
+            # no cached features: zero conditioning keeps the shapes — but
+            # warn once, because the model then learns to ignore its
+            # speech pathway
+            if not getattr(self, "_warned_zero_hubert", False):
+                self._warned_zero_hubert = True
+                self.logger.log_text(
+                    "WARNING: model.add_hubert is on but the dataset "
+                    "provides no 'hubert' features; training with ZERO "
+                    "speech conditioning. Provide --hubert-cache or set "
+                    "model.add_hubert=false.")
+            B, T = batch["motion"].shape[:2]
+            out["hubert"] = np.zeros((B, T, self.cfg.model.hubert_dim),
+                                     dtype=np.float32)
+        if "sem" in batch:
+            out["sem"] = batch["sem"]
+        # text / emotion labels; -1 sentinels clamp to 0 in the model
+        B, T = out["motion"].shape[:2]
+        if self.cfg.model.add_text_cond:
+            out["word"] = np.asarray(
+                batch.get("word", np.zeros((B, T))), dtype=np.int32)
+        if self.cfg.model.add_emo_cond:
+            out["emo"] = np.asarray(
+                batch.get("emo", np.zeros((B, T))), dtype=np.int32)
+        return out
+
+    # -- eval --------------------------------------------------------------
+    def _get_generator(self):
+        """The window generator on the current weights: built once, then
+        reloaded (its copy of the model and its fast-path weights) at
+        every evaluation."""
+        from diffsheg_tpu_torch.sampling.generator import WindowGenerator
+        if self._generator is None:
+            self._generator = WindowGenerator(self.cfg, self.state.model,
+                                              device=self.device)
+        else:
+            self._generator.load_weights(self.state.model)
+        return self._generator
+
+    def evaluate(self, loader: ShardedBatchLoader, seed: int = 0,
+                 max_batches: int = 0) -> EvalResult:
+        """DDIM sampling of each val batch (the sampler's noise seeded from
+        ``seed`` and the batch index) and MSE / PCK / PCK@2 / diversity
+        against the targets."""
+        from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
+        from diffsheg_tpu_torch.eval.metrics import diversity as div_fn
+        from diffsheg_tpu_torch.eval.metrics import mse_pck_channels
+
+        gen = self._get_generator()
+        mses, pcks, pck2s = [], [], []
+        # streaming diversity: score each disjoint 50-sample group as it
+        # fills instead of keeping every generated batch
+        div_carry, carry_n = [], 0
+        div_total, div_groups = 0.0, 0
+        for bi, batch in enumerate(loader):
+            if max_batches and bi >= max_batches:
+                break
+            mb = self._on_device(self._to_model_batch(batch))
+            noise = GeneratorNoise(step_seeds(seed, bi)[0], self.device)
+            out = gen.generate(mb["mel"], mb["pid"], noise,
+                               hubert=mb.get("hubert"))
+            out_np = out.float().cpu().numpy()
+            tgt = mb["motion"].cpu().numpy()
+            m, p = mse_pck_channels(out_np, tgt)
+            mses.append(m)
+            pcks.append(p)
+            pck2s.append(mse_pck_channels(out_np, tgt, pck_threshold=2.0)[1])
+            div_carry.append(out_np)
+            carry_n += len(out_np)
+            while carry_n >= 50:
+                pool = np.concatenate(div_carry)
+                div_total += div_fn(pool[:50], batch=50)
+                div_groups += 1
+                rest = pool[50:]
+                div_carry = [rest] if len(rest) else []
+                carry_n = len(rest)
+        # diversity over 50-sample groups of the pooled outputs, whatever
+        # the loader's batch size
+        if div_groups:
+            div_val = div_total / div_groups
+        elif div_carry:  # fewer than 50 samples in all: one smaller group
+            div_val = div_fn(np.concatenate(div_carry), batch=50)
+        else:
+            div_val = float("nan")
+        res = EvalResult(
+            mse=float(np.mean(mses)) if mses else float("nan"),
+            pck=float(np.mean(pcks)) if pcks else float("nan"),
+            pck2=float(np.mean(pck2s)) if pck2s else float("nan"),
+            diversity=div_val)
+        self.logger.log_metrics(step=self.total_it,
+                                metrics={f"val_{k}": v
+                                         for k, v in res.as_dict().items()})
+        return res
+
+    # -- top-level fit -----------------------------------------------------
+    def fit(self, train_loader: ShardedBatchLoader,
+            val_loader: Optional[ShardedBatchLoader] = None,
+            num_epochs: Optional[int] = None) -> None:
+        cfg = self.cfg.train
+        num_epochs = num_epochs or cfg.num_epochs
+        while self.epoch < num_epochs:
+            losses = self.train_epoch(train_loader)
+            self.logger.log_text(
+                f"epoch {self.epoch}/{num_epochs} " +
+                " ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+            self.ckpt.save_latest(self.epoch, self.state, self._meta())
+            if cfg.save_every_epochs and \
+                    self.epoch % cfg.save_every_epochs == 0:
+                self.ckpt.save_tagged(f"epoch_{self.epoch:04d}", self.state,
+                                      self._meta())
+            if (val_loader is not None and cfg.eval_every_epochs
+                    and self.epoch % cfg.eval_every_epochs == 0):
+                res = self.evaluate(val_loader, seed=cfg.seed + 1 + self.epoch)
+                if np.isfinite(res.mse):
+                    self.ckpt.update_best("mse", res.mse, self.state,
+                                          self._meta())
+                if np.isfinite(res.pck):
+                    self.ckpt.update_best("pck", res.pck, self.state,
+                                          self._meta(), lower_is_better=False)

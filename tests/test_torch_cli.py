@@ -144,3 +144,107 @@ def test_serve_loads_reference_tar_and_refuses_directory(monkeypatch,
     with pytest.raises(SystemExit, match="Orbax"):
         main(["serve", "--device", "cpu", "--port", "0",
               "--checkpoint", str(tmp_path)] + TINY)
+
+
+TRAIN_SETS = [["train.batch_size=64", "train.loss_type=kl"],
+              ["train.vel_loss_start=10", "train.use_sem_weighting=false",
+               "train.timestep_sampler=loss-second-moment"],
+              ["mesh.data_parallel=4", "train.reset_lr=1"]]
+
+
+@pytest.mark.parametrize("dataset", ["beat", "show"])
+@pytest.mark.parametrize("sets", TRAIN_SETS, ids=[",".join(s)
+                                                  for s in TRAIN_SETS])
+def test_set_train_and_mesh_overrides_match_jax(dataset, sets):
+    import diffsheg_tpu.cli.main as J
+    import diffsheg_tpu_torch.cli.main as P
+
+    class Args:
+        set = sets
+    Args.dataset = dataset
+    sections = ("train", "mesh")
+    assert _fields(P._base_config(Args), sections) == _fields(
+        J._base_config(Args), sections)
+
+
+def _train_cache(path, n=16, T=8, seed=0):
+    import numpy as np
+    from diffsheg_tpu_torch.data.cache import CacheWriter
+    rs = np.random.RandomState(seed)
+    w = CacheWriter(str(path), meta={"n_poses": T})
+    for _ in range(n):
+        w.add({"pose": rs.randn(T, 141).astype(np.float32),
+               "pose_axis_angle": rs.randn(T, 141).astype(np.float32),
+               "mel": rs.randn(T, 128).astype(np.float32),
+               "facial": rs.randn(T, 51).astype(np.float32),
+               "sem": rs.rand(T).astype(np.float32),
+               "id": np.asarray([rs.randint(30)], np.int32)})
+    w.finalize()
+    return str(path)
+
+
+def test_cli_train_resumes_and_feeds_generate(tmp_path, capsys):
+    """``cli train --device cpu`` on a tiny cache, ``--resume`` for one
+    more epoch, then ``generate --checkpoint <workdir>/ckpt`` samples
+    with the newest checkpoint's weights."""
+    import json
+    import wave
+    import numpy as np
+    from diffsheg_tpu_torch.cli.main import _base_config, _load_model, main
+    cache = _train_cache(tmp_path / "cache")
+    val = _train_cache(tmp_path / "val", n=8, seed=1)
+    work = str(tmp_path / "run")
+    flags = (["train", "--device", "cpu", "--workdir", work,
+              "--train-cache", cache, "--val-cache", val,
+              "--set", "data.n_poses=8", "--set", "train.batch_size=8",
+              "--set", "train.log_every=1",
+              "--set", "train.eval_every_epochs=2"] + TINY)
+    assert main(flags + ["--epochs", "1"]) == 0
+    assert main(flags + ["--epochs", "2", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed at epoch 1 (it 2)" in out and "epoch 2/2" in out
+    ckpt = tmp_path / "run" / "ckpt"
+    assert sorted(p.name for p in (ckpt / "latest").iterdir()) == ["1", "2"]
+    recs = [json.loads(x) for x in open(tmp_path / "run" / "metrics.jsonl")]
+    assert sum("total" in r for r in recs) == 4
+    assert sum("val_mse" in r for r in recs) == 1
+    assert (ckpt / "mse_best" / "state.pt").exists()
+
+    class Args:
+        dataset = "beat"
+        set = TINY[1::2]
+    model = _load_model(_base_config(Args), str(ckpt))
+    saved = torch.load(ckpt / "latest" / "2" / "state.pt",
+                       weights_only=True)["model"]
+    assert all(torch.equal(v, saved[k]) for k, v in
+               model.state_dict().items())
+    wav = str(tmp_path / "a.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.random.RandomState(2).randn(16000) * 3000)
+                      .astype("<i2").tobytes())
+    assert main(["generate", "--device", "cpu", "--checkpoint", str(ckpt),
+                 "--audio", wav, "--speakers", "1", "--out-dir",
+                 str(tmp_path / "out")] + TINY) == 0
+    assert "generated (1, 15, 192)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--fgd-checkpoint", "ae_300.bin"], "FGD feature net"),
+    (["--set", "train.on_device_frontend=true"], "on_device_frontend"),
+    (["--set", "mesh.fsdp_parallel=2"], "data-parallel and FSDP"),
+])
+def test_cli_train_refusals(tmp_path, argv, match):
+    from diffsheg_tpu_torch.cli.main import main
+    cache = _train_cache(tmp_path / "cache", n=2)
+    with pytest.raises(SystemExit, match=match):
+        main(["train", "--device", "cpu", "--workdir", str(tmp_path / "w"),
+              "--train-cache", cache] + TINY + argv)
+
+
+def test_build_cache_is_refused():
+    from diffsheg_tpu_torch.cli.main import main
+    with pytest.raises(SystemExit, match="build-cache is not ported"):
+        main(["build-cache", "--data-root", "data/BEAT"])

@@ -68,7 +68,7 @@ def test_kernel_sources_are_package_data():
 
 @pytest.mark.parametrize("entry", ["generator", "hubert", "mel", "live",
                                    "server", "cli", "export", "generate",
-                                   "cli-generate"])
+                                   "cli-generate", "trainer", "cli-train"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
@@ -125,6 +125,24 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
                      "--set", "model.num_layers=1",
                      "--set", "model.add_hubert=false"] + dev)
 
+    def cli_train(**kw):
+        from diffsheg_tpu_torch.data.cache import CacheWriter
+        w = CacheWriter(str(tmp_path / "cache"))
+        rs = np.random.RandomState(0)
+        for _ in range(2):
+            w.add({"pose": rs.randn(8, 141), "pose_axis_angle":
+                   rs.randn(8, 141), "mel": rs.randn(8, 128),
+                   "facial": rs.randn(8, 51), "sem": rs.rand(8),
+                   "id": np.zeros(1, np.int32)})
+        w.finalize()
+        dev = ["--device", kw["device"]] if kw else []
+        return main(["train", "--workdir", str(tmp_path / "run"),
+                     "--train-cache", str(tmp_path / "cache"),
+                     "--epochs", "1", "--set", "model.latent_dim=32",
+                     "--set", "model.num_layers=1",
+                     "--set", "model.add_hubert=false"] + dev)
+
+    from diffsheg_tpu_torch.train.trainer import Trainer
     make = {
         "generator": lambda **kw: WindowGenerator(
             cfg, init_unidiffuser(cfg.model), **kw),
@@ -141,6 +159,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
             cfg, init_unidiffuser(cfg.model),
             hubert_model=HubertModel(tiny_hub), **kw),
         "cli-generate": cli_generate,
+        "trainer": lambda **kw: Trainer(cfg, str(tmp_path / "tr"), **kw),
+        "cli-train": cli_train,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -173,7 +193,10 @@ def test_walk_covers_the_slice():
                 "geometry.rotations", "geometry.quaternion",
                 "geometry.joints", "geometry.bvh", "geometry.face",
                 "data.beat", "data.show", "viz.player", "sampling.export",
-                "cli.generate"):
+                "cli.generate", "config", "diffusion.losses",
+                "diffusion.timestep_sampler", "train.step",
+                "train.checkpoint", "train.trainer", "data.cache",
+                "data.loader", "eval.metrics", "utils.logging"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod
 
 
@@ -182,10 +205,19 @@ def test_walk_covers_the_slice():
 OWN_COPIES = {"geometry/joints.py": None, "geometry/bvh.py": None,
               "geometry/face.py": None, "viz/player.py": None,
               "audio/wav.py": None,
-              "data/beat.py": {"BEAT_HAND_FREE_CHANNELS", "BeatStats"},
+              "data/beat.py": {"BEAT_HAND_FREE_CHANNELS", "BeatStats",
+                               "BeatDataset"},
               "data/show.py": {"ShowStats", "extract_gesture",
                                "split_smplx_pose", "standardize",
-                               "inv_standardize"}}
+                               "inv_standardize", "ShowDataset",
+                               "combine_expression"},
+              "data/cache.py": None, "data/loader.py": {
+                  "ShardedBatchLoader"},
+              "eval/metrics.py": {"activation_statistics",
+                                  "frechet_distance",
+                                  "frechet_from_activations", "mse_pck",
+                                  "mse_pck_channels", "diversity"},
+              "utils/logging.py": None}
 
 
 def _public_names(path):

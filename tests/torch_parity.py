@@ -35,7 +35,7 @@ TINY_MODEL = dict(latent_dim=64, num_layers=2, num_heads=4, ff_size=128,
 
 
 def config_pair(preset: str = "beat", model=None, diffusion=None,
-                stream=None, data=None):
+                stream=None, data=None, train=None):
     """The same configuration in both packages: a preset with overrides.
     Unless ``diffusion`` says otherwise, both run the streamlined step
     composition (``fused_step='jnp'``)."""
@@ -44,7 +44,7 @@ def config_pair(preset: str = "beat", model=None, diffusion=None,
         cfg = getattr(mod, f"{preset}_config")()
         over = dict(model=dict(TINY_MODEL, **(model or {})),
                     diffusion=dict({"fused_step": "jnp"}, **(diffusion or {})),
-                    stream=stream or {}, data=data or {})
+                    stream=stream or {}, data=data or {}, train=train or {})
         cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                              for k, v in over.items()})
         pair.append(cfg)
