@@ -89,7 +89,34 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               exporter's euler conversion on the card against the CPU
               (1e-4 degrees weighed by the split's conditioning, |cos|
               of the middle angle); a HuBERT-base extractor (768 x 12) on the card
-              against the CPU (f32 rel-RMS <= 1e-5).
+              against the CPU (f32 rel-RMS <= 1e-5);
+10. train   — ``python -m diffsheg_tpu_torch.cli train`` in-process on
+              synthetic caches of 5000 windows (and a HuBERT-large cache),
+              BEAT at full width, f32, ``model.remat=true``, batch 2500:
+              (a) 2 epochs, ``--resume`` for a third, against 3
+              uninterrupted, bit for bit; step ms, windows a second, peak
+              memory, loader ms, linear attention's launches by shape;
+              one step under torch.profiler (device busy time by kind of
+              kernel); (b) at batch 256 the kernel against the plain
+              composition inside 3 steps (1e-5) and remat against none;
+              (c) ``Trainer.evaluate`` of 64 windows through the
+              per-layer kernel before and after a step;
+11. data    — the loop a user of the paper runs, on synthetic raw splits
+              (BEAT 60 s clips: train 8, val 1, test 2; SHOW: 4 sequences
+              of 30 s) at BEAT's full width with a HuBERT-large cache:
+              ``cli build-cache --device cuda`` for every split (windows,
+              seconds, windows a second), the BEAT train and SHOW splits
+              again with ``--device cpu`` and held equal field for field
+              (mel / mfcc 2e-5 of scale, axis-angle 1e-4 through rebuilt
+              matrices, the rest and the euler / facial statistics bit for
+              bit); ``cli train`` one epoch (one step of 696 windows);
+              ``cli eval`` of its checkpoint with a reference-layout FGD
+              checkpoint (the FGD net on the card against the CPU, f32
+              rel-RMS <= 1e-5, and its ms a batch); ``cli test-stream``
+              over the test clips with the exporter, a template BVH,
+              players and FGD (its metrics JSON; every BVH, face JSON and
+              npy checked), clip 0 again bit for bit, and
+              ``--output-gt``; exact launch counts for every command.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -104,6 +131,8 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only live       # the serving daemon
     python3 chip_smoke.py --only variants   # every model variant
     python3 chip_smoke.py --only generate   # cli generate, wav to BVH
+    python3 chip_smoke.py --only train      # cli train, evaluation
+    python3 chip_smoke.py --only data       # build-cache, train, eval, test-stream
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -203,10 +232,12 @@ def counters():
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count to 0, linear attention's by shape too."""
+    """Every kernel's launch count to 0, linear attention's and the
+    per-layer kernel's by shape too."""
     for fn in counters().values():
         fn.launches = 0
     counters()["fused_linear_attention"].launches_by_shape.clear()
+    counters()["fused_layer"].launches_by_shape.clear()
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -474,6 +505,15 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("train-beat-f32", torch.float32, 2500, 34, 512, 0),
                    ("train-audio-enc-f32", torch.float32, 2500, 34, 128, 0),
                    ("eval-audio-enc-f32", torch.float32, 1600, 34, 128, 0),
+                   # phase 11: cli train's one step on the 696 windows of
+                   # the built cache, cli eval's level cache (25 x 32
+                   # rows), cli test-stream's (a window's 25 levels)
+                   ("data-train-beat-f32", torch.float32, 696, 34, 512, 0),
+                   ("data-train-audio-enc-f32", torch.float32, 696, 34, 128,
+                    0),
+                   ("data-eval-audio-enc-f32", torch.float32, 800, 34, 128,
+                    0),
+                   ("stream-audio-enc-f32", torch.float32, 25, 34, 128, 0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
                    ("unaligned-f32", torch.float32, 1, 34, 512, 1))
 
@@ -1664,6 +1704,12 @@ def check_attention_shapes(what, shapes, want):
                              f"expected {want}")
 
 
+def check_layer_shapes(what, shapes, want):
+    if shapes != want:
+        raise AssertionError(f"{what}: per-layer kernel by (B, T, L) "
+                             f"{shapes}, expected {want}")
+
+
 def check_beat_files(run, out_dir, stats, name, speakers, frames):
     """Every clip's npy equals motion * std + mean; its BVH parses back to
     (frames, 228), finite; its face JSON has 51 names and ``frames``
@@ -2244,12 +2290,398 @@ def phase_train(dev):
     return launches
 
 # --------------------------------------------------------------------------
+# phase 11: data — caches from raw splits, then train, eval, test-stream
+# --------------------------------------------------------------------------
+
+DATA_SECS = 60
+DATA_CLIPS = {"train": 8, "val": 1, "test": 2}
+DATA_WINDOWS = (DATA_SECS * 15 - 34) // 10 + 1      # 87 windows a clip
+DATA_TRAIN_WINDOWS = DATA_CLIPS["train"] * DATA_WINDOWS      # 696: one step
+DATA_TRAIN_ATTN = (DATA_TRAIN_WINDOWS, 34, 512, 8)
+DATA_TRAIN_AUDIO_ATTN = (DATA_TRAIN_WINDOWS, 34, 128, 8)
+# cli eval: batches of min(32, windows), the last partial one dropped: 2 of
+# the val split's 87; the per-layer kernel splits 32 windows into launches
+# of 7, 7, 7, 7 and 4; the level cache's audio encoder takes 25 x 32 rows
+DATA_EVAL_BATCHES = 2
+DATA_EVAL_LAYER = DATA_EVAL_BATCHES * 25 * 16 * 5
+DATA_EVAL_LAYER_7, DATA_EVAL_LAYER_4 = (7, 34, 512), (4, 34, 512)
+DATA_EVAL_AUDIO_ATTN = (25 * 32, 34, 128, 8)
+# cli test-stream: the host window loop over each 900-frame clip, 30
+# windows (jump_n_sample 5: cli generate's 1852 model calls a clip), each
+# window's level cache at batch 1
+DATA_STREAM_WINDOWS, DATA_STREAM_CALLS = 30, GEN_CALLS_60S
+STREAM_AUDIO_ATTN = (25, 34, 128, 8)
+STREAM_LAYER = (1, 34, 512)
+DATA_SHOW_SEQS, DATA_SHOW_FRAMES = 4, 900
+DATA_SHOW_WINDOWS = (DATA_SHOW_FRAMES - 88) // 10 + 1  # 82 a sequence
+
+
+def write_raw_splits(root, seed):
+    """Synthetic raw splits in the layout ``build-cache`` reads: BEAT
+    train / val / test (``bvh_rot`` euler-degree rows, ``wave16k``
+    speech-like audio, ``facial52`` JSON, ``sem`` TSV) of 60 s clips, and
+    SHOW train ``.npz`` sequences of 30 s."""
+    from diffsheg_tpu_torch.geometry.face import write_face_json
+    rng = np.random.RandomState(seed)
+    T = DATA_SECS * 15
+    for split, n in DATA_CLIPS.items():
+        d = os.path.join(root, "beat", split)
+        for sub in ("bvh_rot", "wave16k", "facial52", "sem"):
+            os.makedirs(os.path.join(d, sub))
+        for i in range(n):
+            cid = f"{i + 1}_speaker{i}_0_{i + 1}_{i + 1}"
+            np.savetxt(os.path.join(d, "bvh_rot", cid + ".bvh"),
+                       rng.randn(T, 141) * 25, fmt="%.6f")
+            np.save(os.path.join(d, "wave16k", cid + ".npy"),
+                    speech_like(DATA_SECS, 16000, seed + i))
+            write_face_json(rng.rand(T, 51),
+                            os.path.join(d, "facial52", cid + ".json"))
+            with open(os.path.join(d, "sem", cid + ".txt"), "w") as f:
+                for s in range(0, DATA_SECS, 4):
+                    f.write(f"w\t{s + 0.5}\t{s + 2.0}\t1.5\t"
+                            f"{rng.rand():.3f}\tword\n")
+    d = os.path.join(root, "show", "train")
+    os.makedirs(d)
+    for i in range(DATA_SHOW_SEQS):
+        np.savez(os.path.join(d, f"seq{i}.npz"),
+                 pose=rng.randn(DATA_SHOW_FRAMES, 165).astype(np.float32),
+                 expression=rng.randn(DATA_SHOW_FRAMES, 100).astype(
+                     np.float32),
+                 audio=speech_like(DATA_SHOW_FRAMES // 30, 16000, seed + 9),
+                 speaker=np.asarray(20 + i))
+
+
+def cli_call(argv):
+    """``cli.main.main(argv)`` in-process with every launch count set to 0
+    first: (printed lines, seconds, launches, launches by shape of linear
+    attention and of the per-layer kernel, by kernel name)."""
+    import contextlib
+    import io
+    from diffsheg_tpu_torch.cli.main import main
+    out = io.StringIO()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}")
+    return (out.getvalue().splitlines(), secs,
+            {name: fn.launches for name, fn in counters().items()},
+            {name: dict(counters()[name].launches_by_shape)
+             for name in ("fused_linear_attention", "fused_layer")})
+
+
+def printed_json(lines):
+    """The JSON object a command printed last (``json.dumps(..., indent=2)``
+    from a line that starts with "{")."""
+    start = max(i for i, ln in enumerate(lines) if ln.startswith("{"))
+    return json.loads("\n".join(lines[start:]))
+
+
+def build_split(tag, argv, cache):
+    """One in-process ``cli build-cache``: no kernel launches; its windows,
+    seconds and windows a second printed."""
+    from diffsheg_tpu_torch.data.cache import ArrayCache
+    _, secs, counts, _ = cli_call(["build-cache"] + argv + ["--out", cache])
+    expect(f"build-cache {tag}", counts)
+    n = len(ArrayCache(cache))
+    log(f"data[build-cache {tag}]: {n} windows in {secs:.2f} s, "
+        f"{n / secs:.1f} windows/s")
+    return n
+
+
+def assert_caches_equal(what, a_dir, b_dir, a_stats=None, b_stats=None):
+    """Field for field: mel and mfcc within 2e-5 of scale, axis-angle
+    (de-normalized by each cache's statistics) within 1e-4 through the
+    rebuilt rotation matrices, everything else bit for bit."""
+    from diffsheg_tpu_torch.data.cache import ArrayCache
+    from diffsheg_tpu_torch.geometry.rotations import axis_angle_to_matrix
+    A, B = ArrayCache(a_dir), ArrayCache(b_dir)
+    if A.fields != B.fields or len(A) != len(B) or A.meta != B.meta:
+        raise AssertionError(f"{what}: {A.fields} / {len(A)} against "
+                             f"{B.fields} / {len(B)}")
+    worst = {}
+    for k in A.fields:
+        a, b = A.gather(k, np.arange(len(A))), B.gather(k, np.arange(len(B)))
+        if k in ("mel", "mfcc"):
+            err = float(np.abs(a - b).max() / np.abs(b).max())
+            ok = err <= 2e-5
+        elif k == "pose_axis_angle":
+            ma, mb = (axis_angle_to_matrix(torch.from_numpy(
+                (x * s.std_axis_angle + s.mean_axis_angle).astype(
+                    np.float32).reshape(-1, 3)))
+                for x, s in ((a, a_stats), (b, b_stats)))
+            err = float((ma - mb).abs().max())
+            ok = err <= 1e-4
+        else:
+            err = float(not np.array_equal(a, b))
+            ok = err == 0
+        worst[k] = err
+        if not ok:
+            raise AssertionError(f"{what}: field {k} differs by {err:.3e}")
+    log(f"data[{what}]: {len(A)} windows equal field for field (mel / "
+        f"mfcc max |diff| / max, axis-angle max |matrix diff|, others "
+        f"bit for bit): " + " ".join(f"{k}={v:.3e}" for k, v in
+                                     worst.items()))
+
+
+def fgd_reference_file(path, seed):
+    """A seeded FGD feature net at BEAT's shape (34 frames x 192, latent
+    300; BatchNorm statistics moved off identity) saved with
+    ``torch.save`` under the reference autoencoder's names, as
+    ``ae_300.bin`` holds them (``compat/fgd_ckpt.py`` reads them back)."""
+    import argparse
+    from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig, init_fgd_net
+    net = init_fgd_net(FgdNetConfig(), seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    enc, sd = net.pose_encoder, {}
+    names = {"conv0": "net.0.0", "bn0": "net.0.1", "conv1": "net.1.0",
+             "bn1": "net.1.1", "conv2": "net.2.0", "bn2": "net.2.1",
+             "conv3": "net.3", "fc1": "out_net.0", "fcbn1": "out_net.1",
+             "fc2": "out_net.3", "fcbn2": "out_net.4", "fc3": "out_net.6",
+             "fc_mu": "fc_mu"}
+    for ours, ref in names.items():
+        mod = getattr(enc, ours)
+        mod = getattr(mod, "BatchNorm_0", mod)
+        for k, v in mod.state_dict().items():
+            if k == "running_mean":
+                v = 0.1 * torch.randn(v.shape, generator=gen)
+            elif k == "running_var":
+                v = 1.0 + 0.2 * torch.rand(v.shape, generator=gen)
+            sd[f"pose_encoder.{ref}.{k}"] = v.clone()
+    torch.save({"args": argparse.Namespace(vae_length=300), "epoch": 300,
+                "model_state": sd}, path)
+    return path
+
+
+def fgd_on_card(path, dev, reps):
+    """The FGD net of ``path`` on the card against the same net on the
+    CPU (f32 rel-RMS <= 1e-5) on a batch of 32 windows, and its device ms
+    a batch."""
+    from diffsheg_tpu_torch.compat.fgd_ckpt import load_torch_fgd_checkpoint
+    from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig
+    cfg = FgdNetConfig()
+    x = torch.randn(32, 34, 192, generator=torch.Generator().manual_seed(5))
+    card = load_torch_fgd_checkpoint(path, cfg, device=dev)
+    cpu = load_torch_fgd_checkpoint(path, cfg, device="cpu")
+    xd = x.to(dev)
+    with torch.no_grad():
+        err = rel_rms(card(xd).cpu(), cpu(x))
+        ms = device_ms(lambda: card(xd), reps)
+    log(f"data[fgd net]: card against CPU rel_rms={err:.3e} (tol 1e-5); "
+        f"{ms:.4f} ms a batch of 32 windows")
+    if not err <= 1e-5:
+        raise AssertionError(f"FGD net on the card: {err:.3e}")
+
+
+def check_stream_files(out_dir, clips, frames):
+    """Every clip's npy is (frames, 192) finite, its BVH parses back to
+    (frames, 228) finite, its face JSON has 51 names and ``frames``
+    frames, its player exists."""
+    from diffsheg_tpu_torch.geometry.bvh import parse_bvh_file
+    for i in range(clips):
+        base = os.path.join(out_dir, f"clip_{i:05d}")
+        npy = np.load(base + ".npy")
+        bvh = parse_bvh_file(base + ".bvh").frames
+        with open(base + "_face.json") as f:
+            face = json.load(f)
+        if (npy.shape != (frames, 192) or not np.isfinite(npy).all()
+                or bvh.shape != (frames, 228) or not np.isfinite(bvh).all()
+                or len(face["names"]) != 51 or len(face["frames"]) != frames
+                or not os.path.getsize(base + "_player.html")):
+            raise AssertionError(f"{base}: npy {npy.shape}, bvh {bvh.shape}, "
+                                 f"face {len(face['frames'])} frames")
+
+
+def phase_data(dev, reps):
+    """The loop a user of the paper runs, on synthetic raw splits at BEAT's
+    published width: (1) ``cli build-cache`` on the card for every split
+    (BEAT train / val / test, SHOW train), the BEAT train split and the
+    SHOW split again on the CPU, held equal; (2) ``cli train`` one epoch on
+    the built cache with a HuBERT-large cache; (3) ``cli eval`` of the
+    trained checkpoint with a reference-layout FGD checkpoint; (4) ``cli
+    test-stream`` over the test split with the exporter, a template BVH,
+    players and FGD, clip 0 again bit for bit, and ``--output-gt``."""
+    import shutil
+    import tempfile
+    from diffsheg_tpu_torch.data.beat import BeatStats
+    from diffsheg_tpu_torch.data.cache import CacheWriter
+    no_tf32()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_raw_splits(tmp, 50)
+        log(f"data: raw splits written in {time.perf_counter() - t0:.1f} s")
+        beat, show = os.path.join(tmp, "beat"), os.path.join(tmp, "show")
+        stats, cpu_stats = (os.path.join(tmp, s) for s in ("stats",
+                                                            "stats_cpu"))
+        caches = {s: os.path.join(tmp, f"cache_{s}") for s in
+                  ("train", "val", "test", "train_cpu", "show", "show_cpu")}
+
+        # (1) caches on the card, and again on the CPU
+        n = {}
+        for split in ("train", "val", "test"):
+            n[split] = build_split(split, [
+                "--device", "cuda", "--data-root", beat, "--split", split,
+                "--stats-dir", stats], caches[split])
+        n["show"] = build_split("show train", [
+            "--device", "cuda", "--dataset", "show", "--data-root", show,
+            "--stats-dir", os.path.join(tmp, "show_stats")], caches["show"])
+        want = {"train": DATA_TRAIN_WINDOWS,
+                "val": DATA_CLIPS["val"] * DATA_WINDOWS,
+                "test": DATA_CLIPS["test"],
+                "show": DATA_SHOW_SEQS * DATA_SHOW_WINDOWS}
+        if n != want:
+            raise AssertionError(f"cache sizes {n}, expected {want}")
+        build_split("train, cpu", ["--device", "cpu", "--data-root", beat,
+                                   "--split", "train", "--stats-dir",
+                                   cpu_stats], caches["train_cpu"])
+        build_split("show train, cpu", [
+            "--device", "cpu", "--dataset", "show", "--data-root", show],
+            caches["show_cpu"])
+        st, st_cpu = BeatStats.load(stats), BeatStats.load(cpu_stats)
+        for f in ("mean_pose", "std_pose", "mean_facial", "std_facial"):
+            if not np.array_equal(getattr(st, f), getattr(st_cpu, f)):
+                raise AssertionError(f"statistics {f} differ")
+        aa_err = max(float(np.abs(getattr(st, f) - getattr(st_cpu, f)).max())
+                     for f in ("mean_axis_angle", "std_axis_angle"))
+        log(f"data[statistics]: card against CPU: euler pose and facial "
+            f"bit for bit, axis-angle max |diff| {aa_err:.3e} (tol 1e-6)")
+        if not aa_err <= 1e-6:
+            raise AssertionError(f"axis-angle statistics: {aa_err:.3e}")
+        assert_caches_equal("beat train, card against CPU", caches["train"],
+                            caches["train_cpu"], st, st_cpu)
+        assert_caches_equal("show train, card against CPU", caches["show"],
+                            caches["show_cpu"])
+        for k in ("train_cpu", "show", "show_cpu"):
+            shutil.rmtree(caches[k])
+
+        # (2) one epoch of cli train on the built cache, HuBERT-large cache
+        hcache = os.path.join(tmp, "hubert")
+        w = CacheWriter(hcache)
+        hub = np.random.default_rng(51).standard_normal(
+            (DATA_TRAIN_WINDOWS, 34, 1024), dtype=np.float32) * 0.5
+        for i in range(DATA_TRAIN_WINDOWS):
+            w.add({"hubert": hub[i]})
+        w.finalize()
+        work = os.path.join(tmp, "run")
+        with TrainRecorder() as rec:
+            _, secs, counts, shapes = cli_call([
+                "train", "--device", "cuda", "--workdir", work,
+                "--train-cache", caches["train"], "--hubert-cache", hcache,
+                "--stats-dir", stats, "--epochs", "1",
+                "--set", "train.log_every=1"])
+        # without remat (the default): 16 self-attentions forward, the
+        # audio encoder once
+        expect("data train", counts, fused_linear_attention=17)
+        attn = shapes["fused_linear_attention"]
+        check_attention_shapes("data train", attn, {
+            DATA_TRAIN_ATTN: 16, DATA_TRAIN_AUDIO_ATTN: 1})
+        (ms, terms), = rec.steps
+        log(f"data[train]: 1 step of {DATA_TRAIN_WINDOWS} windows, {ms:.1f} "
+            f"ms, command {secs:.1f} s; " + " ".join(
+                f"{k}={v:.6g}" for k, v in terms.items()))
+        if not all(np.isfinite(float(v)) for v in terms.values()):
+            raise AssertionError(f"data train: loss {terms}")
+        launches["fused_linear_attention_data_train"] = attn[DATA_TRAIN_ATTN]
+        launches["fused_linear_attention_data_train_audio_enc"] = attn[
+            DATA_TRAIN_AUDIO_ATTN]
+
+        # (3) cli eval with the reference-layout FGD checkpoint
+        fgd = fgd_reference_file(os.path.join(tmp, "ae_300.bin"), 52)
+        fgd_on_card(fgd, dev, reps)
+        ckpt = os.path.join(work, "ckpt")
+        lines, secs, counts, shapes = cli_call([
+            "eval", "--device", "cuda", "--val-cache", caches["val"],
+            "--checkpoint", ckpt, "--fgd-checkpoint", fgd,
+            "--stats-dir", stats])
+        expect("data eval", counts, fused_layer=DATA_EVAL_LAYER,
+               fused_linear_attention=DATA_EVAL_BATCHES)
+        check_attention_shapes("data eval", shapes["fused_linear_attention"],
+                               {DATA_EVAL_AUDIO_ATTN: DATA_EVAL_BATCHES})
+        check_layer_shapes("data eval", shapes["fused_layer"],
+                           {DATA_EVAL_LAYER_7: DATA_EVAL_LAYER * 4 // 5,
+                            DATA_EVAL_LAYER_4: DATA_EVAL_LAYER // 5})
+        res = printed_json(lines)
+        log(f"data[eval]: {DATA_EVAL_BATCHES} batches of 32 windows in "
+            f"{secs:.2f} s: " + json.dumps(res))
+        if not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"data eval: {res}")
+        launches["fused_layer_data_eval"] = shapes["fused_layer"][
+            DATA_EVAL_LAYER_7]
+        launches["fused_layer_data_eval_b4"] = shapes["fused_layer"][
+            DATA_EVAL_LAYER_4]
+        launches["fused_linear_attention_data_eval_audio_enc"] = shapes[
+            "fused_linear_attention"][DATA_EVAL_AUDIO_ATTN]
+
+        # (4) cli test-stream over the whole test clips
+        tmpl = beat_template(os.path.join(tmp, "template.bvh"))
+        clips, frames = DATA_CLIPS["test"], DATA_SECS * 15
+        common = ["test-stream", "--device", "cuda", "--test-cache",
+                  caches["test"], "--checkpoint", ckpt, "--stats-dir", stats,
+                  "--template-bvh", tmpl, "--player", "--fgd-checkpoint", fgd]
+        out = os.path.join(tmp, "stream")
+        lines, secs, counts, shapes = cli_call(common + ["--out-dir", out])
+        calls, wins = clips * DATA_STREAM_CALLS, clips * DATA_STREAM_WINDOWS
+        expect("data test-stream", counts, fused_layer=16 * calls,
+               fused_linear_attention=wins)
+        check_attention_shapes("data test-stream",
+                               shapes["fused_linear_attention"],
+                               {STREAM_AUDIO_ATTN: wins})
+        check_layer_shapes("data test-stream", shapes["fused_layer"],
+                           {STREAM_LAYER: 16 * calls})
+        res = printed_json(lines)
+        log(f"data[test-stream]: {clips} clips of {frames} frames in "
+            f"{secs:.2f} s ({calls} model calls, launches {counts}): "
+            + json.dumps(res))
+        if not (res["clips"] == clips and all(
+                np.isfinite(res[k]) for k in ("mse", "pck", "beat_align",
+                                              "srgr", "fgd", "fps"))):
+            raise AssertionError(f"data test-stream: {res}")
+        check_stream_files(out, clips, frames)
+        launches["fused_layer_test_stream"] = shapes["fused_layer"][
+            STREAM_LAYER]
+        launches["fused_linear_attention_test_stream_audio_enc"] = shapes[
+            "fused_linear_attention"][STREAM_AUDIO_ATTN]
+        again = os.path.join(tmp, "again")
+        _, secs, counts, _ = cli_call(common + ["--out-dir", again,
+                                                "--max-clips", "1"])
+        expect("data test-stream clip 0", counts,
+               fused_layer=16 * DATA_STREAM_CALLS,
+               fused_linear_attention=DATA_STREAM_WINDOWS)
+        same = np.array_equal(np.load(os.path.join(again, "clip_00000.npy")),
+                              np.load(os.path.join(out, "clip_00000.npy")))
+        log(f"data[test-stream clip 0 again]: {secs:.2f} s, bit for bit "
+            f"{same}")
+        if not same:
+            raise AssertionError("test-stream clip 0 differs on a rerun")
+        gt = os.path.join(tmp, "gt")
+        lines, secs, counts, _ = cli_call(common + ["--out-dir", gt,
+                                                    "--output-gt"])
+        expect("data test-stream --output-gt", counts)
+        res = printed_json(lines)
+        log(f"data[test-stream --output-gt]: {secs:.2f} s: "
+            + json.dumps(res))
+        if res["mse"] != 0.0 or res["pck"] != 1.0:
+            raise AssertionError(f"--output-gt: {res}")
+        check_stream_files(gt + "_GT", clips, frames)
+    log(f"data: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
                                        "uncached", "live", "variants",
-                                       "generate", "train"),
+                                       "generate", "train", "data"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -2302,7 +2734,13 @@ def main() -> int:
            "fused_linear_attention_generate_show_audio_enc",
            "fused_linear_attention_train",
            "fused_linear_attention_train_audio_enc", "fused_layer_eval",
-           "fused_linear_attention_eval_audio_enc"])
+           "fused_linear_attention_eval_audio_enc",
+           "fused_linear_attention_data_train",
+           "fused_linear_attention_data_train_audio_enc",
+           "fused_layer_data_eval", "fused_layer_data_eval_b4",
+           "fused_linear_attention_data_eval_audio_enc",
+           "fused_layer_test_stream",
+           "fused_linear_attention_test_stream_audio_enc"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
@@ -2331,6 +2769,8 @@ def main() -> int:
             launches.update(phase_generate(dev, model))
     if run("train"):
         launches.update(phase_train(dev))
+    if run("data"):
+        launches.update(phase_data(dev, args.reps))
     if kres is None:
         return 0
     entries = []
@@ -2417,6 +2857,27 @@ def main() -> int:
               "fused_layer.cu", "ops/fused_layer.py:556"),
              ("fused_linear_attention_eval_audio_enc",
               "attn-eval-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99")]
+    # phase 11: cli train on the built cache (one step of 696 windows), cli
+    # eval (the per-layer kernel at (7, 34) and (4, 34), the level cache at
+    # 800 rows), cli test-stream (the per-layer kernel at (1, 34), each
+    # window's level cache at 25 rows)
+    rows += [("fused_linear_attention_data_train", "attn-data-train-beat-f32",
+              None, "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_linear_attention_data_train_audio_enc",
+              "attn-data-train-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_data_eval", "layer-eval-beat-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_data_eval_b4", "layer-beat-4spk-f32",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_data_eval_audio_enc",
+              "attn-data-eval-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_test_stream", "beat-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_test_stream_audio_enc",
+              "attn-stream-audio-enc-f32", None, "linear_attention.cu",
               "ops/linear_attention.py:99")]
     for name, key, sub, source, line in rows:
         if key not in kres:

@@ -2,8 +2,15 @@
 
 Counterpart of ``diffsheg_tpu/cli/main.py``:
 
+  python -m diffsheg_tpu_torch.cli build-cache --dataset beat \\
+      --data-root data/BEAT --split train --stats-dir stats/ --out cache/train
   python -m diffsheg_tpu_torch.cli train --dataset beat --workdir runs/beat \\
       --train-cache cache/train --hubert-cache cache/hubert --resume
+  python -m diffsheg_tpu_torch.cli eval --dataset beat --val-cache cache/val \\
+      --checkpoint runs/beat/ckpt --fgd-checkpoint ae_300.bin
+  python -m diffsheg_tpu_torch.cli test-stream --dataset beat \\
+      --test-cache cache/test --checkpoint runs/beat/ckpt --stats-dir stats/ \\
+      --template-bvh template.bvh --fgd-checkpoint ae_300.bin
   python -m diffsheg_tpu_torch.cli generate --dataset beat --audio clip.wav \\
       --checkpoint model.tar --hubert-checkpoint hubert-large/ \\
       --stats-dir stats/ --template-bvh template.bvh --speakers 1,3,5,7
@@ -19,17 +26,20 @@ field reachable through ``--set section.field=value``.  ``--checkpoint``
 takes a reference ``.tar`` (``compat/torch_ckpt.py``) or a training
 checkpoint directory of the port (``<workdir>/ckpt``, its newest
 ``latest`` step); Orbax directories are the JAX package's format and are
-refused.  Cache building (``build-cache``), ``eval``, ``test-stream`` and
-``doctor`` are not ported yet.
+refused.  ``--fgd-checkpoint`` takes the reference's frozen FGD
+autoencoder (``ae_300.bin`` / ``gesture_expression.pth.tar``,
+``compat/fgd_ckpt.py``).  ``doctor`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import signal
 import sys
+import tempfile
 from typing import List, Optional
 
 from diffsheg_tpu_torch.config import Config, beat_config, resolve, show_config
@@ -137,6 +147,17 @@ def _load_stats(args):
     return BeatStats.load(args.stats_dir)
 
 
+def _load_fgd_net(args, cfg: Config, device):
+    """The reference's frozen FGD autoencoder of ``--fgd-checkpoint``
+    (ae_300.bin / gesture_expression.pth.tar) on ``device``, or None."""
+    if not args.fgd_checkpoint:
+        return None
+    from diffsheg_tpu_torch.compat.fgd_ckpt import load_torch_fgd_checkpoint
+    from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig
+    return load_torch_fgd_checkpoint(args.fgd_checkpoint, FgdNetConfig(
+        n_frames=cfg.data.n_poses, pose_dim=cfg.model.motion_dim), device)
+
+
 def _open_dataset(args, cfg, cache_path, hubert_cache=None):
     if args.dataset == "show":
         from diffsheg_tpu_torch.data.show import ShowDataset
@@ -147,7 +168,7 @@ def _open_dataset(args, cfg, cache_path, hubert_cache=None):
                            hubert_cache_dir=hubert_cache,
                            remove_hand=cfg.data.remove_hand,
                            audio_feat=cfg.data.audio_feat,
-                           n_mfcc=cfg.data.n_mfcc)
+                           n_mfcc=cfg.data.n_mfcc, device=args.device)
     from diffsheg_tpu_torch.data.beat import BeatDataset
     return BeatDataset(cache_path, _load_stats(args),
                        hubert_cache_dir=hubert_cache,
@@ -157,15 +178,14 @@ def _open_dataset(args, cfg, cache_path, hubert_cache=None):
 def cmd_train(args) -> int:
     """Train from a cache: epochs of the training step, metrics.jsonl,
     checkpoints under ``<workdir>/ckpt``, periodic evaluation on
-    ``--val-cache``."""
+    ``--val-cache`` (FGD with ``--fgd-checkpoint``).
+    ``--hubert-checkpoint`` feeds the on-device speech frontend
+    (``train.on_device_frontend``), which the port refuses for now; it is
+    accepted and unused otherwise, as in JAX."""
     from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
     from diffsheg_tpu_torch.device import resolve_device
     from diffsheg_tpu_torch.train.trainer import Trainer, check_trainable
     device = resolve_device(args.device)
-    if args.fgd_checkpoint:
-        raise SystemExit(
-            "--fgd-checkpoint needs the FGD feature net, which the port "
-            "does not have yet; without it evaluation reports fgd as NaN")
     cfg = _base_config(args)
     try:
         check_trainable(cfg)
@@ -181,7 +201,8 @@ def cmd_train(args) -> int:
         return ShardedBatchLoader(ds, global_batch_size=batch,
                                   seed=cfg.train.seed)
 
-    trainer = Trainer(cfg, args.workdir, device=device)
+    trainer = Trainer(cfg, args.workdir, device=device,
+                      fgd_net=_load_fgd_net(args, cfg, device))
     if args.resume:
         trainer.try_resume()
     trainer.fit(loader(train_ds), loader(val_ds) if val_ds else None,
@@ -190,9 +211,109 @@ def cmd_train(args) -> int:
 
 
 def cmd_build_cache(args) -> int:
-    raise SystemExit(
-        "build-cache is not ported yet: build the cache with python -m "
-        "diffsheg_tpu.cli build-cache; the port reads its caches")
+    """Build a dataset cache from a raw split: BEAT (``bvh_rot``,
+    ``wave16k``, ``facial52``, ``sem``; statistics computed into
+    ``--stats-dir`` when it has none) or SHOW (``.npz`` sequences;
+    ``talkshow_mean_std.npy``).  The mel, MFCC and axis-angle conversion
+    run on ``--device``."""
+    from diffsheg_tpu_torch.device import resolve_device
+    device = resolve_device(args.device)
+    cfg = _base_config(args)
+    split_dir = os.path.join(args.data_root, args.split)
+    out = args.out or os.path.join(args.data_root, f"cache_{args.split}")
+    if args.dataset == "show":
+        import numpy as np
+        from diffsheg_tpu_torch.data.show_cache import (ShowBuildConfig,
+                                                        build_show_cache,
+                                                        compute_show_stats,
+                                                        iter_npz_dir)
+        sc = ShowBuildConfig(n_poses=cfg.data.n_poses,
+                             stride=cfg.data.stride,
+                             pose_fps=cfg.data.fps, mel_sr=cfg.data.mel_sr,
+                             mel_hop=cfg.data.mel_hop, n_mels=cfg.data.n_mels)
+        if args.stats_dir:
+            os.makedirs(args.stats_dir, exist_ok=True)
+            stats_path = os.path.join(args.stats_dir,
+                                      "talkshow_mean_std.npy")
+            if not os.path.exists(stats_path):
+                print("computing show statistics...")
+                np.save(stats_path,
+                        compute_show_stats(iter_npz_dir(split_dir)))
+        n = build_show_cache(iter_npz_dir(split_dir), out, sc,
+                             is_test=args.split == "test", device=device)
+        print(f"show cache: {n} samples -> {out}")
+        return 0
+    from diffsheg_tpu_torch.data.beat import (BeatBuildConfig, BeatStats,
+                                              build_beat_cache,
+                                              compute_beat_stats)
+    bc = BeatBuildConfig(n_poses=cfg.data.n_poses, stride=cfg.data.stride,
+                         pose_fps=cfg.data.fps, mel_sr=cfg.data.mel_sr,
+                         mel_hop=cfg.data.mel_hop, n_mels=cfg.data.n_mels)
+    if args.stats_dir and os.path.exists(
+            os.path.join(args.stats_dir, "axis_angle_mean.npy")):
+        stats = BeatStats.load(args.stats_dir)
+    else:
+        print("computing dataset statistics...")
+        stats = compute_beat_stats(split_dir, bc, device=device)
+        if args.stats_dir:
+            stats.save(args.stats_dir)
+    n = build_beat_cache(split_dir, out, stats, bc,
+                         is_test=args.split == "test", device=device)
+    print(f"cache: {n} samples -> {out}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """The validation metrics of ``Trainer.evaluate`` (FGD with
+    ``--fgd-checkpoint``) on ``--val-cache``, for ``--checkpoint``'s model
+    (without one, the trainer's seeded initialisation); prints them as
+    JSON."""
+    from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+    from diffsheg_tpu_torch.device import resolve_device
+    from diffsheg_tpu_torch.train.trainer import Trainer
+    device = resolve_device(args.device)
+    cfg = _base_config(args)
+    ds = _open_dataset(args, cfg, args.val_cache)
+    with tempfile.TemporaryDirectory(prefix="diffsheg_eval") as tmp:
+        trainer = Trainer(cfg, args.workdir or tmp, device=device,
+                          fgd_net=_load_fgd_net(args, cfg, device))
+        if args.checkpoint:
+            trainer.state.model.load_state_dict(
+                _load_model(cfg, args.checkpoint).state_dict())
+        loader = ShardedBatchLoader(ds, global_batch_size=min(32, len(ds)),
+                                    shuffle=False)
+        res = trainer.evaluate(loader, seed=args.seed)
+    print(json.dumps(res.as_dict(), indent=2))
+    return 0
+
+
+def cmd_test_stream(args) -> int:
+    """The reference's ``test_arbitrary_len``: stream every whole clip of
+    ``--test-cache``, save each (npy; with ``--stats-dir`` on BEAT the
+    de-normalized npy, face JSON and, with ``--template-bvh``, a BVH),
+    print the metrics as JSON."""
+    from diffsheg_tpu_torch.device import resolve_device
+    from diffsheg_tpu_torch.sampling.testset import generate_testset
+    device = resolve_device(args.device)
+    cfg = _base_config(args)
+    ds = _open_dataset(args, cfg, args.test_cache)
+    model = _load_model(cfg, args.checkpoint)
+    exporter = None
+    if args.dataset == "beat" and args.stats_dir:
+        from diffsheg_tpu_torch.sampling.export import BeatMotionExporter
+        st = _load_stats(args)
+        exporter = BeatMotionExporter(
+            cfg.model.pose_dim, cfg.data.fps, st.motion_mean, st.motion_std,
+            template_bvh=args.template_bvh, player=args.player,
+            device=device)
+    metrics = generate_testset(
+        cfg, model, ds, args.out_dir, seed=args.seed,
+        fgd_net=_load_fgd_net(args, cfg, device),
+        max_clips=args.max_clips, output_gt=args.output_gt,
+        exporter=exporter, srgr_avg_weight=args.srgr_avg_weight,
+        device=device)
+    print(json.dumps(metrics, indent=2))
+    return 0
 
 
 def cmd_generate(args) -> int:
@@ -263,7 +384,9 @@ def cmd_view(args) -> int:
 
 def cmd_serve(args) -> int:
     """Streaming serving daemon: one TCP connection = one live session
-    (push audio chunks, receive motion as windows complete)."""
+    (push audio chunks, receive motion as windows complete).  ``--seed``
+    is accepted and unused, as in JAX: each session's client sends its
+    seed."""
     from diffsheg_tpu_torch.device import resolve_device
     device = resolve_device(args.device)
     cfg = _base_config(args)
@@ -337,18 +460,72 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--epochs", type=int, default=0)
     sp.add_argument("--fgd-checkpoint",
-                    help="reference FGD autoencoder (refused: the port has "
-                         "no FGD net yet)")
+                    help="reference FGD autoencoder (ae_300.bin / "
+                         "gesture_expression.pth.tar) for eval FGD")
+    sp.add_argument("--hubert-checkpoint",
+                    help="HF HuBERT weights for the on-device speech "
+                         "frontend (train.on_device_frontend, which the "
+                         "port refuses for now); unused otherwise")
     sp.set_defaults(fn=cmd_train)
 
-    sp = sub.add_parser("build-cache", help="build a dataset cache (not "
-                                            "ported yet)")
+    sp = sub.add_parser("build-cache", help="build a dataset cache")
     common(sp)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the mel, MFCC and axis-angle conversion "
+                         "run (cuda raises without a card)")
     sp.add_argument("--data-root", required=True)
     sp.add_argument("--split", default="train")
     sp.add_argument("--stats-dir")
     sp.add_argument("--out")
     sp.set_defaults(fn=cmd_build_cache)
+
+    sp = sub.add_parser("eval", help="run validation metrics")
+    common(sp)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where it runs (cuda raises without a card)")
+    sp.add_argument("--val-cache", required=True)
+    sp.add_argument("--checkpoint",
+                    help="reference DiffSHEG checkpoint (.tar) or the "
+                         "port's training checkpoint directory")
+    sp.add_argument("--stats-dir")
+    sp.add_argument("--workdir",
+                    help="where the trainer writes config.json and "
+                         "metrics.jsonl (default: a temporary directory)")
+    sp.add_argument("--fgd-checkpoint",
+                    help="reference FGD autoencoder checkpoint")
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser(
+        "test-stream",
+        help="arbitrary-length streaming generation over the test split")
+    common(sp)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where it runs (cuda raises without a card)")
+    sp.add_argument("--test-cache", required=True)
+    sp.add_argument("--checkpoint",
+                    help="reference DiffSHEG checkpoint (.tar) or the "
+                         "port's training checkpoint directory; without "
+                         "it the weights are random")
+    sp.add_argument("--stats-dir")
+    sp.add_argument("--out-dir", default="outputs/test_stream")
+    sp.add_argument("--max-clips", type=int, default=0)
+    sp.add_argument("--fgd-checkpoint",
+                    help="reference FGD autoencoder checkpoint")
+    sp.add_argument("--output-gt", action="store_true",
+                    help="write ground truth instead of generating "
+                         "(reference --output_gt)")
+    sp.add_argument("--template-bvh",
+                    help="full-skeleton vis template; with --stats-dir, "
+                         "per-clip BVH + face JSON are exported like the "
+                         "reference's test result writing")
+    sp.add_argument("--player", action="store_true",
+                    help="also write a self-contained HTML player per clip "
+                         "(needs --template-bvh)")
+    sp.add_argument("--srgr-avg-weight", type=float, default=None,
+                    help="SRGR semantic-weight normalizer; 0.165 (the BEAT "
+                         "harness's test-split mean) for harness-comparable "
+                         "numbers; default: the clip's own mean weight")
+    sp.set_defaults(fn=cmd_test_stream)
 
     sp = sub.add_parser("generate", help="custom-audio generation")
     common(sp)
@@ -401,9 +578,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser(
         "serve", help="streaming speech-to-motion serving daemon (TCP; one "
                       "connection = one live session)")
-    sp.add_argument("--dataset", choices=["beat", "show"], default="beat")
-    sp.add_argument("--set", action="append", default=[],
-                    help="config override section.field=value")
+    common(sp)
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where sessions run (cuda raises without a card)")
     sp.add_argument("--checkpoint",

@@ -16,6 +16,9 @@ step:
     ``scan_layers`` form, one ``layers/layer`` subtree whose leaves carry
     a leading layer axis.
 
+The FGD feature net (``eval/fgd_net.py``) carries Flax's names too, so
+JAX's ``FgdFeatureNet`` variables load into it the same way.
+
 Every parameter and buffer of the module must be filled exactly once, and
 every leaf of the tree must land somewhere; anything else raises.
 :func:`export_flax_tree` is the inverse: a module's weights as such a tree.

@@ -2,8 +2,10 @@
 
 The port's own copy of ``diffsheg_tpu/config.py``: the same frozen
 dataclasses, field names, defaults and presets, so a configuration reads
-the same in both packages (``DiffusionConfig.scan_unroll``, a knob of
-JAX's compiled sampler loop, has no counterpart).
+the same in both packages and a ``config.json`` the JAX trainer wrote
+loads here (``DiffusionConfig.scan_unroll``, the unroll factor of JAX's
+compiled sampler loop, is carried and has no effect: the port's sampler
+loops on the host).
 """
 
 from __future__ import annotations
@@ -91,6 +93,8 @@ class DiffusionConfig:
     jump_length: int = 3
     jump_n_sample: int = 5
     no_resample: bool = False
+    # JAX's lax.scan unroll factor; carried with no effect
+    scan_unroll: int = 1
     # 'auto'/'jnp': the streamlined eta=0 DDIM+RePaint step composition
     fused_step: str = "auto"
     # 'auto'/'on': the per-layer kernel (ops/fused_layer.py::fused_layer);

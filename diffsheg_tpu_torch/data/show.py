@@ -1,7 +1,7 @@
 """SHOW / TalkSHOW statistics, channel carpentry and the window dataset.
 
-The port's own copy of ``diffsheg_tpu/data/show.py`` without the cache
-builder (numpy only): the SMPL-X split, :func:`extract_gesture`,
+The port's own copy of ``diffsheg_tpu/data/show.py`` (the cache builder
+is ``data/show_cache.py``): the SMPL-X split, :func:`extract_gesture`,
 :func:`combine_expression`, :class:`ShowStats` and (inverse)
 standardization, which the SHOW export uses, and :class:`ShowDataset`.
 Standardization keeps the reference's quirk: the expression *std*
@@ -17,6 +17,7 @@ import numpy as np
 
 from diffsheg_tpu_torch.data.beat import hubert_batch
 from diffsheg_tpu_torch.data.cache import ArrayCache
+from diffsheg_tpu_torch.device import DeviceLike
 
 # SMPL-X layout (show.py:83)
 _POSE_SPLITS = (3, 3, 3, 3, 63, 90)       # jaw, leye, reye, global, body, hands
@@ -109,18 +110,22 @@ class ShowDataset:
     audio, speaker (one-hot 4); ``hubert_cache_dir`` as for
     ``BeatDataset``.  Items: gesture (129, or 39 with ``remove_hand``),
     expression (103), motion (232), mel (the ``audio_feat``: mel, the
-    cached mfcc, or 'raw' 16 kHz audio mean-pooled per frame), speaker.
+    mfcc — the cached field, or on a cache without it computed from the
+    window's audio by ``audio/mfcc.py`` on ``device`` — or 'raw' 16 kHz
+    audio mean-pooled per frame), speaker.
     """
 
     def __init__(self, cache_dir: str, stats: ShowStats,
                  hubert_cache_dir: Optional[str] = None,
                  remove_hand: bool = False, audio_feat: str = "mel",
-                 n_mfcc: int = 64):
+                 n_mfcc: int = 64, device: DeviceLike = None):
         self.cache = ArrayCache(cache_dir)
         self.stats = stats
         self.remove_hand = remove_hand
         self.audio_feat = audio_feat
         self.n_mfcc = n_mfcc
+        self.device = device
+        self._mfcc_frontend = None
         self.hubert = (ArrayCache(hubert_cache_dir)
                        if hubert_cache_dir else None)
 
@@ -134,10 +139,16 @@ class ShowDataset:
         if self.audio_feat == "mfcc":
             if "mfcc" in s:
                 return s["mfcc"].astype(np.float32)
-            raise ValueError(
-                "data.audio_feat='mfcc' on a cache without an 'mfcc' field "
-                "needs the MFCC frontend, which the port does not have; "
-                "rebuild the cache with the field")
+            # a cache built without the field: from the window's audio
+            from diffsheg_tpu_torch.audio.wav import resample_poly
+            if self._mfcc_frontend is None:
+                from diffsheg_tpu_torch.audio.mfcc import MfccFrontend
+                self._mfcc_frontend = MfccFrontend(
+                    sr=18000, hop=600, n_mfcc=self.n_mfcc, drop_last=False,
+                    device=self.device)
+            a18 = resample_poly(np.asarray(s["audio"], np.float32), 16000,
+                                18000)
+            return self._mfcc_frontend(a18[None])[0, :n_frames].cpu().numpy()
         if self.audio_feat == "raw":
             a = np.asarray(s["audio"], dtype=np.float32)
             n = (len(a) // n_frames) * n_frames

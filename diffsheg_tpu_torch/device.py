@@ -7,6 +7,7 @@ than carrying on quietly on the CPU.
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -22,6 +23,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available: diffsheg_tpu_torch entry points run on "
             "the GPU by default; pass device='cpu' to run on the CPU")
     return dev
+
+
+def world_size() -> int:
+    """The number of processes of the run: ``WORLD_SIZE`` or an
+    initialised ``torch.distributed`` group."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        world = max(world, torch.distributed.get_world_size())
+    return world
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,1 +1,2 @@
-"""Evaluation: the pose metrics of training's evaluation."""
+"""Evaluation: the FGD feature net and FGD, the pose metrics, SRGR, beat
+alignment."""

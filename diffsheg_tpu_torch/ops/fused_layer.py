@@ -22,14 +22,16 @@ On a CUDA tensor each wrapper launches the hand-written kernel of
 raises; on a CPU tensor it runs the plain PyTorch version
 (:func:`fused_layer_reference`, :func:`fused_branch_reference`), the
 exact transcription of the JAX ``_layer_math``.  Each wrapper counts its
-kernel launches in ``.launches``.  :func:`branch_phase_ns` and
-:func:`kernel_probe` measure inside the kernel (per-phase and in-phase
+kernel launches in ``.launches``; :func:`fused_layer` counts them by the
+launch's (B, T, L) in ``.launches_by_shape`` too.  :func:`branch_phase_ns`
+and :func:`kernel_probe` measure inside the kernel (per-phase and in-phase
 times from a traced build, the grid barriers' floor, the operand copy's
 rate); ``chip_smoke.py`` prints them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import List, NamedTuple, Optional
 
@@ -477,10 +479,12 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
                             0, lp, 1, num_heads, c_real, False, None, None,
                             sc))
         fused_layer.launches += 1
+        fused_layer.launches_by_shape[tuple(x[g].shape)] += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 fused_layer.launches = 0
+fused_layer.launches_by_shape = collections.Counter()
 
 
 def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)

@@ -9,11 +9,13 @@ unless the caller asks for the CPU):
   - the loss terms go to ``<workdir>/metrics.jsonl`` every ``log_every``
     steps (``utils/logging.py``);
   - checkpoints (``train/checkpoint.py``) every epoch (latest, 3 kept),
-    every ``save_every_epochs`` (tagged), and on the best MSE / PCK;
+    every ``save_every_epochs`` (tagged), and on the best FGD / MSE / PCK;
   - every ``eval_every_epochs`` the window generator samples the val
     split (DDIM, the plain program) and scores MSE, PCK, PCK@2 and
-    diversity (``eval/metrics.py``); FGD needs the FGD feature net, which
-    the port does not have, and stays NaN.
+    diversity (``eval/metrics.py``), and with an FGD feature net
+    (``eval/fgd_net.py``, e.g. the reference's ``ae_300.bin`` through
+    ``compat/fgd_ckpt.py``) FGD between the generated and the real
+    windows' latents; without one FGD is NaN.
 
 Refused, as the port cannot run them yet: ``train.on_device_frontend``,
 ``mesh.data_parallel`` / ``mesh.fsdp_parallel`` above 1, and more than
@@ -25,14 +27,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from diffsheg_tpu_torch.config import Config
 from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
-from diffsheg_tpu_torch.device import DeviceLike, resolve_device
+from diffsheg_tpu_torch.device import DeviceLike, resolve_device, world_size
+from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise, NoiseSource
 from diffsheg_tpu_torch.diffusion.schedule import (get_named_beta_schedule,
                                                    make_schedule)
 from diffsheg_tpu_torch.models.factory import build_denoiser, random_init_
@@ -71,9 +74,7 @@ def check_trainable(cfg: Config) -> None:
             f"mesh.fsdp_parallel={cfg.mesh.fsdp_parallel}: the port trains "
             "on one device; data-parallel and FSDP training need "
             "torch.distributed, which it does not have yet")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
+    world = world_size()
     if world > 1:
         raise ValueError(
             f"{world} processes: the port trains in one process on one "
@@ -84,11 +85,13 @@ def check_trainable(cfg: Config) -> None:
 class Trainer:
     """Owns the train state, its steps, the checkpoint manager and the
     epoch loop.  The model starts from the Flax initialisation's
-    distributions (zero output projections) seeded by ``train.seed``."""
+    distributions (zero output projections) seeded by ``train.seed``.
+    ``fgd_net``: the frozen FGD feature net the evaluation embeds with
+    (moved to the trainer's device)."""
 
     def __init__(self, cfg: Config, workdir: str,
                  logger: Optional[MetricLogger] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, fgd_net=None):
         check_trainable(cfg)
         self.cfg = cfg
         self.workdir = workdir
@@ -110,6 +113,8 @@ class Trainer:
         self.epoch = 0
         self.total_it = 0
         self._generator = None  # built at the first evaluation
+        self.fgd_net = (None if fgd_net is None
+                        else fgd_net.to(self.device).eval())
         os.makedirs(workdir, exist_ok=True)
         with open(os.path.join(workdir, "config.json"), "w") as f:
             f.write(cfg.to_json())
@@ -238,13 +243,16 @@ class Trainer:
         return self._generator
 
     def evaluate(self, loader: ShardedBatchLoader, seed: int = 0,
-                 max_batches: int = 0) -> EvalResult:
-        """DDIM sampling of each val batch (the sampler's noise seeded from
-        ``seed`` and the batch index) and MSE / PCK / PCK@2 / diversity
-        against the targets."""
-        from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
+                 max_batches: int = 0,
+                 noise: Optional[Callable[[int], NoiseSource]] = None
+                 ) -> EvalResult:
+        """DDIM sampling of each val batch and MSE / PCK / PCK@2 /
+        diversity against the targets; FGD with the trainer's
+        ``fgd_net``.  Batch i draws its noise from ``noise(i)``, by default
+        a ``GeneratorNoise`` seeded from ``seed`` and i."""
         from diffsheg_tpu_torch.eval.metrics import diversity as div_fn
-        from diffsheg_tpu_torch.eval.metrics import mse_pck_channels
+        from diffsheg_tpu_torch.eval.metrics import (frechet_from_activations,
+                                                     mse_pck_channels)
 
         gen = self._get_generator()
         mses, pcks, pck2s = [], [], []
@@ -252,12 +260,14 @@ class Trainer:
         # fills instead of keeping every generated batch
         div_carry, carry_n = [], 0
         div_total, div_groups = 0.0, 0
+        gen_lat, real_lat = [], []
         for bi, batch in enumerate(loader):
             if max_batches and bi >= max_batches:
                 break
             mb = self._on_device(self._to_model_batch(batch))
-            noise = GeneratorNoise(step_seeds(seed, bi)[0], self.device)
-            out = gen.generate(mb["mel"], mb["pid"], noise,
+            draws = (GeneratorNoise(step_seeds(seed, bi)[0], self.device)
+                     if noise is None else noise(bi))
+            out = gen.generate(mb["mel"], mb["pid"], draws,
                                hubert=mb.get("hubert"))
             out_np = out.float().cpu().numpy()
             tgt = mb["motion"].cpu().numpy()
@@ -274,6 +284,10 @@ class Trainer:
                 rest = pool[50:]
                 div_carry = [rest] if len(rest) else []
                 carry_n = len(rest)
+            if self.fgd_net is not None:
+                with torch.no_grad():
+                    gen_lat.append(self.fgd_net(out.float()).cpu().numpy())
+                    real_lat.append(self.fgd_net(mb["motion"]).cpu().numpy())
         # diversity over 50-sample groups of the pooled outputs, whatever
         # the loader's batch size
         if div_groups:
@@ -287,6 +301,9 @@ class Trainer:
             pck=float(np.mean(pcks)) if pcks else float("nan"),
             pck2=float(np.mean(pck2s)) if pck2s else float("nan"),
             diversity=div_val)
+        if gen_lat:
+            res.fgd = frechet_from_activations(np.concatenate(gen_lat),
+                                               np.concatenate(real_lat))
         self.logger.log_metrics(step=self.total_it,
                                 metrics={f"val_{k}": v
                                          for k, v in res.as_dict().items()})
@@ -311,6 +328,9 @@ class Trainer:
             if (val_loader is not None and cfg.eval_every_epochs
                     and self.epoch % cfg.eval_every_epochs == 0):
                 res = self.evaluate(val_loader, seed=cfg.seed + 1 + self.epoch)
+                if np.isfinite(res.fgd):
+                    self.ckpt.update_best("fgd", res.fgd, self.state,
+                                          self._meta())
                 if np.isfinite(res.mse):
                     self.ckpt.update_best("mse", res.mse, self.state,
                                           self._meta())

@@ -1,10 +1,12 @@
-"""The port's command line (``python -m diffsheg_tpu_torch.cli serve``).
+"""The port's command line (``python -m diffsheg_tpu_torch.cli``).
 
 ``--set`` parses as the JAX CLI's does (the same strings, the same
-resulting fields, the same refusals); ``serve --device cpu`` builds a
-``MotionServer`` from its flags (``serve_forever`` patched to run the
-accept loop in a thread and return as SIGTERM does), drains and closes
-it, loads a reference ``.tar`` and refuses a checkpoint directory.
+resulting fields, the same refusals) and a JAX ``config.json`` loads;
+``serve --device cpu`` builds a ``MotionServer`` from its flags
+(``serve_forever`` patched to run the accept loop in a thread and return
+as SIGTERM does), drains and closes it, loads a reference ``.tar`` and
+refuses a checkpoint directory; ``train``, ``eval`` and ``test-stream``
+run on the CPU, with the reference's FGD autoencoder.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ SETS = [
      "stream.fix_very_first=1", "data.n_poses=12"],
     ["data.remove_hand=true"],
     ["stream.single_dispatch=false", "stream.same_overlap_noisy=true"],
+    ["diffusion.scan_unroll=2"],
 ]
 BAD = ["model.latent_dim", "latent_dim=3", "modle.latent_dim=3",
        "model.latnet_dim=3", "model.latent_dim=big"]
@@ -232,9 +235,10 @@ def test_cli_train_resumes_and_feeds_generate(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fgd-checkpoint", "ae_300.bin"], "FGD feature net"),
-    (["--set", "train.on_device_frontend=true"], "on_device_frontend"),
-    (["--set", "mesh.fsdp_parallel=2"], "data-parallel and FSDP"),
+    pytest.param(["--set", "train.on_device_frontend=true"],
+                 "on_device_frontend", id="argv1-on_device_frontend"),
+    pytest.param(["--set", "mesh.fsdp_parallel=2"], "data-parallel and FSDP",
+                 id="argv2-data-parallel and FSDP"),
 ])
 def test_cli_train_refusals(tmp_path, argv, match):
     from diffsheg_tpu_torch.cli.main import main
@@ -244,7 +248,140 @@ def test_cli_train_refusals(tmp_path, argv, match):
               "--train-cache", cache] + TINY + argv)
 
 
-def test_build_cache_is_refused():
+@pytest.mark.parametrize("preset", ["beat", "show"])
+def test_config_json_round_trips_with_jax(preset):
+    from diffsheg_tpu import config as J
+    from diffsheg_tpu_torch import config as P
+    sets = ["diffusion.scan_unroll=3", "model.latent_dim=96"]
+    import diffsheg_tpu.cli.main as JC
+    import diffsheg_tpu_torch.cli.main as PC
+    jcfg = JC._apply_overrides(getattr(J, f"{preset}_config")(), sets)
+    pcfg = PC._apply_overrides(getattr(P, f"{preset}_config")(), sets)
+    assert P.Config.from_json(jcfg.to_json()) == pcfg
+    assert pcfg.diffusion.scan_unroll == 3
+    assert J.Config.from_json(pcfg.to_json()) == jcfg
+
+
+def test_serve_takes_seed(monkeypatch):
+    from diffsheg_tpu_torch.cli.main import build_parser, main
+    built = _patched_server(monkeypatch)
+    assert main(["serve", "--device", "cpu", "--port", "0", "--seed", "7"]
+                + TINY) == 0
+    assert len(built) == 1
+    assert build_parser().parse_args(["serve", "--seed", "7"]).seed == 7
+
+
+def _fgd_checkpoint(path, T=34, C=192):
+    """A reference-layout FGD autoencoder file (ae_300.bin) of a seeded
+    net, with the options Namespace the reference saves beside it."""
+    import argparse
+    from torch_parity import reference_fgd_state_dict
+    torch.save({"args": argparse.Namespace(vae_length=300), "epoch": 1,
+                "model_state": reference_fgd_state_dict(T, C, seed=5)},
+               str(path))
+    return str(path)
+
+
+def test_cli_train_with_fgd_and_hubert_checkpoints(tmp_path):
+    # --fgd-checkpoint: the evaluation reports FGD and keeps fgd_best;
+    # --hubert-checkpoint is accepted (the on-device frontend it feeds is
+    # refused for now) and unused, as in JAX
+    import json
     from diffsheg_tpu_torch.cli.main import main
-    with pytest.raises(SystemExit, match="build-cache is not ported"):
-        main(["build-cache", "--data-root", "data/BEAT"])
+    cache = _train_cache(tmp_path / "cache", n=8, T=34)
+    val = _train_cache(tmp_path / "val", n=4, T=34, seed=1)
+    work = tmp_path / "run"
+    assert main(["train", "--device", "cpu", "--workdir", str(work),
+                 "--train-cache", cache, "--val-cache", val,
+                 "--fgd-checkpoint", _fgd_checkpoint(tmp_path / "ae.bin"),
+                 "--hubert-checkpoint", str(tmp_path / "no-hubert"),
+                 "--epochs", "1", "--set", "train.batch_size=4",
+                 "--set", "train.eval_every_epochs=1"] + TINY) == 0
+    recs = [json.loads(x) for x in open(work / "metrics.jsonl")]
+    fgd = [r["val_fgd"] for r in recs if "val_fgd" in r]
+    assert len(fgd) == 1 and fgd[0] == fgd[0] and fgd[0] > 0
+    assert (work / "ckpt" / "fgd_best" / "state.pt").exists()
+
+
+def _whole_clips(path, lengths=(50, 40), seed=2):
+    import numpy as np
+    from diffsheg_tpu_torch.data.cache import CacheWriter
+    rs = np.random.RandomState(seed)
+    w = CacheWriter(str(path), meta={"n_poses": 34, "is_test": True})
+    for i, T in enumerate(lengths):
+        w.add({"pose": rs.randn(T, 141).astype(np.float32),
+               "pose_axis_angle": (rs.randn(T, 141) * 0.3).astype(np.float32),
+               "audio": (rs.randn(int(T / 15 * 16000)) * 0.05).astype(
+                   np.float32),
+               "mel": rs.randn(T, 128).astype(np.float32),
+               "facial": (rs.randn(T, 51) * 0.3).astype(np.float32),
+               "sem": rs.rand(T).astype(np.float32),
+               "id": np.asarray([i], np.int32)})
+    w.finalize()
+    return str(path)
+
+
+def test_cli_eval_and_test_stream_on_cpu(tmp_path, capsys):
+    import json
+    import numpy as np
+    from diffsheg_tpu_torch.cli.main import main
+    from diffsheg_tpu_torch.data.beat import BeatStats
+    from torch_parity import beat_template_text
+    fgd = _fgd_checkpoint(tmp_path / "ae.bin")
+    val = _train_cache(tmp_path / "val", n=4, T=34, seed=1)
+    assert main(["eval", "--device", "cpu", "--val-cache", val,
+                 "--fgd-checkpoint", fgd, "--workdir", str(tmp_path / "w")]
+                + TINY) == 0
+    out = capsys.readouterr().out
+    ev = json.loads(out[out.index("{"):])
+    assert sorted(ev) == ["diversity", "fgd", "mse", "pck", "pck2"]
+    assert all(np.isfinite(v) for v in ev.values())
+    assert (tmp_path / "w" / "config.json").exists()
+    # test-stream: the exporter with a template BVH and players, FGD
+    rs = np.random.RandomState(3)
+    stats = str(tmp_path / "stats")
+    BeatStats(rs.randn(141), 1 + rs.rand(141), rs.randn(141) * 0.1,
+              0.5 + rs.rand(141), rs.rand(51), 0.5 + rs.rand(51)).save(stats)
+    (tmp_path / "t.bvh").write_text(beat_template_text(frames=1, seed=4))
+    test = _whole_clips(tmp_path / "test")
+    flags = ["test-stream", "--device", "cpu", "--test-cache", test,
+             "--stats-dir", stats, "--template-bvh", str(tmp_path / "t.bvh"),
+             "--out-dir", str(tmp_path / "ts"), "--fgd-checkpoint", fgd,
+             "--srgr-avg-weight", "0.165"] + TINY
+    assert main(flags + ["--player", "--max-clips", "1"]) == 0
+    out = capsys.readouterr().out
+    m = json.loads(out[out.index("{"):])
+    assert m["clips"] == 1.0 and m["srgr_norm"] == 0.165
+    assert "fgd" not in m                 # one window: no covariance
+    assert sorted(p.name for p in (tmp_path / "ts").iterdir()) == [
+        "clip_00000.bvh", "clip_00000.npy", "clip_00000_face.json",
+        "clip_00000_player.html"]
+    assert main(flags) == 0
+    out = capsys.readouterr().out
+    m = json.loads(out[out.index("{"):])
+    assert m["clips"] == 2.0 and np.isfinite(m["fgd"])
+    # --output-gt writes the ground truth, as the JAX command does
+    import diffsheg_tpu.cli.main as J
+    for mod, tag in ((J, "j"), (None, "p")):
+        argv = ["test-stream", "--test-cache", test, "--stats-dir", stats,
+                "--out-dir", str(tmp_path / tag), "--output-gt"] + TINY
+        if mod is None:
+            assert main(argv[:1] + ["--device", "cpu"] + argv[1:]) == 0
+        else:
+            assert J.main(argv[:1] + ["--platform", "cpu"] + argv[1:]) == 0
+        out = capsys.readouterr().out
+        m = json.loads(out[out.index("{"):])
+        m.pop("fps")
+        if tag == "j":
+            want = m
+    assert m.keys() == want.keys()
+    for k in want:
+        if isinstance(want[k], str):
+            assert m[k] == want[k], k
+        else:
+            np.testing.assert_allclose(m[k], want[k], rtol=0, atol=1e-9,
+                                       err_msg=k)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "p_GT" / f"clip_0000{i}.npy"),
+            np.load(tmp_path / "j_GT" / f"clip_0000{i}.npy"))

@@ -149,12 +149,30 @@ def test_show_dataset_batches_match_jax(tmp_path, audio_feat, remove_hand):
         jshow.combine_expression(np.ones((2, 165)), np.zeros((2, 100))))
 
 
-def test_show_dataset_refuses_mfcc_without_the_field(tmp_path):
+@pytest.mark.parametrize("field", [True, False])
+def test_show_dataset_mfcc_matches_jax(tmp_path, field):
+    # audio_feat='mfcc': the cache's mfcc field, or on a cache without it
+    # the MFCC of the window's audio (within 2e-5 of scale)
+    from torch_parity import mel_close
     path, spath = show_fixture(tmp_path)
-    tds = tshow.ShowDataset(path, tshow.ShowStats.load(spath),
+    if field:
+        rows = [dict(tcache.ArrayCache(path)[i]) for i in range(6)]
+        rs = np.random.RandomState(9)
+        for r in rows:
+            r["mfcc"] = rs.randn(T, 64).astype(np.float32)
+        path = write(tcache.CacheWriter, tmp_path / "mfcc", rows)
+    jds = jshow.ShowDataset(path, jshow.ShowStats.load(spath),
                             audio_feat="mfcc")
-    with pytest.raises(ValueError, match="MFCC frontend"):
-        tds[0]
+    tds = tshow.ShowDataset(path, tshow.ShowStats.load(spath),
+                            audio_feat="mfcc", device="cpu")
+    for i in (0, 4):
+        got, want = tds[i], jds[i]
+        assert sorted(got) == sorted(want) and got["mel"].shape == (T, 64)
+        for k in want:
+            if k == "mel" and not field:
+                mel_close(got[k], want[k])
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 class _Rows:

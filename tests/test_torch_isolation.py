@@ -68,7 +68,10 @@ def test_kernel_sources_are_package_data():
 
 @pytest.mark.parametrize("entry", ["generator", "hubert", "mel", "live",
                                    "server", "cli", "export", "generate",
-                                   "cli-generate", "trainer", "cli-train"])
+                                   "cli-generate", "trainer", "cli-train",
+                                   "mfcc", "beat-cache", "show-cache",
+                                   "fgd-net", "testset", "cli-build-cache",
+                                   "cli-eval", "cli-test-stream"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
@@ -142,6 +145,71 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
                      "--set", "model.num_layers=1",
                      "--set", "model.add_hubert=false"] + dev)
 
+    def beat_split():
+        from torch_parity import write_beat_split
+        root = tmp_path / "raw"
+        if not root.exists():
+            write_beat_split(root / "train", {"2_a_0_1_1": dict(secs=3)})
+        return root
+
+    def beat_cache(**kw):
+        from diffsheg_tpu_torch.data.beat import (build_beat_cache,
+                                                  compute_beat_stats)
+        split = str(beat_split() / "train")
+        stats = compute_beat_stats(split, log=lambda *a: None, device="cpu")
+        return build_beat_cache(split, str(tmp_path / "bc"), stats,
+                                log=lambda *a: None, **kw)
+
+    def show_cache(**kw):
+        from diffsheg_tpu_torch.data.show_cache import build_show_cache
+        from torch_parity import write_show_split
+        from diffsheg_tpu_torch.data.show_cache import iter_npz_dir
+        root = write_show_split(tmp_path / "show", [90])
+        return build_show_cache(iter_npz_dir(root), str(tmp_path / "sc"),
+                                log=lambda *a: None, **kw)
+
+    def cli_build_cache(**kw):
+        dev = ["--device", kw["device"]] if kw else []
+        return main(["build-cache", "--data-root", str(beat_split()),
+                     "--out", str(tmp_path / "cbc")] + dev)
+
+    def test_cache():
+        from diffsheg_tpu_torch.data.cache import CacheWriter
+        w = CacheWriter(str(tmp_path / "test"), meta={"is_test": True})
+        rs = np.random.RandomState(1)
+        w.add({"pose_axis_angle": rs.randn(40, 141), "mel":
+               rs.randn(40, 128), "facial": rs.randn(40, 51),
+               "pose": rs.randn(40, 141), "id": np.zeros(1, np.int32)})
+        w.finalize()
+        return str(tmp_path / "test")
+
+    def testset(**kw):
+        from diffsheg_tpu_torch.data.beat import BeatDataset
+        from diffsheg_tpu_torch.sampling.testset import generate_testset
+        return generate_testset(cfg, init_unidiffuser(cfg.model),
+                                BeatDataset(test_cache()),
+                                str(tmp_path / "ts"), log=lambda *a: None,
+                                **kw)
+
+    def cli_eval(**kw):
+        dev = ["--device", kw["device"]] if kw else []
+        cli_train(device="cpu")
+        return main(["eval", "--val-cache", str(tmp_path / "cache"),
+                     "--set", "model.latent_dim=32",
+                     "--set", "model.num_layers=1",
+                     "--set", "model.add_hubert=false",
+                     "--set", "data.n_poses=8"] + dev)
+
+    def cli_test_stream(**kw):
+        dev = ["--device", kw["device"]] if kw else []
+        return main(["test-stream", "--test-cache", test_cache(),
+                     "--out-dir", str(tmp_path / "cts"),
+                     "--set", "model.latent_dim=32",
+                     "--set", "model.num_layers=1",
+                     "--set", "model.add_hubert=false"] + dev)
+
+    from diffsheg_tpu_torch.audio.mfcc import MfccFrontend
+    from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig, init_fgd_net
     from diffsheg_tpu_torch.train.trainer import Trainer
     make = {
         "generator": lambda **kw: WindowGenerator(
@@ -161,6 +229,14 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "cli-generate": cli_generate,
         "trainer": lambda **kw: Trainer(cfg, str(tmp_path / "tr"), **kw),
         "cli-train": cli_train,
+        "mfcc": lambda **kw: MfccFrontend(**kw),
+        "beat-cache": beat_cache,
+        "show-cache": show_cache,
+        "fgd-net": lambda **kw: init_fgd_net(FgdNetConfig(), **kw),
+        "testset": testset,
+        "cli-build-cache": cli_build_cache,
+        "cli-eval": cli_eval,
+        "cli-test-stream": cli_test_stream,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -196,7 +272,10 @@ def test_walk_covers_the_slice():
                 "cli.generate", "config", "diffusion.losses",
                 "diffusion.timestep_sampler", "train.step",
                 "train.checkpoint", "train.trainer", "data.cache",
-                "data.loader", "eval.metrics", "utils.logging"):
+                "data.loader", "eval.metrics", "utils.logging",
+                "runtime", "audio.mfcc", "audio.onsets", "data.show_cache",
+                "data.beat_preprocess", "eval.fgd_net", "eval.fgd",
+                "compat.fgd_ckpt", "sampling.testset"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod
 
 
@@ -205,19 +284,22 @@ def test_walk_covers_the_slice():
 OWN_COPIES = {"geometry/joints.py": None, "geometry/bvh.py": None,
               "geometry/face.py": None, "viz/player.py": None,
               "audio/wav.py": None,
-              "data/beat.py": {"BEAT_HAND_FREE_CHANNELS", "BeatStats",
-                               "BeatDataset"},
+              "data/beat.py": None,
               "data/show.py": {"ShowStats", "extract_gesture",
                                "split_smplx_pose", "standardize",
                                "inv_standardize", "ShowDataset",
                                "combine_expression"},
               "data/cache.py": None, "data/loader.py": {
                   "ShardedBatchLoader"},
-              "eval/metrics.py": {"activation_statistics",
-                                  "frechet_distance",
-                                  "frechet_from_activations", "mse_pck",
-                                  "mse_pck_channels", "diversity"},
-              "utils/logging.py": None}
+              "eval/metrics.py": None,
+              "utils/logging.py": None,
+              "runtime/__init__.py": {"parse_float_text",
+                                      "parse_frames_file", "gather_rows"},
+              "audio/mfcc.py": None, "audio/onsets.py": None,
+              "data/show_cache.py": None, "data/beat_preprocess.py": None,
+              "eval/fgd_net.py": None, "eval/fgd.py": None,
+              "compat/fgd_ckpt.py": None, "sampling/testset.py": {
+                  "generate_testset"}}
 
 
 def _public_names(path):

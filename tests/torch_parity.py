@@ -162,3 +162,116 @@ def beat_template_text(frames: int = 3, seed: int = 0) -> str:
     lines += [" ".join("%.5f" % v for v in rng.uniform(-60, 60, 228))
               for _ in range(frames)]
     return "\n".join(lines) + "\n"
+
+
+def write_beat_split(root, clips, seed: int = 0, fps: int = 15,
+                     sr: int = 16000):
+    """A synthetic raw BEAT split under ``root`` (``bvh_rot`` euler-degree
+    rows, ``wave16k`` audio, ``facial52`` JSON, ``sem`` TSV, optional
+    ``word`` / ``emo`` labels).  ``clips``: {clip id: dict(secs=,
+    pose_secs=, const=, labels=)} — ``pose_secs`` clamps the pose frames
+    (the whole-second clamp), ``const`` makes every pose value equal (the
+    filter's case), ``labels`` writes word / emo arrays."""
+    import os
+    from diffsheg_tpu_torch.geometry.face import write_face_json
+    rng = np.random.RandomState(seed)
+    root = str(root)
+    for sub in ("bvh_rot", "wave16k", "facial52", "sem", "word", "emo"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for cid, spec in clips.items():
+        secs = spec.get("secs", 6)
+        T = int(spec.get("pose_secs", secs) * fps)
+        pose = rng.randn(T, 141) * 25
+        if spec.get("const") is not None:
+            pose[:] = spec["const"]
+        np.savetxt(f"{root}/bvh_rot/{cid}.bvh", pose, fmt="%.6f")
+        np.save(f"{root}/wave16k/{cid}.npy",
+                (rng.randn(secs * sr) * 0.05).astype(np.float32))
+        write_face_json(rng.rand(secs * fps, 51),
+                        f"{root}/facial52/{cid}.json", fps=fps)
+        with open(f"{root}/sem/{cid}.txt", "w") as f:
+            f.write("w\t0.5\t2.0\t1.5\t0.8\thi\n"
+                    "bad\tx\ty\tz\tq\n"
+                    "w\t31.0\t33.0\t2.0\t0.4\tthere\n"
+                    "w\t2.5\t4.0\t1.5\t0.3\tyou\n")
+        if spec.get("labels"):
+            np.save(f"{root}/word/{cid}.npy", rng.randint(0, 2048, T))
+            np.save(f"{root}/emo/{cid}.npy", rng.randint(0, 8, T))
+    return root
+
+
+def write_show_split(root, lengths, seed: int = 0, fps: int = 30,
+                     sr: int = 16000):
+    """A synthetic SHOW split: one ``.npz`` sequence a length (frames),
+    speakers 20, 21, ... (the raw TalkSHOW ids)."""
+    import os
+    rng = np.random.RandomState(seed)
+    os.makedirs(str(root), exist_ok=True)
+    for i, T in enumerate(lengths):
+        np.savez(os.path.join(str(root), f"seq{i}.npz"),
+                 pose=rng.randn(T, 165).astype(np.float32),
+                 expression=rng.randn(T, 100).astype(np.float32),
+                 audio=(rng.randn(int(T / fps * sr)) * 0.1).astype(
+                     np.float32),
+                 speaker=np.asarray(20 + i))
+    return str(root)
+
+
+def mel_close(a, b, tol: float = 2e-5) -> float:
+    """max |a - b| over max |b|, asserted within ``tol`` (the mel band of
+    tests/test_torch_mel.py)."""
+    err = float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)
+                       ).max() / np.abs(np.asarray(b, np.float64)).max())
+    assert err <= tol, err
+    return err
+
+
+def reference_fgd_state_dict(T, C, seed=0, base=300):
+    """A seeded HalfEmbeddingNet state dict under the reference's names
+    (with the decoder's and fc_logvar's keys, which FGD drops) for
+    ``T``-frame windows of ``C`` channels."""
+    from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, pos=False):
+        x = torch.randn(*shape, generator=g) * 0.1
+        return x.abs() + 0.5 if pos else x
+
+    sd = {}
+
+    def lin(name, i, o):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = t(o, i), t(o)
+
+    def bn(name, n):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = t(n) + 1, t(n)
+        sd[f"{name}.running_mean"] = t(n)
+        sd[f"{name}.running_var"] = t(n, pos=True)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(7)
+
+    e = "pose_encoder"
+    for i, (ci, co, k) in enumerate([(C, base, 3), (base, 2 * base, 3),
+                                     (2 * base, 2 * base, 4)]):
+        sd[f"{e}.net.{i}.0.weight"] = t(co, ci, k)
+        sd[f"{e}.net.{i}.0.bias"] = t(co)
+        bn(f"{e}.net.{i}.1", co)
+    sd[f"{e}.net.3.weight"] = t(base, 2 * base, 3)
+    sd[f"{e}.net.3.bias"] = t(base)
+    flat = base * FgdNetConfig(n_frames=T, pose_dim=C).conv_out_frames
+    if T >= 64:
+        lin(f"{e}.out_net.0", flat, base * 12)
+        bn(f"{e}.out_net.1", base * 12)
+        lin(f"{e}.out_net.2", base * 12, base * 4)
+        bn(f"{e}.out_net.3", base * 4)
+        lin(f"{e}.out_net.5", base * 4, base * 2)
+        bn(f"{e}.out_net.6", base * 2)
+        lin(f"{e}.out_net.8", base * 2, base)
+    else:
+        lin(f"{e}.out_net.0", flat, base * 4)
+        bn(f"{e}.out_net.1", base * 4)
+        lin(f"{e}.out_net.3", base * 4, base * 2)
+        bn(f"{e}.out_net.4", base * 2)
+        lin(f"{e}.out_net.6", base * 2, base)
+    lin(f"{e}.fc_mu", base, base)
+    lin(f"{e}.fc_logvar", base, base)
+    lin("decoder.out", base, C)
+    return sd
