@@ -116,7 +116,28 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               over the test clips with the exporter, a template BVH,
               players and FGD (its metrics JSON; every BVH, face JSON and
               npy checked), clip 0 again bit for bit, and
-              ``--output-gt``; exact launch counts for every command.
+              ``--output-gt``; exact launch counts for every command;
+12. scale   — training with the speech frontend in the step and across
+              processes, BEAT at full width, f32, on a cache built from
+              raw clips (3 train, 1 val): (a) ``cli train --set
+              train.on_device_frontend=true --hubert-checkpoint`` (a
+              HuBERT-large HF checkpoint of seeded weights written to a
+              temporary directory), 2 steps of 256 windows: frontend and
+              step ms, peak memory, linear attention's launches by shape;
+              the frontend's mel against the cache's (2e-5 of scale), its
+              HuBERT against the same encoder on the CPU (4 windows, f32
+              rel-RMS <= 1e-5), the mel / HuBERT split of its time, and
+              the kernel against its plain version in a step with it
+              (1e-5); (b) ``Trainer.evaluate`` of 64 windows with the
+              frontend; (c) 3 data-parallel steps at a global batch of
+              256 alone, in an NCCL group of one through the
+              data-parallel path (bit for bit) and FSDP on a 1-D mesh of
+              one, and over 2 processes sharing the card through gloo
+              (``parallel/mp_lockstep.py`` workers: their collectives on
+              CUDA tensors, the ranks bit for bit, rtol 2e-5 / atol 1e-6
+              against one process); (d) ``generate_testset`` of 2 clips
+              over those 2 processes against one (files, replicated
+              metrics, clip sums, launches).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -133,6 +154,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only generate   # cli generate, wav to BVH
     python3 chip_smoke.py --only train      # cli train, evaluation
     python3 chip_smoke.py --only data       # build-cache, train, eval, test-stream
+    python3 chip_smoke.py --only scale      # frontend in the step, 2 processes
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -514,6 +536,14 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("data-eval-audio-enc-f32", torch.float32, 800, 34, 128,
                     0),
                    ("stream-audio-enc-f32", torch.float32, 25, 34, 128, 0),
+                   # phase 12: cli train with the speech frontend at batch
+                   # 256, and each of 2 data-parallel processes' 128 rows
+                   ("scale-train-beat-f32", torch.float32, 256, 34, 512, 0),
+                   ("scale-train-audio-enc-f32", torch.float32, 256, 34, 128,
+                    0),
+                   ("scale-dp-beat-f32", torch.float32, 128, 34, 512, 0),
+                   ("scale-dp-audio-enc-f32", torch.float32, 128, 34, 128,
+                    0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
                    ("unaligned-f32", torch.float32, 1, 34, 512, 1))
 
@@ -2072,11 +2102,13 @@ def train_band(what, a_terms, b_terms, a_params, b_params, tol):
                              f"{tol:g}")
 
 
-def injected_steps(cfg, batch, ts, noises, dev, plain=False):
-    """Three injected-randomness steps from ``cfg``'s model with seeded
-    random weights (the same for every ``cfg`` of one architecture); with
-    ``plain`` the linear-attention kernel swapped for its plain version
-    (in this process only).  Returns (terms, parameters after)."""
+def injected_steps(cfg, batch, ts, noises, dev, plain=False, frontend=None):
+    """Injected-randomness steps (one for each of ``ts``) from ``cfg``'s
+    model with seeded random weights (the same for every ``cfg`` of one
+    architecture), each on ``frontend(batch)`` if a speech ``frontend`` is
+    given, as the trainer feeds its step; with ``plain`` the
+    linear-attention kernel swapped for its plain version (in this
+    process only).  Returns (terms, parameters after)."""
     import diffsheg_tpu_torch.models.attention as attn
     from diffsheg_tpu_torch.diffusion.schedule import (
         get_named_beta_schedule, make_schedule)
@@ -2095,7 +2127,8 @@ def injected_steps(cfg, batch, ts, noises, dev, plain=False):
     terms = []
     try:
         for t, n in zip(ts, noises):
-            state, tm = step(state, batch, t, n)
+            state, tm = step(state, batch if frontend is None
+                             else frontend(batch), t, n)
             terms.append({k: float(v) for k, v in tm._asdict().items()})
     finally:
         attn.linear_attention = saved
@@ -2316,15 +2349,16 @@ DATA_SHOW_SEQS, DATA_SHOW_FRAMES = 4, 900
 DATA_SHOW_WINDOWS = (DATA_SHOW_FRAMES - 88) // 10 + 1  # 82 a sequence
 
 
-def write_raw_splits(root, seed):
+def write_raw_splits(root, seed, clips=None, show=True):
     """Synthetic raw splits in the layout ``build-cache`` reads: BEAT
-    train / val / test (``bvh_rot`` euler-degree rows, ``wave16k``
-    speech-like audio, ``facial52`` JSON, ``sem`` TSV) of 60 s clips, and
-    SHOW train ``.npz`` sequences of 30 s."""
+    splits of ``clips`` (default ``DATA_CLIPS``: train / val / test) 60 s
+    clips (``bvh_rot`` euler-degree rows, ``wave16k`` speech-like audio,
+    ``facial52`` JSON, ``sem`` TSV), and with ``show`` SHOW train ``.npz``
+    sequences of 30 s."""
     from diffsheg_tpu_torch.geometry.face import write_face_json
     rng = np.random.RandomState(seed)
     T = DATA_SECS * 15
-    for split, n in DATA_CLIPS.items():
+    for split, n in (clips or DATA_CLIPS).items():
         d = os.path.join(root, "beat", split)
         for sub in ("bvh_rot", "wave16k", "facial52", "sem"):
             os.makedirs(os.path.join(d, sub))
@@ -2340,6 +2374,8 @@ def write_raw_splits(root, seed):
                 for s in range(0, DATA_SECS, 4):
                     f.write(f"w\t{s + 0.5}\t{s + 2.0}\t1.5\t"
                             f"{rng.rand():.3f}\tword\n")
+    if not show:
+        return
     d = os.path.join(root, "show", "train")
     os.makedirs(d)
     for i in range(DATA_SHOW_SEQS):
@@ -2676,12 +2712,372 @@ def phase_data(dev, reps):
 
 
 # --------------------------------------------------------------------------
+# phase 12: scale — the speech frontend in the step, several processes
+# --------------------------------------------------------------------------
+
+SCALE_BATCH = 256
+SCALE_CLIPS = {"train": 3, "val": 1}        # 261 and 87 windows
+SCALE_ATTN = (SCALE_BATCH, 34, 512, 8)
+SCALE_AUDIO_ATTN = (SCALE_BATCH, 34, 128, 8)
+DP_ATTN = (SCALE_BATCH // 2, 34, 512, 8)    # each of 2 processes' rows
+DP_AUDIO_ATTN = (SCALE_BATCH // 2, 34, 128, 8)
+SCALE_TESTSET_CLIPS = 2
+
+
+def hf_hubert_dir(path, seed):
+    """A local HF checkpoint (``pytorch_model.bin``) of HuBERT-large with
+    seeded random weights; returns (its directory, the model on the
+    CPU)."""
+    from diffsheg_tpu_torch.compat.hubert_ckpt import hf_state_dict
+    from diffsheg_tpu_torch.models.factory import random_init_
+    from diffsheg_tpu_torch.models.hubert import HubertConfig, HubertModel
+    model = random_init_(HubertModel(HubertConfig()), seed)
+    os.makedirs(path)
+    torch.save(hf_state_dict(model), os.path.join(path, "pytorch_model.bin"))
+    return path, model
+
+
+class FrontendRecorder:
+    """Times the speech frontend a trainer builds (device-synchronised)
+    while ``cli train`` runs in this process."""
+
+    def __init__(self):
+        import diffsheg_tpu_torch.audio.frontend as frontend_mod
+        self.mod, self.ms = frontend_mod, []
+
+    def __enter__(self):
+        make = self.saved = self.mod.make_speech_frontend
+
+        def timed_make(*a, **k):
+            fe = make(*a, **k)
+
+            def frontend(batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fe(batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return frontend
+        self.mod.make_speech_frontend = timed_make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_speech_frontend = self.saved
+
+
+def lockstep_band(what, got, want, exact=False):
+    """Loss of each step, the parameters' L1 norm and the BatchNorm
+    statistics' sums of a run against another: equal, or within rtol 2e-5
+    / atol 1e-6; returns the largest relative difference."""
+    worst = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in want)
+    ok = all(got[k] == want[k] if exact else
+             abs(got[k] - want[k]) <= 1e-6 + 2e-5 * abs(want[k])
+             for k in want)
+    log(f"scale[{what}]: largest relative difference {worst:.3e} "
+        f"({'bit for bit' if worst == 0 else 'not bit for bit'}; "
+        f"{'required equal' if exact else 'band rtol 2e-5 / atol 1e-6'})")
+    if not ok:
+        raise AssertionError(f"scale {what}: {got} against {want}")
+    return worst
+
+
+def frontend_train(tmp, caches, stats, hub_dir):
+    """(a) ``cli train`` with the speech frontend in the step: 2 epochs of
+    one 256-window step; returns the linear-attention launches by
+    shape."""
+    work = os.path.join(tmp, "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with TrainRecorder() as rec, FrontendRecorder() as fe:
+        _, secs, counts, shapes = cli_call([
+            "train", "--device", "cuda", "--workdir", work, "--train-cache",
+            caches["train"], "--stats-dir", stats, "--hubert-checkpoint",
+            hub_dir, "--epochs", "2", "--set",
+            "train.on_device_frontend=true", "--set",
+            f"train.batch_size={SCALE_BATCH}", "--set", "train.log_every=1"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # without remat (cli train's default) a step's forward makes the 16
+    # self-attentions of the branches and the audio encoder's one
+    expect("scale train", counts, fused_linear_attention=34)
+    check_attention_shapes("scale train", shapes["fused_linear_attention"],
+                           {SCALE_ATTN: 32, SCALE_AUDIO_ATTN: 2})
+    if len(rec.steps) != 2 or len(fe.ms) != 2:
+        raise AssertionError(f"scale train: {len(rec.steps)} steps, "
+                             f"{len(fe.ms)} frontend calls")
+    for i, ((m, terms), f) in enumerate(zip(rec.steps, fe.ms)):
+        log(f"scale[train step {i}]: frontend {f:.1f} ms + step {m:.1f} ms "
+            + " ".join(f"{k}={v:.6g}" for k, v in terms.items()))
+        if not all(np.isfinite(float(v)) for v in terms.values()):
+            raise AssertionError(f"scale train step {i}: {terms}")
+    log(f"scale[train]: 2 steps of {SCALE_BATCH} windows in {secs:.1f} s "
+        f"of command; second step: frontend {fe.ms[1]:.1f} ms + step "
+        f"{rec.steps[1][0]:.1f} ms = {fe.ms[1] + rec.steps[1][0]:.1f} ms "
+        f"({SCALE_BATCH / (fe.ms[1] + rec.steps[1][0]) * 1e3:.1f} "
+        f"windows/s); loader {statistics.median(rec.loads):.1f} ms a batch; "
+        f"peak memory {peak:.2f} GiB; launches {shapes}")
+    return shapes["fused_linear_attention"]
+
+
+def frontend_checks(caches, hub_model, dev):
+    """The frontend on the card: its mel against the cache's (built from
+    the same audio), its HuBERT against the same encoder on the CPU, the
+    mel / HuBERT split of its time, and the linear-attention kernel
+    against its plain version inside a step with it."""
+    import copy
+    import dataclasses
+    from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.data.cache import ArrayCache
+    cfg = beat_config()
+    mel_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    add_hubert=False))
+    cache, rows = ArrayCache(caches["train"]), np.arange(SCALE_BATCH)
+    audio = torch.from_numpy(cache.gather("audio", rows)).to(dev)
+    cached_mel = torch.from_numpy(cache.gather("mel", rows))
+    motion = torch.zeros(SCALE_BATCH, 34, 1, device=dev)
+    mel_fe = make_speech_frontend(mel_cfg, device=dev)
+    full_fe = make_speech_frontend(cfg, copy.deepcopy(hub_model), device=dev)
+    mel = mel_fe({"wave16": audio, "motion": motion})["mel"].cpu()
+    mel_err = float((mel - cached_mel).abs().max() / cached_mel.abs().max())
+
+    # the int16 transport of the trainer's batches
+    wave16 = torch.clamp(audio * 32768.0, -32768, 32767).to(torch.int16)
+    cpu_fe = make_speech_frontend(cfg, hub_model, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu_fe({"wave16": wave16[:4].cpu(),
+                   "motion": motion[:4].cpu()})["hubert"]
+    cpu_s = time.perf_counter() - t0
+    got = full_fe({"wave16": wave16[:4], "motion": motion[:4]})["hubert"]
+    hub_err = rel_rms(got.cpu(), want)
+    mel_ms = wall_ms(lambda: mel_fe({"wave16": wave16, "motion": motion}), 3)
+    full_ms = wall_ms(lambda: full_fe({"wave16": wave16, "motion": motion}),
+                      3)
+    log(f"scale[frontend]: mel against the cache's max |diff| / max "
+        f"{mel_err:.3e} (tol 2e-5); HuBERT-large on the card against the "
+        f"CPU, 4 windows: rel_rms {hub_err:.3e} (tol 1e-5; the CPU took "
+        f"{cpu_s:.1f} s); {SCALE_BATCH} windows: mel {mel_ms:.1f} ms, "
+        f"HuBERT {full_ms - mel_ms:.1f} ms (frontend {full_ms:.1f} ms)")
+    if not (mel_err <= 2e-5 and hub_err <= 1e-5):
+        raise AssertionError(f"frontend: mel {mel_err:.3e}, HuBERT "
+                             f"{hub_err:.3e}")
+
+    gen = torch.Generator().manual_seed(62)
+    batch = {"motion": torch.randn(SCALE_BATCH, 34, 192, generator=gen),
+             "pid": torch.nn.functional.one_hot(
+                 torch.arange(SCALE_BATCH) % 30, 30).float(),
+             "sem": torch.rand(SCALE_BATCH, 34, generator=gen)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    batch["wave16"] = wave16
+    ts = [torch.randint(0, 1000, (SCALE_BATCH,), generator=gen).to(dev)]
+    noises = [torch.randn(SCALE_BATCH, 34, 192, generator=gen).to(dev)]
+    zero_counts()
+    k_terms, k_params = injected_steps(cfg, batch, ts, noises, dev,
+                                       frontend=full_fe)
+    expect("scale step with the frontend, kernel",
+           {n: fn.launches for n, fn in counters().items()},
+           fused_linear_attention=17)
+    zero_counts()
+    p_terms, p_params = injected_steps(cfg, batch, ts, noises, dev,
+                                       plain=True, frontend=full_fe)
+    expect("scale step with the frontend, plain",
+           {n: fn.launches for n, fn in counters().items()})
+    train_band("scale: kernel vs plain in a step with the frontend",
+               k_terms, p_terms, k_params, p_params, 1e-5)
+
+
+def frontend_eval(caches, stats, hub_model, dev):
+    """(b) ``Trainer.evaluate`` of 64 windows with the speech frontend
+    before the generator."""
+    import dataclasses
+    import tempfile
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.data.beat import BeatDataset, BeatStats
+    from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
+    from diffsheg_tpu_torch.train.trainer import Trainer
+    cfg = beat_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                on_device_frontend=True))
+    ds = BeatDataset(caches["val"], BeatStats.load(stats), include_audio=True)
+    loader = ShardedBatchLoader(ds, global_batch_size=EVAL_BATCH, prefetch=0)
+    with tempfile.TemporaryDirectory() as work:
+        tr = Trainer(cfg, work, device=dev, hubert_model=hub_model)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = tr.evaluate(loader, seed=5)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    expect("scale evaluate", {n: fn.launches for n, fn in counters().items()},
+           fused_layer=EVAL_LAYER_LAUNCHES, fused_linear_attention=1)
+    check_attention_shapes(
+        "scale evaluate",
+        counters()["fused_linear_attention"].launches_by_shape,
+        {EVAL_AUDIO_ATTN: 1})
+    log(f"scale[evaluate, frontend]: {EVAL_BATCH} windows in {secs:.2f} s "
+        + " ".join(f"{k}={v:.6g}" for k, v in r.as_dict().items()))
+    if not all(np.isfinite(v) for v in (r.mse, r.pck, r.pck2, r.diversity)):
+        raise AssertionError(f"scale evaluate: {r}")
+
+
+def parallel_runs(tmp, dev):
+    """(c) the data-parallel step: one process alone, then in an NCCL
+    group of one through the data-parallel and the FSDP path, then 2
+    processes sharing the card over gloo; (d) the test-set stream over
+    the 2 processes against one.  Returns the launches."""
+    import socket
+    from diffsheg_tpu_torch.parallel import mp_lockstep as mp
+    cfg, batch, frames = mp.beat_payload()
+    lock = dict(cfg=cfg, device="cuda", global_batch=batch, frames=frames)
+    launches = {"fused_linear_attention_scale_world1": 0,
+                "fused_linear_attention_scale_world1_audio_enc": 0}
+
+    def run(tag, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = mp.compute_lockstep(**lock, **kw)
+        torch.cuda.synchronize()
+        expect(f"scale {tag}", {n: fn.launches for n, fn in
+                                counters().items()},
+               fused_linear_attention=51)
+        by_shape = counters()["fused_linear_attention"].launches_by_shape
+        check_attention_shapes(f"scale {tag}", by_shape,
+                               {SCALE_ATTN: 48, SCALE_AUDIO_ATTN: 3})
+        launches["fused_linear_attention_scale_world1"] += by_shape[
+            SCALE_ATTN]
+        launches["fused_linear_attention_scale_world1_audio_enc"] += by_shape[
+            SCALE_AUDIO_ATTN]
+        log(f"scale[{tag}]: 3 steps of {batch} windows in "
+            f"{time.perf_counter() - t0:.1f} s: " + json.dumps(out))
+        return out
+
+    alone = run("one process")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        lockstep_band("world 1 under NCCL, data-parallel path, against one "
+                      "process", run("NCCL world 1, data-parallel"), alone,
+                      exact=True)
+        lockstep_band("world 1 under NCCL, FSDP on a 1-D mesh of one, "
+                      "against one process",
+                      run("NCCL world 1, FSDP", fsdp=True), alone)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    t0 = time.perf_counter()
+    workers = mp.spawn_workers(2, 300.0, [
+        "--device", "cuda", "--beat", "--testset-dir",
+        os.path.join(tmp, "testset_2"), "--testset-clips",
+        str(SCALE_TESTSET_CLIPS)])
+    secs = time.perf_counter() - t0
+    mp.check_workers(workers, 2)
+    for w in workers:
+        got = w["launches"]
+        if (got["fused_linear_attention"] != 51 or got[
+                "fused_linear_attention_by_shape"] != {
+                    "x".join(map(str, DP_ATTN)): 48,
+                    "x".join(map(str, DP_AUDIO_ATTN)): 3}
+                or any(got[n] for n in ("fused_layer", "fused_branch",
+                                        "fused_ddim_repaint_step"))):
+            raise AssertionError(f"scale 2 processes: launches {got}")
+    lockstep_band("2 processes over gloo on one card, ranks",
+                  workers[1], {k: workers[0][k] for k in alone}, exact=True)
+    lockstep_band("2 processes over gloo on one card against one process",
+                  workers[0], alone)
+    log(f"scale[2 processes]: {secs:.1f} s for both (start, collectives, "
+        f"3 steps, test-set stream); launches each "
+        f"{workers[0]['launches']}")
+    for name, shape in (("fused_linear_attention_scale_dp", DP_ATTN),
+                        ("fused_linear_attention_scale_dp_audio_enc",
+                         DP_AUDIO_ATTN)):
+        launches[name] = sum(
+            w["launches"]["fused_linear_attention_by_shape"][
+                "x".join(map(str, shape))] for w in workers)
+
+    zero_counts()
+    single = mp.verify_testset(workers, 2, os.path.join(tmp, "testset_1"),
+                               clips=SCALE_TESTSET_CLIPS, device="cuda",
+                               full_width=True)
+    one = {n: fn.launches for n, fn in counters().items()}
+    shapes = {n: {"x".join(map(str, k)): v for k, v in
+                  counters()[n].launches_by_shape.items()}
+              for n in ("fused_layer", "fused_linear_attention")}
+    both = {n: sum(w["testset_launches"][n] for w in workers) for n in one}
+    if both != one or not one["fused_layer"]:
+        raise AssertionError(f"test-set stream: 2 processes launched "
+                             f"{both}, one process {one}")
+    for n in shapes:
+        two = {}
+        for w in workers:
+            for k, v in w["testset_launches"][f"{n}_by_shape"].items():
+                two[k] = two.get(k, 0) + v
+        if two != shapes[n]:
+            raise AssertionError(f"test-set stream {n}: {two} against "
+                                 f"{shapes[n]}")
+    log(f"scale[test-set stream, 2 processes against 1]: "
+        f"{SCALE_TESTSET_CLIPS} clips, files and clip sums equal, metrics "
+        f"{json.dumps(single['testset_metrics'])}; launches {one} "
+        f"{shapes}")
+    layer, attn = (shapes["fused_layer"], shapes["fused_linear_attention"])
+    if set(layer) != {"x".join(map(str, STREAM_LAYER))} or set(attn) != {
+            "x".join(map(str, STREAM_AUDIO_ATTN))}:
+        raise AssertionError(f"test-set stream shapes: {shapes}")
+    launches["fused_layer_scale_testset"] = one["fused_layer"]
+    launches["fused_linear_attention_scale_testset_audio_enc"] = one[
+        "fused_linear_attention"]
+    return launches
+
+
+def phase_scale(dev):
+    """(a) ``cli train`` with the speech frontend in the step at BEAT's
+    full width with HuBERT-large; (b) ``Trainer.evaluate`` with it; (c)
+    the data-parallel step in an NCCL group of one and over 2 processes;
+    (d) the test-set stream over 2 processes."""
+    import tempfile
+    no_tf32()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_raw_splits(tmp, 60, clips=SCALE_CLIPS, show=False)
+        beat, stats = os.path.join(tmp, "beat"), os.path.join(tmp, "stats")
+        caches = {}
+        for split in SCALE_CLIPS:
+            caches[split] = os.path.join(tmp, f"cache_{split}")
+            build_split(f"scale {split}", [
+                "--device", "cuda", "--data-root", beat, "--split", split,
+                "--stats-dir", stats], caches[split])
+        hub_dir, hub_model = hf_hubert_dir(os.path.join(tmp, "hubert"), 61)
+        log(f"scale: raw splits, caches and a seeded HuBERT-large "
+            f"checkpoint in {time.perf_counter() - t0:.1f} s")
+        shapes = frontend_train(tmp, caches, stats, hub_dir)
+        launches["fused_linear_attention_scale_train"] = shapes[SCALE_ATTN]
+        launches["fused_linear_attention_scale_train_audio_enc"] = shapes[
+            SCALE_AUDIO_ATTN]
+        frontend_checks(caches, hub_model, dev)
+        frontend_eval(caches, stats, hub_model, dev)
+        launches["fused_layer_scale_eval"] = EVAL_LAYER_LAUNCHES
+        launches["fused_linear_attention_scale_eval_audio_enc"] = 1
+        del hub_model
+        launches.update(parallel_runs(tmp, dev))
+    log(f"scale: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
                                        "uncached", "live", "variants",
-                                       "generate", "train", "data"),
+                                       "generate", "train", "data",
+                                       "scale"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -2740,7 +3136,17 @@ def main() -> int:
            "fused_layer_data_eval", "fused_layer_data_eval_b4",
            "fused_linear_attention_data_eval_audio_enc",
            "fused_layer_test_stream",
-           "fused_linear_attention_test_stream_audio_enc"])
+           "fused_linear_attention_test_stream_audio_enc",
+           "fused_linear_attention_scale_train",
+           "fused_linear_attention_scale_train_audio_enc",
+           "fused_layer_scale_eval",
+           "fused_linear_attention_scale_eval_audio_enc",
+           "fused_linear_attention_scale_world1",
+           "fused_linear_attention_scale_world1_audio_enc",
+           "fused_linear_attention_scale_dp",
+           "fused_linear_attention_scale_dp_audio_enc",
+           "fused_layer_scale_testset",
+           "fused_linear_attention_scale_testset_audio_enc"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
@@ -2771,6 +3177,8 @@ def main() -> int:
         launches.update(phase_train(dev))
     if run("data"):
         launches.update(phase_data(dev, args.reps))
+    if run("scale"):
+        launches.update(phase_scale(dev))
     if kres is None:
         return 0
     entries = []
@@ -2877,6 +3285,38 @@ def main() -> int:
              ("fused_layer_test_stream", "beat-ges-f32", "fused_layer",
               "fused_layer.cu", "ops/fused_layer.py:556"),
              ("fused_linear_attention_test_stream_audio_enc",
+              "attn-stream-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99")]
+    # phase 12: cli train with the speech frontend (batch 256), its
+    # evaluation (the per-layer kernel at (7, 34), the level cache at 1600
+    # rows), the step in an NCCL group of one (3 runs of 3 steps at 256
+    # rows), each of 2 processes' 128 rows, and the test-set stream over
+    # them (the per-layer kernel at (1, 34), a window's level cache)
+    rows += [("fused_linear_attention_scale_train",
+              "attn-scale-train-beat-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_scale_train_audio_enc",
+              "attn-scale-train-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_scale_eval", "layer-eval-beat-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_scale_eval_audio_enc",
+              "attn-eval-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_scale_world1",
+              "attn-scale-train-beat-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_scale_world1_audio_enc",
+              "attn-scale-train-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_linear_attention_scale_dp", "attn-scale-dp-beat-f32",
+              None, "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_linear_attention_scale_dp_audio_enc",
+              "attn-scale-dp-audio-enc-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_scale_testset", "beat-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_scale_testset_audio_enc",
               "attn-stream-audio-enc-f32", None, "linear_attention.cu",
               "ops/linear_attention.py:99")]
     for name, key, sub, source, line in rows:

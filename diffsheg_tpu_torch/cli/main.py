@@ -6,6 +6,9 @@ Counterpart of ``diffsheg_tpu/cli/main.py``:
       --data-root data/BEAT --split train --stats-dir stats/ --out cache/train
   python -m diffsheg_tpu_torch.cli train --dataset beat --workdir runs/beat \\
       --train-cache cache/train --hubert-cache cache/hubert --resume
+  torchrun --nproc-per-node 4 -m diffsheg_tpu_torch.cli train \\
+      --dataset beat --workdir runs/beat --train-cache cache/train \\
+      --set train.on_device_frontend=true --hubert-checkpoint hubert-large/
   python -m diffsheg_tpu_torch.cli eval --dataset beat --val-cache cache/val \\
       --checkpoint runs/beat/ckpt --fgd-checkpoint ae_300.bin
   python -m diffsheg_tpu_torch.cli test-stream --dataset beat \\
@@ -172,41 +175,63 @@ def _open_dataset(args, cfg, cache_path, hubert_cache=None):
     from diffsheg_tpu_torch.data.beat import BeatDataset
     return BeatDataset(cache_path, _load_stats(args),
                        hubert_cache_dir=hubert_cache,
-                       remove_hand=cfg.data.remove_hand)
+                       remove_hand=cfg.data.remove_hand,
+                       include_audio=cfg.train.on_device_frontend)
 
 
 def cmd_train(args) -> int:
     """Train from a cache: epochs of the training step, metrics.jsonl,
     checkpoints under ``<workdir>/ckpt``, periodic evaluation on
-    ``--val-cache`` (FGD with ``--fgd-checkpoint``).
-    ``--hubert-checkpoint`` feeds the on-device speech frontend
-    (``train.on_device_frontend``), which the port refuses for now; it is
-    accepted and unused otherwise, as in JAX."""
+    ``--val-cache`` (FGD with ``--fgd-checkpoint``).  With
+    ``train.on_device_frontend`` the batches carry the cache's raw audio
+    and ``--hubert-checkpoint`` is the speech frontend's HuBERT; it is
+    unused otherwise, as in JAX.  Under ``torchrun --nproc-per-node N``
+    each process trains on its block of every global batch, rounded to a
+    multiple of N."""
     from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
-    from diffsheg_tpu_torch.device import resolve_device
+    from diffsheg_tpu_torch.device import (init_distributed, resolve_device,
+                                           shutdown_distributed)
+    from diffsheg_tpu_torch.parallel.collectives import (process_count,
+                                                         process_index)
     from diffsheg_tpu_torch.train.trainer import Trainer, check_trainable
-    device = resolve_device(args.device)
-    cfg = _base_config(args)
+    device = init_distributed(resolve_device(args.device))
     try:
-        check_trainable(cfg)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
-    train_ds = _open_dataset(args, cfg, args.train_cache,
-                             hubert_cache=args.hubert_cache)
-    val_ds = (_open_dataset(args, cfg, args.val_cache)
-              if args.val_cache else None)
-    batch = min(cfg.train.batch_size, len(train_ds))
+        cfg = _base_config(args)
+        try:
+            check_trainable(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        train_ds = _open_dataset(args, cfg, args.train_cache,
+                                 hubert_cache=args.hubert_cache)
+        val_ds = (_open_dataset(args, cfg, args.val_cache)
+                  if args.val_cache else None)
+        n = process_count()
+        batch = min(cfg.train.batch_size, len(train_ds))
+        batch = max(n, batch - batch % n)
 
-    def loader(ds):
-        return ShardedBatchLoader(ds, global_batch_size=batch,
-                                  seed=cfg.train.seed)
+        def loader(ds):
+            return ShardedBatchLoader(ds, global_batch_size=batch,
+                                      seed=cfg.train.seed,
+                                      process_index=process_index(),
+                                      process_count=n)
 
-    trainer = Trainer(cfg, args.workdir, device=device,
-                      fgd_net=_load_fgd_net(args, cfg, device))
-    if args.resume:
-        trainer.try_resume()
-    trainer.fit(loader(train_ds), loader(val_ds) if val_ds else None,
-                num_epochs=args.epochs or None)
+        hubert_model = None
+        if cfg.train.on_device_frontend and cfg.model.add_hubert:
+            hubert_model = _load_hubert(cfg, args.hubert_checkpoint)
+            if hubert_model is None:
+                print("WARNING: train.on_device_frontend with "
+                      "model.add_hubert but no --hubert-checkpoint — speech "
+                      "features come from a RANDOM-INIT encoder.",
+                      file=sys.stderr)
+        trainer = Trainer(cfg, args.workdir, device=device,
+                          fgd_net=_load_fgd_net(args, cfg, device),
+                          hubert_model=hubert_model)
+        if args.resume:
+            trainer.try_resume()
+        trainer.fit(loader(train_ds), loader(val_ds) if val_ds else None,
+                    num_epochs=args.epochs or None)
+    finally:
+        shutdown_distributed()
     return 0
 
 
@@ -464,8 +489,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "gesture_expression.pth.tar) for eval FGD")
     sp.add_argument("--hubert-checkpoint",
                     help="HF HuBERT weights for the on-device speech "
-                         "frontend (train.on_device_frontend, which the "
-                         "port refuses for now); unused otherwise")
+                         "frontend (train.on_device_frontend); unused "
+                         "otherwise")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("build-cache", help="build a dataset cache")

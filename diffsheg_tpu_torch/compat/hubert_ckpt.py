@@ -133,3 +133,40 @@ def load_hf_hubert(path: str, cfg: Optional[HubertConfig] = None
         sd = torch.load(path, map_location="cpu", weights_only=True)
     cfg = cfg or HubertConfig()
     return load_flax_tree(HubertModel(cfg), convert_hubert_state_dict(sd, cfg))
+
+
+def hf_state_dict(model: HubertModel) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_hubert_state_dict`: ``model``'s
+    weights under the HuggingFace ``HubertModel`` names of its layout
+    (the positional conv's weight folded, as a plain ``weight``), e.g. to
+    write a local checkpoint of seeded weights for :func:`load_hf_hubert`."""
+    cfg = model.cfg
+    ours = model.state_dict()
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(dst: str, src: str) -> None:
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in ours:
+                sd[f"{dst}.{leaf}"] = ours[f"{src}.{leaf}"].detach().clone()
+
+    for i in range(len(cfg.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        put(f"{base}.conv", f"feature_extractor.conv_{i}")
+        put(f"{base}.layer_norm", f"feature_extractor.ln_{i}")
+    if cfg.conv_norm == "group_first":
+        fe = "feature_extractor"
+        sd[f"{fe}.conv_layers.0.layer_norm.weight"] = ours[f"{fe}.gn_scale"]
+        sd[f"{fe}.conv_layers.0.layer_norm.bias"] = ours[f"{fe}.gn_bias"]
+    put("feature_projection.layer_norm", "feat_proj_ln")
+    put("feature_projection.projection", "feat_proj")
+    put("encoder.pos_conv_embed.conv", "pos_conv.conv")
+    for i in range(cfg.num_layers):
+        base = f"encoder.layers.{i}"
+        put(f"{base}.layer_norm", f"layer_{i}.attn_ln")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{base}.attention.{n}", f"layer_{i}.attn.{n}")
+        put(f"{base}.final_layer_norm", f"layer_{i}.ffn_ln")
+        put(f"{base}.feed_forward.intermediate_dense", f"layer_{i}.fc1")
+        put(f"{base}.feed_forward.output_dense", f"layer_{i}.fc2")
+    put("encoder.layer_norm", "final_ln")
+    return sd

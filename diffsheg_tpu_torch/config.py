@@ -174,8 +174,10 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device layout (the JAX package's mesh); the port trains on one
-    device, so both parallel degrees must stay at -1 / 1."""
+    """Process layout (the JAX package's mesh, one process a card):
+    ``data_parallel`` x ``fsdp_parallel`` must equal the number of
+    processes, ``data_parallel=-1`` taking the rest; with ``fsdp_parallel``
+    above 1 the parameters are sharded (``parallel/mesh.py``)."""
 
     data_axis: str = "data"
     fsdp_axis: str = "fsdp"

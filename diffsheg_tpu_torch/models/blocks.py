@@ -32,6 +32,7 @@ from torch.nn import functional as F
 
 from diffsheg_tpu_torch.models.attention import (LinearTemporalCrossAttention,
                                                 LinearTemporalSelfAttention)
+from diffsheg_tpu_torch.parallel.collectives import global_rows
 
 LN_EPS = 1e-5
 
@@ -42,8 +43,20 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
     """Inverted dropout (kept entries scaled by 1 / (1 - p)) only in
-    training; the identity otherwise and at ``p == 0``."""
-    return F.dropout(x, p, training=True) if train and p > 0 else x
+    training; the identity otherwise and at ``p == 0``.  The mask is drawn
+    for the global batch (``x`` is this process's rows of it, batch
+    first) and cut to this process's rows, so N processes drop what one
+    process drops; with one process on the CPU it is ``F.dropout``'s draw
+    (on the card ``F.dropout`` has a fused kernel of its own).  The
+    global mask is drawn as bools and only this process's rows of it
+    become the scale that the backward pass keeps."""
+    if not (train and p > 0):
+        return x
+    first, total = global_rows(x.shape[0])
+    keep = torch.empty((total,) + x.shape[1:], dtype=torch.bool,
+                       device=x.device).bernoulli_(1.0 - p)
+    scale = keep[first:first + x.shape[0]].to(x.dtype).div_(1.0 - p)
+    return x * scale
 
 
 class StylizationBlock(nn.Module):

@@ -28,6 +28,9 @@ from diffsheg_tpu_torch.models.blocks import (DiffusionTransformerLayer,
                                               dropout, gelu_exact)
 from diffsheg_tpu_torch.models.embeddings import (positional_encoding,
                                                   timestep_embedding)
+from diffsheg_tpu_torch.parallel.collectives import (global_rows,
+                                                     process_count,
+                                                     sum_across_processes)
 
 
 class BranchCache(NamedTuple):
@@ -83,7 +86,10 @@ class BatchNorm(nn.Module):
     the biased E[x^2] - E[x]^2; the running statistics move by
     ``momentum * running + (1 - momentum) * batch`` with that same biased
     variance (``nn.BatchNorm1d`` would store the unbiased one), in place,
-    once per forward (the module sits outside the recomputed layers)."""
+    once per forward (the module sits outside the recomputed layers).
+    Trained across processes, the statistics are the global batch's, as
+    JAX computes them over a batch sharded across devices; one process
+    keeps the local computation."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -103,7 +109,14 @@ class BatchNorm(nn.Module):
         xf = x.float()
         axes = tuple(range(x.ndim - 1))
         mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        meansq = (xf * xf).mean(axes)
+        n = process_count()
+        if n > 1:
+            # training across processes: the global batch's statistics
+            # (each process holds an equal share of it), differentiable
+            stats = sum_across_processes(torch.stack([mean, meansq])) / n
+            mean, meansq = stats[0], stats[1]
+        var = torch.clamp(meansq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean
@@ -266,7 +279,10 @@ class MotionDenoiser(nn.Module):
                   and self.cond_scale != 1.0)
         null_cond_mask = None
         if self.classifier_free and train:
-            null_cond_mask = null_rows(B, self.null_cond_prob).to(x.device)
+            # this process's rows of the global batch's null rows
+            first, total = global_rows(B)
+            null_cond_mask = null_rows(total, self.null_cond_prob)[
+                first:first + B].to(x.device)
         if do_cfg:
             x, t = torch.cat([x, x]), torch.cat([t, t])
             if cache is None:

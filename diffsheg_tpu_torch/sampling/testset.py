@@ -11,9 +11,14 @@ with a feature net.
 
 Clip i draws its noise from ``noise(i)``: by default a ``GeneratorNoise``
 seeded from ``(seed, i)``, so a clip's output does not depend on which
-clips ran before it (the JAX package keys clip i by ``fold_in(rng, i)``).
-One process only: the JAX package's multi-process split needs
-``torch.distributed``, which the port does not have yet.
+clips ran before it, nor on how many processes share the split (the JAX
+package keys clip i by ``fold_in(rng, i)``).  Across processes, process p
+streams clips p, p + N, ... and tags its files ``_rank{p}`` (the
+reference's per-rank result shards, ddpm_beat_trainer.py:825); the
+metrics are then reduced so that every process returns the one-process
+numbers: MSE / PCK weighted by clips, beat alignment by the clips with
+audio, SRGR by the annotated clips, clips and fps summed, and FGD over the
+gathered latents of every process (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from diffsheg_tpu_torch.config import Config
-from diffsheg_tpu_torch.device import DeviceLike, resolve_device, world_size
+from diffsheg_tpu_torch.device import (DeviceLike, init_distributed,
+                                       resolve_device)
 from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise, NoiseSource
 
 
@@ -63,12 +69,9 @@ def generate_testset(
     from diffsheg_tpu_torch.sampling.streamer import StreamingGenerator
     from diffsheg_tpu_torch.train.step import step_seeds
 
-    if world_size() > 1:
-        raise ValueError(
-            f"{world_size()} processes: the port streams the test split in "
-            "one process; splitting it across processes needs "
-            "torch.distributed, which it does not have yet")
-    device = resolve_device(device)
+    from diffsheg_tpu_torch.parallel import collectives as col
+
+    device = init_distributed(resolve_device(device))
     if noise is None:
         def noise(i):
             return GeneratorNoise(step_seeds(seed, i)[0], device)
@@ -87,7 +90,9 @@ def generate_testset(
     n = len(dataset)
     if max_clips:
         n = min(n, max_clips)
-    for i in range(n):
+    pcount, pidx = col.process_count(), col.process_index()
+    rank_sfx = f"_rank{pidx}" if pcount > 1 else ""
+    for i in range(pidx, n, pcount):
         s = dataset[i]
         mel = torch.from_numpy(np.array(s["mel"], np.float32))[None]
         gt = np.asarray(s["motion"], dtype=np.float32)
@@ -110,9 +115,10 @@ def generate_testset(
             out = gen.generate(mel, pid, noise(i), hubert=hubert
                                )[0].float().cpu().numpy()
         if exporter is not None:
-            exporter.export(out, out_dir, f"clip_{i:05d}")
+            exporter.export(out, out_dir, f"clip_{i:05d}{rank_sfx}")
         else:
-            np.save(os.path.join(out_dir, f"clip_{i:05d}.npy"), out)
+            np.save(os.path.join(out_dir, f"clip_{i:05d}{rank_sfx}.npy"),
+                    out)
         total_frames += T
 
         C = out.shape[-1]
@@ -156,6 +162,31 @@ def generate_testset(
         "fps": total_frames / max(wall, 1e-9),
         "clips": float(len(mses)),
     }
+    if pcount > 1:
+        # a process with no clips (n < N) or no audio contributes nothing
+        # to a metric it did not measure (the nanmean form)
+        metrics.update(col.all_reduce_nanmean_metrics(
+            {m: metrics[m] for m in ("mse", "pck")}, weight=metrics["clips"]))
+        metrics.update(col.all_reduce_nanmean_metrics(
+            {"beat_align": metrics["beat_align"]}, weight=float(len(aligns))))
+        metrics.update(col.all_reduce_nanmean_metrics(
+            {"srgr": metrics["srgr"]}, weight=float(len(srgrs))))
+        # processes stream at once: the global rate is the sum of theirs
+        sums = col.gather_arrays(np.asarray(
+            [[metrics["clips"], metrics["fps"]]], dtype=np.float64)).sum(0)
+        metrics["clips"], metrics["fps"] = float(sums[0]), float(sums[1])
+        if fgd_net is not None:
+            # a process whose clips held no full window sends 0 rows
+            if gen_lat:
+                lat, rlat = np.concatenate(gen_lat), np.concatenate(real_lat)
+            else:
+                with torch.no_grad():
+                    width = fgd_net(torch.zeros(
+                        (1, cfg.data.n_poses, mcfg.motion_dim),
+                        device=device)).shape[-1]
+                lat = rlat = np.zeros((0, width), np.float32)
+            gen_lat = [col.gather_arrays_ragged(lat)]
+            real_lat = [col.gather_arrays_ragged(rlat)]
     if gen_lat and sum(a.shape[0] for a in gen_lat) >= 2:
         metrics["fgd"] = frechet_from_activations(
             np.concatenate(gen_lat), np.concatenate(real_lat))

@@ -11,6 +11,13 @@ sampler history), loaded with ``weights_only=True``; the free-form
 metadata (epoch, config JSON) lives in the JSON sidecars.  The JAX
 package writes Orbax directories instead, which this module refuses by
 name.
+
+Across processes, process 0 writes and every process reads.  A model
+sharded by ``fully_shard`` is gathered into the full state dict first
+(``torch.distributed.checkpoint.state_dict``, the optimizer's keyed by
+parameter index as ``Optimizer.state_dict`` keys it), so a checkpoint is
+the same file whatever the layout and a run resumes at another world
+size.
 """
 
 from __future__ import annotations
@@ -42,21 +49,63 @@ def _refuse_orbax(path: str) -> None:
         "export-ckpt) and pass the .tar")
 
 
+def _full_options(**kw):
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+    return StateDictOptions(full_state_dict=True, **kw)
+
+
+def _rekey_optimizer(osd: Dict, model, to_index: bool) -> Dict:
+    """A full optimizer state dict keyed by parameter name <-> by index in
+    ``model.parameters()`` order."""
+    if not osd:             # a process that gathers nothing
+        return osd
+    names = [n for n, _ in model.named_parameters()]
+    key = ({n: i for i, n in enumerate(names)} if to_index
+           else dict(enumerate(names)))
+    return {"state": {key[k]: v for k, v in osd["state"].items()},
+            "param_groups": [dict(g, params=[key[k] for k in g["params"]])
+                             for g in osd["param_groups"]]}
+
+
 def state_dict(state) -> Dict:
-    """A ``train.step.TrainState`` as a dict of tensors and plain values."""
-    t = state.t_state
-    return {"step": state.step, "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+    """A ``train.step.TrainState`` as a dict of tensors and plain values;
+    under ``fully_shard`` a collective that gathers it (into process 0's
+    CPU memory; the others get empty dicts)."""
+    from diffsheg_tpu_torch.parallel.mesh import is_fsdp
+    model, opt, t = state.model, state.optimizer, state.t_state
+    if is_fsdp(model):
+        from torch.distributed.checkpoint.state_dict import (
+            get_model_state_dict, get_optimizer_state_dict)
+        opts = _full_options(cpu_offload=True)
+        msd = get_model_state_dict(model, options=opts)
+        osd = _rekey_optimizer(get_optimizer_state_dict(model, opt,
+                                                        options=opts),
+                               model, to_index=True)
+    else:
+        msd, osd = model.state_dict(), opt.state_dict()
+    return {"step": state.step, "model": msd, "optimizer": osd,
             "t_state": None if t is None else {"history": t.history,
                                                "counts": t.counts}}
 
 
 def load_state_dict(state, payload: Dict):
     """Fill ``state`` (built by ``create_train_state`` for the same
-    config) from :func:`state_dict`'s dict; returns ``state``."""
+    config, sharded or not) from :func:`state_dict`'s dict; returns
+    ``state``."""
     from diffsheg_tpu_torch.diffusion.timestep_sampler import LossAwareState
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    from diffsheg_tpu_torch.parallel.mesh import is_fsdp
+    if is_fsdp(state.model):
+        from torch.distributed.checkpoint.state_dict import (
+            set_model_state_dict, set_optimizer_state_dict)
+        set_model_state_dict(state.model, payload["model"],
+                             options=_full_options())
+        set_optimizer_state_dict(
+            state.model, state.optimizer,
+            _rekey_optimizer(payload["optimizer"], state.model,
+                             to_index=False), options=_full_options())
+    else:
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     t = payload["t_state"]
     if (t is None) != (state.t_state is None):
@@ -83,9 +132,12 @@ class CheckpointManager:
     """latest / periodic / best-metric checkpoint policy."""
 
     def __init__(self, root: str, max_keep: int = 3):
+        from diffsheg_tpu_torch.parallel.collectives import process_index
         self.root = os.path.abspath(root)
         self.max_keep = max_keep
-        os.makedirs(self.root, exist_ok=True)
+        self.writer = process_index() == 0
+        if self.writer:
+            os.makedirs(self.root, exist_ok=True)
         self._latest = os.path.join(self.root, "latest")
         self._best: Dict[str, float] = self._load_best_table()
 
@@ -100,6 +152,8 @@ class CheckpointManager:
         return {}
 
     def _save_best_table(self) -> None:
+        if not self.writer:
+            return
         with open(self._best_path(), "w") as f:
             json.dump(self._best, f, indent=2)
 
@@ -108,6 +162,8 @@ class CheckpointManager:
         return dict(self._best)
 
     def _write_meta(self, name: str, meta: Optional[Dict]) -> None:
+        if not self.writer:
+            return
         with open(os.path.join(self.root, f"{name}.meta.json"), "w") as f:
             json.dump(meta or {}, f, indent=2)
 
@@ -119,14 +175,19 @@ class CheckpointManager:
         return {}
 
     # -- save/restore ------------------------------------------------------
-    @staticmethod
-    def _write(path: str, state) -> None:
+    def _write(self, path: str, state) -> None:
         """Write through a temporary file, so a crash leaves the old
-        checkpoint or the new one, never half of one."""
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save(state_dict(state), tmp)
-        os.replace(tmp, os.path.join(path, STATE_FILE))
+        checkpoint or the new one, never half of one.  Every process
+        calls it (gathering a sharded state is a collective); process 0
+        writes, and the others wait until the file is there."""
+        from diffsheg_tpu_torch.parallel.collectives import barrier
+        payload = state_dict(state)
+        if self.writer:
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, STATE_FILE + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, STATE_FILE))
+        barrier("checkpoint_written")
 
     def all_steps(self):
         """The kept steps of ``latest``, oldest first; an Orbax directory
@@ -152,6 +213,8 @@ class CheckpointManager:
                     meta: Optional[Dict] = None) -> None:
         self._write(os.path.join(self._latest, str(step)), state)
         self._write_meta(f"latest_{step}", meta)
+        if not self.writer:
+            return
         kept = set(self.all_steps()[-self.max_keep:])
         for s in self.all_steps():
             if s not in kept:

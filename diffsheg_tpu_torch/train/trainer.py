@@ -1,13 +1,22 @@
 """Training driver: epochs, logging, periodic evaluation, checkpoints.
 
-Counterpart of ``diffsheg_tpu/train/trainer.py`` on one device (the card
-unless the caller asks for the CPU):
+Counterpart of ``diffsheg_tpu/train/trainer.py``, on the card unless the
+caller asks for the CPU, in one process or in several, one card each
+(``torchrun``; ``device.py::init_distributed`` joins their group):
 
   - each epoch runs the step of ``train/step.py`` over a
-    ``data/loader.py::ShardedBatchLoader``; the velocity and x0 terms
-    join the loss from epoch ``train.vel_loss_start``;
-  - the loss terms go to ``<workdir>/metrics.jsonl`` every ``log_every``
-    steps (``utils/logging.py``);
+    ``data/loader.py::ShardedBatchLoader`` (each process its block of
+    every global batch); the velocity and x0 terms join the loss from
+    epoch ``train.vel_loss_start``;
+  - ``mesh.data_parallel`` x ``mesh.fsdp_parallel`` must equal the number
+    of processes (``parallel/mesh.py``); with ``fsdp`` above 1 the
+    parameters are sharded, otherwise the step averages the gradients;
+  - with ``train.on_device_frontend`` the batches carry the cache's raw
+    window audio (int16) and the speech frontend (``audio/frontend.py``)
+    computes mel and HuBERT on the card before the step and before the
+    evaluation's generator;
+  - the loss terms (global means) go to ``<workdir>/metrics.jsonl`` every
+    ``log_every`` steps (``utils/logging.py``);
   - checkpoints (``train/checkpoint.py``) every epoch (latest, 3 kept),
     every ``save_every_epochs`` (tagged), and on the best FGD / MSE / PCK;
   - every ``eval_every_epochs`` the window generator samples the val
@@ -15,11 +24,11 @@ unless the caller asks for the CPU):
     diversity (``eval/metrics.py``), and with an FGD feature net
     (``eval/fgd_net.py``, e.g. the reference's ``ae_300.bin`` through
     ``compat/fgd_ckpt.py``) FGD between the generated and the real
-    windows' latents; without one FGD is NaN.
+    windows' latents; without one FGD is NaN.  Across processes each
+    scores its rows and the metrics are reduced, so every process holds
+    the same numbers.
 
-Refused, as the port cannot run them yet: ``train.on_device_frontend``,
-``mesh.data_parallel`` / ``mesh.fsdp_parallel`` above 1, and more than
-one process.
+Process 0 writes ``config.json``, the metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -34,11 +43,15 @@ import torch
 
 from diffsheg_tpu_torch.config import Config
 from diffsheg_tpu_torch.data.loader import ShardedBatchLoader
-from diffsheg_tpu_torch.device import DeviceLike, resolve_device, world_size
+from diffsheg_tpu_torch.device import (DeviceLike, init_distributed,
+                                       resolve_device)
 from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise, NoiseSource
 from diffsheg_tpu_torch.diffusion.schedule import (get_named_beta_schedule,
                                                    make_schedule)
 from diffsheg_tpu_torch.models.factory import build_denoiser, random_init_
+from diffsheg_tpu_torch.parallel import collectives as col
+from diffsheg_tpu_torch.parallel.mesh import (is_fsdp, make_mesh, mesh_shape,
+                                              shard_batch)
 from diffsheg_tpu_torch.train.checkpoint import CheckpointManager
 from diffsheg_tpu_torch.train.step import (TrainState, create_train_state,
                                            make_train_step,
@@ -62,48 +75,76 @@ class EvalResult:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise for what the port's trainer cannot run yet."""
-    if cfg.train.on_device_frontend:
-        raise ValueError(
-            "train.on_device_frontend needs the on-device speech frontend "
-            "(mel + HuBERT inside the step), which the port does not have; "
-            "train on the cache's mel and a --hubert-cache")
-    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.fsdp_parallel != 1:
-        raise ValueError(
-            f"mesh.data_parallel={cfg.mesh.data_parallel}, "
-            f"mesh.fsdp_parallel={cfg.mesh.fsdp_parallel}: the port trains "
-            "on one device; data-parallel and FSDP training need "
-            "torch.distributed, which it does not have yet")
-    world = world_size()
-    if world > 1:
-        raise ValueError(
-            f"{world} processes: the port trains in one process on one "
-            "device; multi-process training needs torch.distributed, which "
-            "it does not have yet")
+    """Raise when ``mesh.data_parallel`` x ``mesh.fsdp_parallel`` does not
+    lay out this run's processes (JAX's mesh-size error)."""
+    mesh_shape(cfg.mesh)
+
+
+class GlobalRowsNoise(GeneratorNoise):
+    """``GeneratorNoise`` whose every draw is made for the global batch
+    and cut to this process's rows (``collectives.global_rows``), so N
+    processes draw what one process draws; one process draws exactly as
+    ``GeneratorNoise``."""
+
+    def _draw(self, shape, device):
+        first, total = col.global_rows(shape[0])
+        full = torch.randn((total,) + tuple(shape[1:]), generator=self.gen,
+                           device=device)
+        return full[first:first + shape[0]]
+
+    def initial(self, window, shape, device):
+        return self._draw(shape, device)
+
+    def step(self, window, step, kind, shape, device):
+        return self._draw(shape, device)
+
+
+class _SilentLogger:
+    """The logger of a process other than 0: it writes nothing."""
+
+    def log_metrics(self, step, metrics) -> None:
+        pass
+
+    def log_text(self, msg) -> None:
+        pass
 
 
 class Trainer:
     """Owns the train state, its steps, the checkpoint manager and the
     epoch loop.  The model starts from the Flax initialisation's
-    distributions (zero output projections) seeded by ``train.seed``.
-    ``fgd_net``: the frozen FGD feature net the evaluation embeds with
-    (moved to the trainer's device)."""
+    distributions (zero output projections) seeded by ``train.seed``, the
+    same in every process.  ``fgd_net``: the frozen FGD feature net the
+    evaluation embeds with (moved to the trainer's device);
+    ``hubert_model``: the frozen HuBERT of the speech frontend (seeded
+    random weights without one)."""
 
     def __init__(self, cfg: Config, workdir: str,
                  logger: Optional[MetricLogger] = None,
-                 device: DeviceLike = None, fgd_net=None):
-        check_trainable(cfg)
+                 device: DeviceLike = None, fgd_net=None,
+                 hubert_model=None):
+        self.device = init_distributed(resolve_device(device))
+        _, fsdp = mesh_shape(cfg.mesh)
         self.cfg = cfg
         self.workdir = workdir
-        self.device = resolve_device(device)
+        self.rank0 = col.process_index() == 0
         if cfg.train.debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        self.logger = logger or MetricLogger(workdir, name=cfg.name)
+        if logger is None:
+            logger = (MetricLogger(workdir, name=cfg.name) if self.rank0
+                      else _SilentLogger())
+        self.logger = logger
         model = random_init_(build_denoiser(cfg.model), cfg.train.seed,
                              perturb=0.0)
         self.schedule = make_schedule(get_named_beta_schedule(
             cfg.diffusion.beta_schedule, cfg.diffusion.num_steps))
-        self.state: TrainState = create_train_state(cfg, model, self.device)
+        mesh = make_mesh(cfg.mesh, self.device.type) if fsdp > 1 else None
+        self.state: TrainState = create_train_state(cfg, model, self.device,
+                                                    mesh=mesh)
+        self._frontend = None
+        if cfg.train.on_device_frontend:
+            from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
+            self._frontend = make_speech_frontend(cfg, hubert_model,
+                                                  self.device)
         # two step variants: the epoch-gated velocity / x0 terms
         self._step_full = make_train_step(cfg, self.schedule,
                                           vel_loss_active=True)
@@ -115,9 +156,10 @@ class Trainer:
         self._generator = None  # built at the first evaluation
         self.fgd_net = (None if fgd_net is None
                         else fgd_net.to(self.device).eval())
-        os.makedirs(workdir, exist_ok=True)
-        with open(os.path.join(workdir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if self.rank0:
+            os.makedirs(workdir, exist_ok=True)
+            with open(os.path.join(workdir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
 
     # -- checkpoint --------------------------------------------------------
     def try_resume(self) -> bool:
@@ -143,13 +185,7 @@ class Trainer:
     # -- core loops --------------------------------------------------------
     def _on_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            v = np.asarray(v)
-            if np.issubdtype(v.dtype, np.floating):
-                v = v.astype(np.float32, copy=False)
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-        return out
+        return shard_batch(batch, self.device)
 
     def train_epoch(self, loader: ShardedBatchLoader) -> Dict[str, float]:
         cfg = self.cfg.train
@@ -161,6 +197,8 @@ class Trainer:
         t0 = time.time()
         for batch in loader:
             batch = self._on_device(self._to_model_batch(batch))
+            if self._frontend is not None:
+                batch = self._frontend(batch)
             self.state, terms = step_fn(self.state, batch)
             self.total_it += 1
             count += 1
@@ -190,7 +228,22 @@ class Trainer:
             motion = batch["pose_axis_angle"]
         else:
             motion = batch["motion"]
-        out = {"motion": motion, "mel": batch["mel"]}
+        out = {"motion": motion}
+        on_device_fe = self.cfg.train.on_device_frontend
+        if on_device_fe:
+            if "audio" not in batch:
+                raise ValueError(
+                    "train.on_device_frontend requires the cache's raw "
+                    "'audio' field in batches (BeatDataset(..., "
+                    "include_audio=True); the cache builder stores it by "
+                    "default, data/beat.py)")
+            # the int16 transport halves the bytes to the card; the source
+            # PCM was int16, so this rounds below its own resolution
+            out["wave16"] = np.clip(
+                np.asarray(batch["audio"], np.float32) * 32768.0,
+                -32768, 32767).astype(np.int16)
+        else:
+            out["mel"] = batch["mel"]
         if mode == "exp_condition_gesture":
             out["exp_cond"] = batch["facial"]
         if "pid" in batch:
@@ -201,7 +254,9 @@ class Trainer:
             S = self.cfg.model.style_dim
             ids = batch["id"].reshape(-1).astype(np.int32)
             out["pid"] = np.eye(S, dtype=np.float32)[ids % S]
-        if "hubert" in batch:
+        if on_device_fe:
+            pass    # the frontend computes mel and HuBERT from wave16
+        elif "hubert" in batch:
             out["hubert"] = batch["hubert"]
         elif self.cfg.model.add_hubert:
             # no cached features: zero conditioning keeps the shapes — but
@@ -235,11 +290,21 @@ class Trainer:
         reloaded (its copy of the model and its fast-path weights) at
         every evaluation."""
         from diffsheg_tpu_torch.sampling.generator import WindowGenerator
+        model = self.state.model
+        if is_fsdp(model):
+            # the generator samples with whole weights: gather them (a
+            # collective) into an unsharded copy
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions, get_model_state_dict)
+            full = get_model_state_dict(
+                model, options=StateDictOptions(full_state_dict=True))
+            model = build_denoiser(self.cfg.model).to(self.device)
+            model.load_state_dict(full)
         if self._generator is None:
-            self._generator = WindowGenerator(self.cfg, self.state.model,
+            self._generator = WindowGenerator(self.cfg, model,
                                               device=self.device)
         else:
-            self._generator.load_weights(self.state.model)
+            self._generator.load_weights(model)
         return self._generator
 
     def evaluate(self, loader: ShardedBatchLoader, seed: int = 0,
@@ -249,12 +314,17 @@ class Trainer:
         """DDIM sampling of each val batch and MSE / PCK / PCK@2 /
         diversity against the targets; FGD with the trainer's
         ``fgd_net``.  Batch i draws its noise from ``noise(i)``, by default
-        a ``GeneratorNoise`` seeded from ``seed`` and i."""
+        a ``GlobalRowsNoise`` seeded from ``seed`` and i: each process
+        takes its rows of the global batch's draws, so the result does not
+        depend on the number of processes.  Across processes the metrics
+        are reduced (the FGD latents gathered), so every process returns
+        the same result."""
         from diffsheg_tpu_torch.eval.metrics import diversity as div_fn
         from diffsheg_tpu_torch.eval.metrics import (frechet_from_activations,
                                                      mse_pck_channels)
 
         gen = self._get_generator()
+        n_proc = col.process_count()
         mses, pcks, pck2s = [], [], []
         # streaming diversity: score each disjoint 50-sample group as it
         # fills instead of keeping every generated batch
@@ -265,7 +335,10 @@ class Trainer:
             if max_batches and bi >= max_batches:
                 break
             mb = self._on_device(self._to_model_batch(batch))
-            draws = (GeneratorNoise(step_seeds(seed, bi)[0], self.device)
+            if self._frontend is not None:
+                # mel (+ HuBERT) from the raw window audio, as in the step
+                mb = self._frontend(mb)
+            draws = (GlobalRowsNoise(step_seeds(seed, bi)[0], self.device)
                      if noise is None else noise(bi))
             out = gen.generate(mb["mel"], mb["pid"], draws,
                                hubert=mb.get("hubert"))
@@ -301,6 +374,17 @@ class Trainer:
             pck=float(np.mean(pcks)) if pcks else float("nan"),
             pck2=float(np.mean(pck2s)) if pck2s else float("nan"),
             diversity=div_val)
+        if n_proc > 1:
+            # every process scored an equal share of each batch
+            means = col.all_reduce_nanmean_metrics(
+                {"mse": res.mse, "pck": res.pck, "pck2": res.pck2},
+                weight=float(len(mses)))
+            means.update(col.all_reduce_nanmean_metrics(
+                {"diversity": div_val}, weight=float(max(div_groups, 1))))
+            res = EvalResult(**means)
+            if self.fgd_net is not None:
+                gen_lat = [col.gather_arrays(np.concatenate(gen_lat))]
+                real_lat = [col.gather_arrays(np.concatenate(real_lat))]
         if gen_lat:
             res.fgd = frechet_from_activations(np.concatenate(gen_lat),
                                                np.concatenate(real_lat))

@@ -235,17 +235,39 @@ def test_cli_train_resumes_and_feeds_generate(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
+    # the on-device speech frontend now trains, on a cache with raw audio
     pytest.param(["--set", "train.on_device_frontend=true"],
-                 "on_device_frontend", id="argv1-on_device_frontend"),
-    pytest.param(["--set", "mesh.fsdp_parallel=2"], "data-parallel and FSDP",
+                 None, id="argv1-on_device_frontend"),
+    pytest.param(["--set", "mesh.fsdp_parallel=2"], r"mesh 0x2 != 1 devices",
                  id="argv2-data-parallel and FSDP"),
 ])
 def test_cli_train_refusals(tmp_path, argv, match):
+    import json
+    import numpy as np
     from diffsheg_tpu_torch.cli.main import main
+    from diffsheg_tpu_torch.data.cache import CacheWriter
     cache = _train_cache(tmp_path / "cache", n=2)
-    with pytest.raises(SystemExit, match=match):
-        main(["train", "--device", "cpu", "--workdir", str(tmp_path / "w"),
-              "--train-cache", cache] + TINY + argv)
+    flags = ["train", "--device", "cpu", "--workdir", str(tmp_path / "w"),
+             "--train-cache", cache] + TINY + argv
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            main(flags)
+        return
+    with pytest.raises(ValueError, match="raw 'audio' field"):
+        main(flags)             # JAX's error: the cache holds no audio
+    rs = np.random.RandomState(0)
+    w = CacheWriter(str(tmp_path / "audio"), meta={"n_poses": 34})
+    for i in range(2):
+        w.add({"pose": rs.randn(34, 141), "pose_axis_angle": rs.randn(34, 141),
+               "mel": rs.randn(34, 128), "facial": rs.randn(34, 51),
+               "sem": rs.rand(34), "id": np.asarray([i], np.int32),
+               "audio": (rs.randn(36266) * 0.1).astype(np.float32)})
+    w.finalize()
+    flags[flags.index(cache)] = str(tmp_path / "audio")
+    assert main(flags + ["--epochs", "1", "--set",
+                         "train.log_every=1"]) == 0
+    recs = [json.loads(x) for x in open(tmp_path / "w" / "metrics.jsonl")]
+    assert sum("total" in r for r in recs) == 1
 
 
 @pytest.mark.parametrize("preset", ["beat", "show"])

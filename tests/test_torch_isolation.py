@@ -71,7 +71,8 @@ def test_kernel_sources_are_package_data():
                                    "cli-generate", "trainer", "cli-train",
                                    "mfcc", "beat-cache", "show-cache",
                                    "fgd-net", "testset", "cli-build-cache",
-                                   "cli-eval", "cli-test-stream"])
+                                   "cli-eval", "cli-test-stream",
+                                   "frontend", "mp-lockstep"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from diffsheg_tpu_torch.audio.hubert_runner import HubertFeatureExtractor
@@ -208,6 +209,21 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
                      "--set", "model.num_layers=1",
                      "--set", "model.add_hubert=false"] + dev)
 
+    def mp_lockstep(**kw):
+        # a worker of one process; what it sets of torchrun's variables
+        # and of torch's threads is undone when the test ends
+        from diffsheg_tpu_torch.device import LAUNCH_VARS
+        from diffsheg_tpu_torch.parallel import mp_lockstep as mp
+        for v in LAUNCH_VARS:
+            monkeypatch.setenv(v, "")
+            monkeypatch.delenv(v)
+        monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+        dev = ["--device", kw["device"]] if kw else []
+        return mp.worker_main(["--port", str(mp._free_port()),
+                               "--num-processes", "1", "--process-id", "0",
+                               "--timeout", "60"] + dev)
+
+    from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
     from diffsheg_tpu_torch.audio.mfcc import MfccFrontend
     from diffsheg_tpu_torch.eval.fgd_net import FgdNetConfig, init_fgd_net
     from diffsheg_tpu_torch.train.trainer import Trainer
@@ -237,6 +253,9 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "cli-build-cache": cli_build_cache,
         "cli-eval": cli_eval,
         "cli-test-stream": cli_test_stream,
+        "frontend": lambda **kw: make_speech_frontend(
+            cfg, HubertModel(tiny_hub), **kw),
+        "mp-lockstep": mp_lockstep,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -275,7 +294,9 @@ def test_walk_covers_the_slice():
                 "data.loader", "eval.metrics", "utils.logging",
                 "runtime", "audio.mfcc", "audio.onsets", "data.show_cache",
                 "data.beat_preprocess", "eval.fgd_net", "eval.fgd",
-                "compat.fgd_ckpt", "sampling.testset"):
+                "compat.fgd_ckpt", "sampling.testset", "audio.resample",
+                "audio.frontend", "parallel", "parallel.collectives",
+                "parallel.mesh", "parallel.mp_lockstep"):
         assert f"diffsheg_tpu_torch.{mod}" in names, mod
 
 
@@ -299,7 +320,22 @@ OWN_COPIES = {"geometry/joints.py": None, "geometry/bvh.py": None,
               "data/show_cache.py": None, "data/beat_preprocess.py": None,
               "eval/fgd_net.py": None, "eval/fgd.py": None,
               "compat/fgd_ckpt.py": None, "sampling/testset.py": {
-                  "generate_testset"}}
+                  "generate_testset"},
+              "audio/resample.py": None, "audio/frontend.py": None,
+              "parallel/collectives.py": None,
+              # the mesh's helpers; JAX's data_sharding, replicated and
+              # to_global_replicated place jax.Arrays on devices, while
+              # each of the port's processes holds plain tensors of its rows
+              "parallel/mesh.py": {"make_mesh", "shard_batch",
+                                   "fsdp_sharding", "shard_params_fsdp"},
+              # JAX's run_lockstep wraps its own test; the port's callers
+              # spawn the workers and run the checks themselves
+              "parallel/mp_lockstep.py": {
+                  "DS_LEN", "GLOBAL_BATCH", "REPO_ROOT", "SynthDataset",
+                  "T_FRAMES", "TestsetSynthClips", "check_collectives",
+                  "check_loader_partition", "check_testset_shard",
+                  "compute_lockstep", "injected_randoms", "spawn_workers",
+                  "testset_payload", "tiny_config", "worker_main"}}
 
 
 def _public_names(path):

@@ -1,7 +1,8 @@
 """The port's trainer and checkpoints (``diffsheg_tpu_torch/train/
 {trainer,checkpoint}.py``) on the CPU: fit, resume, evaluation on the
 current weights, the checkpoint policy, the model-batch assembly against
-the JAX trainer's, and what the port refuses."""
+the JAX trainer's, the speech frontend in the step, and the mesh-size
+error."""
 
 import dataclasses
 import json
@@ -250,20 +251,47 @@ def test_to_model_batch_matches_jax(case):
         assert np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype, k
 
 
+class AudioDs(SynthDs):
+    """The synthetic windows with the cache's raw 16 kHz audio."""
+
+    def __init__(self, cfg, n=16, T=8, seed=0):
+        super().__init__(cfg, n, T, seed)
+        self.data["audio"] = (np.random.RandomState(seed + 1).randn(
+            n, T * 16000 // 15) * 0.1).astype(np.float32)
+
+
 @pytest.mark.parametrize("over,match", [
-    (dict(train=dict(on_device_frontend=True)), "on_device_frontend"),
-    (dict(mesh=dict(data_parallel=2)), "data-parallel and FSDP"),
-    (dict(mesh=dict(fsdp_parallel=2)), "data-parallel and FSDP"),
+    # the on-device speech frontend now trains (the model's mel from the
+    # raw audio); a mesh that does not lay out the one process is JAX's
+    # mesh-size error
+    (dict(train=dict(on_device_frontend=True)), None),
+    (dict(mesh=dict(data_parallel=2)), r"mesh 2x1 != 1 devices"),
+    (dict(mesh=dict(fsdp_parallel=2)), r"mesh 0x2 != 1 devices"),
 ])
 def test_trainer_refusals(tmp_path, over, match):
     cfg = tiny_cfg()
     cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                          for k, v in over.items()})
-    with pytest.raises(ValueError, match=match):
-        Trainer(cfg, str(tmp_path), device="cpu")
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            Trainer(cfg, str(tmp_path), device="cpu")
+        return
+    tr = Trainer(cfg, str(tmp_path), device="cpu")
+    tr.fit(ShardedBatchLoader(AudioDs(cfg), global_batch_size=8,
+                              prefetch=0), num_epochs=1)
+    recs = [json.loads(x) for x in open(tmp_path / "metrics.jsonl")]
+    assert [np.isfinite(r["total"]) for r in recs if "total" in r] == [
+        True, True]
+    with pytest.raises(ValueError, match="raw 'audio' field"):
+        tr._to_model_batch(SynthDs(cfg).batch(np.arange(2)))
 
 
 def test_more_than_one_process_is_refused(tmp_path, monkeypatch):
+    """Several processes join torchrun's group; only part of torchrun's
+    variables (a world size of 2 with no rank or address) is an error,
+    not a run that goes on alone."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="2 processes"):
+    for v in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(v, raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE set without"):
         Trainer(tiny_cfg(), str(tmp_path), device="cpu")
