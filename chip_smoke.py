@@ -137,7 +137,21 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               CUDA tensors, the ranks bit for bit, rtol 2e-5 / atol 1e-6
               against one process); (d) ``generate_testset`` of 2 clips
               over those 2 processes against one (files, replicated
-              metrics, clip sums, launches).
+              metrics, clip sums, launches);
+13. tools   — ``cli doctor --calibrate`` in-process (every line ok, its
+              kernel probe launching each of the four kernels once at the
+              main path's shape); the negative controls (a CPU calibration
+              without ``allow_cpu`` is not ok; ``build_guarded`` around a
+              program on the CPU exits 1 with the invalid JSON, and the
+              profiler and the counters see no kernel of it); the 10 s bf16
+              ``'auto'`` pipeline through ``build_guarded`` + ``timed_reps``
+              (FPS, host CPU fraction, profiled device-busy share, launches)
+              beside the same stream driven as phase 5 drives it; the C++
+              data plane built on this host, a 60 s ``bvh_rot`` file parsed
+              natively, by the numpy path and by ``np.loadtxt`` (bit for
+              bit, MB/s each) and 2500 rows of a memory-mapped cache field
+              gathered natively and by ``np.take`` (bit for bit, ms each);
+              ``docs/torch_config.md`` equal to ``configdocs.generate()``.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -155,6 +169,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only train      # cli train, evaluation
     python3 chip_smoke.py --only data       # build-cache, train, eval, test-stream
     python3 chip_smoke.py --only scale      # frontend in the step, 2 processes
+    python3 chip_smoke.py --only tools      # cli doctor, guards, data plane
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -272,36 +287,6 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def random_layers(n, L, F, Cp, c_real, dtype, gen, device):
-    """Perturbed random weights for every leaf (zero-init output
-    projections would hide the attention and FFN)."""
-    from diffsheg_tpu_torch.ops.fused_layer import LayerParams
-
-    def mat(k, m):
-        return torch.randn(n, k, m, generator=gen) / k ** 0.5
-
-    def vec(m, base=0.0, s=0.1):
-        return base + s * torch.randn(n, m, generator=gen)
-
-    f = dict(
-        fp_norm_scale=vec(Cp, 1.0), fp_norm_bias=vec(Cp),
-        fp_fc1_k=mat(Cp, 2 * L), fp_fc1_b=vec(2 * L),
-        fp_fc2_k=mat(2 * L, L), fp_fc2_b=vec(L),
-        sa_norm_scale=vec(L, 1.0), sa_norm_bias=vec(L),
-        q_k=mat(L, L), q_b=vec(L), k_k=mat(L, L), k_b=vec(L),
-        v_k=mat(L, L), v_b=vec(L),
-        sa_so_norm_scale=vec(L, 1.0), sa_so_norm_bias=vec(L),
-        sa_out_k=mat(L, L), sa_out_b=vec(L),
-        ffn_l1_k=mat(L, F), ffn_l1_b=vec(F), ffn_l2_k=mat(F, L),
-        ffn_l2_b=vec(L), ffn_so_norm_scale=vec(L, 1.0),
-        ffn_so_norm_bias=vec(L), ffn_out_k=mat(L, L), ffn_out_b=vec(L))
-    for k in ("fp_norm_scale", "fp_norm_bias"):
-        f[k][:, c_real:] = 0.0
-    f["fp_fc1_k"][:, c_real:] = 0.0
-    return LayerParams(**{k: v.to(device=device, dtype=dtype).contiguous()
-                          for k, v in f.items()})
-
-
 QUANT_BITS = {"int8": 8, "int4": 4}
 
 
@@ -310,9 +295,10 @@ def case_inputs(dtype, B, T, Cp, c_real, null, dev, seed, quant="none",
     """Seeded inputs of one fused-layer kernel case: (x, cond, mods, slp,
     null_emb, null_mask, ssc), the nine matrices unquantized or as int8 /
     packed int4 codes (``quant``)."""
-    from diffsheg_tpu_torch.ops.fused_layer import quantize_layer_params
+    from diffsheg_tpu_torch.ops.fused_layer import (quantize_layer_params,
+                                                    random_layer_params)
     gen = torch.Generator().manual_seed(seed)
-    slp = random_layers(n_layers, L, F, Cp, c_real, dtype, gen, dev)
+    slp = random_layer_params(n_layers, L, F, Cp, c_real, dtype, gen, dev)
     ssc = None
     if quant != "none":
         slp, ssc = quantize_layer_params(slp, QUANT_BITS[quant])
@@ -3071,13 +3057,209 @@ def phase_scale(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the tools (cli doctor, calibration, the bench guards, the data
+# plane, the config reference)
+# --------------------------------------------------------------------------
+
+# the doctor's environment lines warn by design (informational); every
+# other line must be ok
+DOCTOR_ENV_LINES = ("CUDA_VISIBLE_DEVICES", "CUDA_HOME")
+GUARD_REPS = 3
+
+
+def captured(fn, *args, **kw):
+    """(fn's result or its SystemExit, stdout lines, stderr lines)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            res = fn(*args, **kw)
+        except SystemExit as e:
+            res = e
+    return res, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def doctor_check():
+    """``run_doctor(calibrate=True)`` in-process: rc 0, every line ok, and
+    its kernel probe launched each of the four kernels exactly once."""
+    from diffsheg_tpu_torch.cli.doctor import KERNELS, run_doctor
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, lines, _ = captured(run_doctor, calibrate=True)
+    secs = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters().items()}
+    for ln in lines:
+        log(f"doctor: {ln}")
+    log(f"doctor: {secs:.1f} s, launches={counts}")
+    bad = [ln for ln in lines if not ln.startswith("[ok  ]")
+           and ln[7:].split()[0] not in DOCTOR_ENV_LINES]
+    if rc != 0 or bad:
+        raise AssertionError(f"doctor rc {rc}, lines not ok: {bad}")
+    expect("doctor", counts, **dict.fromkeys(KERNELS, 1))
+    return {f"{k}_doctor": counts[k] for k in KERNELS}
+
+
+def guard_controls(calib):
+    """The negative controls, which must fire: a CPU calibration without
+    ``allow_cpu`` is not ok, and ``build_guarded`` around a program whose
+    tensors are on the CPU retries once, then exits 1 with the invalid
+    JSON; the profiler and the counters see no kernel of that program."""
+    from diffsheg_tpu_torch.utils.benchguard import build_guarded
+    from diffsheg_tpu_torch.utils.calibration import (calibrate,
+                                                      device_activity)
+    res = calibrate(device="cpu", allow_cpu=False)
+    if res.ok:
+        raise AssertionError("calibrate(device='cpu') without allow_cpu "
+                             "passed")
+    x = torch.randn(512, 512, generator=torch.Generator().manual_seed(0))
+    retries = []
+    zero_counts()
+    got, out, err = captured(build_guarded, lambda: x, lambda a: a @ a,
+                             lambda: retries.append(1), "cpu-control", calib)
+    counts = {name: fn.launches for name, fn in counters().items()}
+    for ln in err:
+        log(f"guard[cpu program]: {ln}")
+    if not isinstance(got, SystemExit) or got.code != 1:
+        raise AssertionError(f"build_guarded passed a CPU program ({got!r})")
+    invalid = json.loads(out[-1])
+    act = device_activity(lambda: x @ x)
+    log(f"guard[cpu program]: exit {got.code}, retries {len(retries)}, "
+        f"artifact {out[-1]}; profiled {act.line()}")
+    if len(retries) != 1 or invalid["valid"] is not False:
+        raise AssertionError(f"guard: retries {retries}, artifact {invalid}")
+    if act.kernels or act.outputs_on_card:
+        raise AssertionError(f"the guard is wrong: the CPU program shows "
+                             f"{act.kernels} kernels on the card")
+    expect("cpu program", counts)
+    log(f"calibration[cpu, allow_cpu=False]: ok={res.ok} ({res.reason})")
+
+
+def guarded_stream(dev, model, hubert_fe, calib):
+    """The 10 s bf16 'auto' pipeline through ``build_guarded`` +
+    ``timed_reps``, beside the same stream driven as phase 5 drives it."""
+    from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
+    from diffsheg_tpu_torch.utils.benchguard import build_guarded, timed_reps
+    from diffsheg_tpu_torch.utils.calibration import device_activity
+    cfg = beat_cfg("bfloat16", "auto")
+    a18 = torch.from_numpy(synth(10, 18000)).to(dev)
+    a16 = torch.from_numpy(synth(10, 16000)).to(dev)
+    pid = torch.nn.functional.one_hot(torch.tensor([1]), 30).float().to(dev)
+
+    def build_and_warm():
+        pipe = make_pipeline(cfg, model, hubert_fe, dev)
+        drive(pipe, 10, dev, 13)
+        return pipe
+
+    def call(pipe):
+        return pipe(a18, a16, pid, GeneratorNoise(14, dev))
+
+    pipe, _, err = captured(build_guarded, build_and_warm, call,
+                            lambda: None, "tools-auto-10s", calib)
+    for ln in err:
+        log(f"guard[10 s auto]: {ln}")
+    if isinstance(pipe, SystemExit):
+        raise AssertionError("build_guarded refused the pipeline on the card")
+    act = device_activity(lambda: call(pipe))
+    zero_counts()
+    totals, frac = timed_reps(lambda i: call(pipe), GUARD_REPS)
+    counts = {name: fn.launches for name, fn in counters().items()}
+    expect("guarded stream", counts, fused_layer=GUARD_REPS * 16 * CALLS_10S)
+    out, plain_s, _ = drive(pipe, 10, dev, 14)
+    frames = out.shape[1]
+    fps = [frames / t for t in totals]
+    log(f"guard[10 s auto]: fps={statistics.median(fps):.1f} "
+        f"(reps {', '.join(f'{f:.1f}' for f in fps)}) host_cpu_frac="
+        f"{frac:.3f} profiled {act.line()} fused_layer launches "
+        f"{counts['fused_layer'] // GUARD_REPS} a stream; unguarded drive "
+        f"fps={frames / plain_s:.1f}")
+    return counts["fused_layer"] // GUARD_REPS
+
+
+def dataplane_check(tmp):
+    """The native library built on this host; a synthetic 60 s BEAT
+    ``bvh_rot`` file parsed natively and by the numpy path, bit for bit;
+    2500 random rows of a memory-mapped cache field of phase 10's row
+    shape gathered natively (4 threads) and by ``np.take``, bit for bit."""
+    from diffsheg_tpu_torch import runtime
+    from diffsheg_tpu_torch.data.cache import ArrayCache, CacheWriter
+    if not runtime.native_available():
+        raise AssertionError("the native data plane did not build")
+    rng = np.random.RandomState(0)
+    path = os.path.join(tmp, "clip.bvh")
+    np.savetxt(path, rng.randn(DATA_SECS * 15, 141) * 25, fmt="%.6f")
+    with open(path, "rb") as f:
+        text = f.read()
+    mb = len(text) / 1e6
+
+    def best(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            times.append(time.perf_counter() - t0)
+        return res, min(times)
+
+    (nat, nat_rows), nat_s = best(lambda: runtime.parse_float_text(text))
+    (ref, ref_rows), ref_s = best(lambda: runtime._parse_numpy(text), 2)
+    loadtxt, lt_s = best(lambda: np.loadtxt(path), 2)
+    if nat_rows != ref_rows or nat.tobytes() != ref.tobytes():
+        raise AssertionError("native parse differs from the numpy path")
+    if loadtxt.reshape(-1).tobytes() != nat.tobytes():
+        raise AssertionError("native parse differs from np.loadtxt")
+    log(f"dataplane[parse 60 s bvh_rot, {mb:.2f} MB, {nat_rows} rows]: "
+        f"native {mb / nat_s:.1f} MB/s, numpy float() {mb / ref_s:.1f} "
+        f"MB/s, np.loadtxt {mb / lt_s:.1f} MB/s (native {ref_s / nat_s:.1f}x "
+        f"numpy, {lt_s / nat_s:.1f}x loadtxt); bit for bit")
+    w = CacheWriter(os.path.join(tmp, "cache"))
+    pose = rng.standard_normal((TRAIN_WINDOWS, 34, 141)).astype(np.float32)
+    for row in pose:
+        w.add({"pose": row})
+    w.finalize()
+    cache = ArrayCache(os.path.join(tmp, "cache"))
+    arr = cache._arrays["pose"]
+    idx = rng.randint(0, TRAIN_WINDOWS, TRAIN_BATCH)
+    nat, nat_s = best(lambda: runtime.gather_rows(arr, idx, n_threads=4))
+    take, take_s = best(lambda: np.take(arr, idx, axis=0))
+    if nat.tobytes() != take.tobytes() or \
+            cache.gather("pose", idx).tobytes() != take.tobytes():
+        raise AssertionError("native gather differs from np.take")
+    log(f"dataplane[gather {TRAIN_BATCH} of {TRAIN_WINDOWS} rows (34, 141) "
+        f"f32, memory-mapped, {nat.nbytes / 1e6:.1f} MB]: native 4 threads "
+        f"{nat_s * 1e3:.2f} ms, np.take {take_s * 1e3:.2f} ms "
+        f"({take_s / nat_s:.2f}x); bit for bit")
+
+
+def phase_tools(dev, model, hubert_fe):
+    import tempfile
+    from diffsheg_tpu_torch.utils.benchguard import calibrate_or_exit
+    from diffsheg_tpu_torch.utils.configdocs import generate
+    t0 = time.perf_counter()
+    launches = doctor_check()
+    calib, _, err = captured(calibrate_or_exit, "tools-auto-10s")
+    for ln in err:
+        log(f"tools: {ln}")
+    if isinstance(calib, SystemExit):
+        raise AssertionError("calibrate_or_exit refused the card")
+    guard_controls(calib)
+    guarded_stream(dev, model, hubert_fe, calib)
+    with tempfile.TemporaryDirectory() as tmp:
+        dataplane_check(tmp)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "docs", "torch_config.md")) as f:
+        if f.read() != generate():
+            raise AssertionError("docs/torch_config.md is stale")
+    log(f"tools: config reference current; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
                                        "uncached", "live", "variants",
                                        "generate", "train", "data",
-                                       "scale"),
+                                       "scale", "tools"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
@@ -3146,18 +3328,22 @@ def main() -> int:
            "fused_linear_attention_scale_dp",
            "fused_linear_attention_scale_dp_audio_enc",
            "fused_layer_scale_testset",
-           "fused_linear_attention_scale_testset_audio_enc"])
+           "fused_linear_attention_scale_testset_audio_enc",
+           "fused_branch_doctor", "fused_layer_doctor",
+           "fused_linear_attention_doctor",
+           "fused_ddim_repaint_step_doctor"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
     if any(run(p) for p in ("stream", "e2e", "uncached", "live",
-                            "variants", "generate")):
+                            "variants", "generate", "tools")):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
         if run("stream"):
             phase_stream(dev, model)
-        if any(run(p) for p in ("e2e", "uncached", "live", "variants")):
+        if any(run(p) for p in ("e2e", "uncached", "live", "variants",
+                                "tools")):
             t0 = time.perf_counter()
             hubert_fe = make_hubert(dev)
             log(f"set-up: random HuBERT-large on the card "
@@ -3170,6 +3356,8 @@ def main() -> int:
                 launches.update(phase_live(dev, model, hubert_fe, args.reps))
             if run("variants"):
                 launches.update(phase_variants(dev, hubert_fe))
+            if run("tools"):
+                launches.update(phase_tools(dev, model, hubert_fe))
             del hubert_fe
         if run("generate"):
             launches.update(phase_generate(dev, model))
@@ -3319,6 +3507,16 @@ def main() -> int:
              ("fused_linear_attention_scale_testset_audio_enc",
               "attn-stream-audio-enc-f32", None, "linear_attention.cu",
               "ops/linear_attention.py:99")]
+    # phase 13: cli doctor's kernel probe, one launch each at the main
+    # path's shapes (rows 1, 2f, 3 and 4 of PERF.md's kernel table)
+    rows += [("fused_branch_doctor", "beat-ges-bf16", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_layer_doctor", "beat-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_doctor", "attn-beat-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99"),
+             ("fused_ddim_repaint_step_doctor", "step-beat", None,
+              "step_math.cu", "ops/step_math.py:153")]
     for name, key, sub, source, line in rows:
         if key not in kres:
             continue

@@ -22,6 +22,7 @@ Counterpart of ``diffsheg_tpu/cli/main.py``:
   python -m diffsheg_tpu_torch.cli export-ckpt --checkpoint model.tar \\
       --out copy.tar
   python -m diffsheg_tpu_torch.cli view --bvh out/clip_0.bvh
+  python -m diffsheg_tpu_torch.cli doctor --calibrate
 
 with the JAX commands' flags, ``--device {cuda,cpu}`` (default ``cuda``;
 it raises without a card) where JAX has ``--platform``, and any config
@@ -31,7 +32,7 @@ checkpoint directory of the port (``<workdir>/ckpt``, its newest
 ``latest`` step); Orbax directories are the JAX package's format and are
 refused.  ``--fgd-checkpoint`` takes the reference's frozen FGD
 autoencoder (``ae_300.bin`` / ``gesture_expression.pth.tar``,
-``compat/fgd_ckpt.py``).  ``doctor`` is not ported yet.
+``compat/fgd_ckpt.py``).
 """
 
 from __future__ import annotations
@@ -460,6 +461,15 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_doctor(args) -> int:
+    """Environment diagnostics: versions, the card (bounded probe), dispatch
+    latency, the kernels built and each launched once against its plain
+    version, the native data plane, the kernels' build cache."""
+    from diffsheg_tpu_torch.cli.doctor import run_doctor
+    return run_doctor(device_timeout=args.device_timeout, device=args.device,
+                      calibrate=args.calibrate)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="diffsheg_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -635,6 +645,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-session audio cap (a live session retains "
                          "its stream until finish; this bounds its memory)")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "doctor", help="check the environment: the card (bounded probe), "
+                       "dispatch latency, the kernels, the native data "
+                       "plane, the build cache")
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="cpu: check the rest without touching a card "
+                         "(cuda fails without one)")
+    sp.add_argument("--device-timeout", type=float, default=20.0,
+                    help="seconds to wait for the card's properties before "
+                         "declaring the CUDA runtime hung")
+    sp.add_argument("--calibrate", action="store_true",
+                    help="run the execution-sanity probes: sustained bf16 "
+                         "TFLOP/s against the card's physical envelope, "
+                         "dispatch round trip, host<->device bandwidth, "
+                         "and a program's kernels recorded by the card")
+    sp.set_defaults(fn=cmd_doctor)
     return p
 
 

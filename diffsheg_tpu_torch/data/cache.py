@@ -5,8 +5,8 @@ the same directory layout (``manifest.json`` + one ``.npy`` per field,
 ragged fields as a flat array + an ``.offsets.npy`` table), so a cache
 that the JAX package's ``build-cache`` wrote reads here:
 
-  - fixed-shape fields (train windows): (N, ...) arrays, a batch gather is
-    one fancy index straight from the page cache;
+  - fixed-shape fields (train windows): (N, ...) arrays, a batch gather
+    copies rows straight from the page cache (``runtime.gather_rows``);
   - ragged fields (whole clips of different lengths): a flat (sum_T, ...)
     array + (N+1,) offsets.
 """
@@ -18,6 +18,8 @@ import os
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+
+from diffsheg_tpu_torch import runtime
 
 MANIFEST = "manifest.json"
 
@@ -110,13 +112,13 @@ class ArrayCache:
         return out
 
     def gather(self, field: str, indices: np.ndarray) -> np.ndarray:
-        """Batch gather of a fixed-shape field (``np.take`` along the
-        sample axis, the JAX package's path without its native data
-        plane)."""
+        """Batch gather of a fixed-shape field: the native data plane's
+        threaded row copy (``runtime.gather_rows``), ``np.take`` without
+        it."""
         if self._fields[field]["kind"] != "fixed":
             raise ValueError(f"{field} is ragged")
-        return np.take(self._arrays[field],
-                       np.asarray(indices, dtype=np.int64), axis=0)
+        return runtime.gather_rows(self._arrays[field],
+                                   np.asarray(indices, dtype=np.int64))
 
     def batch(self, indices: np.ndarray,
               fields: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:

@@ -17,13 +17,16 @@ activations on the card, the composition otherwise.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 from torch import nn
 
 from diffsheg_tpu_torch.ops.linear_attention import (  # noqa: F401
     linear_attention, linear_attention_reference)
+
+if TYPE_CHECKING:    # blocks.py imports this module
+    from diffsheg_tpu_torch.models.blocks import Train
 
 LN_EPS = 1e-5
 
@@ -45,7 +48,7 @@ class LinearTemporalSelfAttention(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb, src_mask: Optional[torch.Tensor] = None,
-                mod: Optional[torch.Tensor] = None, train: bool = False):
+                mod: Optional[torch.Tensor] = None, train: Train = False):
         xn = self.norm(x)
         query, key, value = self.query(xn), self.key(xn), self.value(xn)
         if src_mask is not None:
@@ -73,7 +76,7 @@ class LinearTemporalCrossAttention(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, xf, emb, mod: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: Train = False):
         xn, xfn = self.norm(x), self.text_norm(xf)
         y = linear_attention(self.query(xn), self.key(xfn), self.value(xfn),
                              self.num_heads)

@@ -18,13 +18,16 @@ the Flax parameter tree so weights carry across by name
   kernels (``ops/fused_layer.py``).
 
 Every forward takes ``train``: dropout (probability ``dropout``, from
-torch's global generator) runs only with ``train=True``, as Flax's
-``deterministic=not train``.
+torch's global generator) runs only in training, as Flax's
+``deterministic=not train``.  ``train`` is ``False``, ``True`` (one process
+holding the whole batch) or a :class:`GlobalBatch`, which the training
+step builds to say which rows of the global batch this process holds.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -32,27 +35,51 @@ from torch.nn import functional as F
 
 from diffsheg_tpu_torch.models.attention import (LinearTemporalCrossAttention,
                                                 LinearTemporalSelfAttention)
-from diffsheg_tpu_torch.parallel.collectives import global_rows
 
 LN_EPS = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalBatch:
+    """This process's share of the global training batch, as the training
+    step computes it (``train/step.py``): rows ``[first, first + B)`` of
+    ``total``, over ``processes`` processes, and ``sum_across``, the
+    differentiable sum of a tensor over the processes (BatchNorm's global
+    statistics).  Passed as a forward's ``train``."""
+
+    first: int
+    total: int
+    processes: int = 1
+    sum_across: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+Train = Union[bool, GlobalBatch]
+
+
+def batch_rows(train: Train, local: int) -> Tuple[int, int]:
+    """(first global row, global batch) of this process's ``local`` rows:
+    the step's :class:`GlobalBatch`, else the whole batch."""
+    if isinstance(train, GlobalBatch):
+        return train.first, train.total
+    return 0, local
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, train: Train) -> torch.Tensor:
     """Inverted dropout (kept entries scaled by 1 / (1 - p)) only in
     training; the identity otherwise and at ``p == 0``.  The mask is drawn
     for the global batch (``x`` is this process's rows of it, batch
-    first) and cut to this process's rows, so N processes drop what one
-    process drops; with one process on the CPU it is ``F.dropout``'s draw
-    (on the card ``F.dropout`` has a fused kernel of its own).  The
-    global mask is drawn as bools and only this process's rows of it
-    become the scale that the backward pass keeps."""
+    first; :func:`batch_rows`) and cut to this process's rows, so N
+    processes drop what one process drops; with one process on the CPU it
+    is ``F.dropout``'s draw (on the card ``F.dropout`` has a fused kernel
+    of its own).  The global mask is drawn as bools and only this
+    process's rows of it become the scale that the backward pass keeps."""
     if not (train and p > 0):
         return x
-    first, total = global_rows(x.shape[0])
+    first, total = batch_rows(train, x.shape[0])
     keep = torch.empty((total,) + x.shape[1:], dtype=torch.bool,
                        device=x.device).bernoulli_(1.0 - p)
     scale = keep[first:first + x.shape[0]].to(x.dtype).div_(1.0 - p)
@@ -69,7 +96,7 @@ class StylizationBlock(nn.Module):
         self.out_proj = nn.Linear(latent_dim, latent_dim)
 
     def forward(self, h, emb: Optional[torch.Tensor],
-                mod: Optional[torch.Tensor] = None, train: bool = False):
+                mod: Optional[torch.Tensor] = None, train: Train = False):
         # emb (B, E) -> mod (B, 2L), unless the cache supplies it
         if mod is None:
             mod = self.emb_proj(F.silu(emb))
@@ -88,7 +115,7 @@ class FFN(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb, mod: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: Train = False):
         y = self.linear2(dropout(gelu_exact(self.linear1(x)), self.dropout,
                                  train))
         return x + self.proj_out(y, emb, mod, train=train)
@@ -137,7 +164,7 @@ class DiffusionTransformerLayer(nn.Module):
                 src_mask: Optional[torch.Tensor] = None,
                 null_cond_mask: Optional[torch.Tensor] = None,
                 null_cond_emb: Optional[torch.Tensor] = None,
-                mods: Optional[torch.Tensor] = None, train: bool = False):
+                mods: Optional[torch.Tensor] = None, train: Train = False):
         """x (B, T, L); cond (B, T, C) or None; emb (B, E) or None when
         ``mods`` (2, B, 2L) come from the cache; ``null_cond_mask`` (B,)
         bool rows whose concat is replaced by ``null_cond_emb`` (1, L+C)."""

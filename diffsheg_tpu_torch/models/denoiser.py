@@ -25,12 +25,10 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from diffsheg_tpu_torch.models.blocks import (DiffusionTransformerLayer,
+                                              GlobalBatch, Train, batch_rows,
                                               dropout, gelu_exact)
 from diffsheg_tpu_torch.models.embeddings import (positional_encoding,
                                                   timestep_embedding)
-from diffsheg_tpu_torch.parallel.collectives import (global_rows,
-                                                     process_count,
-                                                     sum_across_processes)
 
 
 class BranchCache(NamedTuple):
@@ -101,7 +99,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: Train = False):
         if not train:
             return ((x - self.running_mean)
                     * torch.rsqrt(self.running_var + self.eps)
@@ -110,11 +108,11 @@ class BatchNorm(nn.Module):
         axes = tuple(range(x.ndim - 1))
         mean = xf.mean(axes)
         meansq = (xf * xf).mean(axes)
-        n = process_count()
-        if n > 1:
+        if isinstance(train, GlobalBatch) and train.processes > 1:
             # training across processes: the global batch's statistics
             # (each process holds an equal share of it), differentiable
-            stats = sum_across_processes(torch.stack([mean, meansq])) / n
+            stats = (train.sum_across(torch.stack([mean, meansq]))
+                     / train.processes)
             mean, meansq = stats[0], stats[1]
         var = torch.clamp(meansq - mean * mean, min=0.0)
         with torch.no_grad():
@@ -137,7 +135,7 @@ class HubertConvEncoder(nn.Module):
         self.bn = BatchNorm(out_dim)
         self.conv2 = nn.Conv1d(out_dim, out_dim, 3, padding=1, bias=False)
 
-    def forward(self, x, train: bool = False):    # (B, T, C)
+    def forward(self, x, train: Train = False):    # (B, T, C)
         h = self.conv1(x.transpose(1, 2)).transpose(1, 2)
         h = gelu_exact(self.bn(h, train))
         return self.conv2(h.transpose(1, 2)).transpose(1, 2)
@@ -236,7 +234,7 @@ class MotionDenoiser(nn.Module):
                 word=None, emo=None, src_mask=None,
                 cfg_inference: bool = False,
                 cache: Optional[BranchCache] = None,
-                train: bool = False) -> torch.Tensor:
+                train: Train = False) -> torch.Tensor:
         """The branch's module forward (JAX ``MotionDenoiser.__call__``):
         x (B, T, input_feats) noisy channels, t (B,)
         original-process timesteps, audio (B, T, audio_dim) the audio
@@ -280,7 +278,7 @@ class MotionDenoiser(nn.Module):
         null_cond_mask = None
         if self.classifier_free and train:
             # this process's rows of the global batch's null rows
-            first, total = global_rows(B)
+            first, total = batch_rows(train, B)
             null_cond_mask = null_rows(total, self.null_cond_prob)[
                 first:first + B].to(x.device)
         if do_cfg:

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from diffsheg_tpu_torch.config import ModelConfig
+from diffsheg_tpu_torch.models.blocks import Train
 from diffsheg_tpu_torch.models.denoiser import MotionDenoiser
 from diffsheg_tpu_torch.models.unidiffuser import (UniDiffuser,
                                                    branch_feats_dim,
@@ -67,7 +68,7 @@ class SingleBranchDenoiser(nn.Module):
                 word: Optional[torch.Tensor] = None,
                 emo: Optional[torch.Tensor] = None,
                 cfg_inference: bool = False,
-                train: bool = False) -> torch.Tensor:
+                train: Train = False) -> torch.Tensor:
         """As ``UniDiffuser.forward`` (``sqrt_alphas`` unused); ``exp_cond``
         (B, T, expression_dim) is required by 'exp_condition_gesture' and
         ignored otherwise."""

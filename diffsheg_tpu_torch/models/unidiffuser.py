@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from diffsheg_tpu_torch.config import ModelConfig
-from diffsheg_tpu_torch.models.blocks import DiffusionTransformerLayer
+from diffsheg_tpu_torch.models.blocks import DiffusionTransformerLayer, Train
 from diffsheg_tpu_torch.models.denoiser import MotionDenoiser, TimeEmbedMLP
 from diffsheg_tpu_torch.models.embeddings import timestep_embedding
 
@@ -93,7 +93,7 @@ class UniDiffuser(nn.Module):
                 word: Optional[torch.Tensor] = None,
                 emo: Optional[torch.Tensor] = None,
                 cfg_inference: bool = False, cache=None,
-                train: bool = False) -> torch.Tensor:
+                train: Train = False) -> torch.Tensor:
         """x (B, T, pose+expr) noisy motion, t (B,) original-process
         timesteps, ``sqrt_alphas`` the (sqrt(1/ab), sqrt(1/ab-1)) pair at
         the level (floats or tensors broadcastable to x), audio_mel (B, T,

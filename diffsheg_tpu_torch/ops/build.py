@@ -61,6 +61,12 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"{path.stem}-{key}.so"
 
 
+def is_built(source: str) -> bool:
+    """True when ``source``'s library for its current text and flags is in
+    the build directory."""
+    return _target(source).exists()
+
+
 def build(sources: Sequence[str] = BUILDS, verbose: bool = False) -> Dict[str, Path]:
     """Compile every source not yet built, one ``nvcc`` per source, all
     started together.  Returns {source: library path}."""

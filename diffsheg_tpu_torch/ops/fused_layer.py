@@ -26,7 +26,8 @@ kernel launches in ``.launches``; :func:`fused_layer` counts them by the
 launch's (B, T, L) in ``.launches_by_shape`` too.  :func:`branch_phase_ns`
 and :func:`kernel_probe` measure inside the kernel (per-phase and in-phase
 times from a traced build, the grid barriers' floor, the operand copy's
-rate); ``chip_smoke.py`` prints them.
+rate); ``chip_smoke.py`` prints them.  :func:`random_layer_params` makes
+the seeded weights those checks and ``cli doctor`` launch the kernels on.
 """
 
 from __future__ import annotations
@@ -172,6 +173,41 @@ def quantize_layer_params(lp: LayerParams, bits: int = 8):
         qs[name] = q.to(torch.int8).contiguous()
         scales.append(s.squeeze(-2).contiguous())
     return lp._replace(**qs), LayerScales(*scales)
+
+
+def random_layer_params(n: int, L: int, F: int, Cp: int, c_real: int,
+                        dtype: torch.dtype, gen: torch.Generator,
+                        device) -> LayerParams:
+    """Seeded weights of ``n`` stacked layers for the kernels' checks on
+    the card (``cli doctor``, ``chip_smoke.py``): every leaf perturbed
+    (zero-init output projections would hide the attention and the FFN),
+    the padded concat channels from ``c_real`` on zero, as
+    :func:`extract_layer_params` pads them.  Drawn on the CPU from
+    ``gen``, then moved to ``device`` in ``dtype``."""
+
+    def mat(k, m):
+        return torch.randn(n, k, m, generator=gen) / k ** 0.5
+
+    def vec(m, base=0.0, s=0.1):
+        return base + s * torch.randn(n, m, generator=gen)
+
+    f = dict(
+        fp_norm_scale=vec(Cp, 1.0), fp_norm_bias=vec(Cp),
+        fp_fc1_k=mat(Cp, 2 * L), fp_fc1_b=vec(2 * L),
+        fp_fc2_k=mat(2 * L, L), fp_fc2_b=vec(L),
+        sa_norm_scale=vec(L, 1.0), sa_norm_bias=vec(L),
+        q_k=mat(L, L), q_b=vec(L), k_k=mat(L, L), k_b=vec(L),
+        v_k=mat(L, L), v_b=vec(L),
+        sa_so_norm_scale=vec(L, 1.0), sa_so_norm_bias=vec(L),
+        sa_out_k=mat(L, L), sa_out_b=vec(L),
+        ffn_l1_k=mat(L, F), ffn_l1_b=vec(F), ffn_l2_k=mat(F, L),
+        ffn_l2_b=vec(L), ffn_so_norm_scale=vec(L, 1.0),
+        ffn_so_norm_bias=vec(L), ffn_out_k=mat(L, L), ffn_out_b=vec(L))
+    for k in ("fp_norm_scale", "fp_norm_bias"):
+        f[k][:, c_real:] = 0.0
+    f["fp_fc1_k"][:, c_real:] = 0.0
+    return LayerParams(**{k: v.to(device=device, dtype=dtype).contiguous()
+                          for k, v in f.items()})
 
 
 def stack_layer_params(lps: List[LayerParams]) -> LayerParams:

@@ -23,9 +23,10 @@ Across processes (``parallel/``), each holds an equal share of the global
 batch, as the reference's DDP does and as JAX's single-controller step
 sees it:
   - the timesteps and noise are drawn for the global batch and each
-    process takes its rows, so N processes draw what one process draws
-    (dropout masks and the classifier-free null rows likewise,
-    ``models/blocks.py``, ``models/denoiser.py``);
+    process takes its rows, so N processes draw what one process draws;
+    the step hands its rows to the training forward as ``train`` (a
+    ``models/blocks.py::GlobalBatch``), whose dropout masks, classifier-free
+    null rows and BatchNorm statistics follow the global batch too;
   - the gradients are averaged across processes before the clip, so the
     clip sees the global norm: one ``all_reduce`` of the flattened
     gradients, or under ``fully_shard`` its reduce-scatter, the norm then
@@ -56,10 +57,12 @@ from diffsheg_tpu_torch.diffusion.sampler import split_model_output
 from diffsheg_tpu_torch.diffusion.schedule import DiffusionSchedule, gather
 from diffsheg_tpu_torch.diffusion.timestep_sampler import (
     LossAwareState, sample_loss_aware, sample_uniform, update_loss_history)
+from diffsheg_tpu_torch.models.blocks import GlobalBatch
 from diffsheg_tpu_torch.models.factory import ablate_inputs
 from diffsheg_tpu_torch.parallel.collectives import (gather_rows, global_rows,
                                                      mean_across_processes_,
-                                                     process_count)
+                                                     process_count,
+                                                     sum_across_processes)
 from diffsheg_tpu_torch.parallel.mesh import is_fsdp
 
 
@@ -178,7 +181,7 @@ def make_train_step(cfg: Config, sched: DiffusionSchedule,
         params = {n: p.to(compute) for n, p in model.named_parameters()}
         return torch.func.functional_call(model, params, args, kw)
 
-    def loss_fn(model, batch, t, noise, t_weights):
+    def loss_fn(model, batch, t, noise, t_weights, rows):
         x_start = batch["motion"]
         x_t = sched.q_sample(x_start, t, noise)
         sqrt_alphas = (gather(sched.sqrt_recip_alphas_cumprod, t, x_start),
@@ -192,7 +195,7 @@ def make_train_step(cfg: Config, sched: DiffusionSchedule,
         if mcfg.add_emo_cond:
             extra["emo"] = batch["emo"]
         out = forward(model, x_t, t, sqrt_alphas, mel, pid,
-                      hubert=batch.get("hubert"), train=True, **extra)
+                      hubert=batch.get("hubert"), train=rows, **extra)
         out, var_out = split_model_output(out, cfg.diffusion.var_type)
         terms = diffusion_loss(
             sched, out, x_start, x_t, t, noise, cfg.train,
@@ -242,7 +245,10 @@ def make_train_step(cfg: Config, sched: DiffusionSchedule,
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda"
                                    else []):
             torch.manual_seed(seed_drop)
-            terms, per_sample = loss_fn(model, batch, t, noise, t_weights)
+            terms, per_sample = loss_fn(
+                model, batch, t, noise, t_weights,
+                GlobalBatch(first, total, process_count(),
+                            sum_across_processes))
             terms.total.backward()
         # a parameter the loss does not reach (the null condition of a
         # decoder model) gets a zero gradient, and Adam still moves it
