@@ -49,7 +49,7 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               level_cache=False, the audio encoder in every call;
 7. live     — the serving daemon: a MotionServer on 127.0.0.1 (port 0),
               BEAT at full width in bf16 with HuBERT-large, fed by
-              MotionClients in 100 ms chunks, unpaced: 40 s sessions at
+              MotionClients in 100 ms chunks, unpaced: 20 s sessions at
               window 34, window 12 and 4 speakers through the per-layer
               kernel ('auto'), and 10 s on a server started with
               diffusion.fused_layer=chain; per session the windows,
@@ -102,11 +102,12 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               (c) ``Trainer.evaluate`` of 64 windows through the
               per-layer kernel before and after a step;
 11. data    — the loop a user of the paper runs, on synthetic raw splits
-              (BEAT 60 s clips: train 8, val 1, test 2; SHOW: 4 sequences
-              of 30 s) at BEAT's full width with a HuBERT-large cache:
-              ``cli build-cache --device cuda`` for every split (windows,
-              seconds, windows a second), the BEAT train and SHOW splits
-              again with ``--device cpu`` and held equal field for field
+              (BEAT: 60 s clips, train 8, val 1; test 2 clips of 30 s;
+              SHOW: 4 sequences of 30 s) at BEAT's full width with a
+              HuBERT-large cache: ``cli build-cache --device cuda`` for
+              every split (windows, seconds, windows a second), the BEAT
+              train and SHOW splits again with ``--device cpu`` and held
+              equal field for field
               (mel / mfcc 2e-5 of scale, axis-angle 1e-4 through rebuilt
               matrices, the rest and the euler / facial statistics bit for
               bit); ``cli train`` one epoch (one step of 696 windows);
@@ -115,7 +116,8 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               rel-RMS <= 1e-5, and its ms a batch); ``cli test-stream``
               over the test clips with the exporter, a template BVH,
               players and FGD (its metrics JSON; every BVH, face JSON and
-              npy checked), clip 0 again bit for bit, and
+              npy checked), clip 0 alone (``--max-clips 1``) equal bit
+              for bit to clip 0 of the two-clip run, and
               ``--output-gt``; exact launch counts for every command;
 12. scale   — training with the speech frontend in the step and across
               processes, BEAT at full width, f32, on a cache built from
@@ -151,7 +153,22 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               natively, by the numpy path and by ``np.loadtxt`` (bit for
               bit, MB/s each) and 2500 rows of a memory-mapped cache field
               gathered natively and by ``np.take`` (bit for bit, ms each);
-              ``docs/torch_config.md`` equal to ``configdocs.generate()``.
+              ``docs/torch_config.md`` equal to ``configdocs.generate()``;
+14. examples — every module of ``diffsheg_tpu_torch/examples/`` that
+              reaches a kernel, through its entry point, at a cut depth:
+              convergence_demo 40 epochs with the resume at 20,
+              overfit_demo 300 steps, serve_capacity sessions 1 and 4
+              for 8 s, show_bench (60 s, with ``fused_step='on'``),
+              one train_bench row (batch 256, f32), batch_probe B 8 on a
+              10 s stream, live_latency W 34 and 12 for 10 s, live_demo
+              10 s, perf_probe on a 10 s stream; each prints one line with
+              its JSON and its exact launch counts (by shape too); phase
+              3 holds the kernels at the examples' new shapes.  ``--only
+              examples --full`` runs them at the JAX scripts' default
+              depths (with live_hubert_drift, show_bench's JAX
+              configuration, train_bench's bf16 / pipelined / frontend
+              points, and a profiled row of serve_capacity for the card's
+              idle share) and writes the 240-epoch convergence curve.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly.  Prints its
@@ -170,6 +187,8 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only data       # build-cache, train, eval, test-stream
     python3 chip_smoke.py --only scale      # frontend in the step, 2 processes
     python3 chip_smoke.py --only tools      # cli doctor, guards, data plane
+    python3 chip_smoke.py --only examples [--full] [--examples capacity,show]
+        # the examples (all, or the items named)
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
@@ -179,6 +198,9 @@ TF32 is off in every phase that holds an f32 band.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import statistics
@@ -738,6 +760,7 @@ def phase_kernels(dev, reps):
     for name, B, T, dtype in LIVE_LAYER_CASES:
         results[name] = live_layer_case(name, B, T, dtype, dev, 4, reps)
     results.update(quant_kernel_cases(dev, reps))
+    results.update(example_kernel_cases(dev, reps))
     return results
 
 
@@ -875,7 +898,6 @@ CFG_MODEL = dict(classifier_free=True, cond_scale=1.15)
 
 
 def beat_cfg(dtype: str, fused_layer: str, model=None, **diffusion):
-    import dataclasses
     from diffsheg_tpu_torch.config import beat_config
     cfg = beat_config()
     return cfg.replace(
@@ -1264,8 +1286,8 @@ def push_stream(push, secs: int, chunk_s: float = 0.1):
 
 
 # (tag, window frames, speakers, seconds, the server's fused_layer)
-LIVE_SESSIONS = (("a", 34, 1, 40, "auto"), ("b", 12, 1, 40, "auto"),
-                 ("c", 34, 4, 40, "auto"), ("d", 34, 1, 10, "chain"))
+LIVE_SESSIONS = (("a", 34, 1, 20, "auto"), ("b", 12, 1, 20, "auto"),
+                 ("c", 34, 4, 20, "auto"), ("d", 34, 1, 10, "chain"))
 LIVE_SEED = 31
 
 
@@ -2137,7 +2159,6 @@ def train_profile(dev):
     """Where one training step's time goes, at the published batch with
     remat: its wall time and, under torch.profiler, the device's busy
     time by kind of kernel and the largest kernels."""
-    import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.diffusion.schedule import (
@@ -2190,7 +2211,6 @@ def phase_train(dev):
     """(a) ``cli train`` at the published width and batch; (b) the kernel
     against its plain version inside the step, remat against none; (c)
     ``Trainer.evaluate`` through the per-layer kernel."""
-    import dataclasses
     import shutil
     import tempfile
     from diffsheg_tpu_torch.config import beat_config
@@ -2313,6 +2333,9 @@ def phase_train(dev):
 # --------------------------------------------------------------------------
 
 DATA_SECS = 60
+# the test split's clips are half as long, so that test-stream's loop over
+# two clips costs what one 60 s clip did
+DATA_TEST_SECS = 30
 DATA_CLIPS = {"train": 8, "val": 1, "test": 2}
 DATA_WINDOWS = (DATA_SECS * 15 - 34) // 10 + 1      # 87 windows a clip
 DATA_TRAIN_WINDOWS = DATA_CLIPS["train"] * DATA_WINDOWS      # 696: one step
@@ -2325,10 +2348,11 @@ DATA_EVAL_BATCHES = 2
 DATA_EVAL_LAYER = DATA_EVAL_BATCHES * 25 * 16 * 5
 DATA_EVAL_LAYER_7, DATA_EVAL_LAYER_4 = (7, 34, 512), (4, 34, 512)
 DATA_EVAL_AUDIO_ATTN = (25 * 32, 34, 128, 8)
-# cli test-stream: the host window loop over each 900-frame clip, 30
-# windows (jump_n_sample 5: cli generate's 1852 model calls a clip), each
-# window's level cache at batch 1
-DATA_STREAM_WINDOWS, DATA_STREAM_CALLS = 30, GEN_CALLS_60S
+# cli test-stream: the host window loop over each 450-frame clip, 15
+# windows (jump_n_sample 5: 25 model calls, then 63 a continuation window),
+# each window's level cache at batch 1
+DATA_STREAM_WINDOWS = 15
+DATA_STREAM_CALLS = 25 + (DATA_STREAM_WINDOWS - 1) * 63     # 907
 STREAM_AUDIO_ATTN = (25, 34, 128, 8)
 STREAM_LAYER = (1, 34, 512)
 DATA_SHOW_SEQS, DATA_SHOW_FRAMES = 4, 900
@@ -2338,13 +2362,14 @@ DATA_SHOW_WINDOWS = (DATA_SHOW_FRAMES - 88) // 10 + 1  # 82 a sequence
 def write_raw_splits(root, seed, clips=None, show=True):
     """Synthetic raw splits in the layout ``build-cache`` reads: BEAT
     splits of ``clips`` (default ``DATA_CLIPS``: train / val / test) 60 s
-    clips (``bvh_rot`` euler-degree rows, ``wave16k`` speech-like audio,
-    ``facial52`` JSON, ``sem`` TSV), and with ``show`` SHOW train ``.npz``
-    sequences of 30 s."""
+    clips, 30 s in the test split (``bvh_rot`` euler-degree rows,
+    ``wave16k`` speech-like audio, ``facial52`` JSON, ``sem`` TSV), and
+    with ``show`` SHOW train ``.npz`` sequences of 30 s."""
     from diffsheg_tpu_torch.geometry.face import write_face_json
     rng = np.random.RandomState(seed)
-    T = DATA_SECS * 15
     for split, n in (clips or DATA_CLIPS).items():
+        secs = DATA_TEST_SECS if split == "test" else DATA_SECS
+        T = secs * 15
         d = os.path.join(root, "beat", split)
         for sub in ("bvh_rot", "wave16k", "facial52", "sem"):
             os.makedirs(os.path.join(d, sub))
@@ -2353,11 +2378,11 @@ def write_raw_splits(root, seed, clips=None, show=True):
             np.savetxt(os.path.join(d, "bvh_rot", cid + ".bvh"),
                        rng.randn(T, 141) * 25, fmt="%.6f")
             np.save(os.path.join(d, "wave16k", cid + ".npy"),
-                    speech_like(DATA_SECS, 16000, seed + i))
+                    speech_like(secs, 16000, seed + i))
             write_face_json(rng.rand(T, 51),
                             os.path.join(d, "facial52", cid + ".json"))
             with open(os.path.join(d, "sem", cid + ".txt"), "w") as f:
-                for s in range(0, DATA_SECS, 4):
+                for s in range(0, secs, 4):
                     f.write(f"w\t{s + 0.5}\t{s + 2.0}\t1.5\t"
                             f"{rng.rand():.3f}\tword\n")
     if not show:
@@ -2644,7 +2669,7 @@ def phase_data(dev, reps):
 
         # (4) cli test-stream over the whole test clips
         tmpl = beat_template(os.path.join(tmp, "template.bvh"))
-        clips, frames = DATA_CLIPS["test"], DATA_SECS * 15
+        clips, frames = DATA_CLIPS["test"], DATA_TEST_SECS * 15
         common = ["test-stream", "--device", "cuda", "--test-cache",
                   caches["test"], "--checkpoint", ckpt, "--stats-dir", stats,
                   "--template-bvh", tmpl, "--player", "--fgd-checkpoint", fgd]
@@ -2677,12 +2702,15 @@ def phase_data(dev, reps):
         expect("data test-stream clip 0", counts,
                fused_layer=16 * DATA_STREAM_CALLS,
                fused_linear_attention=DATA_STREAM_WINDOWS)
+        if os.path.exists(os.path.join(again, "clip_00001.npy")):
+            raise AssertionError("test-stream --max-clips 1 wrote clip 1")
         same = np.array_equal(np.load(os.path.join(again, "clip_00000.npy")),
                               np.load(os.path.join(out, "clip_00000.npy")))
-        log(f"data[test-stream clip 0 again]: {secs:.2f} s, bit for bit "
-            f"{same}")
+        log(f"data[test-stream clip 0 alone]: {secs:.2f} s, bit for bit "
+            f"equal to clip 0 of {clips} {same}")
         if not same:
-            raise AssertionError("test-stream clip 0 differs on a rerun")
+            raise AssertionError("test-stream clip 0 alone differs from "
+                                 "clip 0 of the run over several clips")
         gt = os.path.join(tmp, "gt")
         lines, secs, counts, _ = cli_call(common + ["--out-dir", gt,
                                                     "--output-gt"])
@@ -2812,7 +2840,6 @@ def frontend_checks(caches, hub_model, dev):
     mel / HuBERT split of its time, and the linear-attention kernel
     against its plain version inside a step with it."""
     import copy
-    import dataclasses
     from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.data.cache import ArrayCache
@@ -2876,7 +2903,6 @@ def frontend_checks(caches, hub_model, dev):
 def frontend_eval(caches, stats, hub_model, dev):
     """(b) ``Trainer.evaluate`` of 64 windows with the speech frontend
     before the generator."""
-    import dataclasses
     import tempfile
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.data.beat import BeatDataset, BeatStats
@@ -3254,15 +3280,489 @@ def phase_tools(dev, model, hubert_fe):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: the examples (diffsheg_tpu_torch/examples/)
+# --------------------------------------------------------------------------
+
+class Tee(io.TextIOBase):
+    """Writes to the real stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.buf = stream, io.StringIO()
+
+    def write(self, s):
+        self.stream.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def by_shape():
+    """The per-layer kernel's and linear attention's launches by shape."""
+    c = counters()
+    return (dict(c["fused_layer"].launches_by_shape),
+            dict(c["fused_linear_attention"].launches_by_shape))
+
+
+def run_example(tag, fn, *args, env=None, **kw):
+    """One example through its entry point, every launch count set to 0
+    just before and read just after; its standard output and error are
+    shown and kept.  Returns (stdout, stderr, counts, layer shapes,
+    attention shapes, seconds, return value)."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out, err = Tee(sys.stdout), Tee(sys.stderr)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            ret = fn(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    counts = {name: f.launches for name, f in counters().items()}
+    layers, attns = by_shape()
+    return (out.buf.getvalue(), err.buf.getvalue(), counts, layers, attns,
+            secs, ret)
+
+
+def example_line(tag, result, counts, layers, attns, secs, **extra):
+    log(f"examples[{tag}]: {json.dumps(result)} seconds={secs:.1f} "
+        f"launches={counts} fused_layer_by_shape={layers} "
+        f"fused_linear_attention_by_shape={attns}"
+        + "".join(f" {k}={v}" for k, v in extra.items()))
+
+
+def expect_shapes(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches by shape {got}, expected "
+                             f"{want}")
+
+
+def stream_calls(cfg, T, W=None):
+    """Model calls of a stream of T frames in windows of W (the config's
+    by default): the first window on the plain program, the rest on the
+    harmonize program, as the window generator builds them."""
+    from diffsheg_tpu_torch.diffusion.jump import (jump_schedule_ddim,
+                                                   make_step_program)
+    from diffsheg_tpu_torch.sampling.streamer import window_starts
+    d = cfg.diffusion
+    W = W or cfg.data.n_poses
+    ov = (cfg.stream.overlap_len if W == cfg.data.n_poses
+          else min(cfg.stream.overlap_len, W // 2))
+    n = int(d.respacing.replace("ddim", ""))
+    jl, jns = (1, 1) if d.no_resample else (d.jump_length, d.jump_n_sample)
+    repaint = (n if cfg.stream.no_repaint else make_step_program(
+        jump_schedule_ddim(n, jl, jns)).num_model_calls)
+    return n + (len(window_starts(T, W, W - ov)) - 1) * repaint
+
+
+EXAMPLE_ATTENTION_CASES = (
+    # (name, dtype, B, T, D, heads): convergence's training rows and its
+    # audio encoder, the evaluation's level cache; overfit's training rows
+    # (the audio encoder has the same shape) and a window's level cache;
+    # perf_probe's bf16 variant with the kernel forced (10 s level cache)
+    ("conv-train-f32", torch.float32, 32, 12, 32, 4),
+    ("conv-audio-enc-f32", torch.float32, 32, 12, 16, 4),
+    ("conv-eval-audio-enc-f32", torch.float32, 640, 12, 16, 4),
+    ("overfit-train-f32", torch.float32, 32, 34, 128, 4),
+    ("overfit-audio-enc-f32", torch.float32, 25, 34, 128, 4),
+    ("audio-enc-10s-bf16", torch.bfloat16, 125, 34, 128, 8))
+
+# (name, B, T, dtype, L, heads, F, Cp, c_real): convergence's evaluation
+# (64 windows of 12 frames in launches of 21 windows, and the last one;
+# its gesture branch), overfit's sampling (gesture branch), batch_probe's
+# 8 styles (7 + 1 windows of 34 frames a launch)
+EXAMPLE_LAYER_CASES = (
+    ("layer-conv-f32", 21, 12, torch.float32, 32, 4, 64, 128, 52),
+    ("layer-conv-b1-f32", 1, 12, torch.float32, 32, 4, 64, 128, 52),
+    ("layer-overfit-f32", 1, 34, torch.float32, 128, 4, 256, 512, 435),
+    ("layer-b7-bf16", 7, 34, torch.bfloat16, 512, 8, 1024, 1024, 947))
+
+
+def example_layer_case(name, B, T, dtype, L, H, F, Cp, c_real, dev, seed,
+                       reps):
+    """``fused_layer`` alone at an example's shape and widths."""
+    x, cond, mods, slp, _, _, _ = case_inputs(
+        dtype, B, T, Cp, c_real, False, dev, seed, L=L, H=H, F=F,
+        n_layers=1)
+    w_bytes = sum(t.numel() * t.element_size() for t in slp)
+    out = {"fused_layer": layer_result(x, cond, mods, slp, H, c_real, None,
+                                       None, None, reps, w_bytes,
+                                       layer_flops(B, T, Cp, L, H, F))}
+    check_lines(name, out, 1e-5 if dtype == torch.float32 else 8e-3)
+    return out
+
+
+def example_kernel_cases(dev, reps):
+    results = {}
+    for name, dt, B, T, D, H in EXAMPLE_ATTENTION_CASES:
+        results[f"attn-{name}"] = attention_case(name, dt, B, T, D, 0, H,
+                                                 dev, 17, reps)
+    for name, B, T, dt, L, H, F, Cp, c_real in EXAMPLE_LAYER_CASES:
+        results[name] = example_layer_case(name, B, T, dt, L, H, F, Cp,
+                                           c_real, dev, 18, reps)
+    return results
+
+
+def example_convergence(tmp, full):
+    """Item 1: Trainer.fit with the mid-run resume; the linear-attention
+    kernel in every step, the per-layer kernel in every evaluation."""
+    from diffsheg_tpu_torch.examples import convergence_demo as ex
+    from diffsheg_tpu_torch.ops.fused_layer import _batch_groups
+    epochs = 240 if full else 40
+    curve_out = os.path.join(tmp, "convergence.json")
+    out, _, counts, layers, attns, secs, _ = run_example(
+        "convergence", ex.main, [str(epochs), "--workdir",
+                                 os.path.join(tmp, "conv"), "--curve-out",
+                                 curve_out])
+    curve = json.load(open(curve_out))["curve"]
+    cfg = ex.make_config()
+    m, B, T = cfg.model, cfg.train.batch_size, cfg.data.n_poses
+    steps, evals = epochs * (256 // B), epochs // cfg.train.eval_every_epochs
+    n_val, levels = 64, int(cfg.diffusion.respacing.replace("ddim", ""))
+    # the joint audio encoder is one layer of audio_dim's width
+    want_attn = {(B, T, m.latent_dim, m.num_heads): 2 * m.num_layers * steps,
+                 (B, T, m.audio_dim, m.num_heads): steps,
+                 (levels * n_val, T, m.audio_dim, m.num_heads): evals}
+    want_layer = {}
+    for g in _batch_groups(n_val, T):
+        shape = (g.stop - g.start, T, m.latent_dim)
+        want_layer[shape] = want_layer.get(shape, 0) + (
+            evals * levels * 2 * m.num_layers)
+    expect_shapes("convergence attention", attns, want_attn)
+    expect_shapes("convergence per-layer", layers, want_layer)
+    expect("convergence", counts,
+           fused_linear_attention=sum(want_attn.values()),
+           fused_layer=sum(want_layer.values()))
+    mse = [r["val_mse"] for r in curve]
+    summary = json_lines_of(out)[-1]
+    if not (len(curve) == evals and mse[-1] < mse[0]
+            and all(np.isfinite(mse))):
+        raise AssertionError(f"convergence: val_mse {mse}")
+    example_line("convergence", summary, counts, layers, attns, secs,
+                 val_mse=f"{mse[0]:.4g}->{mse[-1]:.4g}",
+                 val_pck2=f"{curve[0]['val_pck2']:.4f}->"
+                 f"{curve[-1]['val_pck2']:.4f}")
+    if full:
+        import shutil
+        shutil.copy(curve_out, ex.CURVE)
+    return {"fused_linear_attention_examples_convergence":
+            want_attn[(B, T, m.latent_dim, m.num_heads)],
+            "fused_layer_examples_convergence": sum(want_layer.values())}
+
+
+def json_lines_of(text):
+    return [json.loads(s) for s in text.splitlines() if s.startswith("{")]
+
+
+def example_overfit(full):
+    """Item 2: the train step on one window, then DDIM-25 of 3 seeds."""
+    from diffsheg_tpu_torch.examples import overfit_demo as ex
+    steps = 24000 if full else 300
+    out, _, counts, layers, attns, secs, rc = run_example(
+        "overfit", ex.main, ["--steps", str(steps)])
+    cfg = ex.make_config()
+    m, T = cfg.model, cfg.data.n_poses
+    levels = int(cfg.diffusion.respacing.replace("ddim", ""))
+    # a step: both branches' layers and the audio encoder's at the rows;
+    # a window: its level cache, then every model call's layers
+    want_attn = {(32, T, m.latent_dim, m.num_heads): (
+        2 * m.num_layers + 1) * steps,
+        (levels, T, m.audio_dim, m.num_heads): 3}
+    want_layer = {(1, T, m.latent_dim): 3 * levels * 2 * m.num_layers}
+    expect_shapes("overfit attention", attns, want_attn)
+    expect_shapes("overfit per-layer", layers, want_layer)
+    expect("overfit", counts, fused_linear_attention=sum(want_attn.values()),
+           fused_layer=sum(want_layer.values()))
+    last = out.strip().splitlines()[-1]
+    ratio = float(last.split()[2])
+    if not np.isfinite(ratio):
+        raise AssertionError(f"overfit: {last}")
+    example_line("overfit", {"normalized_error": ratio, "steps": steps,
+                             "learned": rc == 0}, counts, layers, attns, secs)
+    return {"fused_linear_attention_examples_overfit":
+            want_attn[(32, T, m.latent_dim, m.num_heads)],
+            "fused_layer_examples_overfit": sum(want_layer.values())}
+
+
+def example_capacity(dev, full):
+    """Item 3: the serving daemon with N paced clients (rows 1, 4 for 8 s;
+    full: the JAX defaults for 16 s, and 2 and 3 sessions between); full
+    also profiles one more row at the largest N that kept real time."""
+    from diffsheg_tpu_torch.examples import serve_capacity as ex
+    secs, sizes = (16, "1,2,3,4,8,16") if full else (8, "1,4")
+    out, _, counts, layers, attns, t, _ = run_example(
+        "capacity", ex.main, ["--secs", str(secs), "--sessions", sizes])
+    cfg = ex.make_config()
+    sessions = 1 + sum(int(s) for s in sizes.split(","))
+    calls = stream_calls(cfg, secs * cfg.data.fps)
+    want = {(1, cfg.data.n_poses, cfg.model.latent_dim):
+            sessions * calls * 2 * cfg.model.num_layers}
+    expect_shapes("capacity per-layer", layers, want)
+    expect("capacity", counts, fused_layer=sum(want.values()))
+    rows = json_lines_of(out)
+    if len(rows) != 1 + len(sizes.split(",")):
+        raise AssertionError(f"capacity rows: {rows}")
+    ok = [r for r in rows[1:] if r["rt_ok"]]
+    extra = {}
+    if ok and full:
+        extra = capacity_idle(dev, cfg, max(r["sessions"] for r in ok), secs)
+    example_line("capacity", rows[1:], counts, layers, attns, t, **extra)
+    return {"fused_layer_examples_capacity": sum(want.values())}
+
+
+def capacity_idle(dev, cfg, n, secs):
+    """One more row of ``n`` sessions on a fresh server under
+    torch.profiler: the card's busy share of the row's wall (the union of
+    its kernels' intervals, after uncounted spin kernels; calibration.py
+    says why)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffsheg_tpu_torch.examples import serve_capacity as ex
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    from diffsheg_tpu_torch.serving.server import MotionServer
+    from diffsheg_tpu_torch.utils.calibration import (PROFILE_PAD_KERNELS,
+                                                      _busy_seconds)
+    srv = MotionServer(cfg, init_unidiffuser(cfg.model, seed=0),
+                       max_sessions=n + 1, log=lambda *a, **k: None,
+                       device=dev)
+    srv.start_background()
+    try:
+        ex.run_row(1, 2, 0.1, srv.address[1], cfg.data.mel_sr,
+                   cfg.model.style_dim)          # the weights to the card
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row = ex.run_row(n, secs, 0.1, srv.address[1], cfg.data.mel_sr,
+                             cfg.model.style_dim)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and "spin_kernel" not in e.name]
+    busy = _busy_seconds((e.time_range.start, e.time_range.end)
+                         for e in kernels)
+    return {"profiled_sessions": n, "profiled_rt_factor": row["rt_factor"],
+            "device_idle_pct": round(100 * (1 - busy / wall), 1),
+            "profiled_kernels": len(kernels)}
+
+
+def example_show(full):
+    """Item 4: the SHOW bench through its guards, with the step kernel
+    (its configuration with ``fused_step='on'``); full: also the JAX
+    configuration ('auto')."""
+    from diffsheg_tpu_torch.examples import show_bench as ex
+    default = ex.make_config
+    res = {}
+    for step in (("on", "auto") if full else ("on",)):
+        ex.make_config = lambda jn=2, step=step: default(jn).replace(
+            diffusion=dataclasses.replace(default(jn).diffusion,
+                                          fused_step=step))
+        try:
+            out, err, counts, layers, attns, secs, _ = run_example(
+                f"show-{step}", ex.main, [])
+            cfg = ex.make_config()
+        finally:
+            ex.make_config = default
+        calls = stream_calls(cfg, ex.SECS * cfg.data.fps)
+        # warm-up, the guard's probe (two calls), 6 timed, 1 to read
+        n_calls = 10
+        want = dict(fused_branch=n_calls * 2 * calls)
+        if step == "on":
+            want["fused_ddim_repaint_step"] = n_calls * calls
+        expect(f"show_bench fused_step={step}", counts, **want)
+        record = json_lines_of(out)[-1]
+        if not record.get("valid") or record["value"] <= 0:
+            raise AssertionError(f"show_bench: {record}")
+        example_line(f"show-{step}", record, counts, layers, attns, secs,
+                     stderr=err.strip().splitlines()[-1])
+        res[step] = counts
+    return {"fused_branch_examples_show": res["on"]["fused_branch"],
+            "fused_ddim_repaint_step_examples_show":
+            res["on"]["fused_ddim_repaint_step"]}
+
+
+def example_train_bench(full):
+    """Item 5: one row of the ladder (batch 256, f32); full: also 2500 in
+    bf16, the pipelined and the speech-frontend points."""
+    from diffsheg_tpu_torch.examples import train_bench as ex
+    runs = [([], {})]
+    if full:
+        runs += [(["2500", "bf16"], {}), ([], {"TRAIN_BENCH_PIPELINE": "1"}),
+                 ([], {"TRAIN_BENCH_FRONTEND": "256"})]
+    launches = None
+    for argv, env in runs:
+        out, err, counts, layers, attns, secs, _ = run_example(
+            "train_bench", ex.main, argv, env=env)
+        rows = json_lines_of(out)
+        if not rows or rows[-1].get("valid") is False:
+            raise AssertionError(f"train_bench {argv} {env}: {rows}")
+        if not argv and not env:
+            # steps: the first, the counted one, device_activity's two, 8
+            # timed; 16 branch-layer forwards and 1 audio encoder a step
+            want = {(256, 34, 512, 8): 12 * 16, (256, 34, 128, 8): 12}
+            expect_shapes("train_bench attention", attns, want)
+            expect("train_bench", counts,
+                   fused_linear_attention=sum(want.values()))
+            launches = want[(256, 34, 512, 8)]
+        # the bf16 rows run the composition (bf16 attention inputs): a
+        # measurement of the ladder, no kernel path
+        example_line("train_bench", rows, counts, layers, attns, secs,
+                     stderr=err.strip().splitlines()[-1])
+    return {"fused_linear_attention_examples_train_bench": launches}
+
+
+def example_batch(full):
+    """Item 6: B styles of one audio through FusedPipeline ('auto', bf16;
+    B 8 on a 10 s stream; full: B 8 and 64 on 60 s)."""
+    from diffsheg_tpu_torch.examples import batch_probe as ex
+    from diffsheg_tpu_torch.ops.fused_layer import _batch_groups
+    default = ex.SECS
+    secs = default if full else 10
+    ex.SECS = secs
+    total = 0
+    try:
+        for B in ((8, 64) if full else (8,)):
+            out, _, counts, layers, attns, t, _ = run_example(
+                f"batch-{B}", ex.main, [str(B)])
+            cfg = ex.make_config()
+            calls = stream_calls(cfg, secs * cfg.data.fps)
+            want = {}
+            for g in _batch_groups(B, cfg.data.n_poses):
+                shape = (g.stop - g.start, cfg.data.n_poses,
+                         cfg.model.latent_dim)
+                want[shape] = want.get(shape, 0) + (
+                    5 * calls * 2 * cfg.model.num_layers)
+            expect_shapes(f"batch_probe B={B}", layers, want)
+            expect(f"batch_probe B={B}", counts,
+                   fused_layer=sum(want.values()))
+            example_line(f"batch-{B}", {"line": out.strip(), "secs": secs},
+                         counts, layers, attns, t)
+            total = total or sum(want.values())
+    finally:
+        ex.SECS = default
+    return {"fused_layer_examples_batch": total}
+
+
+def example_live(full):
+    """Items 7-8: the latency frontier (W 34 and 12 for 10 s; full: the
+    JAX defaults) and the live demo (10 s; full: 12 s)."""
+    from diffsheg_tpu_torch.examples import live_demo, live_latency
+    secs, sizes = (40, "34,24,16,12") if full else (10, "34,12")
+    out, _, counts, layers, attns, t, _ = run_example(
+        "live_latency", live_latency.main, ["--secs", str(secs), "--sizes",
+                                            sizes])
+    cfg = live_latency.make_config()
+    T, L = secs * cfg.data.fps, cfg.model.latent_dim
+    per = 2 * cfg.model.num_layers
+    want = {(1, 34, L): 2 * per * stream_calls(cfg, T)}   # offline + W 34
+    for W in (int(s) for s in sizes.split(",")):
+        if W != 34:
+            want[(1, W, L)] = per * stream_calls(cfg, T, W)
+    expect_shapes("live_latency", layers, want)
+    expect("live_latency", counts, fused_layer=sum(want.values()))
+    example_line("live_latency", json_lines_of(out), counts, layers, attns,
+                 t)
+    demo_secs = 12.0 if full else 10.0
+    _, err, counts, layers, attns, t, final = run_example(
+        "live_demo", live_demo.main, demo_secs)
+    want_demo = per * stream_calls(cfg, final.shape[1])
+    expect("live_demo", counts, fused_layer=want_demo)
+    example_line("live_demo", {"session": err.strip().splitlines()[-1]},
+                 counts, layers, attns, t)
+    return {"fused_layer_examples_live": want[(1, 34, L)]}
+
+
+def example_probe(full):
+    """Item 9: the sampler probe (4 variants x 6 calls; 10 s, full 60 s)."""
+    from diffsheg_tpu_torch.examples import perf_probe as ex
+    secs = 60 if full else 10
+    out, _, counts, layers, attns, t, _ = run_example(
+        "perf_probe", ex.main, ["--secs", str(secs)])
+    cfg = ex.make_config()
+    calls = stream_calls(cfg, secs * cfg.data.fps)
+    # the level cache's audio encoder: 25 levels x the stream's windows
+    from diffsheg_tpu_torch.sampling.streamer import window_starts
+    K = len(window_starts(secs * cfg.data.fps, 34, 30))
+    want_attn = {(25 * K, 34, cfg.model.audio_dim, 8): 2 * 6}
+    want_layer = 4 * 6 * calls * 2 * cfg.model.num_layers
+    expect_shapes("perf_probe attention", attns, want_attn)
+    expect("perf_probe", counts, fused_layer=want_layer,
+           fused_linear_attention=12)
+    example_line("perf_probe", {"lines": out.strip().splitlines()}, counts,
+                 layers, attns, t)
+    return {"fused_layer_examples_probe": want_layer,
+            "fused_linear_attention_examples_probe": 12}
+
+
+def example_hubert_drift():
+    """Item 10 (full depth only): HuBERT's live drift; no kernel."""
+    from diffsheg_tpu_torch.examples import live_hubert_drift as ex
+    out, _, counts, layers, attns, t, _ = run_example(
+        "live_hubert_drift", ex.main, [])
+    expect("live_hubert_drift", counts)
+    example_line("live_hubert_drift", json_lines_of(out)[-1], counts, layers,
+                 attns, t)
+
+
+EXAMPLE_ITEMS = ("convergence", "overfit", "capacity", "show",
+                 "train_bench", "batch", "live", "probe", "hubert_drift")
+
+
+def phase_examples(dev, full, items=EXAMPLE_ITEMS):
+    """The examples of ``items`` (all by default) through their entry
+    points at a cut depth (``--full``: the JAX scripts' default depths),
+    each with exact launch counts; live_hubert_drift runs only in full."""
+    import tempfile
+    no_tf32()
+    t0 = time.perf_counter()
+    launches = {}
+    if "convergence" in items:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(example_convergence(tmp, full))
+    for name, fn in (("overfit", example_overfit),
+                     ("capacity", lambda f: example_capacity(dev, f)),
+                     ("show", example_show),
+                     ("train_bench", example_train_bench),
+                     ("batch", example_batch), ("live", example_live),
+                     ("probe", example_probe)):
+        if name in items:
+            launches.update(fn(full))
+    if full and "hubert_drift" in items:
+        example_hubert_drift()
+    log(f"examples: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
                                        "uncached", "live", "variants",
                                        "generate", "train", "data",
-                                       "scale", "tools"),
+                                       "scale", "tools", "examples"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--full", action="store_true",
+                    help="run the examples phase at the JAX scripts' "
+                    "default depths (and write the convergence curve)")
+    ap.add_argument("--examples", default=",".join(EXAMPLE_ITEMS),
+                    help="the examples phase's items, comma-separated "
+                    f"(default all: {','.join(EXAMPLE_ITEMS)})")
     ap.add_argument("--ab", nargs="+", metavar="CU", default=[],
                     help="other versions (paths) of fused_layer.cu, "
                     "linear_attention.cu or step_math.cu, by file name, to "
@@ -3271,6 +3771,9 @@ def main() -> int:
                     help="fail unless each --ab version's outputs equal "
                     "the tree's bit for bit")
     args = ap.parse_args()
+    unknown = set(args.examples.split(",")) - set(EXAMPLE_ITEMS)
+    if unknown:
+        ap.error(f"--examples: unknown {sorted(unknown)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3331,7 +3834,17 @@ def main() -> int:
            "fused_linear_attention_scale_testset_audio_enc",
            "fused_branch_doctor", "fused_layer_doctor",
            "fused_linear_attention_doctor",
-           "fused_ddim_repaint_step_doctor"])
+           "fused_ddim_repaint_step_doctor",
+           "fused_linear_attention_examples_convergence",
+           "fused_layer_examples_convergence",
+           "fused_linear_attention_examples_overfit",
+           "fused_layer_examples_overfit", "fused_layer_examples_capacity",
+           "fused_branch_examples_show",
+           "fused_ddim_repaint_step_examples_show",
+           "fused_linear_attention_examples_train_bench",
+           "fused_layer_examples_batch", "fused_layer_examples_live",
+           "fused_layer_examples_probe",
+           "fused_linear_attention_examples_probe"])
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
@@ -3367,6 +3880,9 @@ def main() -> int:
         launches.update(phase_data(dev, args.reps))
     if run("scale"):
         launches.update(phase_scale(dev))
+    if run("examples"):
+        launches.update(phase_examples(dev, args.full,
+                                       args.examples.split(",")))
     if kres is None:
         return 0
     entries = []
@@ -3517,6 +4033,40 @@ def main() -> int:
               "linear_attention.cu", "ops/linear_attention.py:99"),
              ("fused_ddim_repaint_step_doctor", "step-beat", None,
               "step_math.cu", "ops/step_math.py:153")]
+    # phase 14, the examples: convergence (training rows, the evaluation's
+    # per-layer kernel at 21 windows of 12 frames), overfit (training rows,
+    # sampling at (1, 34), L 128), serve_capacity and the live harnesses
+    # (bf16 at (1, 34)), show_bench (the SHOW chain, the step kernel),
+    # train_bench (batch 256), batch_probe (7 + 1 styles a launch),
+    # perf_probe (f32 at (1, 34), the 10 s level cache)
+    rows += [("fused_linear_attention_examples_convergence",
+              "attn-conv-train-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_examples_convergence", "layer-conv-f32",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_examples_overfit",
+              "attn-overfit-train-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_examples_overfit", "layer-overfit-f32",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_examples_capacity", "beat-ges-bf16",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_examples_show", "show-cfg-bf16", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_ddim_repaint_step_examples_show", "step-show", None,
+              "step_math.cu", "ops/step_math.py:153"),
+             ("fused_linear_attention_examples_train_bench",
+              "attn-scale-train-beat-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99"),
+             ("fused_layer_examples_batch", "layer-b7-bf16", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_examples_live", "beat-ges-bf16", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_layer_examples_probe", "beat-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_linear_attention_examples_probe",
+              "attn-audio-enc-10s-f32", None, "linear_attention.cu",
+              "ops/linear_attention.py:99")]
     for name, key, sub, source, line in rows:
         if key not in kres:
             continue

@@ -17,6 +17,7 @@ from diffsheg_tpu_torch.data.show import (  # noqa: F401
     combine_expression,
     extract_gesture,
     inv_standardize,
+    reassemble_smplx,
     standardize,
 )
 from diffsheg_tpu_torch.data.loader import ShardedBatchLoader  # noqa: F401

@@ -52,6 +52,26 @@ def extract_gesture(pose: np.ndarray) -> np.ndarray:
     return np.concatenate([up1, up2, up3, up4, p["hands"]], axis=-1)
 
 
+def reassemble_smplx(gesture: np.ndarray, expression103: np.ndarray,
+                     template: Optional[np.ndarray] = None) -> np.ndarray:
+    """Inverse carpentry: the generated channels back in a full 165-d
+    SMPL-X pose vector, the other channels from ``template`` or zero (the
+    reference leaves this to TalkSHOW's visualizer)."""
+    shape = gesture.shape[:-1]
+    full = (np.tile(template, shape + (1,)) if template is not None
+            else np.zeros(shape + (POSE_DIM_FULL,), dtype=gesture.dtype))
+    up = np.split(gesture[..., :39], np.cumsum([3, 3, 3, 30])[:-1], axis=-1)
+    full[..., 0:3] = expression103[..., :3]          # jaw
+    # the body block starts at 12; lower and upper groups alternate
+    off, ups = 12, iter(up)
+    for k, size in enumerate(_BODY_SPLITS):
+        if k % 2 == 1:
+            full[..., off:off + size] = next(ups)
+        off += size
+    full[..., 75:165] = gesture[..., 39:]            # hands
+    return full
+
+
 @dataclasses.dataclass
 class ShowStats:
     """TalkSHOW normalization stats (show.py:42-51)."""

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from diffsheg_tpu_torch.ops.linear_attention import (  # noqa: F401
-    linear_attention, linear_attention_reference)
+    linear_attention, linear_attention_core, linear_attention_reference)
 
 if TYPE_CHECKING:    # blocks.py imports this module
     from diffsheg_tpu_torch.models.blocks import Train

@@ -40,6 +40,11 @@ class HubertConfig:
     dtype: str = "float32"
 
 
+def hubert_large_config() -> HubertConfig:
+    """HuBERT-large geometry: the defaults, 1024-d, 24 pre-LN layers."""
+    return HubertConfig()
+
+
 def wav2vec2_base_config() -> HubertConfig:
     """facebook/wav2vec2-base-960h geometry (HuBERT-base too): 768-d, 12
     post-LN layers, group-norm first conv, bias-free convs."""

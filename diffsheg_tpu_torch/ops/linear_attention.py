@@ -134,21 +134,28 @@ def _block_work(plan: LaunchPlan, H: int,
             range(j * plan.width, (j + 1) * plan.width))
 
 
+def linear_attention_core(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """The two-einsum contraction on (B, T, H, hd) inputs, q already
+    softmaxed over hd and k over T, v masked: f32 accumulation, ctx rounded
+    to q's dtype before the second product, the result in q's dtype."""
+    ctx = torch.einsum("bnhd,bnhl->bhdl", k.float(), v.float())
+    y = torch.einsum("bnhd,bhdl->bnhl", q.float(), ctx.to(q.dtype).float())
+    return y.to(q.dtype)
+
+
 def linear_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """q (B, T, D), k and v (B, N, D) pre-softmax -> (B, T, D) in q's
-    dtype; both contractions accumulate in f32 and ctx is rounded to q's
-    dtype before the second, as in the JAX composition."""
+    dtype: the softmaxes, then :func:`linear_attention_core`, as in the JAX
+    composition."""
     B, T, D = q.shape
     N = k.shape[1]
     hd = D // num_heads
     qs = q.reshape(B, T, num_heads, hd).softmax(-1)
     ks = k.reshape(B, N, num_heads, hd).softmax(1)
     vv = v.reshape(B, N, num_heads, hd)
-    ctx = torch.einsum("bnhd,bnhl->bhdl", ks.float(), vv.float())
-    y = torch.einsum("bnhd,bhdl->bnhl", qs.float(),
-                     ctx.to(qs.dtype).float())
-    return y.to(q.dtype).reshape(B, T, D)
+    return linear_attention_core(qs, ks, vv).reshape(B, T, D)
 
 
 def fused_linear_attention_reference(q, k, v, num_heads: int) -> torch.Tensor:

@@ -18,6 +18,8 @@ on the host as float32 values.
   CPU tensor it runs the plain version.  Launches are counted in
   ``fused_ddim_repaint_step.launches``.  The launch shape (four channels a
   thread or one) is :func:`_step_plan`'s choice, made here;
+- :func:`ddim_repaint_step` is the dispatcher between the two (the
+  kernel for CUDA tensors unless told otherwise);
 - :func:`empty_launch` launches a kernel that does nothing, with a plan's
   shape: the floor under the step kernel's time.
 """
@@ -163,6 +165,22 @@ def fused_ddim_repaint_step(x, eps_out, scal: StepScalars, gt, gt_noise,
 
 
 fused_ddim_repaint_step.launches = 0
+
+
+def ddim_repaint_step(x, eps_out, scal: StepScalars, gt, gt_noise, prev_tail,
+                      overlap_len: int, add_blend: bool,
+                      use_fused: Optional[bool] = None) -> torch.Tensor:
+    """The step's dispatcher.  ``use_fused=None``: the kernel for CUDA
+    tensors, the plain version for CPU tensors; ``True``: the kernel's
+    wrapper (which itself runs the plain version on CPU tensors);
+    ``False``: the plain version.  No environment switch turns the kernel
+    off."""
+    if use_fused is None:
+        use_fused = x.is_cuda
+    step = (fused_ddim_repaint_step if use_fused
+            else ddim_repaint_step_reference)
+    return step(x, eps_out, scal, gt, gt_noise, prev_tail, overlap_len,
+                add_blend)
 
 
 def empty_launch(plan: StepPlan, device) -> None:

@@ -325,7 +325,7 @@ OWN_COPIES = {"geometry/joints.py": None, "geometry/bvh.py": None,
               "data/show.py": {"ShowStats", "extract_gesture",
                                "split_smplx_pose", "standardize",
                                "inv_standardize", "ShowDataset",
-                               "combine_expression"},
+                               "combine_expression", "reassemble_smplx"},
               "data/cache.py": None, "data/loader.py": {
                   "ShardedBatchLoader"},
               "eval/metrics.py": None,
@@ -394,12 +394,93 @@ def _sources(root):
 def test_every_jax_module_has_a_counterpart():
     """Every ``.py`` / ``.cpp`` of ``diffsheg_tpu/`` has a file of the same
     relative path in the port, but the listed ones (built libraries such as
-    ``libdataplane.so`` are not sources and are not walked)."""
+    ``libdataplane.so`` are not sources and are not walked); every script
+    of the JAX repository's ``examples/`` has a module of the same name in
+    ``diffsheg_tpu_torch/examples/``."""
     ours = set(_sources(os.path.join(ROOT, "diffsheg_tpu_torch")))
     ref = set(_sources(os.path.join(ROOT, "diffsheg_tpu")))
     missing = sorted(ref - ours - NO_COUNTERPART)
     assert not missing, missing
     assert NO_COUNTERPART <= ref and not NO_COUNTERPART & ours
+    scripts = {n for n in os.listdir(os.path.join(ROOT, "examples"))
+               if n.endswith(".py")}
+    assert len(scripts) == 10
+    missing = sorted(scripts - set(os.listdir(
+        os.path.join(ROOT, "diffsheg_tpu_torch", "examples"))))
+    assert not missing, missing
+
+
+# the JAX package's public names the port has no counterpart for, by
+# module, with the reason: each is tied to JAX itself
+JAX_ONLY_NAMES = {
+    # Flax initialisation on the host, and the lax.scan layouts of the
+    # layer stacks: the port's modules build their own seeded weights
+    # (random_init_) and hold every layer as its own module
+    "models/factory.py": {"host_init", "stack_scan_layers",
+                          "unstack_scan_layers"},
+    # placements of jax.Arrays on a device mesh; each of the port's
+    # processes holds plain tensors of its rows (shard_batch)
+    "parallel/mesh.py": {"data_sharding", "replicated",
+                         "to_global_replicated"},
+    "data/loader.py": {"device_put_sharded"},
+    # the lax.scan carry of the JAX sampler; the port's sampler is a loop
+    "diffusion/sampler.py": {"SampleState"},
+    # the Pallas dispatch policy and its DIFFSHEG_NO_PALLAS kill switch:
+    # the port's wrappers launch their kernel for CUDA tensors and run the
+    # plain version for CPU tensors, with no environment switch
+    "ops/linear_attention.py": {"supports_pallas"},
+    "ops/step_math.py": {"supports_fused_step"},
+    # JAX's harness runs its own test; the port's callers spawn the
+    # workers and run the checks themselves (spawn_workers)
+    "parallel/mp_lockstep.py": {"run_lockstep"},
+    # stacks the encoder's layers for a scanned encoder; the port's
+    # HubertModel holds its layers unrolled
+    "models/hubert.py": {"stack_layer_params"},
+    # XLA's CPU ahead-of-time signature and the host-burn limit of JAX's
+    # locality guard; the port's guard counts the card's kernels instead
+    "utils/calibration.py": {"CPU_AOT_SIGNATURE", "HOST_EXEC_FRAC_LIMIT"},
+}
+
+
+def _module_names(path):
+    """Top-level names a module defines or imports (``from m import n``
+    puts ``n`` in the module's namespace too)."""
+    names = _public_names(path)
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_jax_public_name_has_a_counterpart():
+    """Each top-level public function, class and constant of a JAX module
+    exists in the port's module of the same path, but the JAX-only names
+    listed with their reasons."""
+    missing = {}
+    for rel in sorted(_sources(os.path.join(ROOT, "diffsheg_tpu"))):
+        if not rel.endswith(".py") or rel in NO_COUNTERPART:
+            continue
+        ref = _public_names(os.path.join(ROOT, "diffsheg_tpu", rel))
+        ours = _module_names(os.path.join(ROOT, "diffsheg_tpu_torch", rel))
+        allowed = JAX_ONLY_NAMES.get(rel, set())
+        assert allowed <= ref and not allowed & ours, rel
+        gap = ref - ours - allowed
+        if gap:
+            missing[rel] = sorted(gap)
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in os.listdir(os.path.join(ROOT, "diffsheg_tpu_torch",
+                                       "examples")) if n.endswith(".py")))
+def test_examples_import_no_jax(name):
+    """The port's examples import torch, numpy, scipy and the port only."""
+    path = os.path.join(ROOT, "diffsheg_tpu_torch", "examples", name)
+    mods = list(_imports(path))
+    assert not [m for m in mods if _forbidden(m)], mods
+    allowed = ("torch", "numpy", "scipy", "diffsheg_tpu_torch")
+    third = {m.split(".")[0] for m in mods} - set(sys.stdlib_module_names)
+    assert third <= set(allowed), third
 
 
 def test_models_import_nothing_of_parallel():
