@@ -213,6 +213,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12                # its tensor cores in TF32, dense
 
 
 def log(msg: str) -> None:
@@ -305,6 +306,24 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+def layer_bound(nbytes: float, ops: tuple, dtype, quantized: bool) -> tuple:
+    """(ms, 'bytes' | 'operations', route) of the fused-layer kernels, on
+    the route they take: bf16 products and attention at the bf16
+    tensor-core rate; f32 weight products as split TF32 on the tensor
+    cores (three TF32 products each, two with int8 / int4 codes, which are
+    exact in TF32) plus the attention on the CUDA cores at the f32 rate.
+    ``ops``: (the weight products' operations, the attention's)."""
+    prods, attn = ops
+    if dtype == torch.bfloat16:
+        return (*bound(nbytes, prods + attn, dtype), "bf16 tensor cores")
+    n = 2 if quantized else 3
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = n * prods / TF32_FLOPS + attn / PEAK_FLOPS[torch.float32]
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations",
+            f"{n}xTF32 products at {TF32_FLOPS / 1e12:g} + attention at "
+            f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s")
+
+
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -370,15 +389,17 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     w_bytes = sum(t.numel() * t.element_size()
                   for t in (*slp, *(ssc or ())))
     io_bytes = sum(t.numel() * t.element_size() for t in (x, cond, mods, x))
-    flops = n_layers * layer_flops(B, T, Cp, L, H, F)
-    b_ms, b_by = bound(w_bytes + io_bytes, flops, dtype)
+    ops = layer_ops(B, T, Cp, L, H, F)
+    b_ms, b_by, route = layer_bound(w_bytes + io_bytes,
+                                    tuple(n_layers * o for o in ops), dtype,
+                                    ssc is not None)
     out["fused_branch"] = dict(
         rel_rms=e_rel, max_abs_err=e_abs, ms=branch_ms, wall_ms=branch_wall,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, route=route)
 
     out["fused_layer"] = layer_result(x, cond, mods, slp, H, c_real,
                                       null_emb, null_mask, ssc, reps,
-                                      w_bytes / n_layers, flops / n_layers)
+                                      w_bytes / n_layers, ops)
     log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
     if name.startswith("beat-ges"):
         trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
@@ -390,9 +411,10 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
 
 
 def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
-                 reps, layer_bytes, layer_flops):
+                 reps, layer_bytes, ops):
     """The per-layer kernel on layer 0 (assembled, padded feats) against
-    its plain version: errors, device and host ms, bound."""
+    its plain version: errors, device and host ms, bound (``ops``: a
+    layer's products' and attention's operations, ``layer_ops``)."""
     from diffsheg_tpu_torch.ops.fused_layer import (
         chain_feats, fused_layer, fused_layer_reference, layer_at)
     lp = layer_at(slp, 0)
@@ -414,10 +436,11 @@ def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
     layer_ms, layer_wall = device_ms(lkernel, reps), wall_ms(lkernel, reps)
     lplain_ms = device_ms(lplain, max(3, reps // 4))
     lio = sum(t.numel() * t.element_size() for t in (x, feats, ms_, mf_, x))
-    b_ms, b_by = bound(layer_bytes + lio, layer_flops, x.dtype)
+    b_ms, b_by, route = layer_bound(layer_bytes + lio, ops, x.dtype,
+                                    ssc is not None)
     return dict(rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms,
                 wall_ms=layer_wall, plain_ms=lplain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, route=route)
 
 
 def check_lines(name, out, tol):
@@ -426,16 +449,17 @@ def check_lines(name, out, tol):
             f"max_abs={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
             f"wall_ms={r['wall_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}; {r['route']})")
         if not r["rel_rms"] <= tol:
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
 
 
-def layer_flops(B, T, Cp, L=512, H=8, F=1024):
-    """One layer's operations: the seven products and the attention."""
-    return (2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L + 2 * L * F)
-            + 4 * B * T * L * (L // H))
+def layer_ops(B, T, Cp, L=512, H=8, F=1024):
+    """One layer's operations: (the seven weight products, the
+    attention)."""
+    return (2 * B * T * (Cp * 2 * L + 2 * L * L + 5 * L * L + 2 * L * F),
+            4 * B * T * L * (L // H))
 
 
 # the per-layer kernel at the gesture branch's shapes of other main paths:
@@ -456,7 +480,7 @@ def live_layer_case(name, B, T, dtype, dev, seed, reps):
     w_bytes = sum(t.numel() * t.element_size() for t in slp)
     out = {"fused_layer": layer_result(x, cond, mods, slp, 8, c_real, None,
                                        None, None, reps, w_bytes,
-                                       layer_flops(B, T, Cp))}
+                                       layer_ops(B, T, Cp))}
     check_lines(name, out, 1e-5 if dtype == torch.float32 else 8e-3)
     return out
 
@@ -803,17 +827,39 @@ def ab_line(what, path, outs, ms, plain, exact):
         raise AssertionError(f"{what}: outputs differ from {path}")
 
 
+# --ab's fused-layer cases: (name, dtype, B, T, c_real, null rows, quant,
+# seed, layers, kernels), phase 3's inputs: the BEAT gesture branch and the
+# SHOW classifier-free shape through both kernels, and the per-layer kernel
+# alone at the other f32 shapes of the main paths (cli generate's 4
+# speakers, training's evaluation of 7 windows)
+BOTH = ("fused_branch", "fused_layer")
+AB_LAYER_CASES = (
+    ("beat-ges-bf16", torch.bfloat16, 1, 34, 947, False, "none", 2, 8, BOTH),
+    ("beat-ges-f32", torch.float32, 1, 34, 947, False, "none", 2, 8, BOTH),
+    ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 947, False, "int8", 2, 8,
+     BOTH),
+    ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 947, False, "int4", 2, 8,
+     BOTH),
+    ("beat-ges-f32-int8", torch.float32, 1, 34, 947, False, "int8", 2, 8,
+     BOTH),
+    ("beat-ges-f32-int4", torch.float32, 1, 34, 947, False, "int4", 2, 8,
+     BOTH),
+    ("show-cfg-bf16", torch.bfloat16, 2, 88, 999, True, "none", 3, 8, BOTH),
+    ("show-cfg-f32", torch.float32, 2, 88, 999, True, "none", 3, 8, BOTH),
+    ("layer-beat-4spk-f32", torch.float32, 4, 34, 947, False, "none", 4, 1,
+     ("fused_layer",)),
+    ("layer-eval-beat-f32", torch.float32, 7, 34, 947, False, "none", 4, 1,
+     ("fused_layer",)))
+
+
 def ab_fused_layer(dev, reps, path, exact):
     from diffsheg_tpu_torch.ops import fused_layer as ops
     other = ab_entry(ops, path)
-    cases = (("beat-ges-bf16", torch.bfloat16, 1, 34, 947, False, "none"),
-             ("beat-ges-f32", torch.float32, 1, 34, 947, False, "none"),
-             ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 947, False, "int8"),
-             ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 947, False, "int4"),
-             ("show-cfg-bf16", torch.bfloat16, 2, 88, 999, True, "none"))
-    for name, dtype, B, T, c_real, null, quant in cases:
+    for (name, dtype, B, T, c_real, null, quant, seed, n_layers,
+         kernels) in AB_LAYER_CASES:
         x, cond, mods, slp, ne, nm, ssc = case_inputs(
-            dtype, B, T, 1024, c_real, null, dev, 3 if null else 2, quant)
+            dtype, B, T, 1024, c_real, null, dev, seed, quant,
+            n_layers=n_layers)
         lp = ops.layer_at(slp, 0)
         sc = None if ssc is None else ops.layer_at(ssc, 0)
         feats = ops.chain_feats(x, cond, None if ne is None else ne[0],
@@ -822,15 +868,16 @@ def ab_fused_layer(dev, reps, path, exact):
         calls = {
             "fused_branch": (lambda: ops.fused_branch(
                 x, cond, mods, slp, 8, c_real, ne, nm, ssc),
-                ops.fused_branch_reference(x, cond, mods, slp, 8, c_real, ne,
-                                           nm, ssc)),
+                lambda: ops.fused_branch_reference(
+                    x, cond, mods, slp, 8, c_real, ne, nm, ssc)),
             "fused_layer": (lambda: ops.fused_layer(
                 x, feats, ms_, mf_, lp, 8, c_real, sc),
-                ops.fused_layer_reference(x, feats, ms_, mf_, lp, 8, c_real,
-                                          sc))}
-        for kname, (call, plain) in calls.items():
+                lambda: ops.fused_layer_reference(
+                    x, feats, ms_, mf_, lp, 8, c_real, sc))}
+        for kname in kernels:
+            call, plain = calls[kname]
             outs, ms = ab_time(ops, other, call, reps)
-            ab_line(f"{kname} {name}", path, outs, ms, plain, exact)
+            ab_line(f"{kname} {name}", path, outs, ms, plain(), exact)
 
 
 def ab_attention(dev, reps, path, exact):
@@ -3397,7 +3444,7 @@ def example_layer_case(name, B, T, dtype, L, H, F, Cp, c_real, dev, seed,
     w_bytes = sum(t.numel() * t.element_size() for t in slp)
     out = {"fused_layer": layer_result(x, cond, mods, slp, H, c_real, None,
                                        None, None, reps, w_bytes,
-                                       layer_flops(B, T, Cp, L, H, F))}
+                                       layer_ops(B, T, Cp, L, H, F))}
     check_lines(name, out, 1e-5 if dtype == torch.float32 else 8e-3)
     return out
 

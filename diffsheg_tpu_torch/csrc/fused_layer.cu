@@ -22,12 +22,12 @@
 // Each layer runs as twelve phases separated by grid-wide barriers:
 //   LN(feats) | fc1 | fc2 | LN | QKV | attention | LN+AdaLN | sa_out |
 //   ffn l1 | ffn l2 | LN+AdaLN | ffn_out.
-// Every weight product is split by output columns (8 per work item for
-// bf16 weights, 4 for f32) across all blocks, so each weight byte is read
-// once per call by one block and every SM streams a share.  A block
-// copies the product's operand rows (B*T <= 256 of them, L2-resident) to
-// shared memory once per phase and splits the contraction over its 8
-// warps (bf16: tensor-core mma.sync m16n8k16; f32: FMAs).  A row phase
+// Every weight product is split by output columns (8 per work item, one
+// mma n-tile) across all blocks, so each weight byte is read once per call
+// by one block and every SM streams a share.  A block copies the product's
+// operand rows (B*T <= 256 of them, L2-resident) to shared memory and
+// splits the contraction over its 8 warps, on the tensor cores (bf16:
+// mma.sync m16n8k16; f32: split TF32, below).  A row phase
 // (one block per row) computes each LayerNorm / AdaLN / SiLU once and
 // writes the next product's rounded operand.  The attention phase splits
 // (batch row, head, 8-column chunk of ctx): column j of y = Q.ctx needs
@@ -56,6 +56,27 @@
 // bf16 QB = 0 sits at the 255-register limit: more values in flight in any
 // phase spill (measured), so the phases cannot all be unrolled further.
 //
+// The f32 route (f32 weights: the default compute dtype).  Split TF32 on
+// mma.sync m16n8k8: each f32 value x is two TF32 values, hi = rna(x) and
+// lo = rna(x - hi) (tf32_rna), and a product accumulates a_lo w_hi +
+// a_hi w_lo + a_hi w_hi into f32, small terms first, which keeps about f32
+// accuracy (one TF32 product alone is ~5e-4 off).  The weight slice is
+// split once, as put_w writes it to shared memory (a hi and a lo tile);
+// the operand in the multiply, five integer / float operations a value.
+// With QB = 8 / 4 the codes are exact in TF32, so a product is two,
+// a_lo w + a_hi w.  A block holds an item's split slice while it walks
+// the operand's row chunks (product_tf32): each weight is read and split
+// once per product, and at one 34-row window the operand is staged once.
+// Against the plain version (full f32 products) the layer's output is
+// 1.0e-6 to 1.6e-6 rel-RMS off at the BEAT and SHOW shapes, 5e-7 to 8e-7
+// with int8 / int4 codes (the tensor cores' f32 accumulation is not IEEE
+// addition), far inside the 1e-5 band.  What bounds it: at one window the
+// f32 weight stream (15.7 MB a layer, 0.0048 ms), with four and more the
+// three TF32 products at 495 TFLOP/s plus the attention at the CUDA cores'
+// f32 rate (0.0067 ms at (4, 34)); like bf16 it runs on its chains of
+// latencies, and its operand copy moves twice bf16's bytes (PERF.md has
+// the times, 1.4x bf16's).
+//
 // Quantized variants (the Pallas kernels' use_quant, ops/fused_layer.py
 // :374-395 and :492-497; the `sc` branch of _layer_math's mm, :221-248).
 // The kernel is templated on QB in {0, 8, 4} beside the weight dtype W.
@@ -64,10 +85,11 @@
 // matrix, low nibble: right half), each with per-column f32 scales.
 // Only the weight side changes: stage_w reads the item's code bytes and
 // writes them to shared memory already converted to W (|code| <= 127 is
-// exact in bf16), so the products run unchanged on the same tensor-core
-// (bf16) or FMA (f32) path, and the epilogue computes acc * s + b, each
-// rounded as _layer_math's `y * s + b`.  No int8 tensor-core product: that
-// would need int8 activations, a different function.  A QB = 4 item reads
+// exact in bf16 and TF32), so the products run on the same tensor-core
+// path (f32: two TF32 products, not three), and the epilogue computes
+// acc * s + b, each rounded as _layer_math's `y * s + b`.  No int8
+// tensor-core product: that would need int8 activations, a different
+// function.  A QB = 4 item reads
 // each packed byte of its slice once and runs two n-tiles, columns c and
 // c + ncol / 2 of one matrix (the QKV product maps each of its three
 // matrices separately), so a product has half as many items and a block
@@ -77,8 +99,8 @@
 // (PERF.md).  QB = 0 is the unquantized kernel.
 //
 // All eight weight products and both attention contractions are computed
-// here with f32 accumulation (no library GEMM): bf16 products on the
-// tensor cores, f32 products and the attention on CUDA cores.  Numerics
+// here with f32 accumulation (no library GEMM): the weight products on the
+// tensor cores, the attention on CUDA cores.  Numerics
 // follow _layer_math: product inputs are rounded to the weight dtype,
 // activations are f32, ctx is rounded before y = Q.ctx, GELU is the
 // Abramowitz-Stegun erf form, the first LayerNorm is masked to c_real,
@@ -96,7 +118,7 @@ namespace {
 
 constexpr int NT = 256;      // threads per block
 constexpr int RB = 64;       // most operand rows a product stages at once
-constexpr size_t A_BUDGET = 160 * 1024;  // shared-memory bytes for them
+constexpr size_t A_BUDGET = 160 * 1024;  // bf16: shared-memory bytes for them
 constexpr int MMAX = 256;    // rows (batch * time) per launch
 constexpr int HDMAX = 128;   // head width
 constexpr int AC = 8;        // ctx columns per attention work item
@@ -418,11 +440,8 @@ __device__ __forceinline__ T pick(int mat, T m0, T m1, T m2) {
   return mat == 0 ? m0 : (mat == 1 ? m1 : m2);
 }
 
-// Columns per product work item: 8 for bf16 (one mma n-tile), 4 for f32;
-// either way a weight row of the item is 16 bytes in shared memory.
-template <typename W> __host__ __device__ constexpr int item_cols() {
-  return 16 / (int)sizeof(W);
-}
+// Columns per product work item: one mma n-tile, for both weight dtypes.
+constexpr int TN = 8;
 // n-tiles per work item: two for packed int4 (both halves of a byte)
 template <int QB> __host__ __device__ constexpr int item_tiles() {
   return QB == 4 ? 2 : 1;
@@ -437,7 +456,7 @@ __device__ __forceinline__ Cols int4_item(const Prod& p, int item, int tn) {
   return {mat, (item - mat * per) * tn};
 }
 
-// One row of an item's codes: tn signed bytes (8 bytes for bf16, 4 for f32).
+// One row of an item's codes: 8 signed bytes.
 __device__ __forceinline__ void codes_of(uint2 r, int (&v)[8]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -445,12 +464,8 @@ __device__ __forceinline__ void codes_of(uint2 r, int (&v)[8]) {
     v[4 + j] = (int)(int8_t)(r.y >> (8 * j));
   }
 }
-__device__ __forceinline__ void codes_of(uint32_t r, int (&v)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = (int)(int8_t)(r >> (8 * j));
-}
 
-// Codes as 16 bytes of W, exactly: 8 bf16 or 4 f32.
+// Codes as 16 bytes of bf16, exactly.
 __device__ __forceinline__ uint32_t bf16_bits(int v) {
   return __bfloat16_as_ushort(__float2bfloat16((float)v));
 }
@@ -460,24 +475,43 @@ __device__ __forceinline__ uint4 as_w(const int (&v)[8]) {
                     bf16_bits(v[4]) | bf16_bits(v[5]) << 16,
                     bf16_bits(v[6]) | bf16_bits(v[7]) << 16);
 }
-__device__ __forceinline__ uint4 as_w(const int (&v)[4]) {
-  return make_uint4(__float_as_uint((float)v[0]), __float_as_uint((float)v[1]),
-                    __float_as_uint((float)v[2]), __float_as_uint((float)v[3]));
+
+// f32 -> TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
+// zero; 10 mantissa bits, the low 13 bits zero), in two integer operations
+// on the bits: half an ulp added to the magnitude, then truncated (a carry
+// into the exponent is the right result).  The cvt instruction itself
+// compiles to a longer sequence with a NaN test (measured slower).  A NaN
+// input may come out as an infinity; its lo part is then NaN, so the
+// product is.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo to about 2^-22 relative, both TF32 (x - hi is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-// A thread's part of a work item's K x tn weight slice, as it lies in
-// global memory: WR rows, one row a pass over the block; a row is 16 bytes
-// of W (QB 0) or tn bytes of int8 codes / packed int4 bytes.  Loading
+// Where an f32 item's weight (row k, column g) lies in its shared-memory
+// tile: per 16 rows, 32 lanes x 4 floats, lane 4 g + t holding column g of
+// rows 4 t .. 4 t + 3, so that one 16-byte load gives a lane its B
+// fragments of two m16n8k8 steps (mma_slice).
+__device__ __forceinline__ int tf32_at(int k, int g) {
+  return (k >> 4) * 128 + g * 16 + (k & 15);
+}
+
+// A thread's part of a work item's K x TN weight slice, as it lies in
+// global memory: WR rows, one row a pass over the block; a row is TN
+// weights of W (QB 0), TN int8 codes or TN packed int4 bytes.  Loading
 // (fetch_w) and converting into shared memory (put_w) are apart so that
 // the loads of a phase's first slice can be issued before the grid barrier
 // that precedes it (weights are constants): they are in flight while the
 // block waits, and the phase begins with the slice in registers.
 constexpr int WR = 4;
-template <typename W, int QB> struct raw_row { using type = uint4; };
-template <> struct raw_row<__nv_bfloat16, 8> { using type = uint2; };
-template <> struct raw_row<__nv_bfloat16, 4> { using type = uint2; };
-template <> struct raw_row<float, 8> { using type = uint32_t; };
-template <> struct raw_row<float, 4> { using type = uint32_t; };
+struct f32x8 { uint4 a, b; };
+template <typename W, int QB> struct raw_row { using type = uint2; };
+template <> struct raw_row<__nv_bfloat16, 0> { using type = uint4; };
+template <> struct raw_row<float, 0> { using type = f32x8; };
 template <typename W, int QB>
 struct Slice {
   typename raw_row<W, QB>::type r[WR];
@@ -489,8 +523,7 @@ template <typename W, int QB>
 __device__ __forceinline__ void fetch_w(const Prod& p, int item, int k0,
                                         Slice<W, QB>& s) {
   using Raw = typename raw_row<W, QB>::type;
-  constexpr int tn = item_cols<W>();
-  const Cols c = QB == 4 ? int4_item(p, item, tn) : cols_of(p, item * tn);
+  const Cols c = QB == 4 ? int4_item(p, item, TN) : cols_of(p, item * TN);
   // bytes: a matrix row, and the item's first column in it
   const long long row = QB == 0 ? (long long)p.ncol * (int)sizeof(W)
                       : QB == 8 ? p.ncol : p.ncol / 2;
@@ -500,32 +533,60 @@ __device__ __forceinline__ void fetch_w(const Prod& p, int item, int k0,
   for (int j = 0; j < WR; ++j) {
     const int k = k0 + threadIdx.x + j * NT;
     if (k < p.K) s.r[j] = *reinterpret_cast<const Raw*>(base + k * row);
+    else if constexpr (sizeof(W) == 4) s.r[j] = Raw{};
   }
 }
 
-// The same rows into Ws, in W: QB 0 as they are; QB 8 the codes converted;
-// QB 4 the packed bytes split into the high-nibble tile (Ws) and the
-// low-nibble tile (Ws + K * tn).
+// The same rows into Ws.  bf16: QB 0 as they are; QB 8 the codes
+// converted; QB 4 the packed bytes split into the high-nibble tile (Ws) and
+// the low-nibble tile (Ws + K * TN).  f32, in the tf32_at layout: QB 0 each
+// weight split once into its TF32 hi (tile Ws) and lo (tile Ws + K * TN)
+// parts; QB 8 the codes and QB 4 the two nibble tiles as floats, exact in
+// TF32 (|code| <= 127), so with no lo part.
 template <typename W, int QB>
 __device__ __forceinline__ void put_w(const Prod& p, int k0,
                                       const Slice<W, QB>& s, W* Ws) {
-  constexpr int tn = item_cols<W>();
-  uint4* dst = reinterpret_cast<uint4*>(Ws);
 #pragma unroll
   for (int j = 0; j < WR; ++j) {
     const int k = k0 + threadIdx.x + j * NT;
     if (k >= p.K) continue;
-    if constexpr (QB == 0) {
-      dst[k] = s.r[j];
+    if constexpr (sizeof(W) == 4) {
+      float* lo_tile = Ws + TN * p.K;
+      if constexpr (QB == 0) {
+        const uint4 u = s.r[j].a, v = s.r[j].b;
+        const uint32_t w[TN] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int g = 0; g < TN; ++g) {
+          uint32_t hi, lo;
+          split_tf32(__uint_as_float(w[g]), hi, lo);
+          Ws[tf32_at(k, g)] = __uint_as_float(hi);
+          lo_tile[tf32_at(k, g)] = __uint_as_float(lo);
+        }
+      } else {
+        int v[TN];
+        codes_of(s.r[j], v);
+#pragma unroll
+        for (int g = 0; g < TN; ++g) {
+          if constexpr (QB == 8) {
+            Ws[tf32_at(k, g)] = (float)v[g];
+          } else {
+            Ws[tf32_at(k, g)] = (float)(v[g] >> 4);
+            lo_tile[tf32_at(k, g)] = (float)(((v[g] & 0xF) ^ 8) - 8);
+          }
+        }
+      }
+    } else if constexpr (QB == 0) {
+      reinterpret_cast<uint4*>(Ws)[k] = s.r[j];
     } else {
-      int v[tn];
+      uint4* dst = reinterpret_cast<uint4*>(Ws);
+      int v[TN];
       codes_of(s.r[j], v);
       if constexpr (QB == 8) {
         dst[k] = as_w(v);
       } else {
-        int hi[tn], lo[tn];
+        int hi[TN], lo[TN];
 #pragma unroll
-        for (int i = 0; i < tn; ++i) {
+        for (int i = 0; i < TN; ++i) {
           hi[i] = v[i] >> 4;                    // byte = 16 hi + (lo & 0xF)
           lo[i] = ((v[i] & 0xF) ^ 8) - 8;       // sign-extended low nibble
         }
@@ -551,8 +612,10 @@ __device__ void stage_w(const Prod& p, int item, W* Ws) {
 template <typename W, int QB>
 __device__ __forceinline__ void fetch_ahead(const Prod& pn, Slice<W, QB>& s) {
   s.have = pn.K <= WR * NT
-      && (int)blockIdx.x < pn.N / (item_cols<W>() * item_tiles<QB>());
+      && (int)blockIdx.x < pn.N / (TN * item_tiles<QB>());
   if (s.have) fetch_w<W, QB>(pn, blockIdx.x, 0, s);
+  else if constexpr (sizeof(W) == 4)
+    for (int j = 0; j < WR; ++j) s.r[j] = typename raw_row<W, QB>::type{};
 }
 
 // acc -> the product's output before the epilogue: acc + b, or with
@@ -600,48 +663,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Multiply one n-tile: the block's staged rows x the K x tn slice Ws of
-// product columns n0 .. n0 + tn, then the epilogue.  bf16: each of the 8
-// warps runs the mma.sync m16n8k16 steps of its K / 8 slice over every
-// 16-row tile and the warps' partial tiles are summed through shared
-// memory.  f32: lane = 4 kg + c (c: the tile's column, kg: one of 8
-// interleaved contraction slices), warp rg owns rows rg + 8 i, FMAs,
-// slices summed with warp shuffles.
-template <int QB>
-__device__ void multiply(const Args& a, const Prod p, int r0, int rows,
-                         int n0, const float* As, int lda, const float* Ws,
-                         float*, bool first) {
-  constexpr int tn = item_cols<float>();
-  const int K = p.K;
-  const int c = threadIdx.x & (tn - 1);
-  const int kg = (threadIdx.x >> 2) & 7;
-  const int rg = threadIdx.x >> 5;
-  const int nr = (rows - rg + 7) / 8;             // rows of this warp
-  float acc[RB / 8];
-#pragma unroll
-  for (int i = 0; i < RB / 8; ++i) acc[i] = 0.f;
-  for (int k = kg; k < K; k += 8) {
-    const float w = Ws[k * tn + c];
-#pragma unroll
-    for (int i = 0; i < RB / 8; ++i)
-      if (i < nr) acc[i] = fmaf(As[(rg + 8 * i) * lda + k], w, acc[i]);
-  }
-  if (first) stamp(a, 2);
-  const Cols cc = cols_of(p, n0);
-  const float bias = ld<float>(pick(cc.mat, p.wb0, p.wb1, p.wb2), cc.c0 + c);
-  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
-#pragma unroll
-  for (int i = 0; i < RB / 8; ++i) {
-    float v = acc[i];
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (kg != 0 || i >= nr) continue;
-    const long long o = (long long)(r0 + rg + 8 * i) * p.N + n0 + c;
-    epilogue<float>(a, p, o,
-                    dequant<QB>(v, scale_at<QB>(sc, cc.c0 + c), bias),
-                    p.res != nullptr ? p.res[o] : 0.f);
-  }
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // One warp's mma.sync m16n8k16 steps ks0 .. ks1 of its K slice over MT
@@ -649,17 +679,17 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
 // are issued, and two steps are unrolled, so the shared-memory and
 // tensor-core latencies of a step overlap instead of adding up; each
 // accumulator still sums its steps in order.
-template <int MT>
+template <int MT, int QB>
 __device__ __forceinline__ void mma_slice(float (&d)[RB / 16][4],
                                           const __nv_bfloat16* As, int lda,
-                                          const unsigned short* Wu, int ks0,
-                                          int ks1, int g, int t) {
-  constexpr int tn = item_cols<__nv_bfloat16>();
+                                          const __nv_bfloat16* Ws, int,
+                                          int ks0, int ks1, int g, int t) {
+  const unsigned short* Wu = reinterpret_cast<const unsigned short*>(Ws);
 #pragma unroll 2
   for (int ks = ks0; ks < ks1; ++ks) {
     const int k0 = ks * 16 + 2 * t;
-    const uint32_t b0 = Wu[k0 * tn + g] | ((uint32_t)Wu[(k0 + 1) * tn + g] << 16);
-    const uint32_t b1 = Wu[(k0 + 8) * tn + g] | ((uint32_t)Wu[(k0 + 9) * tn + g] << 16);
+    const uint32_t b0 = Wu[k0 * TN + g] | ((uint32_t)Wu[(k0 + 1) * TN + g] << 16);
+    const uint32_t b1 = Wu[(k0 + 8) * TN + g] | ((uint32_t)Wu[(k0 + 9) * TN + g] << 16);
     uint32_t f[MT][4];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -675,12 +705,70 @@ __device__ __forceinline__ void mma_slice(float (&d)[RB / 16][4],
   }
 }
 
+// One m16n8k8 step of a split-TF32 product into d: the A fragment (rows g
+// and g + 8, contraction slots t and t + 4) split into hi + lo, then
+// a_lo w_hi + a_hi w_lo + a_hi w_hi (QB 0), or a_lo w + a_hi w (QB 8 / 4:
+// the codes are exact in TF32), small terms first.
 template <int QB>
+__device__ __forceinline__ void tf32_step(float (&d)[4], float a0, float a1,
+                                          float a2, float a3, float wh0,
+                                          float wh1, float wl0, float wl1) {
+  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+  split_tf32(a0, h0, l0);
+  split_tf32(a1, h1, l1);
+  split_tf32(a2, h2, l2);
+  split_tf32(a3, h3, l3);
+  const uint32_t b0 = __float_as_uint(wh0), b1 = __float_as_uint(wh1);
+  mma_tf32(d, l0, l1, l2, l3, b0, b1);
+  if constexpr (QB == 0)
+    mma_tf32(d, h0, h1, h2, h3, __float_as_uint(wl0), __float_as_uint(wl1));
+  mma_tf32(d, h0, h1, h2, h3, b0, b1);
+}
+
+// The f32 counterpart: each step ks covers 16 contraction rows as two
+// m16n8k8 steps.  Which 8 of the 16 rows a step takes is free as long as A
+// and B agree, so lane (g, t) takes rows 4 t .. 4 t + 3 (slot t of the
+// first step <- row 4 t, slot t + 4 <- 4 t + 1; the second step 4 t + 2
+// and 4 t + 3): one 16-byte load gives a row's A values of both steps, and
+// one of each weight tile its B values (the tf32_at layout).
+template <int MT, int QB>
+__device__ __forceinline__ void mma_slice(float (&d)[RB / 16][4],
+                                          const float* As, int lda,
+                                          const float* Ws, int K, int ks0,
+                                          int ks1, int g, int t) {
+  const float4* wh = reinterpret_cast<const float4*>(Ws) + 4 * g + t;
+  const float4* wl = reinterpret_cast<const float4*>(Ws + TN * K) + 4 * g + t;
+#pragma unroll 2
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const float4 bh = wh[ks * 32];
+    const float4 bl = QB == 0 ? wl[ks * 32] : bh;
+    float4 x[MT][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* r = As + (m * 16 + g) * lda + ks * 16 + 4 * t;
+      x[m][0] = *reinterpret_cast<const float4*>(r);
+      x[m][1] = *reinterpret_cast<const float4*>(r + 8 * lda);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      tf32_step<QB>(d[m], x[m][0].x, x[m][1].x, x[m][0].y, x[m][1].y,
+                    bh.x, bh.y, bl.x, bl.y);
+      tf32_step<QB>(d[m], x[m][0].z, x[m][1].z, x[m][0].w, x[m][1].w,
+                    bh.z, bh.w, bl.z, bl.w);
+    }
+  }
+}
+
+// Multiply one n-tile: the block's staged rows x the K x TN slice Ws of
+// product columns n0 .. n0 + TN, then the epilogue.  Each of the 8 warps
+// runs the mma.sync steps of its K / 8 slice over every 16-row tile (bf16
+// m16n8k16, f32 split-TF32 m16n8k8) and the warps' partial tiles are
+// summed through shared memory in warp order, so a row's value depends
+// neither on the other rows nor on where the row lies in the launch.
+template <typename W, int QB>
 __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
-                         int n0, const __nv_bfloat16* As, int lda,
-                         const __nv_bfloat16* Ws, float* part, bool first) {
-  constexpr int tn = item_cols<__nv_bfloat16>();
-  const unsigned short* Wu = reinterpret_cast<const unsigned short*>(Ws);
+                         int n0, const W* As, int lda, const W* Ws,
+                         float* part, bool first) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int ksteps = p.K / 16, kper = (ksteps + 7) / 8;
@@ -691,64 +779,117 @@ __device__ void multiply(const Args& a, const Prod p, int r0, int rows,
   const Cols cc = cols_of(p, n0);
   const void* wb = pick(cc.mat, p.wb0, p.wb1, p.wb2);
   const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
-  const bool own = (int)threadIdx.x < rows * tn;
-  const int col0 = cc.c0 + (threadIdx.x & (tn - 1));
-  float bias = own ? ld<__nv_bfloat16>(wb, col0) : 0.f;
+  const bool own = (int)threadIdx.x < rows * TN;
+  const int col0 = cc.c0 + (threadIdx.x & (TN - 1));
+  float bias = own ? ld<W>(wb, col0) : 0.f;
   float scale = own ? scale_at<QB>(sc, col0) : 1.f;
   float res = own && p.res != nullptr
-      ? p.res[(long long)(r0 + threadIdx.x / tn) * p.N + n0
-              + (threadIdx.x & (tn - 1))] : 0.f;
+      ? p.res[(long long)(r0 + threadIdx.x / TN) * p.N + n0
+              + (threadIdx.x & (TN - 1))] : 0.f;
   float d[RB / 16][4];
 #pragma unroll
   for (int m = 0; m < RB / 16; ++m) d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
   switch (mtiles) {
-    case 1: mma_slice<1>(d, As, lda, Wu, ks0, ks1, g, t); break;
-    case 2: mma_slice<2>(d, As, lda, Wu, ks0, ks1, g, t); break;
-    case 3: mma_slice<3>(d, As, lda, Wu, ks0, ks1, g, t); break;
-    default: mma_slice<4>(d, As, lda, Wu, ks0, ks1, g, t); break;
+    case 1: mma_slice<1, QB>(d, As, lda, Ws, p.K, ks0, ks1, g, t); break;
+    case 2: mma_slice<2, QB>(d, As, lda, Ws, p.K, ks0, ks1, g, t); break;
+    case 3: mma_slice<3, QB>(d, As, lda, Ws, p.K, ks0, ks1, g, t); break;
+    default: mma_slice<4, QB>(d, As, lda, Ws, p.K, ks0, ks1, g, t); break;
   }
   if (first) stamp(a, 2);
 #pragma unroll
   for (int m = 0; m < RB / 16; ++m) {
     if (m >= mtiles) break;
-    float* pr = part + (warp * RB + m * 16 + g) * tn + 2 * t;
+    float* pr = part + (warp * RB + m * 16 + g) * TN + 2 * t;
     pr[0] = d[m][0];
     pr[1] = d[m][1];
-    pr[8 * tn] = d[m][2];
-    pr[8 * tn + 1] = d[m][3];
+    pr[8 * TN] = d[m][2];
+    pr[8 * TN + 1] = d[m][3];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * tn; i += NT) {
-    const int r = i / tn, j = i - r * tn;
+  for (int i = threadIdx.x; i < rows * TN; i += NT) {
+    const int r = i / TN, j = i - r * TN;
     const long long o = (long long)(r0 + r) * p.N + n0 + j;
     if (i >= NT) {
-      bias = ld<__nv_bfloat16>(wb, cc.c0 + j);
+      bias = ld<W>(wb, cc.c0 + j);
       scale = scale_at<QB>(sc, cc.c0 + j);
       res = p.res != nullptr ? p.res[o] : 0.f;
     }
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * tn + j];
-    epilogue<__nv_bfloat16>(a, p, o, dequant<QB>(v, scale, bias), res);
+    for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * TN + j];
+    epilogue<W>(a, p, o, dequant<QB>(v, scale, bias), res);
   }
 }
 
-// One weight product over all M rows.  Work items are column tiles
-// spread over the grid; a block copies up to `rb` operand rows once (row
-// stride K + 8 for bf16, so fragment loads of 8 rows fall in distinct
-// banks), then walks its items: copy the item's weight slice, multiply
-// (packed int4: both of its tiles).  `ahead`: the block's first slice, asked
-// for before the grid barrier (fetch_ahead).
-template <typename W, int QB>
-__device__ void product(const Args& a, const Prod p, unsigned char* smem,
-                        Slice<W, QB>& ahead) {
-  constexpr bool mma = sizeof(W) == 2;
-  constexpr int tn = item_cols<W>();
+// Operand row stride in shared memory, so that a warp's fragment loads
+// fall in distinct banks: bf16 K + 8 (4-byte loads of 8 rows); f32 16
+// floats past a multiple of 32 (16-byte loads, rows g and g + 1 in one
+// quarter warp).  Widths are multiples of 16.
+template <typename W> __host__ __device__ constexpr int lda_of(int K) {
+  return sizeof(W) == 2 ? K + 8 : K + 16 - K % 32;
+}
+
+// f32 weights: the same work items, but the block holds an item's split
+// slice while it walks the operand's row chunks, so each slice is read and
+// split once per product; when all M rows fit they are staged once.
+template <int QB>
+__device__ void product_tf32(const Args& a, const Prod p, unsigned char* smem,
+                             Slice<float, QB>& ahead) {
   const int M = a.B * a.T;
-  const int n_items = p.N / (tn * item_tiles<QB>());
+  const int n_items = p.N / (TN * item_tiles<QB>());
   if ((int)blockIdx.x >= n_items) return;   // never block 0: no stamps owed
-  const int lda = mma ? p.K + 8 : p.K;
-  const int rb = min(RB, (a.a_elems / lda) / (mma ? 16 : 8) * (mma ? 16 : 8));
+  const int lda = lda_of<float>(p.K);
+  const int fit = min(RB, a.a_elems / lda);
+  const bool whole = M <= fit;
+  const int rb = whole ? M : fit / 16 * 16;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Ws = reinterpret_cast<float*>(smem + a.w_off);
+  float* part = reinterpret_cast<float*>(smem + a.part_off);
+  // the first slice first: the registers that hold it are then free for
+  // the products (the room is free: the attention phase's tiles lie below
+  // it, and a grid barrier ends the previous product)
+  if (ahead.have) put_w<float, QB>(p, 0, ahead, Ws);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int r0 = 0; r0 < M; r0 += rb) {
+      const int rows = min(rb, M - r0);
+      const bool first = r0 == 0 && item == (int)blockIdx.x;
+      __syncthreads();                            // As, Ws, part are free
+      if (!whole || first) stage_a<float>(p, r0, rows, As, lda);
+      if (first) stamp(a, 0);
+      if (r0 == 0 && !(first && ahead.have)) stage_w<float, QB>(p, item, Ws);
+      __syncthreads();
+      if (first) stamp(a, 1);
+      if constexpr (QB == 4) {
+        const Cols c = int4_item(p, item, TN);
+        const int n0 = c.mat * p.ncol + c.c0;
+        multiply<float, QB>(a, p, r0, rows, n0, As, lda, Ws, part, first);
+        __syncthreads();                          // part is free
+        multiply<float, QB>(a, p, r0, rows, n0 + p.ncol / 2, As, lda,
+                            Ws + TN * p.K, part, false);
+      } else {
+        multiply<float, QB>(a, p, r0, rows, item * TN, As, lda, Ws, part,
+                            first);
+      }
+      if (first) stamp(a, 3);
+    }
+  }
+  stamp(a, 4);
+}
+
+// bf16 weights: one weight product over all M rows.  Work items are
+// column tiles spread over the grid; a block copies up to `rb` operand
+// rows once, then walks its items: copy the item's weight slice, multiply
+// (packed int4: both of its tiles).  `ahead`: the block's first slice,
+// asked for before the grid barrier (fetch_ahead).
+template <int QB>
+__device__ void product_bf16(const Args& a, const Prod p, unsigned char* smem,
+                             Slice<__nv_bfloat16, QB>& ahead) {
+  using W = __nv_bfloat16;
+  const int M = a.B * a.T;
+  const int n_items = p.N / (TN * item_tiles<QB>());
+  if ((int)blockIdx.x >= n_items) return;   // never block 0: no stamps owed
+  const int lda = lda_of<W>(p.K);
+  const int rb = min(RB, (a.a_elems / lda) / 16 * 16);
   W* As = reinterpret_cast<W*>(smem);
   W* Ws = reinterpret_cast<W*>(smem + a.w_off);
   float* part = reinterpret_cast<float*>(smem + a.part_off);
@@ -765,19 +906,27 @@ __device__ void product(const Args& a, const Prod p, unsigned char* smem,
       __syncthreads();
       if (first) stamp(a, 1);
       if constexpr (QB == 4) {
-        const Cols c = int4_item(p, item, tn);
+        const Cols c = int4_item(p, item, TN);
         const int n0 = c.mat * p.ncol + c.c0;
-        multiply<QB>(a, p, r0, rows, n0, As, lda, Ws, part, first);
+        multiply<W, QB>(a, p, r0, rows, n0, As, lda, Ws, part, first);
         __syncthreads();                          // part is free
-        multiply<QB>(a, p, r0, rows, n0 + p.ncol / 2, As, lda, Ws + p.K * tn,
-                     part, false);
+        multiply<W, QB>(a, p, r0, rows, n0 + p.ncol / 2, As, lda,
+                        Ws + p.K * TN, part, false);
       } else {
-        multiply<QB>(a, p, r0, rows, item * tn, As, lda, Ws, part, first);
+        multiply<W, QB>(a, p, r0, rows, item * TN, As, lda, Ws, part, first);
       }
       if (first) stamp(a, 3);
     }
   }
   stamp(a, 4);
+}
+
+template <typename W, int QB>
+__device__ __forceinline__ void product(const Args& a, const Prod p,
+                                        unsigned char* smem,
+                                        Slice<W, QB>& ahead) {
+  if constexpr (sizeof(W) == 4) product_tf32<QB>(a, p, smem, ahead);
+  else product_bf16<QB>(a, p, smem, ahead);
 }
 
 // Linear attention core, per (batch row, head, AC-column chunk of ctx):
@@ -947,8 +1096,10 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
   return p;
 }
 
+// One block an SM (its shared memory takes no more): without the 1, ptxas
+// held <float, 8> to 128 registers, and it spilled.
 template <typename W, int QB>
-__global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
+__global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NT / 32];
   const int M = a.B * a.T, L = a.L;
@@ -1020,26 +1171,45 @@ __global__ void __launch_bounds__(NT) fused_layers_kernel(Args a) {
 }
 
 // Shared memory of one block: [operand rows | attention tiles] (the larger
-// of the two), then the weight slice, then (bf16) the warps' partial
-// tiles.  The operand gets up to A_BUDGET bytes: all B*T rows of a K-wide
-// operand when they fit (serving shapes in bf16), else row blocks.
+// of the two), then the weight slice room, then the warps' partial tiles.
+// bf16: the operand gets up to A_BUDGET bytes, all B*T rows of a K-wide
+// operand when they fit (serving shapes), else row blocks of 16; the room
+// holds one slice.  f32: the room holds one item's split slice at the
+// widest K, and the operand what is left, with 15 rows of its width free
+// behind it for a last tile's reads past the staged rows: at K = 1024, 35
+// rows (40 with int8 codes), so one 34-row window is staged whole.
+// a_elems = 0: widths too large to stage (f32: the widest K above 1680,
+// 1840 with int8 codes; bf16: above 5112).
+constexpr size_t SMEM_CAP = 227 * 1024 - 1024;  // dynamic, beside the static
 template <typename W, int QB>
 void smem_plan(Args* a, size_t* bytes) {
   const int M = a->B * a->T, hd = a->L / a->H;
   const int kmax = max(max(a->Cp, 2 * a->L), max(a->F, a->L));
-  const bool mma = sizeof(W) == 2;
-  const int align = mma ? 16 : 8;             // rows per mma tile / warp
-  const int lda = mma ? kmax + 8 : kmax;      // padded row for mma
-  const int rows = min(RB, min((M + align - 1) / align * align,
-                               (int)(A_BUDGET / (lda * sizeof(W))) / align * align));
-  a->a_elems = rows * lda;
-  const size_t abytes = sizeof(W) * (size_t)a->a_elems;
+  const int lda = lda_of<W>(kmax);
+  const size_t part = sizeof(float) * (NT / 32) * RB * TN;
   const size_t attn = sizeof(float) * ((size_t)2 * a->T * (hd + 1)
                                        + (size_t)a->T * AC + (size_t)hd * AC);
+  size_t wbytes, tail = 0;
+  int rows;
+  if constexpr (sizeof(W) == 2) {
+    rows = min(RB, min((M + 15) / 16 * 16,
+                       (int)(A_BUDGET / (lda * sizeof(W))) / 16 * 16));
+    wbytes = sizeof(W) * (size_t)kmax * TN * item_tiles<QB>();
+  } else {
+    const size_t row = sizeof(float) * lda;
+    // QB 0: the hi and lo tiles; QB 8: one of codes; QB 4: two of nibbles
+    wbytes = sizeof(float) * (size_t)TN * kmax * (QB == 8 ? 1 : 2);
+    rows = (int)min((SMEM_CAP - min(SMEM_CAP, wbytes + part)) / row,
+                    SMEM_CAP / row - 15);
+    rows = min(rows, min(RB, (M + 15) / 16 * 16));
+    if (rows < 16) rows = 0;
+    tail = row * (rows + 15);
+  }
+  a->a_elems = rows * lda;
+  const size_t abytes = sizeof(W) * (size_t)a->a_elems;
   a->w_off = (int)((max(abytes, attn) + 15) / 16 * 16);
-  a->part_off = a->w_off + (int)(sizeof(W) * (size_t)kmax * item_cols<W>()
-                                 * item_tiles<QB>());
-  *bytes = a->part_off + (mma ? sizeof(float) * (NT / 32) * RB * 8 : 0);
+  a->part_off = a->w_off + (int)wbytes;
+  *bytes = max(a->part_off + part, tail);
 }
 
 // Launch geometry of fused_layers_kernel<W, QB> at these widths: fills the
@@ -1136,7 +1306,7 @@ template <typename W>
 int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
                cudaStream_t stream) {
   const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
-  const int lda = sizeof(W) == 2 ? K + 8 : K;
+  const int lda = lda_of<W>(K);
   const int rows = min(a.B * a.T, a.a_elems / lda);
   if (cudaError_t e = cudaFuncSetAttribute(
           copy_probe_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1238,7 +1408,8 @@ extern "C" int diffsheg_fused_layers_probe(int dtype, const uint64_t* ptrs,
   const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
   out[0] = grid;
   out[1] = (int64_t)smem;
-  out[2] = min(a.B * a.T, a.a_elems / (dtype == 1 ? K + 8 : K));
+  out[2] = min(a.B * a.T, a.a_elems / (dtype == 1 ? lda_of<__nv_bfloat16>(K)
+                                                  : lda_of<float>(K)));
   out[3] = K;
   if (n < 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
