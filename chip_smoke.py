@@ -12,7 +12,13 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               BEAT gesture branch in bf16 and f32 and the SHOW shape in
               bf16; the per-layer kernel at the live shapes, a 12-frame
               window and 4 speakers of 34 frames, bf16; cli generate's 4
-              speaker styles of 34 frames, f32), linear attention (the BEAT branch rows in f32 and
+              speaker styles of 34 frames, f32; the widths past one pass,
+              which the kernels run in K passes: a model fed raw HuBERT
+              features, its expression branch (Cp 1792) and gesture branch
+              (1843 padded to 1920) in f32, the gesture branch in bf16 (one
+              pass) and at 4 speakers, f32 int8 / int4 at 1920, ff_size
+              2048 in f32 and 6144 in bf16, each line with its passes),
+              linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
               encoder, its batch-1 shape and cli generate's 3000-row
               (4 speakers), 125-row (10 s) and SHOW 100-row shapes, a 12-frame and a 512-frame
@@ -36,6 +42,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               fast path with its kernels swapped for their plain versions;
               then bench.py --check's quantized rows (int8 per-layer, int8
               and int4 branch kernel, int8 on a classifier-free model);
+              then a seeded raw-HuBERT model's f32 stream through each
+              kernel (K passes), against its own f32 uncached reference and
+              its plain swap (5e-3), launches by (Cp, F, passes);
 5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
               -> windowed DDIM-25 + RePaint sampler -> motion) at full
               width with seeded random weights, through the branch kernel;
@@ -88,7 +97,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               direct CustomAudioPipeline.generate, bit for bit; the
               exporter's euler conversion on the card against the CPU
               (1e-4 degrees weighed by the split's conditioning, |cos|
-              of the middle angle); a HuBERT-base extractor (768 x 12) on the card
+              of the middle angle); (e) a raw-HuBERT model, 10 s, f32,
+              launches by (Cp, F, passes); a HuBERT-base extractor
+              (768 x 12) on the card
               against the CPU (f32 rel-RMS <= 1e-5);
 10. train   — ``python -m diffsheg_tpu_torch.cli train`` in-process on
               synthetic caches of 5000 windows (and a HuBERT-large cache),
@@ -192,7 +203,9 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py --only kernels --ab OLD/linear_attention.cu [--ab-exact]
         # first time a kernel beside another version of its source (e.g.
         # the parent commit's), in one process; the file name picks the
-        # kernel: fused_layer.cu, linear_attention.cu or step_math.cu
+        # kernel: fused_layer.cu, linear_attention.cu or step_math.cu; a
+        # version that refuses a case (a width it cannot stage) is shown
+        # refusing it
 """
 
 from __future__ import annotations
@@ -293,11 +306,13 @@ def counters():
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0, linear attention's and the
-    per-layer kernel's by shape too."""
+    per-layer kernel's by shape too, the layer kernels' by width."""
     for fn in counters().values():
         fn.launches = 0
     counters()["fused_linear_attention"].launches_by_shape.clear()
     counters()["fused_layer"].launches_by_shape.clear()
+    counters()["fused_layer"].launches_by_width.clear()
+    counters()["fused_branch"].launches_by_width.clear()
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -395,13 +410,14 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
                                     ssc is not None)
     out["fused_branch"] = dict(
         rel_rms=e_rel, max_abs_err=e_abs, ms=branch_ms, wall_ms=branch_wall,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, route=route)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, route=route,
+        passes=passes_of(x, slp, H, ssc))
 
     out["fused_layer"] = layer_result(x, cond, mods, slp, H, c_real,
                                       null_emb, null_mask, ssc, reps,
                                       w_bytes / n_layers, ops)
     log(f"weights[{name}]: {w_bytes / 1e6:.2f} MB stored per branch")
-    if name.startswith("beat-ges"):
+    if name.startswith("beat-ges") or name == "raw-ges-f32":
         trace_lines(name, x, cond, mods, slp, H, c_real, null_emb, null_mask,
                     ssc)
     if name in ("beat-ges-bf16", "beat-ges-f32"):
@@ -440,7 +456,18 @@ def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
                                     ssc is not None)
     return dict(rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms,
                 wall_ms=layer_wall, plain_ms=lplain_ms, bound_ms=b_ms,
-                bound_by=b_by, route=route)
+                bound_by=b_by, route=route, passes=passes_of(x, slp, H, ssc))
+
+
+def passes_of(x, slp, H, ssc):
+    """The passes of the widest product in a launch of these arguments
+    (``k_pass_plan``; 1: the one-pass kernel)."""
+    from diffsheg_tpu_torch.ops.fused_layer import k_pass_plan
+    B, T, L = x.shape
+    L2, Cp = slp.fp_fc1_k.shape[-1], slp.fp_fc1_k.shape[-2]
+    qb = 0 if ssc is None else (8 if L2 == 2 * L else 4)
+    return k_pass_plan(x.dtype, qb, B, T, Cp, L, slp.ffn_l1_b.shape[-1],
+                       H).passes
 
 
 def check_lines(name, out, tol):
@@ -449,7 +476,7 @@ def check_lines(name, out, tol):
             f"max_abs={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
             f"wall_ms={r['wall_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}; {r['route']})")
+            f"({r['bound_by']}; {r['route']}) passes={r['passes']}")
         if not r["rel_rms"] <= tol:
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
@@ -470,6 +497,38 @@ LIVE_LAYER_CASES = (("live-t12-bf16", 1, 12, torch.bfloat16),
                     ("live-b4-bf16", 4, 34, torch.bfloat16),
                     ("layer-beat-4spk-f32", 4, 34, torch.float32),
                     ("layer-eval-beat-f32", 7, 34, torch.float32))
+
+
+# widths past one pass of the layer kernels (K passes, k_pass_plan): raw
+# HuBERT features (model.encode_hubert=False) widen the BEAT expression
+# branch's feats to 512 + 256 + 1024 = 1792 and the gesture branch's to
+# 1843, padded to 1920; ff_size 2048; in bf16 one pass takes 1920 and
+# ff_size 6144 takes passes.  (name, dtype, B, T, Cp, c_real, F, layers,
+# passes): 8 layers runs both kernels, 1 the per-layer kernel alone (cli
+# generate's four speakers)
+WIDE_CASES = (("raw-exp-f32", torch.float32, 1, 34, 1792, 1792, 1024, 8, 2),
+              ("raw-ges-f32", torch.float32, 1, 34, 1920, 1843, 1024, 8, 2),
+              ("raw-ges-bf16", torch.bfloat16, 1, 34, 1920, 1843, 1024, 8,
+               1),
+              ("raw-ges-4spk-f32", torch.float32, 4, 34, 1920, 1843, 1024, 1,
+               2),
+              ("ff2048-f32", torch.float32, 1, 34, 1024, 947, 2048, 8, 2),
+              ("ff6144-bf16", torch.bfloat16, 1, 34, 1024, 947, 6144, 8, 6))
+
+
+def wide_case(name, dtype, B, T, Cp, c_real, F, n_layers, passes, dev, seed,
+              reps, quant="none"):
+    """The layer kernels at a width past one pass (both, or the per-layer
+    kernel alone for ``n_layers`` 1, unquantized), held to their dtype's
+    tolerance; fails unless the launch took ``passes`` passes."""
+    out = (kernel_case(name, dtype, B, T, Cp, c_real, False, dev, seed, reps,
+                       quant, F=F) if n_layers > 1 else
+           example_layer_case(name, B, T, dtype, 512, 8, F, Cp, c_real, dev,
+                              seed, reps))
+    got = {k: r["passes"] for k, r in out.items()}
+    if set(got.values()) != {passes}:
+        raise AssertionError(f"{name}: passes {got}, expected {passes}")
+    return out
 
 
 def live_layer_case(name, B, T, dtype, dev, seed, reps):
@@ -753,6 +812,10 @@ def quant_kernel_cases(dev, reps):
         name = f"show-cfg-bf16-{quant}"
         results[name] = kernel_case(name, torch.bfloat16, 2, 88, 1024, 999,
                                     True, dev, 3, reps, quant)
+        # the raw-HuBERT gesture branch, f32 in K passes
+        name = f"raw-ges-f32-{quant}"
+        results[name] = wide_case(name, torch.float32, 1, 34, 1920, 1843,
+                                  1024, 8, 2, dev, 19, reps, quant)
     return results
 
 
@@ -783,6 +846,8 @@ def phase_kernels(dev, reps):
             f"show-cfg-{tag}", dtype, 2, 88, 1024, 999, True, dev, 3, reps)
     for name, B, T, dtype in LIVE_LAYER_CASES:
         results[name] = live_layer_case(name, B, T, dtype, dev, 4, reps)
+    for name, *case in WIDE_CASES:
+        results[name] = wide_case(name, *case, dev, 19, reps)
     results.update(quant_kernel_cases(dev, reps))
     results.update(example_kernel_cases(dev, reps))
     return results
@@ -801,14 +866,24 @@ def ab_entry(mod, path):
 
 def ab_time(mod, other, call, reps):
     """``call`` through the other version and the tree's, in the order
-    other, tree, tree, other: ({which: output}, {which: device ms})."""
+    other, tree, tree, other: ({which: output}, {which: device ms}).  An
+    other version that refuses the call is recorded by its message under
+    "refused" and timed no further."""
     saved, tree = mod._lib, mod._lib()
     outs, ms = {}, {}
     try:
         for which in ("other", "tree", "tree2", "other2"):
             fn = other if which.startswith("other") else tree
+            if fn is other and "refused" in outs:
+                continue
             mod._lib = lambda fn=fn, **_: fn
-            outs[which] = call()
+            try:
+                outs[which] = call()
+            except RuntimeError as e:
+                if fn is tree:
+                    raise
+                outs["refused"] = str(e)
+                continue
             ms[which] = device_ms(call, reps) if reps else 0.0
     finally:
         mod._lib = saved
@@ -816,6 +891,11 @@ def ab_time(mod, other, call, reps):
 
 
 def ab_line(what, path, outs, ms, plain, exact):
+    if "refused" in outs:
+        log(f"ab[{what}] other={path}: refused ({outs['refused']}); tree "
+            f"ms {ms['tree']:.4f} {ms['tree2']:.4f}, rel_rms vs plain "
+            f"{rel_rms(outs['tree'], plain):.3e}")
+        return
     same = torch.equal(outs["other"], outs["tree"])
     log(f"ab[{what}] other={path}: ms other {ms['other']:.4f} tree "
         f"{ms['tree']:.4f} tree {ms['tree2']:.4f} other {ms['other2']:.4f}; "
@@ -827,38 +907,48 @@ def ab_line(what, path, outs, ms, plain, exact):
         raise AssertionError(f"{what}: outputs differ from {path}")
 
 
-# --ab's fused-layer cases: (name, dtype, B, T, c_real, null rows, quant,
-# seed, layers, kernels), phase 3's inputs: the BEAT gesture branch and the
-# SHOW classifier-free shape through both kernels, and the per-layer kernel
-# alone at the other f32 shapes of the main paths (cli generate's 4
-# speakers, training's evaluation of 7 windows)
+# --ab's fused-layer cases: (name, dtype, B, T, Cp, c_real, F, null rows,
+# quant, seed, layers, kernels), phase 3's inputs: the BEAT gesture branch
+# and the SHOW classifier-free shape through both kernels, and the
+# per-layer kernel alone at the other f32 shapes of the main paths (cli
+# generate's 4 speakers, training's evaluation of 7 windows); then the
+# raw-HuBERT gesture branch and ff_size 2048 in f32, which a version
+# without K passes refuses
 BOTH = ("fused_branch", "fused_layer")
 AB_LAYER_CASES = (
-    ("beat-ges-bf16", torch.bfloat16, 1, 34, 947, False, "none", 2, 8, BOTH),
-    ("beat-ges-f32", torch.float32, 1, 34, 947, False, "none", 2, 8, BOTH),
-    ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 947, False, "int8", 2, 8,
-     BOTH),
-    ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 947, False, "int4", 2, 8,
-     BOTH),
-    ("beat-ges-f32-int8", torch.float32, 1, 34, 947, False, "int8", 2, 8,
-     BOTH),
-    ("beat-ges-f32-int4", torch.float32, 1, 34, 947, False, "int4", 2, 8,
-     BOTH),
-    ("show-cfg-bf16", torch.bfloat16, 2, 88, 999, True, "none", 3, 8, BOTH),
-    ("show-cfg-f32", torch.float32, 2, 88, 999, True, "none", 3, 8, BOTH),
-    ("layer-beat-4spk-f32", torch.float32, 4, 34, 947, False, "none", 4, 1,
-     ("fused_layer",)),
-    ("layer-eval-beat-f32", torch.float32, 7, 34, 947, False, "none", 4, 1,
-     ("fused_layer",)))
+    ("beat-ges-bf16", torch.bfloat16, 1, 34, 1024, 947, 1024, False, "none",
+     2, 8, BOTH),
+    ("beat-ges-f32", torch.float32, 1, 34, 1024, 947, 1024, False, "none", 2,
+     8, BOTH),
+    ("beat-ges-bf16-int8", torch.bfloat16, 1, 34, 1024, 947, 1024, False,
+     "int8", 2, 8, BOTH),
+    ("beat-ges-bf16-int4", torch.bfloat16, 1, 34, 1024, 947, 1024, False,
+     "int4", 2, 8, BOTH),
+    ("beat-ges-f32-int8", torch.float32, 1, 34, 1024, 947, 1024, False,
+     "int8", 2, 8, BOTH),
+    ("beat-ges-f32-int4", torch.float32, 1, 34, 1024, 947, 1024, False,
+     "int4", 2, 8, BOTH),
+    ("show-cfg-bf16", torch.bfloat16, 2, 88, 1024, 999, 1024, True, "none",
+     3, 8, BOTH),
+    ("show-cfg-f32", torch.float32, 2, 88, 1024, 999, 1024, True, "none", 3,
+     8, BOTH),
+    ("layer-beat-4spk-f32", torch.float32, 4, 34, 1024, 947, 1024, False,
+     "none", 4, 1, ("fused_layer",)),
+    ("layer-eval-beat-f32", torch.float32, 7, 34, 1024, 947, 1024, False,
+     "none", 4, 1, ("fused_layer",)),
+    ("raw-ges-f32", torch.float32, 1, 34, 1920, 1843, 1024, False, "none",
+     19, 8, BOTH),
+    ("ff2048-f32", torch.float32, 1, 34, 1024, 947, 2048, False, "none", 19,
+     8, BOTH))
 
 
 def ab_fused_layer(dev, reps, path, exact):
     from diffsheg_tpu_torch.ops import fused_layer as ops
     other = ab_entry(ops, path)
-    for (name, dtype, B, T, c_real, null, quant, seed, n_layers,
+    for (name, dtype, B, T, Cp, c_real, F, null, quant, seed, n_layers,
          kernels) in AB_LAYER_CASES:
         x, cond, mods, slp, ne, nm, ssc = case_inputs(
-            dtype, B, T, 1024, c_real, null, dev, seed, quant,
+            dtype, B, T, Cp, c_real, null, dev, seed, quant, F=F,
             n_layers=n_layers)
         lp = ops.layer_at(slp, 0)
         sc = None if ssc is None else ops.layer_at(ssc, 0)
@@ -1039,6 +1129,67 @@ def phase_stream(dev, model):
         raise AssertionError(f"stream bands failed: {r16:.3e}, {r32:.3e}, "
                              f"{r32o:.3e}, {r16p:.3e}, {r32p:.3e}")
     phase_quant_stream(dev, model, ref, mel, pid, hub)
+    return raw_hubert_stream(dev, mel, pid, hub)
+
+
+# a BEAT model fed raw HuBERT features (the reference's --addHubert without
+# --encode_hubert): its branches' feats are 1792 and 1843 (padded 1920)
+# wide, past one pass of the f32 layer kernels
+RAW_HUBERT = dict(encode_hubert=False)
+RAW_WIDTHS = ((1792, 1024, 2), (1920, 1024, 2))   # (Cp, F, passes) a branch
+
+
+def raw_hubert_model():
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    return init_unidiffuser(beat_cfg("float32", "off",
+                                     model=RAW_HUBERT).model, seed=3)
+
+
+def layer_widths():
+    """The layer kernels' launches by (Cp, F, passes)."""
+    c = counters()
+    return (dict(c["fused_layer"].launches_by_width),
+            dict(c["fused_branch"].launches_by_width))
+
+
+def raw_hubert_stream(dev, mel, pid, hub):
+    """The 68-frame stream of a seeded raw-HuBERT BEAT model in f32 through
+    the per-layer kernel ('auto') and the branch kernel ('chain'), each
+    held to 5e-3 against the model's own kernel-free f32 uncached stream
+    and against the same path with its kernel calls swapped for their
+    plain versions; the launches by width, exactly."""
+    model = raw_hubert_model()
+    ref = reference_stream(beat_cfg("float32", "off", model=RAW_HUBERT,
+                                    level_cache=False),
+                           model, mel, pid, hub, dev)
+    launches, failed = {}, []
+    for mode, kernel in (("auto", "fused_layer"), ("chain", "fused_branch")):
+        cfg = beat_cfg("float32", mode, model=RAW_HUBERT)
+        calls = stream_calls(cfg, mel.shape[1])
+        per = cfg.model.num_layers if mode == "auto" else 1
+        zero_counts()
+        got = run_stream(cfg, model, mel, pid, hub, 5, dev)
+        counts = {n: fn.launches for n, fn in counters().items()}
+        widths = layer_widths()[mode == "chain"]
+        swap = plain_swap_stream(cfg, model, mel, pid, hub, dev)
+        e_ref, e_swap = rel_rms(got, ref), rel_rms(got, swap)
+        log(f"stream[68 frames, raw HuBERT f32 {mode}]: vs f32 uncached "
+            f"rel_rms={e_ref:.3e} (tol 5e-3); vs plain-swap rel_rms="
+            f"{e_swap:.3e} (tol 5e-3); launches={counts} {kernel} by (Cp, F, "
+            f"passes)={widths}")
+        # the level cache's audio encoder: one f32 linear-attention launch
+        expect(f"raw HuBERT stream {mode}", counts,
+               **{kernel: 2 * per * calls}, fused_linear_attention=1)
+        want = {w: per * calls for w in RAW_WIDTHS}
+        if widths != want:
+            failed.append(f"{mode}: by width {widths}, expected {want}")
+        if not (torch.isfinite(got).all() and e_ref < 5e-3
+                and e_swap < 5e-3):
+            failed.append(f"{mode}: {e_ref:.3e}, {e_swap:.3e}")
+        launches[f"{kernel}_raw_stream"] = counts[kernel]
+    if failed:
+        raise AssertionError(f"raw HuBERT stream failed: {failed}")
+    return launches
 
 
 def phase_quant_stream(dev, model, ref, mel, pid, hub):
@@ -1900,7 +2051,8 @@ def phase_generate(dev, model):
     per-layer kernel) with 4 speaker styles, ``--warmup``,
     ``--template-bvh`` and ``--player``; (b) the bench's configuration
     (bf16, 'chain', jump_n_sample 2), one speaker; (c) the staged path
-    (``stream.single_dispatch=false``), 10 s; (d) SHOW, 10 s.  Launch
+    (``stream.single_dispatch=false``), 10 s; (d) SHOW, 10 s; (e) a model
+    fed raw HuBERT features, 10 s (its f32 layers in K passes).  Launch
     counts exactly, files checked; (a)'s motion against a direct
     ``CustomAudioPipeline.generate`` bit for bit; the exporter on the card;
     a HuBERT-base extractor on the card against the CPU."""
@@ -2002,6 +2154,29 @@ def phase_generate(dev, model):
         launches["fused_layer_generate_show"] = d.counts["fused_layer"]
         launches["fused_linear_attention_generate_show_audio_enc"] = (
             d.counts["fused_linear_attention"])
+
+        # (e) raw HuBERT features: f32 layers in K passes
+        raw_tar = save_reference_checkpoint(
+            raw_hubert_model(), os.path.join(tmp, "raw.tar"))
+        e = CliRun()(["generate", "--checkpoint", raw_tar, "--stats-dir",
+                      stats_dir, "--warmup", "--audio", wav10, "--out-dir",
+                      os.path.join(tmp, "e"), "--speakers", "1", "--set",
+                      "model.encode_hubert=false"])
+        widths = layer_widths()[0]
+        generate_line("(e) beat 10 s, f32, auto, raw HuBERT", e, 150)
+        log(f"generate[(e) per-layer launches by (B, T, L)]: "
+            f"{dict(counters()['fused_layer'].launches_by_shape)} by (Cp, F, "
+            f"passes): {widths}")
+        if e.result.motion.shape != (1, 150, 192) or not np.isfinite(
+                e.result.motion).all():
+            raise AssertionError(f"(e): motion {e.result.motion.shape}")
+        expect("generate (e)", e.counts, fused_layer=16 * GEN_CALLS_10S,
+               fused_linear_attention=1)
+        check_attention_shapes("generate (e)", e.shapes,
+                               {(125, 34, 128, 8): 1})
+        expect_shapes("generate (e) per-layer kernel by (Cp, F, passes)",
+                      widths, {w: 8 * GEN_CALLS_10S for w in RAW_WIDTHS})
+        launches["fused_layer_generate_raw"] = e.counts["fused_layer"]
 
         exporter_on_card(stats, dev)
     hubert_base_on_card(dev)
@@ -3855,6 +4030,8 @@ def main() -> int:
            "fused_linear_attention_single",
            "fused_ddim_repaint_step_single",
            "fused_ddim_repaint_step_learned_var",
+           "fused_layer_raw_stream", "fused_branch_raw_stream",
+           "fused_layer_generate_raw",
            "fused_layer_generate", "fused_branch_generate",
            "fused_layer_generate_staged", "fused_layer_generate_show",
            "fused_linear_attention_generate_audio_enc",
@@ -3901,7 +4078,7 @@ def main() -> int:
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
         if run("stream"):
-            phase_stream(dev, model)
+            launches.update(phase_stream(dev, model))
         if any(run(p) for p in ("e2e", "uncached", "live", "variants",
                                 "tools")):
             t0 = time.perf_counter()
@@ -4003,6 +4180,14 @@ def main() -> int:
              ("fused_linear_attention_generate_show_audio_enc",
               "attn-show-audio-enc-f32", None, "linear_attention.cu",
               "ops/linear_attention.py:99")]
+    # the raw-HuBERT model (f32, K passes): phase 4's 68-frame streams
+    # through each kernel, phase 9's cli generate (e)
+    rows += [("fused_layer_raw_stream", "raw-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_raw_stream", "raw-ges-f32", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_layer_generate_raw", "raw-ges-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556")]
     # phase 10, training: the forward of every self-attention of a step at
     # batch 2500 (the first 2 epochs' launches), and the evaluation's
     # per-layer kernel (at (7, 34), 9 of its 10 launches a layer) and

@@ -98,6 +98,23 @@
 // latency-bound, so int8 runs as fast as QB = 0 and int4 a little slower
 // (PERF.md).  QB = 0 is the unquantized kernel.
 //
+// K passes (fused_layers_kernel<W, QB, true>).  A block holds one work
+// item's weight slice beside at least 16 operand rows, both at the widest
+// contraction K = max(Cp, 2L, F, L).  Where that does not fit in shared
+// memory (f32 above K = 1680, 1840 with int8 codes; bf16 above 4464, 3344
+// with int4 codes), the host's plan (ops/fused_layer.py::k_pass_plan, the
+// one place that lays out shared memory) sets a pass width kp of 1024 and
+// the launch takes this instantiation: a product wider than kp walks its
+// contraction in passes, per work item and row chunk, each pass staging
+// operand columns k0 .. k0 + kp and the same rows of the item's slice, and
+// the warps add its mma steps to the fragments they hold across the
+// passes; the epilogue runs once, after the last pass (product_passes).
+// The JAX kernels keep every weight in VMEM and take these widths.  Shapes
+// that fit in one pass run the instantiation with false, the code they ran
+// before.  The passes cost what the one-pass code saves: the operand and
+// the slice staged anew in every pass, no slice fetched ahead of a barrier
+// (PERF.md has the times; still bound by the same chains of latencies).
+//
 // All eight weight products and both attention contractions are computed
 // here with f32 accumulation (no library GEMM): the weight products on the
 // tensor cores, the attention on CUDA cores.  Numerics
@@ -107,7 +124,8 @@
 // and each layer's output is rounded to the activation dtype.
 //
 // C interface (ctypes): diffsheg_fused_layers(dtype, ptrs, ints, stream)
-// returns a cudaError_t code (0 = launched).
+// returns a cudaError_t code (0 = launched), or a negative Refusal code for
+// arguments the kernel does not take (the wrapper names each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +136,6 @@ namespace {
 
 constexpr int NT = 256;      // threads per block
 constexpr int RB = 64;       // most operand rows a product stages at once
-constexpr size_t A_BUDGET = 160 * 1024;  // bf16: shared-memory bytes for them
 constexpr int MMAX = 256;    // rows (batch * time) per launch
 constexpr int HDMAX = 128;   // head width
 constexpr int AC = 8;        // ctx columns per attention work item
@@ -161,6 +178,7 @@ struct Args {
   int w_off, part_off;          // shared-memory offsets (bytes)
   unsigned long long* trace;    // globaltimer stamps (ns) or nullptr: one per
                                 // phase end, then NSUB per phase from inside
+  int kp;                       // widest contraction a product stages at once
 };
 
 constexpr int NPHASE = 12;   // phases (grid barriers) per layer
@@ -921,11 +939,151 @@ __device__ void product_bf16(const Args& a, const Prod p, unsigned char* smem,
   stamp(a, 4);
 }
 
+// The K-pass form (fused_layers_kernel<W, QB, true>).  The one-pass
+// functions above keep their own code, so that the shapes they run compile
+// as before; these are used by the pass instantiation alone.
+//
+// Product p over contraction rows k0 .. k0 + kp: its weight matrices from
+// row k0 on, K = kp (the operand keeps p's row stride, see stage_cols).
 template <typename W, int QB>
+__device__ __forceinline__ Prod pass_of(const Prod& p, int k0, int kp) {
+  const long long row = QB == 0 ? (long long)p.ncol * (int)sizeof(W)
+                      : QB == 8 ? p.ncol : p.ncol / 2;   // bytes, as fetch_w
+  auto at = [&](const void* w) -> const void* {
+    return w == nullptr ? w : static_cast<const char*>(w) + k0 * row;
+  };
+  Prod q = p;
+  q.wk0 = at(p.wk0);
+  q.wk1 = at(p.wk1);
+  q.wk2 = at(p.wk2);
+  q.K = kp;
+  return q;
+}
+
+// Columns k0 .. k0 + kp of operand rows r0 .. r0 + rows (row stride p.K)
+// to shared memory (row stride lda), 16 bytes per load.
+template <typename W>
+__device__ void stage_cols(const Prod& p, int r0, int rows, int k0, int kp,
+                           W* As, int lda) {
+  const int per_row = kp * (int)sizeof(W) / 16;
+  const W* src = static_cast<const W*>(p.A) + (long long)r0 * p.K + k0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    const int r = i / per_row, q = i - r * per_row;
+    reinterpret_cast<uint4*>(As + r * lda)[q] =
+        reinterpret_cast<const uint4*>(src + (long long)r * p.K)[q];
+  }
+}
+
+// The warps' accumulated tiles d of product columns n0 .. n0 + TN, rows
+// r0 .. r0 + rows: summed through shared memory in warp order, then the
+// epilogue (multiply's last part).
+template <typename W, int QB>
+__device__ void finish_tile(const Args& a, const Prod& p, int r0, int rows,
+                            int n0, const float (&d)[RB / 16][4],
+                            float* part) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mtiles = (rows + 15) / 16;
+#pragma unroll
+  for (int m = 0; m < RB / 16; ++m) {
+    if (m >= mtiles) break;
+    float* pr = part + (warp * RB + m * 16 + g) * TN + 2 * t;
+    pr[0] = d[m][0];
+    pr[1] = d[m][1];
+    pr[8 * TN] = d[m][2];
+    pr[8 * TN + 1] = d[m][3];
+  }
+  __syncthreads();
+  const Cols cc = cols_of(p, n0);
+  const void* wb = pick(cc.mat, p.wb0, p.wb1, p.wb2);
+  const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
+  for (int i = threadIdx.x; i < rows * TN; i += NT) {
+    const int r = i / TN, j = i - r * TN;
+    const long long o = (long long)(r0 + r) * p.N + n0 + j;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) v += part[(w * RB + r) * TN + j];
+    epilogue<W>(a, p, o, dequant<QB>(v, scale_at<QB>(sc, cc.c0 + j),
+                                     ld<W>(wb, cc.c0 + j)),
+                p.res != nullptr ? p.res[o] : 0.f);
+  }
+}
+
+// One product in passes of at most a.kp contraction rows.  Loop order:
+// work item -> row chunk -> (QB = 4: tile ->) pass; all M rows are one
+// chunk when they fit (a 34-row window at kp = 1024).  A product of one
+// pass stages its item's slice once for every chunk and tile, and the rows
+// once for the whole product when they fit; a product of several passes
+// stages both anew in every pass.  Each warp takes a K / 8 share of every
+// pass and keeps its fragments d across the passes.
+template <typename W, int QB>
+__device__ void product_passes(const Args& a, const Prod p,
+                               unsigned char* smem) {
+  const int M = a.B * a.T;
+  const int n_items = p.N / (TN * item_tiles<QB>());
+  if ((int)blockIdx.x >= n_items) return;   // never block 0: no stamps owed
+  const int kp = min(p.K, a.kp);
+  const bool one = kp == p.K;
+  const int lda = lda_of<W>(kp);
+  const int fit = min(RB, a.a_elems / lda_of<W>(a.kp));   // the planned rows
+  const bool all = M <= fit;                  // every row in one chunk ...
+  const bool whole = one && all;              // ... staged once a product
+  const int rb = all ? M : fit / 16 * 16;
+  W* As = reinterpret_cast<W*>(smem);
+  W* Ws = reinterpret_cast<W*>(smem + a.w_off);
+  float* part = reinterpret_cast<float*>(smem + a.part_off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int r0 = 0; r0 < M; r0 += rb) {
+      const int rows = min(rb, M - r0), mtiles = (rows + 15) / 16;
+      const bool first_chunk = r0 == 0 && item == (int)blockIdx.x;
+      for (int tile = 0; tile < item_tiles<QB>(); ++tile) {
+        const bool first = first_chunk && tile == 0;
+        float d[RB / 16][4];
+#pragma unroll
+        for (int m = 0; m < RB / 16; ++m)
+          d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
+        for (int k0 = 0; k0 < p.K; k0 += kp) {
+          const Prod q = pass_of<W, QB>(p, k0, min(kp, p.K - k0));
+          __syncthreads();                        // As, Ws, part are free
+          if (!one || (tile == 0 && (!whole || first_chunk)))
+            stage_cols<W>(p, r0, rows, k0, q.K, As, lda);
+          if (first && k0 == 0) stamp(a, 0);
+          if (!one || (tile == 0 && r0 == 0)) stage_w<W, QB>(q, item, Ws);
+          __syncthreads();
+          if (first && k0 == 0) stamp(a, 1);
+          const W* Wt = Ws + tile * TN * q.K;     // QB = 4: the item's tile
+          const int ksteps = q.K / 16, kper = (ksteps + 7) / 8;
+          const int ks0 = warp * kper, ks1 = min(ksteps, ks0 + kper);
+          switch (mtiles) {
+            case 1: mma_slice<1, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
+            case 2: mma_slice<2, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
+            case 3: mma_slice<3, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
+            default: mma_slice<4, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
+          }
+        }
+        if (first) stamp(a, 2);
+        int n0 = item * TN;
+        if constexpr (QB == 4) {
+          const Cols c = int4_item(p, item, TN);
+          n0 = c.mat * p.ncol + c.c0 + tile * (p.ncol / 2);
+        }
+        finish_tile<W, QB>(a, p, r0, rows, n0, d, part);
+        if (first) stamp(a, 3);
+      }
+    }
+  }
+  stamp(a, 4);
+}
+
+template <typename W, int QB, bool PASSES>
 __device__ __forceinline__ void product(const Args& a, const Prod p,
                                         unsigned char* smem,
                                         Slice<W, QB>& ahead) {
-  if constexpr (sizeof(W) == 4) product_tf32<QB>(a, p, smem, ahead);
+  if constexpr (PASSES) product_passes<W, QB>(a, p, smem);
+  else if constexpr (sizeof(W) == 4) product_tf32<QB>(a, p, smem, ahead);
   else product_bf16<QB>(a, p, smem, ahead);
 }
 
@@ -1097,8 +1255,9 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
 }
 
 // One block an SM (its shared memory takes no more): without the 1, ptxas
-// held <float, 8> to 128 registers, and it spilled.
-template <typename W, int QB>
+// held <float, 8> to 128 registers, and it spilled.  PASSES: the K-pass
+// products (product_passes), which take no slice ahead.
+template <typename W, int QB, bool PASSES>
 __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NT / 32];
@@ -1120,7 +1279,7 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
 // the barrier before product i, the block's first slice asked for inside it
 #define SYNC_BEFORE(layer, i) do { \
     const unsigned seen = barrier_arrive(a.barrier); \
-    fetch_ahead<W, QB>(PROD(layer, i), ahead); \
+    if constexpr (!PASSES) fetch_ahead<W, QB>(PROD(layer, i), ahead); \
     barrier_wait(a.barrier, seen); mark(a, n); } while (0)
 
   int n = 0;
@@ -1139,30 +1298,30 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
     row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp(a, FP_NORM_S, layer),
                  wp(a, FP_NORM_B, layer), nullptr, h, opA, red);
     SYNC_BEFORE(layer, 0);
-    product<W, QB>(a, PROD(layer, 0), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 0), smem, ahead);
     SYNC_BEFORE(layer, 1);
-    product<W, QB>(a, PROD(layer, 1), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 1), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LN, x1, L, wp(a, SA_NORM_S, layer),
                  wp(a, SA_NORM_B, layer), nullptr, h, opA, red);
     SYNC_BEFORE(layer, 2);
-    product<W, QB>(a, PROD(layer, 2), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 2), smem, ahead);
     SYNC();
     attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
     SYNC();
     row_phase<W>(a, R_LNMOD, y, L, wp(a, SA_SO_S, layer),
                  wp(a, SA_SO_B, layer), msa, h, opA, red);
     SYNC_BEFORE(layer, 3);
-    product<W, QB>(a, PROD(layer, 3), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 3), smem, ahead);
     SYNC_BEFORE(layer, 4);
-    product<W, QB>(a, PROD(layer, 4), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 4), smem, ahead);
     SYNC_BEFORE(layer, 5);
-    product<W, QB>(a, PROD(layer, 5), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 5), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LNMOD, g, L, wp(a, FF_SO_S, layer),
                  wp(a, FF_SO_B, layer), mffn, h, opA, red);
     SYNC_BEFORE(layer, 6);
-    product<W, QB>(a, PROD(layer, 6), smem, ahead);
+    product<W, QB, PASSES>(a, PROD(layer, 6), smem, ahead);
     if (layer + 1 < a.n_layers || (TRACE && a.trace != nullptr)) SYNC();
   }
 #undef PROD
@@ -1172,60 +1331,60 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
 
 // Shared memory of one block: [operand rows | attention tiles] (the larger
 // of the two), then the weight slice room, then the warps' partial tiles.
-// bf16: the operand gets up to A_BUDGET bytes, all B*T rows of a K-wide
-// operand when they fit (serving shapes), else row blocks of 16; the room
-// holds one slice.  f32: the room holds one item's split slice at the
-// widest K, and the operand what is left, with 15 rows of its width free
-// behind it for a last tile's reads past the staged rows: at K = 1024, 35
-// rows (40 with int8 codes), so one 34-row window is staged whole.
-// a_elems = 0: widths too large to stage (f32: the widest K above 1680,
-// 1840 with int8 codes; bf16: above 5112).
+// The host lays it out (ops/fused_layer.py::k_pass_plan, which gives the
+// pass width kp, a_elems, w_off, part_off and the bytes): bf16 gives the
+// operand up to 160 KB, all B*T rows of a kp-wide operand when they fit
+// (serving shapes), else row blocks of 16; f32 gives the slice room one
+// item's split slice and the operand what is left, with 15 rows of its
+// width free behind it for a last tile's reads past the staged rows (at
+// kp = 1024, 35 rows, 40 with int8 codes: one 34-row window is staged
+// whole).  fits_plan holds that layout to what the kernel touches.
 constexpr size_t SMEM_CAP = 227 * 1024 - 1024;  // dynamic, beside the static
+__host__ __device__ inline int widest_k(const Args& a) {
+  return max(max(a.Cp, 2 * a.L), max(a.F, a.L));
+}
 template <typename W, int QB>
-void smem_plan(Args* a, size_t* bytes) {
-  const int M = a->B * a->T, hd = a->L / a->H;
-  const int kmax = max(max(a->Cp, 2 * a->L), max(a->F, a->L));
-  const int lda = lda_of<W>(kmax);
+bool fits_plan(const Args& a, size_t bytes) {
+  if (a.kp < 16 || a.kp % 16 || a.kp > widest_k(a) || bytes > SMEM_CAP
+      || a.w_off % 16)
+    return false;
+  const int hd = a.L / a.H, lda = lda_of<W>(a.kp);
+  const int rows = a.a_elems / lda;
   const size_t part = sizeof(float) * (NT / 32) * RB * TN;
-  const size_t attn = sizeof(float) * ((size_t)2 * a->T * (hd + 1)
-                                       + (size_t)a->T * AC + (size_t)hd * AC);
-  size_t wbytes, tail = 0;
-  int rows;
-  if constexpr (sizeof(W) == 2) {
-    rows = min(RB, min((M + 15) / 16 * 16,
-                       (int)(A_BUDGET / (lda * sizeof(W))) / 16 * 16));
-    wbytes = sizeof(W) * (size_t)kmax * TN * item_tiles<QB>();
-  } else {
-    const size_t row = sizeof(float) * lda;
-    // QB 0: the hi and lo tiles; QB 8: one of codes; QB 4: two of nibbles
-    wbytes = sizeof(float) * (size_t)TN * kmax * (QB == 8 ? 1 : 2);
-    rows = (int)min((SMEM_CAP - min(SMEM_CAP, wbytes + part)) / row,
-                    SMEM_CAP / row - 15);
-    rows = min(rows, min(RB, (M + 15) / 16 * 16));
-    if (rows < 16) rows = 0;
-    tail = row * (rows + 15);
-  }
-  a->a_elems = rows * lda;
-  const size_t abytes = sizeof(W) * (size_t)a->a_elems;
-  a->w_off = (int)((max(abytes, attn) + 15) / 16 * 16);
-  a->part_off = a->w_off + (int)wbytes;
-  *bytes = max(a->part_off + part, tail);
+  const size_t attn = sizeof(float) * ((size_t)2 * a.T * (hd + 1)
+                                       + (size_t)a.T * AC + (size_t)hd * AC);
+  // f32: the split slice (QB 0: hi and lo tiles; QB 8: one of codes; QB 4:
+  // two of nibbles); bf16: one tile, two for packed int4
+  const size_t wbytes = sizeof(W) == 4
+      ? sizeof(float) * TN * (size_t)a.kp * (QB == 8 ? 1 : 2)
+      : sizeof(W) * TN * (size_t)a.kp * item_tiles<QB>();
+  // a product reads whole 16-row tiles of the staged rows
+  const size_t reach = sizeof(W) * (size_t)lda * ((rows + 15) / 16 * 16);
+  return rows >= 16 && (size_t)a.w_off >= max(sizeof(W) * a.a_elems, attn)
+      && (size_t)a.part_off >= a.w_off + wbytes
+      && bytes >= a.part_off + part && bytes >= reach;
 }
 
-// Launch geometry of fused_layers_kernel<W, QB> at these widths: fills the
-// shared-memory fields of *args, the dynamic shared memory and the grid.
-template <typename W, int QB>
-int plan(Args* args, size_t* smem_out, int* grid_out) {
+// Refusals of a launch's arguments, apart from the cudaError_t codes
+// (ops/fused_layer.py::_launch names each).
+enum Refusal {
+  REFUSE_ROWS = -1,     // B * T above MMAX
+  REFUSE_HEAD = -2,     // head width above HDMAX
+  REFUSE_PLAN = -3,     // the host's shared-memory plan does not fit
+  REFUSE_ARGS = -4,     // no barrier word, a trace without the traced build,
+                        // or a qb other than 0, 8, 4
+};
+
+// Launch geometry of fused_layers_kernel<W, QB, PASSES> at the host's
+// plan: the dynamic shared memory and the grid.
+template <typename W, int QB, bool PASSES>
+int plan(const Args& a, size_t smem, int* grid_out) {
   // cached per instantiation: the SM count never changes and the
   // occupancy only with the dynamic shared memory size
   static int sms = 0, occ = 0;
   static size_t smem_set = 0;
-  const Args& a = *args;
-  size_t smem = 0;
-  smem_plan<W, QB>(args, &smem);
-  if (a.a_elems < 16 * max(max(a.Cp, 2 * a.L), max(a.F, a.L)))
-    return (int)cudaErrorInvalidValue;          // widths too large to stage
-  void* fn = (void*)fused_layers_kernel<W, QB>;
+  if (!fits_plan<W, QB>(a, smem)) return REFUSE_PLAN;
+  void* fn = (void*)fused_layers_kernel<W, QB, PASSES>;
   cudaError_t e;
   if (sms == 0) {
     int dev = 0;
@@ -1242,16 +1401,27 @@ int plan(Args* args, size_t* smem_out, int* grid_out) {
     smem_set = smem;
   }
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *smem_out = smem;
   *grid_out = sms * (occ < 2 ? occ : 2);
   return 0;
 }
 
+// The instantiation the plan asks for: K passes only where the pass width
+// is narrower than the widest product.
+template <typename W, int QB>
+int plan_of(const Args& a, size_t smem, int* grid, void** fn) {
+  if (a.kp < widest_k(a)) {
+    *fn = (void*)fused_layers_kernel<W, QB, true>;
+    return plan<W, QB, true>(a, smem, grid);
+  }
+  *fn = (void*)fused_layers_kernel<W, QB, false>;
+  return plan<W, QB, false>(a, smem, grid);
+}
+
 template <typename W>
-int plan_qb(int qb, Args* args, size_t* smem, int* grid) {
-  return qb == 0 ? plan<W, 0>(args, smem, grid)
-       : qb == 8 ? plan<W, 8>(args, smem, grid)
-       : qb == 4 ? plan<W, 4>(args, smem, grid) : (int)cudaErrorInvalidValue;
+int plan_qb(int qb, const Args& a, size_t smem, int* grid, void** fn) {
+  return qb == 0 ? plan_of<W, 0>(a, smem, grid, fn)
+       : qb == 8 ? plan_of<W, 8>(a, smem, grid, fn)
+       : qb == 4 ? plan_of<W, 4>(a, smem, grid, fn) : REFUSE_ARGS;
 }
 
 int cooperative(void* fn, int grid, void** params, size_t smem,
@@ -1259,17 +1429,6 @@ int cooperative(void* fn, int grid, void** params, size_t smem,
   cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params,
                                               smem, stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-template <typename W, int QB>
-int launch(const Args& a, cudaStream_t stream) {
-  Args args = a;
-  size_t smem = 0;
-  int grid = 0;
-  if (const int e = plan<W, QB>(&args, &smem, &grid)) return e;
-  void* params[] = {&args};
-  return cooperative((void*)fused_layers_kernel<W, QB>, grid, params, smem,
-                     stream);
 }
 
 // Probes on the kernel's own grid and dynamic shared memory (chip_smoke.py
@@ -1305,15 +1464,14 @@ copy_probe_kernel(const W* src, int rows, int K, int lda, int n,
 template <typename W>
 int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
                cudaStream_t stream) {
-  const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
-  const int lda = lda_of<W>(K);
+  const int lda = lda_of<W>(a.kp);
   const int rows = min(a.B * a.T, a.a_elems / lda);
   if (cudaError_t e = cudaFuncSetAttribute(
           copy_probe_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem))
     return (int)e;
   copy_probe_kernel<W><<<grid, NT, smem, stream>>>(
-      static_cast<const W*>(buf), rows, K, lda, n, nullptr);
+      static_cast<const W*>(buf), rows, a.kp, lda, n, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -1332,11 +1490,15 @@ int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
 //       (see stamp()).
 // ints: the N_FIELDS per-layer strides in bytes, then mod_layer_stride
 //       (elements), chain, n_layers, B, T, L, Cp, c_real, F, H, qb (0, 8
-//       or 4), then the N_SCALES per-layer scale strides in bytes.
+//       or 4), then the N_SCALES per-layer scale strides in bytes, then the
+//       host's plan (ops/fused_layer.py::k_pass_plan): the pass width kp,
+//       a_elems, w_off, part_off and the dynamic shared memory bytes.
 // dtype: 0 = float32, 1 = bfloat16 (x, feats/cond, mods, out, vectors and
 //       unquantized matrices; the compute dtype of the products).
 namespace {
-void parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out) {
+// The arguments, and 0 or the refusal of arguments the kernel never takes.
+int parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out,
+          size_t* smem_out) {
   Args a{};
   for (int f = 0; f < N_FIELDS; ++f) {
     a.w[f] = reinterpret_cast<const void*>(ptrs[f]);
@@ -1367,33 +1529,45 @@ void parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out) {
   a.H = (int)ints[j++];
   *qb_out = (int)ints[j++];
   for (int q = 0; q < N_SCALES; ++q) a.sstride[q] = ints[j++];
+  a.kp = (int)ints[j++];
+  a.a_elems = (int)ints[j++];
+  a.w_off = (int)ints[j++];
+  a.part_off = (int)ints[j++];
+  *smem_out = (size_t)ints[j++];
   *out = a;
+  if (a.B * a.T > MMAX) return REFUSE_ROWS;
+  if (a.L / a.H > HDMAX) return REFUSE_HEAD;
+  if (a.barrier == nullptr || (!TRACE && a.trace != nullptr)) return REFUSE_ARGS;
+  return 0;
+}
+
+// The launch's instantiation, shared memory and grid.
+int plan_all(int dtype, int qb, const Args& a, size_t smem, int* grid,
+             void** fn) {
+  return dtype == 1 ? plan_qb<__nv_bfloat16>(qb, a, smem, grid, fn)
+                    : plan_qb<float>(qb, a, smem, grid, fn);
 }
 }  // namespace
 
 extern "C" int diffsheg_fused_layers(int dtype, const uint64_t* ptrs,
                                      const int64_t* ints, void* stream) {
   Args a{};
-  int qb = 0;
-  parse(ptrs, ints, &a, &qb);
-  if (a.B * a.T > MMAX || a.L / a.H > HDMAX || a.barrier == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (!TRACE && a.trace != nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) return qb == 0 ? launch<__nv_bfloat16, 0>(a, s)
-                       : qb == 8 ? launch<__nv_bfloat16, 8>(a, s)
-                       : qb == 4 ? launch<__nv_bfloat16, 4>(a, s)
-                                 : (int)cudaErrorInvalidValue;
-  return qb == 0 ? launch<float, 0>(a, s) : qb == 8 ? launch<float, 8>(a, s)
-       : qb == 4 ? launch<float, 4>(a, s) : (int)cudaErrorInvalidValue;
+  int qb = 0, grid = 0;
+  size_t smem = 0;
+  void* fn = nullptr;
+  if (const int e = parse(ptrs, ints, &a, &qb, &smem)) return e;
+  if (const int e = plan_all(dtype, qb, a, smem, &grid, &fn)) return e;
+  void* params[] = {&a};
+  return cooperative(fn, grid, params, smem,
+                     reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The probes above, on the grid and shared memory that a launch with these
 // ptrs and ints would get (out[0]: blocks, out[1]: dynamic shared memory
-// bytes, out[2]: rows x out[3]: elements a block copies per repeat).
-// kind 0: n grid barriers; kind 1: every block copies the same operand rows
-// n times.  buf (kind 1): COPY_SETS * out[2] * out[3] elements of the
-// launch's dtype; n < 0 only fills out.
+// bytes, out[2]: rows x out[3]: elements a block copies per repeat, at the
+// pass width).  kind 0: n grid barriers; kind 1: every block copies the
+// same operand rows n times.  buf (kind 1): COPY_SETS * out[2] * out[3]
+// elements of the launch's dtype; n < 0 only fills out.
 extern "C" int diffsheg_fused_layers_probe(int dtype, const uint64_t* ptrs,
                                            const int64_t* ints, void* stream,
                                            int kind, int n, uint64_t buf,
@@ -1401,16 +1575,14 @@ extern "C" int diffsheg_fused_layers_probe(int dtype, const uint64_t* ptrs,
   Args a{};
   int qb = 0, grid = 0;
   size_t smem = 0;
-  parse(ptrs, ints, &a, &qb);
-  const int e = dtype == 1 ? plan_qb<__nv_bfloat16>(qb, &a, &smem, &grid)
-                           : plan_qb<float>(qb, &a, &smem, &grid);
-  if (e != 0) return e;
-  const int K = max(max(a.Cp, 2 * a.L), max(a.F, a.L));
+  void* fn = nullptr;
+  if (const int e = parse(ptrs, ints, &a, &qb, &smem)) return e;
+  if (const int e = plan_all(dtype, qb, a, smem, &grid, &fn)) return e;
   out[0] = grid;
   out[1] = (int64_t)smem;
-  out[2] = min(a.B * a.T, a.a_elems / (dtype == 1 ? lda_of<__nv_bfloat16>(K)
-                                                  : lda_of<float>(K)));
-  out[3] = K;
+  out[2] = min(a.B * a.T, a.a_elems / (dtype == 1 ? lda_of<__nv_bfloat16>(a.kp)
+                                                  : lda_of<float>(a.kp)));
+  out[3] = a.kp;
   if (n < 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (kind == 0) {

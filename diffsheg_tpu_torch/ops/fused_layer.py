@@ -23,10 +23,15 @@ raises; on a CPU tensor it runs the plain PyTorch version
 (:func:`fused_layer_reference`, :func:`fused_branch_reference`), the
 exact transcription of the JAX ``_layer_math``.  Each wrapper counts its
 kernel launches in ``.launches``; :func:`fused_layer` counts them by the
-launch's (B, T, L) in ``.launches_by_shape`` too.  :func:`branch_phase_ns`
-and :func:`kernel_probe` measure inside the kernel (per-phase and in-phase
-times from a traced build, the grid barriers' floor, the operand copy's
-rate); ``chip_smoke.py`` prints them.  :func:`random_layer_params` makes
+launch's (B, T, L) in ``.launches_by_shape`` too, and both by (Cp, F,
+passes) in ``.launches_by_width``.  :func:`k_pass_plan` lays out the
+kernel's shared memory: a product whose contraction is wider than a block
+can stage beside one weight slice runs in passes (csrc
+``product_passes``), and a shape no plan fits is refused by name before
+any launch.  :func:`branch_phase_ns` and :func:`kernel_probe` measure
+inside the kernel (per-phase and in-phase times from a traced build, the
+grid barriers' floor, the operand copy's rate); ``chip_smoke.py`` prints
+them.  :func:`random_layer_params` makes
 the seeded weights those checks and ``cli doctor`` launch the kernels on.
 """
 
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -407,12 +413,91 @@ def _quant_bits(slp: LayerParams, sc, L: int) -> int:
                      f"L={L} (packed int4)")
 
 
+# The kernel's shared memory, laid out here alone (csrc fits_plan holds a
+# layout to what the kernel touches): its constants NT, RB, TN, AC and
+# A_BUDGET, and the dynamic bytes a block may take beside the static ones.
+_SMEM_CAP = 227 * 1024 - 1024
+_NT, _RB, _TN, _AC = 256, 64, 8, 8
+_A_BUDGET = 160 * 1024
+_PASS_WIDTH = 1024   # at most 1024: a 34-row f32 window is staged whole
+
+
+class KPassPlan(NamedTuple):
+    """How a launch stages its products (:func:`k_pass_plan`)."""
+
+    kp: int           # widest contraction a product stages at once
+    passes: int       # passes of the widest product (1: the one-pass kernel)
+    a_elems: int      # operand room (elements)
+    w_off: int        # byte offsets of the weight-slice room ...
+    part_off: int     # ... and of the warps' partial tiles
+    smem_bytes: int   # dynamic shared memory of one block
+
+
+def _layout(esize: int, qb: int, M: int, T: int, hd: int, kp: int):
+    """(operand rows, a_elems, w_off, part_off, bytes) at pass width
+    ``kp``: [operand rows | attention tiles] (the larger), the weight slice
+    room, the warps' partial tiles.  bf16: the operand gets up to
+    ``_A_BUDGET`` bytes in blocks of 16 rows, up to all M; f32: the room
+    holds one item's split slice and the operand what is left, with 15
+    rows of its width free behind it (a last tile reads past the staged
+    rows)."""
+    def up16(n):
+        return (n + 15) // 16 * 16
+
+    lda = kp + 8 if esize == 2 else kp + 16 - kp % 32   # csrc lda_of
+    part = 4 * (_NT // 32) * _RB * _TN
+    attn = 4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)
+    if esize == 2:
+        rows = min(_RB, up16(M), _A_BUDGET // (lda * 2) // 16 * 16)
+        wbytes = 2 * kp * _TN * (2 if qb == 4 else 1)
+        tail = 0
+    else:
+        row = 4 * lda
+        # QB 0: the hi and lo tiles; QB 8: one of codes; QB 4: two of nibbles
+        wbytes = 4 * _TN * kp * (1 if qb == 8 else 2)
+        rows = min((_SMEM_CAP - min(_SMEM_CAP, wbytes + part)) // row,
+                   _SMEM_CAP // row - 15, _RB, up16(M))
+        rows = rows if rows >= 16 else 0
+        tail = row * (rows + 15)
+    a_elems = rows * lda
+    w_off = up16(max(a_elems * esize, attn))
+    part_off = w_off + wbytes
+    return rows, a_elems, w_off, part_off, max(part_off + part, tail)
+
+
+@functools.lru_cache(maxsize=256)   # asked at every launch: off the host path
+def k_pass_plan(dtype: torch.dtype, qb: int, B: int, T: int, Cp: int,
+                L: int, F: int, H: int) -> KPassPlan:
+    """The launch's shared-memory plan: one pass when a block can hold one
+    work item's weight slice at the widest contraction ``max(Cp, 2L, F,
+    L)`` beside 16 operand rows (every shape the kernel ran before passes
+    existed), else passes of ``_PASS_WIDTH``.  Raises ``ValueError``, naming
+    the limit, for a shape no plan fits."""
+    esize = dtype.itemsize
+    M, hd = B * T, L // H
+    kmax = max(Cp, 2 * L, F, L)
+    for kp in (kmax, min(kmax, _PASS_WIDTH)):
+        rows, a_elems, w_off, part_off, smem = _layout(esize, qb, M, T, hd, kp)
+        if rows >= 16 and smem <= _SMEM_CAP:
+            return KPassPlan(kp, -(-kmax // kp), a_elems, w_off, part_off,
+                             smem)
+    kind = {0: str(dtype), 8: f"{dtype} with int8 codes",
+            4: f"{dtype} with int4 codes"}[qb]
+    raise ValueError(
+        f"fused layer kernel: no shared-memory plan fits B*T={M}, T={T}, "
+        f"head width {hd}, widest contraction {kmax} (Cp={Cp}, L={L}, "
+        f"F={F}), {kind}: {smem} bytes at pass width {kp} against the "
+        f"limit of {_SMEM_CAP} (the attention tiles alone take "
+        f"{4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)}); the JAX kernel "
+        f"takes this shape")
+
+
 def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
           num_heads, c_real, chain, null_emb, null_mask, sc=None, *,
           trace=None):
-    """Check everything the kernel assumes and allocate; returns the C
-    interface's (dtype code, ptrs, ints), the output and the scratch
-    buffer."""
+    """Check everything the kernel assumes, plan and allocate; returns the
+    C interface's (dtype code, ptrs, ints), the output, the scratch buffer
+    and the :class:`KPassPlan`."""
     dev, dt = x.device, x.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"kernel supports float32/bfloat16, got {dt}")
@@ -448,6 +533,7 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
     if null_emb is not None:
         _check("null_emb", null_emb, (Cp,), dt, dev)
         _check("null_mask", null_mask, (B,), torch.float32, dev)
+    plan = k_pass_plan(dt, qb, B, T, Cp, L, F, num_heads)
     out = torch.empty_like(x)
     M = B * T
     scratch = torch.empty(M * 8 * L * 4 + M * (L + max(2 * L, F) + max(Cp, L))
@@ -468,20 +554,40 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
     ints = [layer_bytes(t) for t in slp] + [
         mod_layer_stride, int(chain), n_layers, B, T, L, Cp, c_real, F,
         num_heads, qb] + ([layer_bytes(t) for t in scales]
-                          or [0] * len(LayerScales._fields))
+                          or [0] * len(LayerScales._fields)) + [
+        plan.kp, plan.a_elems, plan.w_off, plan.part_off, plan.smem_bytes]
     return (_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
-            (ctypes.c_int64 * len(ints))(*ints)), out, scratch
+            (ctypes.c_int64 * len(ints))(*ints)), out, scratch, plan
+
+
+# csrc Refusal: arguments the kernel refuses before any launch
+_REFUSALS = {-1: f"more than {_MAX_ROWS} rows (B*T)",
+             -2: f"a head wider than {_MAX_HEAD}",
+             -3: "the host's shared-memory plan does not fit the kernel",
+             -4: "no barrier word, a trace without the traced build, or a "
+                 "quantization other than int8 / int4"}
+
+
+def _refused(err: int, x, plan: KPassPlan, cargs) -> str:
+    """The message for the C entry's return code ``err`` (not 0)."""
+    if err in _REFUSALS:
+        ints = list(cargs[2])
+        B, T, L, Cp, c_real, F, H = ints[len(LayerParams._fields) + 3:][:7]
+        return (f"fused layer kernel refused {tuple(x.shape)} {x.dtype} "
+                f"(Cp={Cp}, c_real={c_real}, F={F}, heads={H}): "
+                f"{_REFUSALS[err]} ({plan})")
+    return f"fused layer kernel launch failed: CUDA error {err}"
 
 
 def _launch(x, *args, trace=None, **kwargs):
-    """Check, allocate, launch (arguments: see :func:`_pack`)."""
-    cargs, out, _scratch = _pack(x, *args, trace=trace, **kwargs)
+    """Check, plan, allocate, launch (arguments: see :func:`_pack`);
+    returns the output and the plan."""
+    cargs, out, _scratch, plan = _pack(x, *args, trace=trace, **kwargs)
     err = _lib(traced=trace is not None)(
         *cargs, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused layer kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
+        raise RuntimeError(_refused(err, x, plan, cargs))
+    return out, plan
 
 
 def _batch_groups(B: int, T: int):
@@ -511,16 +617,24 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
         ms, mf = mod_sa[g].contiguous(), mod_ffn[g].contiguous()
         for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
             _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype, x.device)
-        outs.append(_launch(x[g].contiguous(), feats[g].contiguous(), ms, mf,
-                            0, lp, 1, num_heads, c_real, False, None, None,
-                            sc))
+        out, plan = _launch(x[g].contiguous(), feats[g].contiguous(), ms,
+                            mf, 0, lp, 1, num_heads, c_real, False, None,
+                            None, sc)
+        outs.append(out)
         fused_layer.launches += 1
         fused_layer.launches_by_shape[tuple(x[g].shape)] += 1
+        fused_layer.launches_by_width[_width_key(lp, plan)] += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _width_key(lp: LayerParams, plan: KPassPlan):
+    """(Cp, F, passes of the widest product): a launch's widths."""
+    return (lp.fp_fc1_k.shape[-2], lp.ffn_l1_b.shape[-1], plan.passes)
 
 
 fused_layer.launches = 0
 fused_layer.launches_by_shape = collections.Counter()
+fused_layer.launches_by_width = collections.Counter()
 
 
 def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
@@ -553,14 +667,17 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
         ne = None if null_emb is None else null_emb.reshape(-1).contiguous()
         nm = None if null_mask is None else \
             null_mask[g].to(torch.float32).contiguous()
-        outs.append(_launch(x[g].contiguous(), cond[g].contiguous(), m[0, 0],
-                            m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
-                            num_heads, c_real, True, ne, nm, ssc))
+        out, plan = _launch(x[g].contiguous(), cond[g].contiguous(),
+                            m[0, 0], m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
+                            num_heads, c_real, True, ne, nm, ssc)
+        outs.append(out)
         fused_branch.launches += 1
+        fused_branch.launches_by_width[_width_key(slp, plan)] += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 fused_branch.launches = 0
+fused_branch.launches_by_width = collections.Counter()
 
 
 PHASES = ("ln_feats", "fc1", "fc2", "ln", "qkv", "attention", "ln_adaln",
@@ -629,7 +746,7 @@ def kernel_probe(kind: str, n: int, x, cond, mods, slp: LayerParams,
     ``dict(blocks, smem_bytes, rows, row_elems)``, the geometry and what a
     block copies per repeat.  No launch counter moves."""
     code = {"barrier": 0, "copy": 1}[kind]
-    cargs, _out, _scratch = _pack(*_branch_args(
+    cargs, _out, _scratch, _plan = _pack(*_branch_args(
         x, cond, mods, slp, num_heads, c_real, None, None, ssc))
     fn = _lib(probe=True)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -8,8 +8,11 @@ with the kernels' plain versions (CPU).  Covers BEAT (no CFG) and SHOW
 chain kernel, and weights carried from the unrolled and the
 ``scan_layers`` checkpoint layouts, unquantized and with int8 / int4
 transformer stacks (``diffusion.quantize``, each package quantizing its
-own copy).  f32; tolerance 1e-4 relative and absolute (two branches of
-stacked layers, summation order differs).
+own copy), and models fed raw HuBERT features (``encode_hubert=False``:
+the feats are wider by the HuBERT width, the layout whose full-width
+branches run the kernel in K passes on the card).  f32; tolerance 1e-4
+relative and absolute (two branches of stacked layers, summation order
+differs).
 """
 
 import jax
@@ -40,12 +43,45 @@ def test_quantized_fast_step_matches_jax(preset, chain, layout, quant):
     _check_fast_step(preset, chain, layout, quant)
 
 
-def _check_fast_step(preset, chain, layout, quant):
+@pytest.mark.parametrize("preset,chain", [
+    ("beat", False), ("beat", True), ("show", False), ("show", True)])
+def test_raw_hubert_fast_step_matches_jax(preset, chain):
+    # the raw HuBERT features join the condition (hubert_dim 48: c_real is
+    # no multiple of 128, so the padded feats take the masked LayerNorm).
+    # SHOW without classifier-free guidance: JAX sizes its null row for the
+    # encoded features (test_jax_raw_hubert_null_row_is_narrow)
+    model = dict(encode_hubert=False)
+    if preset == "show":
+        model["classifier_free"] = False
+    _check_fast_step(preset, chain, "unrolled", "none", model=model)
+
+
+def test_jax_raw_hubert_null_row_is_narrow():
+    # a fault of the JAX reference that the port does not copy: with raw
+    # HuBERT features its pre_proj_dim (diffsheg_tpu/models/denoiser.py
+    # :169-179) still counts hubert_latent_dim, so the classifier-free null
+    # row is hubert_dim - hubert_latent_dim narrower than the feats it
+    # replaces; the port's row has the feats' width (the reference
+    # checkpoint layout, compat/torch_ckpt.py)
+    jcfg, tcfg = config_pair("show", model=dict(encode_hubert=False),
+                             data={"n_poses": 24})
+    from diffsheg_tpu_torch.models.factory import build_denoiser
+    m = jcfg.model
+    c_real = PF.branch_feats_dim(tcfg.model, 0)
+    assert c_real == m.latent_dim + m.aud_latent_dim + m.hubert_dim
+    jnull = jax_denoiser(jcfg, seed=11)["params"]["encoder_exp"][
+        "null_cond_emb"]
+    tnull = build_denoiser(tcfg.model).encoder_exp.null_cond_emb
+    assert tnull.shape == (1, c_real)
+    assert jnull.shape == (1, c_real - m.hubert_dim + m.hubert_latent_dim)
+
+
+def _check_fast_step(preset, chain, layout, quant, model=None):
     from diffsheg_tpu.models.factory import stack_scan_layers
     # SHOW's 88-frame window trimmed to 24 frames keeps the test cheap;
     # classifier-free guidance (cond_scale 1.15) stays on
     data = {"n_poses": 24} if preset == "show" else {}
-    jcfg, tcfg = config_pair(preset, data=data)
+    jcfg, tcfg = config_pair(preset, model=model, data=data)
     m = jcfg.model
     B, T = 2, jcfg.data.n_poses
     variables = jax_denoiser(jcfg, seed=11)

@@ -174,3 +174,146 @@ def test_traced_build_is_a_second_library_of_the_same_source():
     assert build._target(P.KERNEL_SOURCE) != build._target(
         build.TRACED_FUSED_LAYER)
     assert set(build.BUILDS) >= {P.KERNEL_SOURCE, build.TRACED_FUSED_LAYER}
+
+
+# --------------------------------------------------------------------------
+# the kernel's shared-memory plan (k_pass_plan), checked on the host
+# --------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+# (dtype, qb, B, T, Cp, L, F, heads): every kernel shape PERF.md's table
+# times (the branch and per-layer kernels at BEAT, SHOW, live, cli generate,
+# evaluation and the examples' widths, bf16 / f32, int8 / int4)
+SHIPPED = [(dt, qb, B, T, Cp, 512, 1024, 8)
+           for dt in (F32, BF16) for qb in (0, 8, 4)
+           for B, T, Cp in ((1, 34, 1024), (1, 34, 896), (2, 88, 1024),
+                            (1, 12, 1024), (4, 34, 1024), (7, 34, 1024))] + [
+    (F32, 0, 21, 12, 128, 32, 64, 4), (F32, 0, 1, 12, 128, 32, 64, 4),
+    (F32, 0, 1, 34, 512, 128, 256, 4)]
+# f32 widths past one pass: raw HuBERT features (BEAT expression 1792,
+# gesture 1920 at one window and cli generate's four), ff_size 2048
+WIDE_F32 = [(1, 34, 1792, 1024), (1, 34, 1920, 1024), (4, 34, 1920, 1024),
+            (1, 34, 1024, 2048)]
+
+
+def fits_plan(dt, qb, B, T, Cp, L, F, H, plan):
+    """The kernel's own check of a plan (csrc ``fits_plan``), transcribed:
+    the room for the operand rows it reads, the attention tiles, the weight
+    slice and the warps' partial tiles."""
+    es = dt.itemsize
+    kmax = max(Cp, 2 * L, F, L)
+    lda = plan.kp + 8 if es == 2 else plan.kp + 16 - plan.kp % 32
+    rows = plan.a_elems // lda
+    attn = 4 * (2 * T * (L // H + 1) + T * 8 + (L // H) * 8)
+    wbytes = (4 * 8 * plan.kp * (1 if qb == 8 else 2) if es == 4
+              else 2 * 8 * plan.kp * (2 if qb == 4 else 1))
+    reach = es * lda * ((rows + 15) // 16 * 16)
+    return (16 <= plan.kp <= kmax and plan.kp % 16 == 0
+            and plan.smem_bytes <= P._SMEM_CAP and plan.w_off % 16 == 0
+            and rows >= 16 and plan.w_off >= max(es * plan.a_elems, attn)
+            and plan.part_off >= plan.w_off + wbytes
+            and plan.smem_bytes >= plan.part_off + 4 * 8 * 64 * 8
+            and plan.smem_bytes >= reach
+            and plan.passes == -(-kmax // plan.kp))
+
+
+@pytest.mark.parametrize("shape", SHIPPED)
+def test_shipped_shapes_take_one_pass(shape):
+    plan = P.k_pass_plan(*shape)
+    dt, qb, B, T, Cp, L, F, H = shape
+    assert plan.passes == 1 and plan.kp == max(Cp, 2 * L, F)
+    assert fits_plan(*shape, plan)
+
+
+@pytest.mark.parametrize("qb", [0, 8, 4])
+@pytest.mark.parametrize("B,T,Cp,F", WIDE_F32)
+def test_wide_f32_takes_passes(B, T, Cp, F, qb):
+    shape = (F32, qb, B, T, Cp, 512, F, 8)
+    plan = P.k_pass_plan(*shape)
+    if qb == 8 and max(Cp, F) <= 1840:     # int8 codes: one slice tile
+        assert plan.passes == 1
+        return
+    assert plan.passes == 2 and plan.kp == 1024
+    assert fits_plan(*shape, plan)
+    # the pass width keeps a 34-row window staged whole
+    assert plan.a_elems // (plan.kp + 16) >= 34
+
+
+def test_bf16_takes_passes_past_its_one_pass_widths():
+    # one pass up to 4464 (3344 with int4 codes), passes of 1024 above
+    for qb, edge in ((0, 4464), (8, 4464), (4, 3344)):
+        for F, passes in ((edge, 1), (edge + 16, -(-(edge + 16) // 1024))):
+            plan = P.k_pass_plan(BF16, qb, 1, 34, 1024, 512, F, 8)
+            assert plan.passes == passes, (qb, F, plan)
+    assert P.k_pass_plan(BF16, 0, 1, 34, 1024, 512, 6144, 8).passes == 6
+
+
+def test_no_plan_exceeds_shared_memory():
+    # widths 16 .. 8192 on each axis, up to 256 rows: a plan the kernel
+    # takes, within 227 KB, or the named refusal
+    rows = ((1, 1), (1, 16), (1, 34), (2, 32), (4, 34), (7, 34), (1, 88),
+            (2, 88), (2, 128), (1, 256))
+    refused = 0
+    for w in range(16, 8193, 16):
+        widths = [(w, 16, 16, 2), (max(w, 512), 512, w, 8)]
+        if w % 128 == 0:     # heads 64 and 128 wide
+            widths += [(w, w, w, max(1, w // 64)), (w, w, w, w // 128)]
+        for dt in (F32, BF16):
+            for qb in (0, 8, 4):
+                for B, T in rows:
+                    for Cp, L, F, H in widths:
+                        if L // H > 128:
+                            continue
+                        try:
+                            plan = P.k_pass_plan(dt, qb, B, T, Cp, L, F, H)
+                        except ValueError as e:
+                            assert "the JAX kernel takes" in str(e)
+                            refused += 1
+                            continue
+                        assert plan.smem_bytes <= 227 * 1024
+                        assert fits_plan(dt, qb, B, T, Cp, L, F, H, plan), (
+                            dt, qb, B, T, Cp, L, F, H, plan)
+    # only the attention tiles of long windows with wide heads
+    assert refused > 0
+
+
+def _pack_args(B, T, L, H, Cp, F, dt=F32):
+    gen = torch.Generator().manual_seed(0)
+    lp = P.layer_at(P.random_layer_params(1, L, F, Cp, Cp, dt, gen, "cpu"),
+                    0)
+    return (torch.zeros(B, T, L, dtype=dt), torch.zeros(B, T, Cp, dtype=dt),
+            torch.zeros(B, 2 * L, dtype=dt), torch.zeros(B, 2 * L, dtype=dt),
+            0, lp, 1, H, Cp, False, None, None)
+
+
+@pytest.mark.parametrize("case,args,names", [
+    # a window past 256 frames (csrc MMAX): JAX runs one; ROADMAP Queue 3
+    ("window", (1, 264, 64, 4, 128, 128), ("264", "256 rows")),
+    # a head wider than 128 (csrc HDMAX): JAX runs one; ROADMAP Queue 3
+    ("head", (1, 34, 144, 1, 256, 128), ("144", "at most 128")),
+    # a 256-frame window of 128-wide heads: the attention tiles alone
+    # outgrow shared memory
+    ("attention", (1, 256, 1024, 8, 1024, 1024),
+     ("231424", "head width 128", "the JAX kernel takes")),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_pack_refuses_by_name(case, args, names):
+    # refused before any allocation or launch, CPU tensors suffice
+    with pytest.raises(ValueError) as e:
+        P._pack(*_pack_args(*args))
+    for name in names:
+        assert name in str(e.value)
+    assert "CUDA error" not in str(e.value)
+
+
+def test_refusal_codes_are_named():
+    args = _pack_args(1, 34, 64, 4, 128, 128)
+    plan = P.k_pass_plan(F32, 0, 1, 34, 128, 64, 128, 4)
+    ints = [0] * len(P.LayerParams._fields) + [
+        0, 0, 1, 1, 34, 64, 128, 128, 128, 4, 0]
+    cargs = (0, None, ints)
+    for code, text in P._REFUSALS.items():
+        msg = P._refused(code, args[0], plan, cargs)
+        assert text in msg and "CUDA error" not in msg
+        assert "Cp=128" in msg and "heads=4" in msg
+    assert "CUDA error 2" in P._refused(2, args[0], plan, cargs)
