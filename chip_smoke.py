@@ -17,7 +17,13 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               features, its expression branch (Cp 1792) and gesture branch
               (1843 padded to 1920) in f32, the gesture branch in bf16 (one
               pass) and at 4 speakers, f32 int8 / int4 at 1920, ff_size
-              2048 in f32 and 6144 in bf16, each line with its passes),
+              2048 in f32 and 6144 in bf16, each line with its passes;
+              windows past 256 frames and heads the one-tile attention
+              does not take, which run the attention in chunks of T:
+              SHOW's widths at 300 frames and a classifier-free pair of
+              352-frame windows in f32 and bf16, int8 at 300, heads 128
+              wide at 256 frames, 144 wide at 34 and 300, 12 wide, one
+              head 1024 wide, each line with its plan's tc and dg),
               linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
               encoder, its batch-1 shape and cli generate's 3000-row
@@ -25,7 +31,8 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               window; the decoder's cross-attention, queries from a normed
               latent and unmasked keys and values from a normed
               condition; an hd-32 shape and an unaligned one that take
-              the general kernels; gradients too) and the DDIM + RePaint
+              the general kernels; heads 144 wide at 34 and 352 frames;
+              gradients too) and the DDIM + RePaint
               step (BEAT, SHOW and the gesture-only model's 141 channels,
               every switch; beside an empty launch of its shape); for the branch kernel at the BEAT gesture shape also
               where a layer's time goes (``phases[...]``: each phase;
@@ -44,7 +51,11 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               and int4 branch kernel, int8 on a classifier-free model);
               then a seeded raw-HuBERT model's f32 stream through each
               kernel (K passes), against its own f32 uncached reference and
-              its plain swap (5e-3), launches by (Cp, F, passes);
+              its plain swap (5e-3), launches by (Cp, F, passes); then a
+              seeded SHOW model's 12 s stream in windows of 352 frames
+              (its server's widest window_frames) in f32 'auto' and bf16
+              'chain' against its own kernel-free f32 uncached forward
+              (5e-3 / 2.5e-2), launches by shape;
 5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
               -> windowed DDIM-25 + RePaint sampler -> motion) at full
               width with seeded random weights, through the branch kernel;
@@ -61,7 +72,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               MotionClients in 100 ms chunks, unpaced: 20 s sessions at
               window 34, window 12 and 4 speakers through the per-layer
               kernel ('auto'), and 10 s on a server started with
-              diffusion.fused_layer=chain; per session the windows,
+              diffusion.fused_layer=chain; then a SHOW server (bf16,
+              'auto', HuBERT-large) asked for window_frames 352, 15 s;
+              per session the windows,
               per-window compute (p50, max: the service time of the
               pushes that completed a window), HuBERT ms a window, the
               lookahead W/fps, worst latency (lookahead + max compute),
@@ -169,7 +182,7 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               reaches a kernel, through its entry point, at a cut depth:
               convergence_demo 40 epochs with the resume at 20,
               overfit_demo 300 steps, serve_capacity sessions 1 and 4
-              for 8 s, show_bench (60 s, with ``fused_step='on'``),
+              for 8 s, show_bench (30 s, with ``fused_step='on'``),
               one train_bench row (batch 256, f32), batch_probe B 8 on a
               10 s stream, live_latency W 34 and 12 for 10 s, live_demo
               10 s, perf_probe on a 10 s stream; each prints one line with
@@ -213,6 +226,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -411,7 +425,7 @@ def kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
     out["fused_branch"] = dict(
         rel_rms=e_rel, max_abs_err=e_abs, ms=branch_ms, wall_ms=branch_wall,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, route=route,
-        passes=passes_of(x, slp, H, ssc))
+        **plan_fields(x, slp, H, ssc))
 
     out["fused_layer"] = layer_result(x, cond, mods, slp, H, c_real,
                                       null_emb, null_mask, ssc, reps,
@@ -456,18 +470,22 @@ def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
                                     ssc is not None)
     return dict(rel_rms=l_rel, max_abs_err=l_abs, ms=layer_ms,
                 wall_ms=layer_wall, plain_ms=lplain_ms, bound_ms=b_ms,
-                bound_by=b_by, route=route, passes=passes_of(x, slp, H, ssc))
+                bound_by=b_by, route=route, **plan_fields(x, slp, H, ssc))
 
 
-def passes_of(x, slp, H, ssc):
-    """The passes of the widest product in a launch of these arguments
-    (``k_pass_plan``; 1: the one-pass kernel)."""
-    from diffsheg_tpu_torch.ops.fused_layer import k_pass_plan
+def plan_fields(x, slp, H, ssc):
+    """The plan of a launch of these arguments (``k_pass_plan``, one
+    window of the batch past 256 rows): the passes of the widest product
+    (1: the one-pass kernel), and the attention's frames a chunk and k
+    features a group (``tc`` 0: the whole window in one tile)."""
+    from diffsheg_tpu_torch.ops.fused_layer import _batch_groups, k_pass_plan
     B, T, L = x.shape
     L2, Cp = slp.fp_fc1_k.shape[-1], slp.fp_fc1_k.shape[-2]
     qb = 0 if ssc is None else (8 if L2 == 2 * L else 4)
-    return k_pass_plan(x.dtype, qb, B, T, Cp, L, slp.ffn_l1_b.shape[-1],
-                       H).passes
+    g = _batch_groups(B, T)[0]
+    plan = k_pass_plan(x.dtype, qb, g.stop - g.start, T, Cp, L,
+                       slp.ffn_l1_b.shape[-1], H)
+    return dict(passes=plan.passes, tc=plan.tc, dg=plan.dg)
 
 
 def check_lines(name, out, tol):
@@ -476,7 +494,9 @@ def check_lines(name, out, tol):
             f"max_abs={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
             f"wall_ms={r['wall_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}; {r['route']}) passes={r['passes']}")
+            f"({r['bound_by']}; {r['route']}) passes={r['passes']} "
+            f"attention={'one tile' if r['tc'] == 0 else 'chunks'} "
+            f"tc={r['tc']} dg={r['dg']}")
         if not r["rel_rms"] <= tol:
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
@@ -528,6 +548,51 @@ def wide_case(name, dtype, B, T, Cp, c_real, F, n_layers, passes, dev, seed,
     got = {k: r["passes"] for k, r in out.items()}
     if set(got.values()) != {passes}:
         raise AssertionError(f"{name}: passes {got}, expected {passes}")
+    return out
+
+
+# windows past 256 frames and heads the one-tile attention does not take
+# (attention in chunks of T, k_pass_plan's tc and dg): SHOW's widths at a
+# 300-frame window and a classifier-free pair of 352-frame windows (its
+# server's widest window_frames, 4 x 88), f32 and bf16, and with int8
+# codes; 128-wide heads at a 256-frame window (L 1024), heads 144 wide (L
+# 1152) at one BEAT window and at 300 frames, heads 12 wide (L 96), one
+# head 1024 wide (k features in two groups).  (name, dtype, B, T, Cp,
+# c_real, null rows, L, heads, F, quant, layers, tc expected: 0 the one
+# tile, else the frames a chunk)
+LONG_CASES = (
+    ("show-t300-f32", torch.float32, 1, 300, 1024, 999, False, 512, 8, 1024,
+     "none", 8, 300),
+    ("show-t300-bf16", torch.bfloat16, 1, 300, 1024, 999, False, 512, 8,
+     1024, "none", 8, 0),
+    ("show-cfg-t352-f32", torch.float32, 2, 352, 1024, 999, True, 512, 8,
+     1024, "none", 8, 352),
+    ("show-cfg-t352-bf16", torch.bfloat16, 2, 352, 1024, 999, True, 512, 8,
+     1024, "none", 8, 0),
+    ("show-t300-bf16-int8", torch.bfloat16, 1, 300, 1024, 999, False, 512,
+     8, 1024, "int8", 8, 0),
+    ("hd128-t256-f32", torch.float32, 1, 256, 1536, 1487, False, 1024, 8,
+     1024, "none", 2, 224),
+    ("hd144-f32", torch.float32, 1, 34, 1664, 1615, False, 1152, 8, 1024,
+     "none", 2, 0),
+    ("hd144-t300-f32", torch.float32, 1, 300, 1664, 1615, False, 1152, 8,
+     1024, "none", 2, 196),
+    ("hd12-f32", torch.float32, 1, 88, 224, 200, False, 96, 8, 192, "none",
+     2, 88),
+    ("hd1024-f32", torch.float32, 1, 34, 1536, 1487, False, 1024, 1, 1024,
+     "none", 2, 4))
+
+
+def long_case(name, dtype, B, T, Cp, c_real, null, L, H, F, quant, n_layers,
+              tc, dev, seed, reps):
+    """Both layer kernels at a window or head width past the one-tile
+    attention, held to their dtype's tolerance; fails unless the launch
+    took the attention ``tc`` says."""
+    out = kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
+                      quant, L=L, H=H, F=F, n_layers=n_layers)
+    got = {k: r["tc"] for k, r in out.items()}
+    if set(got.values()) != {tc}:
+        raise AssertionError(f"{name}: attention tc {got}, expected {tc}")
     return out
 
 
@@ -636,7 +701,11 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    ("scale-dp-audio-enc-f32", torch.float32, 128, 34, 128,
                     0),
                    ("hd32-f32", torch.float32, 2, 34, 256, 0),
-                   ("unaligned-f32", torch.float32, 1, 34, 512, 1))
+                   ("unaligned-f32", torch.float32, 1, 34, 512, 1),
+                   # heads 144 wide (L 1152): a BEAT window, and a
+                   # classifier-free pair of 352-frame windows (tiled)
+                   ("hd144-f32", torch.float32, 1, 34, 1152, 0),
+                   ("hd144-cfg-t352-f32", torch.float32, 2, 352, 1152, 0))
 
 
 def attention_inputs(dtype, B, T, D, dev, seed, offset=0):
@@ -848,6 +917,8 @@ def phase_kernels(dev, reps):
         results[name] = live_layer_case(name, B, T, dtype, dev, 4, reps)
     for name, *case in WIDE_CASES:
         results[name] = wide_case(name, *case, dev, 19, reps)
+    for name, *case in LONG_CASES:
+        results[name] = long_case(name, *case, dev, 20, reps)
     results.update(quant_kernel_cases(dev, reps))
     results.update(example_kernel_cases(dev, reps))
     return results
@@ -1129,7 +1200,9 @@ def phase_stream(dev, model):
         raise AssertionError(f"stream bands failed: {r16:.3e}, {r32:.3e}, "
                              f"{r32o:.3e}, {r16p:.3e}, {r32p:.3e}")
     phase_quant_stream(dev, model, ref, mel, pid, hub)
-    return raw_hubert_stream(dev, mel, pid, hub)
+    launches = raw_hubert_stream(dev, mel, pid, hub)
+    launches.update(show_long_stream(dev))
+    return launches
 
 
 # a BEAT model fed raw HuBERT features (the reference's --addHubert without
@@ -1189,6 +1262,84 @@ def raw_hubert_stream(dev, mel, pid, hub):
         launches[f"{kernel}_raw_stream"] = counts[kernel]
     if failed:
         raise AssertionError(f"raw HuBERT stream failed: {failed}")
+    return launches
+
+
+# a SHOW model sampling the widest window its server admits (a client's
+# window_frames up to 4 x n_poses = 352 frames): 12 s at 30 fps, windows at
+# 0 and a left-shifted 8; classifier-free, so a model call runs both rows of
+# a window, each a launch of its own past 256 rows
+SHOW_LONG_T, SHOW_LONG_SECS = 352, 12
+
+
+def show_cfg(dtype: str, fused_layer: str, n_poses=SHOW_LONG_T, **diffusion):
+    from diffsheg_tpu_torch.config import show_config
+    cfg = show_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        data=dataclasses.replace(cfg.data, n_poses=n_poses),
+        diffusion=dataclasses.replace(cfg.diffusion, jump_n_sample=2,
+                                      fused_layer=fused_layer, **diffusion))
+
+
+@functools.lru_cache(maxsize=None)
+def show_model():
+    """The seeded SHOW model of phases 4 and 7 (on the CPU; each path
+    moves it)."""
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    return init_unidiffuser(show_cfg("float32", "off").model, seed=4)
+
+
+def show_long_stream(dev):
+    """A seeded SHOW model's stream of 352-frame windows in f32 through
+    the per-layer kernel ('auto') and in bf16 through the branch kernel
+    ('chain'), held to 5e-3 / 2.5e-2 against its own kernel-free f32
+    uncached module forward; the launches exactly, by shape and width."""
+    from diffsheg_tpu_torch.ops.fused_layer import _batch_groups
+    model = show_model()
+    m, T = model.cfg, SHOW_LONG_SECS * 30
+    gen = torch.Generator().manual_seed(8)
+    mel = torch.randn(1, T, m.audio_dim, generator=gen).to(dev)
+    hub = torch.randn(1, T, m.hubert_dim, generator=gen).to(dev)
+    pid = torch.nn.functional.one_hot(torch.tensor([1]), m.style_dim
+                                      ).float().to(dev)
+    ref = reference_stream(show_cfg("float32", "off", level_cache=False),
+                           model, mel, pid, hub, dev)
+    rows = 2 * len(_batch_groups(2, SHOW_LONG_T))   # branches x launches
+    launches, failed = {}, []
+    for dtype, mode, kernel, tol in (("float32", "auto", "fused_layer", 5e-3),
+                                     ("bfloat16", "chain", "fused_branch",
+                                      2.5e-2)):
+        cfg = show_cfg(dtype, mode)
+        calls = stream_calls(cfg, T)
+        per = cfg.model.num_layers if mode == "auto" else 1
+        zero_counts()
+        got = run_stream(cfg, model, mel, pid, hub, 5, dev)
+        counts = {n: fn.launches for n, fn in counters().items()}
+        shapes = dict(counters()["fused_layer"].launches_by_shape)
+        widths = layer_widths()[mode == "chain"]
+        attn = dict(counters()["fused_linear_attention"].launches_by_shape)
+        err = rel_rms(got, ref)
+        log(f"stream[SHOW {SHOW_LONG_SECS} s, windows of {SHOW_LONG_T}, "
+            f"{dtype} {mode}]: vs f32 uncached rel_rms={err:.3e} (tol "
+            f"{tol:g}); model_calls={calls} launches={counts} fused_layer "
+            f"by shape={shapes} {kernel} by (Cp, F, passes)={widths} "
+            f"linear attention by shape={attn}")
+        # the level cache's audio encoder: one linear-attention launch in
+        # f32 (bf16 takes the composition)
+        want = {kernel: rows * per * calls,
+                "fused_linear_attention": int(dtype == "float32")}
+        if counts != {n: want.get(n, 0) for n in counters()}:
+            failed.append(f"{mode}: launches {counts}, expected {want}")
+        if mode == "auto" and shapes != {(1, SHOW_LONG_T, m.latent_dim):
+                                         rows * per * calls}:
+            failed.append(f"{mode}: by shape {shapes}")
+        if not (tuple(got.shape) == (1, T, ref.shape[-1])
+                and torch.isfinite(got).all() and err < tol):
+            failed.append(f"{mode}: {tuple(got.shape)}, {err:.3e}")
+        launches[f"{kernel}_show352_stream"] = counts[kernel]
+    if failed:
+        raise AssertionError(f"SHOW 352-frame stream failed: {failed}")
     return launches
 
 
@@ -1373,11 +1524,12 @@ def phase_uncached(dev, model, hubert_fe):
     cfg = beat_cfg("float32", "off", fused_step="on")
     pipe = make_pipeline(cfg, model, hubert_fe, dev)
     torch.cuda.reset_peak_memory_stats()
-    _, warm_s, _ = drive(pipe, 60, dev, 21)
+    # warmed on 10 s (60 s until PR 17, cut to pay for its phases)
+    _, warm_s, _ = drive(pipe, 10, dev, 21)
     out, secs, counts = drive(pipe, 60, dev, 22)
     shapes = dict(counters()["fused_linear_attention"].launches_by_shape)
     log(f"uncached[beat 60 s, f32, fused_layer=off, level cache, "
-        f"fused_step=on]: frames={out.shape[1]} warm_s={warm_s:.3f} "
+        f"fused_step=on]: frames={out.shape[1]} warm_10s_s={warm_s:.3f} "
         f"seconds={secs:.3f} fps={out.shape[1] / secs:.1f} "
         f"launches={counts} linear_attention_by_shape={shapes} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
@@ -1483,9 +1635,14 @@ def push_stream(push, secs: int, chunk_s: float = 0.1):
     return outs, ms
 
 
-# (tag, window frames, speakers, seconds, the server's fused_layer)
+# (tag, window frames, speakers, seconds, the server): the BEAT server
+# through the per-layer kernel ('auto') or the branch kernel ('chain'),
+# and (e) a SHOW server (bf16, 'auto') asked for its widest window, 4 x 88
+# frames: 15 s, so that window 0 completes in a push and window 1 at the
+# end (both rows of a classifier-free window, each a launch of its own)
 LIVE_SESSIONS = (("a", 34, 1, 20, "auto"), ("b", 12, 1, 20, "auto"),
-                 ("c", 34, 4, 20, "auto"), ("d", 34, 1, 10, "chain"))
+                 ("c", 34, 4, 20, "auto"), ("d", 34, 1, 10, "chain"),
+                 ("e", 352, 1, 15, "show"))
 LIVE_SEED = 31
 
 
@@ -1533,11 +1690,13 @@ def live_session(srv, hub, tag, W, B, secs, mode, dev, reps):
     gen = srv._gens[(W, ov)]
     K = len(window_starts(T, W, step))
     calls = gen.num_model_calls_plain + (K - 1) * gen.num_model_calls_repaint
-    groups = len(_batch_groups(B, W))
+    # a classifier-free model runs each speaker's conditional and null rows
+    groups = len(_batch_groups(B * (1 + cfg.model.classifier_free), W))
     want = ({"fused_branch": 2 * calls * groups} if mode == "chain" else
             {"fused_layer": 2 * cfg.model.num_layers * calls * groups})
     what = f"({tag}) window {W}, {B} speaker(s), {secs} s, {mode}"
-    if (info["window"] != W or tuple(motion.shape) != (B, T, 192)
+    if (info["window"] != W
+            or tuple(motion.shape) != (B, T, info["channels"])
             or not np.isfinite(motion).all()):
         raise AssertionError(f"live {what}: window {info['window']}, output "
                              f"{tuple(motion.shape)}")
@@ -1611,19 +1770,24 @@ def phase_live(dev, model, hubert_fe, reps):
     t_phase = time.perf_counter()
     hub = TimedHubert(hubert_fe)
     base = beat_cfg("bfloat16", "auto")
+    show = show_cfg("bfloat16", "auto", n_poses=88)
+    models = {"auto": model, "chain": model, "show": show_model()}
     servers = {}
     launches = {}
     try:
         for mode, cfg in (("auto", base), ("chain", _apply_overrides(
-                base, ["diffusion.fused_layer=chain"]))):
-            srv = MotionServer(cfg, model, hubert_extractor=hub, port=0,
-                               client_geometry=True, device=dev, log=log)
+                base, ["diffusion.fused_layer=chain"])), ("show", show)):
+            srv = MotionServer(cfg, models[mode], hubert_extractor=hub,
+                               port=0, client_geometry=True, device=dev,
+                               log=log)
             srv.start_background()
             servers[mode] = srv
+            if mode == "show":     # its session builds the window's set-up
+                continue
             srv.prewarm((1,))
             if mode == "auto":
                 srv.prewarm((1,), window_frames=12)
-        log(f"live: set-up (two servers, prewarmed) "
+        log(f"live: set-up (three servers, BEAT's prewarmed) "
             f"{time.perf_counter() - t_phase:.1f} s")
         for tag, W, B, secs, mode in LIVE_SESSIONS:
             motion, outs, counts = live_session(servers[mode], hub, tag, W,
@@ -1655,7 +1819,8 @@ def phase_live(dev, model, hubert_fe, reps):
     return {"fused_layer_live_w34": launches["a"]["fused_layer"],
             "fused_layer_live_w12": launches["b"]["fused_layer"],
             "fused_layer_live_b4": launches["c"]["fused_layer"],
-            "fused_branch_live": launches["d"]["fused_branch"]}
+            "fused_branch_live": launches["d"]["fused_branch"],
+            "fused_layer_live_show352": launches["e"]["fused_layer"]}
 
 
 # --------------------------------------------------------------------------
@@ -3783,24 +3948,30 @@ def capacity_idle(dev, cfg, n, secs):
             "profiled_kernels": len(kernels)}
 
 
+SHOW_BENCH_SECS = 30
+
+
 def example_show(full):
     """Item 4: the SHOW bench through its guards, with the step kernel
     (its configuration with ``fused_step='on'``); full: also the JAX
     configuration ('auto')."""
     from diffsheg_tpu_torch.examples import show_bench as ex
-    default = ex.make_config
+    default, default_secs = ex.make_config, ex.SECS
+    # its stream: the script's 60 s with --full, else 30 (cut in PR 17)
+    stream_secs = default_secs if full else SHOW_BENCH_SECS
     res = {}
     for step in (("on", "auto") if full else ("on",)):
         ex.make_config = lambda jn=2, step=step: default(jn).replace(
             diffusion=dataclasses.replace(default(jn).diffusion,
                                           fused_step=step))
+        ex.SECS = stream_secs
         try:
             out, err, counts, layers, attns, secs, _ = run_example(
                 f"show-{step}", ex.main, [])
             cfg = ex.make_config()
         finally:
-            ex.make_config = default
-        calls = stream_calls(cfg, ex.SECS * cfg.data.fps)
+            ex.make_config, ex.SECS = default, default_secs
+        calls = stream_calls(cfg, stream_secs * cfg.data.fps)
         # warm-up, the guard's probe (two calls), 6 timed, 1 to read
         n_calls = 10
         want = dict(fused_branch=n_calls * 2 * calls)
@@ -4031,6 +4202,8 @@ def main() -> int:
            "fused_ddim_repaint_step_single",
            "fused_ddim_repaint_step_learned_var",
            "fused_layer_raw_stream", "fused_branch_raw_stream",
+           "fused_layer_show352_stream", "fused_branch_show352_stream",
+           "fused_layer_live_show352",
            "fused_layer_generate_raw",
            "fused_layer_generate", "fused_branch_generate",
            "fused_layer_generate_staged", "fused_layer_generate_show",
@@ -4069,16 +4242,21 @@ def main() -> int:
            "fused_layer_examples_batch", "fused_layer_examples_live",
            "fused_layer_examples_probe",
            "fused_linear_attention_examples_probe"])
+    t0 = time.perf_counter()
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)
+    if kres is not None:
+        log(f"kernels: phase {time.perf_counter() - t0:.1f} s")
     if any(run(p) for p in ("stream", "e2e", "uncached", "live",
                             "variants", "generate", "tools")):
         from diffsheg_tpu_torch.config import beat_config
         from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
         model = init_unidiffuser(beat_config().model, seed=0)
         if run("stream"):
+            t0 = time.perf_counter()
             launches.update(phase_stream(dev, model))
+            log(f"stream: phase {time.perf_counter() - t0:.1f} s")
         if any(run(p) for p in ("e2e", "uncached", "live", "variants",
                                 "tools")):
             t0 = time.perf_counter()
@@ -4188,6 +4366,16 @@ def main() -> int:
               "fused_layer.cu", "ops/fused_layer.py:475"),
              ("fused_layer_generate_raw", "raw-ges-f32", "fused_layer",
               "fused_layer.cu", "ops/fused_layer.py:556")]
+    # windows of 352 frames (attention in chunks of T where the f32 tiles
+    # do not fit): phase 4's SHOW stream, f32 through the per-layer kernel
+    # and bf16 through the branch kernel, and phase 7's served SHOW
+    # session (e), bf16 per-layer; each a launch of one row
+    rows += [("fused_layer_show352_stream", "show-cfg-t352-f32",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_show352_stream", "show-cfg-t352-bf16",
+              "fused_branch", "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_layer_live_show352", "show-cfg-t352-bf16",
+              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556")]
     # phase 10, training: the forward of every self-attention of a step at
     # batch 2500 (the first 2 epochs' launches), and the evaluation's
     # per-layer kernel (at (7, 34), 9 of its 10 launches a layer) and

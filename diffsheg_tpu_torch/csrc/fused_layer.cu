@@ -25,9 +25,9 @@
 // Every weight product is split by output columns (8 per work item, one
 // mma n-tile) across all blocks, so each weight byte is read once per call
 // by one block and every SM streams a share.  A block copies the product's
-// operand rows (B*T <= 256 of them, L2-resident) to shared memory and
-// splits the contraction over its 8 warps, on the tensor cores (bf16:
-// mma.sync m16n8k16; f32: split TF32, below).  A row phase
+// operand rows (L2-resident; a larger B*T in chunks of rows) to shared
+// memory and splits the contraction over its 8 warps, on the tensor cores
+// (bf16: mma.sync m16n8k16; f32: split TF32, below).  A row phase
 // (one block per row) computes each LayerNorm / AdaLN / SiLU once and
 // writes the next product's rounded operand.  The attention phase splits
 // (batch row, head, 8-column chunk of ctx): column j of y = Q.ctx needs
@@ -115,6 +115,22 @@
 // the slice staged anew in every pass, no slice fetched ahead of a barrier
 // (PERF.md has the times; still bound by the same chains of latencies).
 //
+// Attention in chunks of T (attention_chunks).  attention() stages a whole
+// window's q and k tiles (T x (hd + 1) each) in front of the operand rows;
+// at T 256 with 128-wide heads, or past ~268 frames in f32 at SHOW's widths,
+// that no longer fits beside the products' room, and its 8-column items
+// need hd % 8 == 0.  Where either holds, the host's plan sets a chunk of tc
+// frames (and, for heads too wide for one group, k features in groups of
+// dg) and the launch takes the K-pass instantiation (its products in one
+// pass where they fit) with attention_chunks(): each pass over the window
+// (k's max, k's sum, k' and ctx, then q' and y) walks it chunk by chunk,
+// carrying per-feature maxima and sums and ctx's partial sums in shared
+// memory, in the order attention() adds them, and the last item of a head
+// takes its hd % 8 columns.  The JAX kernels hold the whole (T, L) window
+// in VMEM and take any T and head width.  Shapes whose tiles fit take
+// attention(), the code they ran before; a window is never split across
+// launches (ops/fused_layer.py groups a batch by whole windows).
+//
 // All eight weight products and both attention contractions are computed
 // here with f32 accumulation (no library GEMM): the weight products on the
 // tensor cores, the attention on CUDA cores.  Numerics
@@ -136,8 +152,6 @@ namespace {
 
 constexpr int NT = 256;      // threads per block
 constexpr int RB = 64;       // most operand rows a product stages at once
-constexpr int MMAX = 256;    // rows (batch * time) per launch
-constexpr int HDMAX = 128;   // head width
 constexpr int AC = 8;        // ctx columns per attention work item
 constexpr float LN_EPS = 1e-5f;
 
@@ -179,6 +193,9 @@ struct Args {
   unsigned long long* trace;    // globaltimer stamps (ns) or nullptr: one per
                                 // phase end, then NSUB per phase from inside
   int kp;                       // widest contraction a product stages at once
+  int tc, dg;                   // attention: 0, the one-tile attention(); else
+                                // frames a chunk and k features a group
+                                // (attention_chunks)
 };
 
 constexpr int NPHASE = 12;   // phases (grid barriers) per layer
@@ -1183,6 +1200,189 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
   stamp(a, 4);
 }
 
+// Shared floats of attention_chunks: a tile of tc frames of q (hd + 1
+// wide) or of a k feature group, the item's v columns of those frames, ctx
+// (hd x AC), and per feature of a group of dg: ctx's four partial sums per
+// column, the softmax's four parts' max and sum, and its max and sum.
+__host__ __device__ constexpr long long chunk_floats(int tc, int hd, int dg) {
+  return (long long)tc * (hd + 1 + AC) + (long long)hd * AC
+       + (long long)dg * (4 * AC + 10);
+}
+
+// The attention phase in chunks of a.tc frames (the host plans a.tc > 0
+// where the window's tiles do not fit beside the products' room, or the
+// head width is not a multiple of AC).  The same work items, and every
+// value computed by the same operations in the same order as attention():
+// a feature's softmax over time in four parts (part p takes the frames
+// t = p mod 4 in order; a chunk starts at a multiple of 4), ctx's columns as
+// four partial sums over time, each carried across the chunks in shared
+// memory, and the same rnd points.  So per item: (a) per feature its max
+// over time, (b) its sum of exponentials, (c) k' = softmax(k) rounded and
+// ctx accumulated chunk by chunk, each pass walking the window; k's
+// features in groups of a.dg (all of them unless a very wide head needs
+// less room); then (d) softmax(q) and y, which are per frame, chunk by
+// chunk.  An item of the head's last ctx columns takes hd - c AC < AC of
+// them.  A window of one chunk is staged once for (a) - (c).  Compiled
+// into the K-pass instantiation alone (fused_layers_kernel<W, QB, true>,
+// which a plan with tc > 0 takes), so that the one-pass instantiations
+// keep their code and registers.
+template <typename W>
+__device__ void attention_chunks(const Args& a, const float* qkv, float* y,
+                                 float* smem) {
+  const int T = a.T, L = a.L, H = a.H, tc = a.tc, dg = a.dg;
+  const int hd = L / H, nc = (hd + AC - 1) / AC, ldq = hd + 1;
+  const int n_items = a.B * H * nc;
+  constexpr int parts = 4;
+  float* Xs = smem;                   // tc x (hd + 1): q, or a k feature group
+  float* Vs = Xs + tc * ldq;          // tc x AC
+  float* Cs = Vs + tc * AC;           // hd x AC: ctx, rounded
+  float* Acc = Cs + hd * AC;          // dg x AC x 4: ctx's partial sums
+  float* Mx = Acc + dg * AC * 4;      // dg x 4: each part's max
+  float* Sx = Mx + dg * parts;        // dg x 4: each part's sum
+  float* Md = Sx + dg * parts;        // dg: the max over time
+  float* Sd = Md + dg;                // dg: the sum over time
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool one = tc >= T;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int c = item % nc, hh = (item / nc) % H, b = item / (nc * H);
+    const int cw = min(AC, hd - c * AC);
+    const float* base = qkv + (long long)b * T * 3 * L;
+    const bool first = item == (int)blockIdx.x;
+    for (int g0 = 0; g0 < hd; g0 += dg) {
+      const int gw = min(dg, hd - g0), ldk = gw + 1;
+      // frames t0 .. t0 + rows of k's features g0 .. g0 + gw
+      auto stage_k = [&](int t0, int rows) {
+        __syncthreads();                          // Xs is free
+        for (int i = threadIdx.x; i < rows * gw; i += NT) {
+          const int t = i / gw, d = i - t * gw;
+          Xs[t * ldk + d] =
+              base[(long long)(t0 + t) * 3 * L + L + hh * hd + g0 + d];
+        }
+        __syncthreads();
+      };
+      for (int i = threadIdx.x; i < gw * parts; i += NT) {
+        Mx[i] = -FLT_MAX;
+        Sx[i] = 0.f;
+      }
+      for (int i = threadIdx.x; i < gw * AC * 4; i += NT) Acc[i] = 0.f;
+      // (a) each part's max (a thread keeps its own (feature, part) entries)
+      for (int t0 = 0; t0 < T; t0 += tc) {
+        const int rows = min(tc, T - t0);
+        stage_k(t0, rows);
+        if (first && t0 == 0 && g0 == 0) stamp(a, 0);
+        for (int i = threadIdx.x; i < gw * parts; i += NT) {
+          const int d = i / parts, part = i - d * parts;
+          float mx = Mx[i];
+          for (int t = part; t < rows; t += parts) mx = fmaxf(mx, Xs[t * ldk + d]);
+          Mx[i] = mx;
+        }
+      }
+      __syncthreads();
+      for (int d = threadIdx.x; d < gw; d += NT)
+        Md[d] = fmaxf(fmaxf(Mx[parts * d], Mx[parts * d + 1]),
+                      fmaxf(Mx[parts * d + 2], Mx[parts * d + 3]));
+      __syncthreads();
+      // (b) each part's sum of exponentials, then theirs as the shuffles of
+      // attention() add them
+      for (int t0 = 0; t0 < T; t0 += tc) {
+        const int rows = min(tc, T - t0);
+        if (!one) stage_k(t0, rows);
+        for (int i = threadIdx.x; i < gw * parts; i += NT) {
+          const int d = i / parts, part = i - d * parts;
+          const float mx = Md[d];
+          float s = Sx[i];
+          for (int t = part; t < rows; t += parts) s += expf(Xs[t * ldk + d] - mx);
+          Sx[i] = s;
+        }
+      }
+      __syncthreads();
+      for (int d = threadIdx.x; d < gw; d += NT)
+        Sd[d] = (Sx[parts * d] + Sx[parts * d + 1])
+              + (Sx[parts * d + 2] + Sx[parts * d + 3]);
+      __syncthreads();
+      if (first && g0 == 0) stamp(a, 1);
+      // (c) k' rounded, and ctx[:, c] = k'^T v[:, c] summed chunk by chunk
+      for (int t0 = 0; t0 < T; t0 += tc) {
+        const int rows = min(tc, T - t0);
+        if (!one) stage_k(t0, rows);
+        if (!one || g0 == 0)
+          for (int i = threadIdx.x; i < rows * AC; i += NT) {
+            const int t = i / AC, cc = i - t * AC;
+            Vs[i] = cc < cw ? rnd<W>(base[(long long)(t0 + t) * 3 * L + 2 * L
+                                          + hh * hd + c * AC + cc]) : 0.f;
+          }
+        for (int i = threadIdx.x; i < rows * gw; i += NT) {
+          const int t = i / gw, d = i - t * gw;
+          Xs[t * ldk + d] = rnd<W>(expf(Xs[t * ldk + d] - Md[d]) / Sd[d]);
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < gw * AC; i += NT) {
+          const int d = i / AC, cc = i - d * AC;
+          float* p = Acc + 4 * i;
+          float s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3];
+          int t = 0;
+          for (; t + 3 < rows; t += 4) {
+            s0 = fmaf(Xs[t * ldk + d], Vs[t * AC + cc], s0);
+            s1 = fmaf(Xs[(t + 1) * ldk + d], Vs[(t + 1) * AC + cc], s1);
+            s2 = fmaf(Xs[(t + 2) * ldk + d], Vs[(t + 2) * AC + cc], s2);
+            s3 = fmaf(Xs[(t + 3) * ldk + d], Vs[(t + 3) * AC + cc], s3);
+          }
+          for (; t < rows; ++t) s0 = fmaf(Xs[t * ldk + d], Vs[t * AC + cc], s0);
+          p[0] = s0;
+          p[1] = s1;
+          p[2] = s2;
+          p[3] = s3;
+        }
+      }
+      for (int i = threadIdx.x; i < gw * AC; i += NT) {
+        const float* p = Acc + 4 * i;
+        Cs[(g0 + i / AC) * AC + i % AC] = rnd<W>((p[0] + p[1]) + (p[2] + p[3]));
+      }
+      __syncthreads();                            // Acc and Xs are free
+    }
+    if (first) stamp(a, 2);
+    // (d) softmax(q) over the head's features, one warp per frame, and
+    // y[:, c] = q' ctx[:, c], chunk by chunk
+    for (int t0 = 0; t0 < T; t0 += tc) {
+      const int rows = min(tc, T - t0);
+      for (int i = threadIdx.x; i < rows * hd; i += NT) {
+        const int t = i / hd, d = i - t * hd;
+        Xs[t * ldq + d] = base[(long long)(t0 + t) * 3 * L + hh * hd + d];
+      }
+      __syncthreads();
+      for (int t = warp; t < rows; t += NT / 32) {
+        float* q = Xs + t * ldq;
+        float mx = -FLT_MAX;
+        for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, q[d]);
+        mx = warp_max(mx);
+        float s = 0.f;
+        for (int d = lane; d < hd; d += 32) s += expf(q[d] - mx);
+        s = warp_sum(s);
+        for (int d = lane; d < hd; d += 32) q[d] = rnd<W>(expf(q[d] - mx) / s);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * AC; i += NT) {
+        const int t = i / AC, cc = i - t * AC;
+        if (cc >= cw) continue;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        int d = 0;
+        for (; d + 3 < hd; d += 4) {
+          s0 = fmaf(Xs[t * ldq + d], Cs[d * AC + cc], s0);
+          s1 = fmaf(Xs[t * ldq + d + 1], Cs[(d + 1) * AC + cc], s1);
+          s2 = fmaf(Xs[t * ldq + d + 2], Cs[(d + 2) * AC + cc], s2);
+          s3 = fmaf(Xs[t * ldq + d + 3], Cs[(d + 3) * AC + cc], s3);
+        }
+        for (; d < hd; ++d) s0 = fmaf(Xs[t * ldq + d], Cs[d * AC + cc], s0);
+        y[((long long)b * T + t0 + t) * L + hh * hd + c * AC + cc] =
+            (s0 + s1) + (s2 + s3);
+      }
+      __syncthreads();                            // Xs is free
+    }
+    if (first) stamp(a, 3);
+  }
+  stamp(a, 4);
+}
+
 // Field f of layer `layer`, and (quantized) the scales of matrix field f.
 __device__ __forceinline__ const void* wp(const Args& a, int f, int layer) {
   return static_cast<const char*>(a.w[f]) + layer * a.wstride[f];
@@ -1256,7 +1456,8 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
 
 // One block an SM (its shared memory takes no more): without the 1, ptxas
 // held <float, 8> to 128 registers, and it spilled.  PASSES: the K-pass
-// products (product_passes), which take no slice ahead.
+// products (product_passes), which take no slice ahead, and the attention
+// in chunks of T where the plan asks for it (a.tc > 0).
 template <typename W, int QB, bool PASSES>
 __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1307,7 +1508,13 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
     SYNC_BEFORE(layer, 2);
     product<W, QB, PASSES>(a, PROD(layer, 2), smem, ahead);
     SYNC();
-    attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
+    if constexpr (PASSES) {
+      float* tiles = reinterpret_cast<float*>(smem);
+      if (a.tc != 0) attention_chunks<W>(a, qkv, y, tiles);
+      else attention<W>(a, qkv, y, tiles);
+    } else {
+      attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
+    }
     SYNC();
     row_phase<W>(a, R_LNMOD, y, L, wp(a, SA_SO_S, layer),
                  wp(a, SA_SO_B, layer), msa, h, opA, red);
@@ -1338,7 +1545,9 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
 // item's split slice and the operand what is left, with 15 rows of its
 // width free behind it for a last tile's reads past the staged rows (at
 // kp = 1024, 35 rows, 40 with int8 codes: one 34-row window is staged
-// whole).  fits_plan holds that layout to what the kernel touches.
+// whole).  The attention tiles are the whole window's (tc 0) where they fit
+// beside the slice room, else chunks of tc frames that do (tc, dg above).
+// fits_plan holds that layout to what the kernel touches.
 constexpr size_t SMEM_CAP = 227 * 1024 - 1024;  // dynamic, beside the static
 __host__ __device__ inline int widest_k(const Args& a) {
   return max(max(a.Cp, 2 * a.L), max(a.F, a.L));
@@ -1351,8 +1560,17 @@ bool fits_plan(const Args& a, size_t bytes) {
   const int hd = a.L / a.H, lda = lda_of<W>(a.kp);
   const int rows = a.a_elems / lda;
   const size_t part = sizeof(float) * (NT / 32) * RB * TN;
-  const size_t attn = sizeof(float) * ((size_t)2 * a.T * (hd + 1)
-                                       + (size_t)a.T * AC + (size_t)hd * AC);
+  // attention(): the whole window's q and k tiles, its v columns, ctx (whole
+  // 8-column items); attention_chunks(): chunks of tc frames, a multiple of
+  // 4 unless one chunk holds the window, k features in groups of dg
+  if (a.tc == 0 ? hd % AC != 0
+      : a.tc < 1 || (a.tc < a.T && a.tc % 4) || a.tc > a.T || a.dg < 1
+        || a.dg > hd)
+    return false;
+  const size_t attn = a.tc == 0
+      ? sizeof(float) * ((size_t)2 * a.T * (hd + 1) + (size_t)a.T * AC
+                         + (size_t)hd * AC)
+      : sizeof(float) * (size_t)chunk_floats(a.tc, hd, a.dg);
   // f32: the split slice (QB 0: hi and lo tiles; QB 8: one of codes; QB 4:
   // two of nibbles); bf16: one tile, two for packed int4
   const size_t wbytes = sizeof(W) == 4
@@ -1368,11 +1586,10 @@ bool fits_plan(const Args& a, size_t bytes) {
 // Refusals of a launch's arguments, apart from the cudaError_t codes
 // (ops/fused_layer.py::_launch names each).
 enum Refusal {
-  REFUSE_ROWS = -1,     // B * T above MMAX
-  REFUSE_HEAD = -2,     // head width above HDMAX
   REFUSE_PLAN = -3,     // the host's shared-memory plan does not fit
   REFUSE_ARGS = -4,     // no barrier word, a trace without the traced build,
-                        // or a qb other than 0, 8, 4
+                        // a qb other than 0, 8, 4, or heads that do not
+                        // divide L
 };
 
 // Launch geometry of fused_layers_kernel<W, QB, PASSES> at the host's
@@ -1405,11 +1622,12 @@ int plan(const Args& a, size_t smem, int* grid_out) {
   return 0;
 }
 
-// The instantiation the plan asks for: K passes only where the pass width
-// is narrower than the widest product.
+// The instantiation the plan asks for: K passes where the pass width is
+// narrower than the widest product, or the attention runs in chunks (its
+// products then take one pass, product_passes with kp = K).
 template <typename W, int QB>
 int plan_of(const Args& a, size_t smem, int* grid, void** fn) {
-  if (a.kp < widest_k(a)) {
+  if (a.kp < widest_k(a) || a.tc != 0) {
     *fn = (void*)fused_layers_kernel<W, QB, true>;
     return plan<W, QB, true>(a, smem, grid);
   }
@@ -1492,7 +1710,8 @@ int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
 //       (elements), chain, n_layers, B, T, L, Cp, c_real, F, H, qb (0, 8
 //       or 4), then the N_SCALES per-layer scale strides in bytes, then the
 //       host's plan (ops/fused_layer.py::k_pass_plan): the pass width kp,
-//       a_elems, w_off, part_off and the dynamic shared memory bytes.
+//       a_elems, w_off, part_off, the dynamic shared memory bytes, and the
+//       attention's tc (0: the whole window in one tile) and dg.
 // dtype: 0 = float32, 1 = bfloat16 (x, feats/cond, mods, out, vectors and
 //       unquantized matrices; the compute dtype of the products).
 namespace {
@@ -1534,10 +1753,12 @@ int parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out,
   a.w_off = (int)ints[j++];
   a.part_off = (int)ints[j++];
   *smem_out = (size_t)ints[j++];
+  a.tc = (int)ints[j++];
+  a.dg = (int)ints[j++];
   *out = a;
-  if (a.B * a.T > MMAX) return REFUSE_ROWS;
-  if (a.L / a.H > HDMAX) return REFUSE_HEAD;
-  if (a.barrier == nullptr || (!TRACE && a.trace != nullptr)) return REFUSE_ARGS;
+  if (a.barrier == nullptr || (!TRACE && a.trace != nullptr) || a.H < 1
+      || a.L % a.H)
+    return REFUSE_ARGS;
   return 0;
 }
 

@@ -68,7 +68,8 @@
 
 namespace {
 
-constexpr int HDMAX = 64;             // largest head width
+constexpr int HDMAX = 512;            // largest head width: a thread a
+                                      // column of k
 constexpr int ACC = 16;               // ctx accumulators per thread
 constexpr int UNROLL = 8;             // loads in flight per thread, staging
 constexpr int QV = 16;                // values of a q row a lane, at most

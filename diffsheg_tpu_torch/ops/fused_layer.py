@@ -27,11 +27,13 @@ launch's (B, T, L) in ``.launches_by_shape`` too, and both by (Cp, F,
 passes) in ``.launches_by_width``.  :func:`k_pass_plan` lays out the
 kernel's shared memory: a product whose contraction is wider than a block
 can stage beside one weight slice runs in passes (csrc
-``product_passes``), and a shape no plan fits is refused by name before
-any launch.  :func:`branch_phase_ns` and :func:`kernel_probe` measure
-inside the kernel (per-phase and in-phase times from a traced build, the
-grid barriers' floor, the operand copy's rate); ``chip_smoke.py`` prints
-them.  :func:`random_layer_params` makes
+``product_passes``), an attention phase whose window does not fit beside
+the products' room (or whose head width is not a multiple of 8) runs in
+chunks of T (csrc ``attention_chunks``), and a shape no plan fits is
+refused by name before any launch.  :func:`branch_phase_ns` and
+:func:`kernel_probe` measure inside the kernel (per-phase and in-phase
+times from a traced build, the grid barriers' floor, the operand copy's
+rate); ``chip_smoke.py`` prints them.  :func:`random_layer_params` makes
 the seeded weights those checks and ``cli doctor`` launch the kernels on.
 """
 
@@ -46,8 +48,10 @@ import torch
 
 LN_EPS = 1e-5
 KERNEL_SOURCE = "fused_layer.cu"
-_MAX_ROWS = 256   # B * T per launch (csrc MMAX); larger batches are split
-_MAX_HEAD = 128
+# rows (B * T) a launch takes of a batch: a larger batch is split into
+# launches of whole windows (a window longer than this is a launch of its
+# own), which keeps the launch shapes the main paths were timed at
+_LAUNCH_ROWS = 256
 
 
 def gelu_as(x: torch.Tensor) -> torch.Tensor:
@@ -423,30 +427,63 @@ _PASS_WIDTH = 1024   # at most 1024: a 34-row f32 window is staged whole
 
 
 class KPassPlan(NamedTuple):
-    """How a launch stages its products (:func:`k_pass_plan`)."""
+    """How a launch stages its products and its attention
+    (:func:`k_pass_plan`)."""
 
     kp: int           # widest contraction a product stages at once
-    passes: int       # passes of the widest product (1: the one-pass kernel)
+    passes: int       # passes of the widest product (1 with tc 0: the
+                      # one-pass kernel; else the K-pass one, csrc plan_of)
     a_elems: int      # operand room (elements)
     w_off: int        # byte offsets of the weight-slice room ...
     part_off: int     # ... and of the warps' partial tiles
     smem_bytes: int   # dynamic shared memory of one block
+    tc: int = 0       # attention: 0, the whole window in one tile; else
+    dg: int = 0       # frames a chunk and k features a group
 
 
-def _layout(esize: int, qb: int, M: int, T: int, hd: int, kp: int):
+def _attention_bytes(T: int, hd: int, tc: int = 0, dg: int = 0) -> int:
+    """Shared bytes of the kernel's attention phase: with ``tc`` 0 the
+    whole window's q and k tiles, its v columns and ctx (csrc
+    ``attention``); else a tile of ``tc`` frames, ctx, and per feature of a
+    group of ``dg`` the softmax's and ctx's partial sums (csrc
+    ``chunk_floats``)."""
+    if tc == 0:
+        return 4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)
+    return 4 * (tc * (hd + 1 + _AC) + hd * _AC + dg * (4 * _AC + 10))
+
+
+def _attention_chunks(T: int, hd: int, room: int):
+    """(tc, dg) of attention in chunks within ``room`` bytes: every k
+    feature in one group and the longest chunk that fits (the whole window,
+    or a multiple of 4 frames), halving the group while not even 4 frames
+    fit; None if no group does."""
+    dg = hd
+    while True:
+        # frames that fit: one, and as many more as the room leaves
+        frame = 4 * (hd + 1 + _AC)
+        n = (room - _attention_bytes(T, hd, 1, dg)) // frame + 1
+        if n >= T:
+            return T, dg
+        if n >= 4:
+            return n // 4 * 4, dg
+        if dg == 1:
+            return None
+        dg = (dg + 1) // 2
+
+
+def _layout(esize: int, qb: int, M: int, kp: int, attn: int):
     """(operand rows, a_elems, w_off, part_off, bytes) at pass width
-    ``kp``: [operand rows | attention tiles] (the larger), the weight slice
-    room, the warps' partial tiles.  bf16: the operand gets up to
-    ``_A_BUDGET`` bytes in blocks of 16 rows, up to all M; f32: the room
-    holds one item's split slice and the operand what is left, with 15
-    rows of its width free behind it (a last tile reads past the staged
-    rows)."""
+    ``kp`` with ``attn`` bytes of attention tiles: [operand rows | attention
+    tiles] (the larger), the weight slice room, the warps' partial tiles.
+    bf16: the operand gets up to ``_A_BUDGET`` bytes in blocks of 16 rows,
+    up to all M; f32: the room holds one item's split slice and the operand
+    what is left, with 15 rows of its width free behind it (a last tile
+    reads past the staged rows)."""
     def up16(n):
         return (n + 15) // 16 * 16
 
     lda = kp + 8 if esize == 2 else kp + 16 - kp % 32   # csrc lda_of
     part = 4 * (_NT // 32) * _RB * _TN
-    attn = 4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)
     if esize == 2:
         rows = min(_RB, up16(M), _A_BUDGET // (lda * 2) // 16 * 16)
         wbytes = 2 * kp * _TN * (2 if qb == 4 else 1)
@@ -471,25 +508,43 @@ def k_pass_plan(dtype: torch.dtype, qb: int, B: int, T: int, Cp: int,
     """The launch's shared-memory plan: one pass when a block can hold one
     work item's weight slice at the widest contraction ``max(Cp, 2L, F,
     L)`` beside 16 operand rows (every shape the kernel ran before passes
-    existed), else passes of ``_PASS_WIDTH``.  Raises ``ValueError``, naming
-    the limit, for a shape no plan fits."""
+    existed), else passes of ``_PASS_WIDTH``; the attention's whole window
+    in one tile where it fits beside them and the head width is a multiple
+    of 8 (every shape the kernel ran before chunks existed: the same plan),
+    else in chunks of T.  Raises ``ValueError``, naming the limit, for a
+    shape no plan fits."""
     esize = dtype.itemsize
     M, hd = B * T, L // H
     kmax = max(Cp, 2 * L, F, L)
-    for kp in (kmax, min(kmax, _PASS_WIDTH)):
-        rows, a_elems, w_off, part_off, smem = _layout(esize, qb, M, T, hd, kp)
+    kps = (kmax, min(kmax, _PASS_WIDTH))
+    if hd % _AC == 0:
+        for kp in kps:
+            rows, a_elems, w_off, part_off, smem = _layout(
+                esize, qb, M, kp, _attention_bytes(T, hd))
+            if rows >= 16 and smem <= _SMEM_CAP:
+                return KPassPlan(kp, -(-kmax // kp), a_elems, w_off,
+                                 part_off, smem)
+    for kp in kps:
+        rows, _, w_off, part_off, smem = _layout(esize, qb, M, kp, 0)
+        room = (_SMEM_CAP - (part_off - w_off) - 4 * (_NT // 32) * _RB * _TN
+                ) // 16 * 16
+        chunk = _attention_chunks(T, hd, room) if rows >= 16 else None
+        if chunk is None:
+            continue
+        rows, a_elems, w_off, part_off, smem = _layout(
+            esize, qb, M, kp, _attention_bytes(T, hd, *chunk))
         if rows >= 16 and smem <= _SMEM_CAP:
             return KPassPlan(kp, -(-kmax // kp), a_elems, w_off, part_off,
-                             smem)
+                             smem, *chunk)
     kind = {0: str(dtype), 8: f"{dtype} with int8 codes",
             4: f"{dtype} with int4 codes"}[qb]
     raise ValueError(
         f"fused layer kernel: no shared-memory plan fits B*T={M}, T={T}, "
         f"head width {hd}, widest contraction {kmax} (Cp={Cp}, L={L}, "
-        f"F={F}), {kind}: {smem} bytes at pass width {kp} against the "
-        f"limit of {_SMEM_CAP} (the attention tiles alone take "
-        f"{4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)}); the JAX kernel "
-        f"takes this shape")
+        f"F={F}), {kind}: at pass width {kps[-1]} the products leave "
+        f"{room} of the {_SMEM_CAP} bytes, and the attention takes "
+        f"{_attention_bytes(T, hd, 4, 1)} at its least (chunks of 4 frames, "
+        f"k features one at a time); the JAX kernel takes this shape")
 
 
 def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
@@ -504,14 +559,11 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
     B, T, L = x.shape
     Cp = slp.fp_fc1_k.shape[-2]
     F = slp.ffn_l1_b.shape[-1]
-    if L % num_heads or (L // num_heads) % 8 or L // num_heads > _MAX_HEAD:
-        raise ValueError(f"head width {L}/{num_heads} must be a multiple "
-                         f"of 8 and at most {_MAX_HEAD}")
+    if num_heads < 1 or L % num_heads:
+        raise ValueError(f"{num_heads} heads must divide the width L={L}")
     if L % 16 or Cp % 16 or F % 16 or not L <= c_real <= Cp:
         raise ValueError(f"widths must be multiples of 16 with L <= c_real "
                          f"<= Cp (L={L}, c_real={c_real}, Cp={Cp}, F={F})")
-    if B * T > _MAX_ROWS:
-        raise ValueError(f"B*T={B * T} exceeds {_MAX_ROWS} rows per launch")
     qb = _quant_bits(slp, sc, L)
     lead = (n_layers,) if chain else ()
     shapes = LayerParams(
@@ -555,17 +607,17 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
         mod_layer_stride, int(chain), n_layers, B, T, L, Cp, c_real, F,
         num_heads, qb] + ([layer_bytes(t) for t in scales]
                           or [0] * len(LayerScales._fields)) + [
-        plan.kp, plan.a_elems, plan.w_off, plan.part_off, plan.smem_bytes]
+        plan.kp, plan.a_elems, plan.w_off, plan.part_off, plan.smem_bytes,
+        plan.tc, plan.dg]
     return (_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
             (ctypes.c_int64 * len(ints))(*ints)), out, scratch, plan
 
 
 # csrc Refusal: arguments the kernel refuses before any launch
-_REFUSALS = {-1: f"more than {_MAX_ROWS} rows (B*T)",
-             -2: f"a head wider than {_MAX_HEAD}",
-             -3: "the host's shared-memory plan does not fit the kernel",
-             -4: "no barrier word, a trace without the traced build, or a "
-                 "quantization other than int8 / int4"}
+_REFUSALS = {-3: "the host's shared-memory plan does not fit the kernel",
+             -4: "no barrier word, a trace without the traced build, a "
+                 "quantization other than int8 / int4, or heads that do "
+                 "not divide L"}
 
 
 def _refused(err: int, x, plan: KPassPlan, cargs) -> str:
@@ -590,8 +642,17 @@ def _launch(x, *args, trace=None, **kwargs):
     return out, plan
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: a copy where a batch
+    group's rows of a short vector start inside a 16-byte word."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _batch_groups(B: int, T: int):
-    per = max(1, _MAX_ROWS // T)
+    """The launches of a batch: whole windows, up to ``_LAUNCH_ROWS``
+    rows each (a window needs all its frames for the attention)."""
+    per = max(1, _LAUNCH_ROWS // T)
     return [slice(s, min(B, s + per)) for s in range(0, B, per)]
 
 
@@ -666,7 +727,7 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
         _check("mods", m, (n_layers, 2, Bg, 2 * L), x.dtype, x.device)
         ne = None if null_emb is None else null_emb.reshape(-1).contiguous()
         nm = None if null_mask is None else \
-            null_mask[g].to(torch.float32).contiguous()
+            _aligned(null_mask[g].to(torch.float32))
         out, plan = _launch(x[g].contiguous(), cond[g].contiguous(),
                             m[0, 0], m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
                             num_heads, c_real, True, ne, nm, ssc)

@@ -38,12 +38,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 KERNEL_SOURCE = "linear_attention.cu"
-_MAX_HEAD = 64
+_MAX_HEAD = 512              # one thread a column of k: at most 512 threads
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's constants (csrc/linear_attention.cu) and the card's
 _THREADS = 256                # threads per block
 _THREADS_LONG = 512           # ... when a block takes one head of T >= 64
+                              # or a head wider than 256
+_ACC = 16                     # ctx values a thread holds, at most
 _LONG_ROWS = 64
 _PAD = 4                      # floats after each staged row
 _SMEM_MAX = 232448            # shared bytes a block can use (H100)
@@ -87,11 +89,12 @@ def _launch_plan(B: int, T: int, D: int, H: int,
     heads (hd <= 16) are grouped, as many as fill 128 columns of D,
     while the grid keeps a block per SM; otherwise, at small B*H, each
     (row, head) is split over its output columns (multiples of four) as
-    far as one wave of blocks allows.  All of T is staged when it fits in a
-    block's shared memory; past that, tiles.  A block of one head runs 512
-    threads from T 64 on (shorter chains on the critical path), every
-    other block 256 (on the H100, 256 won at T 12 and 34, 512 at 88 and
-    512)."""
+    far as one wave of blocks allows, and a head wider than 64 as far as a
+    block's threads hold its ctx columns.  All of T is staged when it fits
+    in a block's shared memory; past that, tiles.  A block of one head runs
+    512 threads from T 64 on (shorter chains on the critical path) or when
+    the head is wider than 256 (a thread a column of k), every other block
+    256 (on the H100, 256 won at T 12 and 34, 512 at 88 and 512)."""
     if B < 1 or T < 1 or H < 1 or D % H:
         raise ValueError(f"bad shape (B, T, D) = {(B, T, D)}, {H} heads")
     hd = D // H
@@ -104,12 +107,18 @@ def _launch_plan(B: int, T: int, D: int, H: int,
         heads = max(n for n in range(1, H + 1)
                     if H % n == 0 and n * hd <= _GROUP_WIDTH
                     and (n == 1 or B * (H // n) >= _SMS))
+    threads = (_THREADS_LONG if heads == 1 and (T >= _LONG_ROWS
+                                                or hd > _THREADS)
+               else _THREADS)
     width = hd
     if vec and heads == 1:
         fits = [w for w in range(4, hd + 1, 4)
                 if hd % w == 0 and B * H * (hd // w) <= _SMS]
         width = min(fits, default=hd)
-    threads = _THREADS_LONG if heads == 1 and T >= _LONG_ROWS else _THREADS
+    if heads * hd * width > threads * _ACC:     # only heads wider than 64
+        width = max(w for w in range(1, hd + 1)
+                    if hd % w == 0 and (w % 4 == 0 or not vec)
+                    and hd * w <= threads * _ACC)
     rows, staged = T, True
     if _smem_bytes(hd, heads, width, T, True) > _SMEM_MAX:
         rows, staged = min(T, _TILE_ROWS), False

@@ -199,13 +199,23 @@ WIDE_F32 = [(1, 34, 1792, 1024), (1, 34, 1920, 1024), (4, 34, 1920, 1024),
 
 def fits_plan(dt, qb, B, T, Cp, L, F, H, plan):
     """The kernel's own check of a plan (csrc ``fits_plan``), transcribed:
-    the room for the operand rows it reads, the attention tiles, the weight
+    the room for the operand rows it reads, the attention tiles (the whole
+    window's, or chunks of tc frames and k feature groups of dg), the weight
     slice and the warps' partial tiles."""
     es = dt.itemsize
     kmax = max(Cp, 2 * L, F, L)
     lda = plan.kp + 8 if es == 2 else plan.kp + 16 - plan.kp % 32
     rows = plan.a_elems // lda
-    attn = 4 * (2 * T * (L // H + 1) + T * 8 + (L // H) * 8)
+    hd = L // H
+    if plan.tc == 0:
+        if hd % 8:
+            return False
+        attn = 4 * (2 * T * (hd + 1) + T * 8 + hd * 8)
+    else:
+        if not (1 <= plan.tc <= T and (plan.tc == T or plan.tc % 4 == 0)
+                and 1 <= plan.dg <= hd):
+            return False
+        attn = 4 * (plan.tc * (hd + 1 + 8) + hd * 8 + plan.dg * (4 * 8 + 10))
     wbytes = (4 * 8 * plan.kp * (1 if qb == 8 else 2) if es == 4
               else 2 * 8 * plan.kp * (2 if qb == 4 else 1))
     reach = es * lda * ((rows + 15) // 16 * 16)
@@ -250,32 +260,33 @@ def test_bf16_takes_passes_past_its_one_pass_widths():
 
 
 def test_no_plan_exceeds_shared_memory():
-    # widths 16 .. 8192 on each axis, up to 256 rows: a plan the kernel
-    # takes, within 227 KB, or the named refusal
+    # widths 16 .. 8192 on each axis, windows up to 352 frames, heads 12,
+    # 64, 128 and 144 wide: a plan the kernel takes, within 227 KB, and
+    # none refused (the JAX kernels take every one of these shapes)
     rows = ((1, 1), (1, 16), (1, 34), (2, 32), (4, 34), (7, 34), (1, 88),
-            (2, 88), (2, 128), (1, 256))
-    refused = 0
+            (2, 88), (2, 128), (1, 256), (1, 264), (1, 300), (1, 352))
+    refused = []
     for w in range(16, 8193, 16):
         widths = [(w, 16, 16, 2), (max(w, 512), 512, w, 8)]
         if w % 128 == 0:     # heads 64 and 128 wide
             widths += [(w, w, w, max(1, w // 64)), (w, w, w, w // 128)]
+        if w % 48 == 0:      # heads 12 wide
+            widths.append((w, w, w, w // 12))
+        if w % 144 == 0:     # heads 144 wide
+            widths.append((w, w, w, w // 144))
         for dt in (F32, BF16):
             for qb in (0, 8, 4):
                 for B, T in rows:
                     for Cp, L, F, H in widths:
-                        if L // H > 128:
-                            continue
                         try:
                             plan = P.k_pass_plan(dt, qb, B, T, Cp, L, F, H)
-                        except ValueError as e:
-                            assert "the JAX kernel takes" in str(e)
-                            refused += 1
+                        except ValueError:
+                            refused.append((dt, qb, B, T, Cp, L, F, H))
                             continue
                         assert plan.smem_bytes <= 227 * 1024
                         assert fits_plan(dt, qb, B, T, Cp, L, F, H, plan), (
                             dt, qb, B, T, Cp, L, F, H, plan)
-    # only the attention tiles of long windows with wide heads
-    assert refused > 0
+    assert not refused, refused[:5]
 
 
 def _pack_args(B, T, L, H, Cp, F, dt=F32):
@@ -287,23 +298,31 @@ def _pack_args(B, T, L, H, Cp, F, dt=F32):
             0, lp, 1, H, Cp, False, None, None)
 
 
-@pytest.mark.parametrize("case,args,names", [
-    # a window past 256 frames (csrc MMAX): JAX runs one; ROADMAP Queue 3
-    ("window", (1, 264, 64, 4, 128, 128), ("264", "256 rows")),
-    # a head wider than 128 (csrc HDMAX): JAX runs one; ROADMAP Queue 3
-    ("head", (1, 34, 144, 1, 256, 128), ("144", "at most 128")),
-    # a 256-frame window of 128-wide heads: the attention tiles alone
-    # outgrow shared memory
-    ("attention", (1, 256, 1024, 8, 1024, 1024),
-     ("231424", "head width 128", "the JAX kernel takes")),
+@pytest.mark.parametrize("case,args,chunked", [
+    # the shapes the kernel once refused by name, each of which the JAX
+    # kernel takes, now planned: a window past 256 frames and a head
+    # wider than 128 (each the whole window in one tile at these widths),
+    # and a 256-frame window of 128-wide heads, whose tiles outgrow shared
+    # memory (in chunks of T)
+    ("window", (1, 264, 64, 4, 128, 128), False),
+    ("head", (1, 34, 144, 1, 256, 128), False),
+    ("attention", (1, 256, 1024, 8, 1024, 1024), True),
 ], ids=lambda v: v if isinstance(v, str) else "")
-def test_pack_refuses_by_name(case, args, names):
-    # refused before any allocation or launch, CPU tensors suffice
-    with pytest.raises(ValueError) as e:
-        P._pack(*_pack_args(*args))
-    for name in names:
-        assert name in str(e.value)
-    assert "CUDA error" not in str(e.value)
+def test_pack_refuses_by_name(case, args, chunked, monkeypatch):
+    # planned and packed without a launch: CPU tensors suffice, and a CPU
+    # word stands in for the grid barrier's
+    monkeypatch.setattr(P, "_barrier_word",
+                        lambda dev: torch.zeros(4, dtype=torch.int32))
+    B, T, L, H, Cp, F = args
+    cargs, out, scratch, plan = P._pack(*_pack_args(*args))
+    assert plan.smem_bytes <= 227 * 1024
+    assert fits_plan(F32, 0, B, T, Cp, L, F, H, plan)
+    assert (0 < plan.tc < T) == chunked
+    ints = list(cargs[2])
+    assert ints[-2:] == [plan.tc, plan.dg] and out.shape == (B, T, L)
+    # the kernel's scratch: 8 f32 rows of L, then the operands, per row
+    assert scratch.numel() == B * T * (8 * L * 4 + (L + max(2 * L, F)
+                                                     + max(Cp, L)) * 4)
 
 
 def test_refusal_codes_are_named():

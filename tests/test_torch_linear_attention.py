@@ -39,8 +39,10 @@ def _qkv(B, T, D, seed, masked=False):
 @pytest.mark.parametrize("T,masked,D,heads",
                          [(34, False, 64, H), (88, False, 64, H),
                           (34, True, 64, H), (12, False, 64, H),
-                          (34, True, 128, 8)],
-                         ids=["T34", "T88", "T34_masked", "T12", "D128_H8"])
+                          (34, True, 128, 8), (34, True, 144, 1),
+                          (88, False, 256, 2)],
+                         ids=["T34", "T88", "T34_masked", "T12", "D128_H8",
+                              "hd144", "hd128"])
 def test_f32_matches_pallas_kernel(T, masked, D, heads):
     q, k, v = _qkv(2, T, D, T, masked)
     ref = np.asarray(j_fused(
@@ -57,9 +59,13 @@ def test_f32_matches_pallas_kernel(T, masked, D, heads):
 
 # (B, T, D, H): BEAT's branch rows, SHOW classifier-free, the level
 # cache's audio encoder (hd 16), a 12-frame live window, 512 frames (past
-# whole-T staging), hd 32
+# whole-T staging), hd 32; heads wider than 64: hd 144 at one window, at
+# a 352-frame classifier-free window (tiled) and at a training batch, hd
+# 128 and hd 512 (a thread a column of k: 512 threads)
 PLAN_SHAPES = [(1, 34, 512, 8), (2, 88, 512, 8), (750, 34, 128, 8),
-               (1, 12, 512, 8), (1, 512, 512, 8), (2, 34, 256, 8)]
+               (1, 12, 512, 8), (1, 512, 512, 8), (2, 34, 256, 8),
+               (1, 34, 1152, 8), (2, 352, 1152, 8), (256, 34, 1152, 8),
+               (1, 34, 1024, 8), (1, 34, 512, 1)]
 
 
 @pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
@@ -70,6 +76,10 @@ def test_launch_plan_covers_each_output_once(shape, vec):
     hd = D // heads
     plan = P._launch_plan(B, T, D, heads, vec=vec)
     assert plan.vec == vec and plan.smem_bytes <= 232448
+    # csrc: a thread a column of k, and ctx's columns within the threads'
+    # accumulators
+    assert plan.heads * hd <= plan.threads
+    assert plan.heads * hd * plan.width <= plan.threads * 16
     # tiled exactly when all of T does not fit in a block
     whole = P._smem_bytes(hd, plan.heads, plan.width, T, True)
     assert (plan.mode == "tiled") == (whole > 232448)
@@ -93,8 +103,13 @@ def test_launch_plan_modes_and_limits():
     # a head width that is not a multiple of four takes single columns
     odd = P._launch_plan(1, 34, 24, 8)
     assert not odd.vec and odd.width == 3
+    # heads wider than 64, as the JAX kernel takes them: ctx's columns split
+    # so that a block's threads hold them
+    wide = P._launch_plan(1, 34, 1152, 8)
+    assert wide.width * 144 <= wide.threads * 16 and wide.mode == "staged"
+    assert P._launch_plan(1, 34, 512, 1).threads == 512   # hd 512
     with pytest.raises(ValueError):
-        P._launch_plan(1, 34, 1024, 8)                  # hd 128 > 64
+        P._launch_plan(1, 34, 1024, 1)                  # hd 1024 > 512
     with pytest.raises(ValueError):
         P._launch_plan(1, 34, 500, 8)                   # 8 does not divide D
 
