@@ -23,7 +23,14 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               SHOW's widths at 300 frames and a classifier-free pair of
               352-frame windows in f32 and bf16, int8 at 300, heads 128
               wide at 256 frames, 144 wide at 34 and 300, 12 wide, one
-              head 1024 wide, each line with its plan's tc and dg),
+              head 1024 wide, each line with its plan's tc and dg;
+              widths off a multiple of 16 and one head wider than a
+              chunk beside ctx's 8 columns, which take the ragged build:
+              L 40 / 5 heads / F 80 and L 36 / 4 heads / F 72 (f32 with
+              null rows, bf16, int8, int4), BEAT's branch at latent 520 /
+              ff_size 1032 (f32, bf16, f32 int8), one head 4160 wide in
+              f32 and 4224 in bf16 (ctx columns in groups of 4), each
+              line with its plan's cg),
               linear attention (the BEAT branch rows in f32 and
               bf16, SHOW classifier-free, the level cache's 750-row audio
               encoder, its batch-1 shape and cli generate's 3000-row
@@ -32,7 +39,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               latent and unmasked keys and values from a normed
               condition; an hd-32 shape and an unaligned one that take
               the general kernels; heads 144 wide at 34 and 352 frames;
-              gradients too) and the DDIM + RePaint
+              one head 1024 wide at 34 and 12 frames and 1040 wide at a
+              classifier-free pair of 88, f32 and bf16, which take the
+              wide kernels; gradients too) and the DDIM + RePaint
               step (BEAT, SHOW and the gesture-only model's 141 channels,
               every switch; beside an empty launch of its shape); for the branch kernel at the BEAT gesture shape also
               where a layer's time goes (``phases[...]``: each phase;
@@ -55,7 +64,14 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               seeded SHOW model's 12 s stream in windows of 352 frames
               (its server's widest window_frames) in f32 'auto' and bf16
               'chain' against its own kernel-free f32 uncached forward
-              (5e-3 / 2.5e-2), launches by shape;
+              (5e-3 / 2.5e-2), launches by shape; then a seeded BEAT model
+              at the published depth with its widths off 16 (latent 520,
+              8 heads of 65, ff_size 1032; HuBERT-large features) in f32
+              'auto' and bf16 'chain' (the ragged build), and one at
+              latent 1024 with one head (2 layers a branch) through the
+              f32 module forward (the wide linear-attention kernels),
+              each against its own kernel-free f32 uncached forward (5e-3
+              / 2.5e-2), launches by width and shape;
 5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
               -> windowed DDIM-25 + RePaint sampler -> motion) at full
               width with seeded random weights, through the branch kernel;
@@ -476,8 +492,9 @@ def layer_result(x, cond, mods, slp, H, c_real, null_emb, null_mask, ssc,
 def plan_fields(x, slp, H, ssc):
     """The plan of a launch of these arguments (``k_pass_plan``, one
     window of the batch past 256 rows): the passes of the widest product
-    (1: the one-pass kernel), and the attention's frames a chunk and k
-    features a group (``tc`` 0: the whole window in one tile)."""
+    (1: the one-pass kernel), the attention's frames a chunk, k features
+    and ctx columns a group (``tc`` 0: the whole window in one tile), and
+    whether the launch takes the ragged build."""
     from diffsheg_tpu_torch.ops.fused_layer import _batch_groups, k_pass_plan
     B, T, L = x.shape
     L2, Cp = slp.fp_fc1_k.shape[-1], slp.fp_fc1_k.shape[-2]
@@ -485,7 +502,8 @@ def plan_fields(x, slp, H, ssc):
     g = _batch_groups(B, T)[0]
     plan = k_pass_plan(x.dtype, qb, g.stop - g.start, T, Cp, L,
                        slp.ffn_l1_b.shape[-1], H)
-    return dict(passes=plan.passes, tc=plan.tc, dg=plan.dg)
+    return dict(passes=plan.passes, tc=plan.tc, dg=plan.dg, cg=plan.cg,
+                ragged=plan.ragged)
 
 
 def check_lines(name, out, tol):
@@ -496,7 +514,8 @@ def check_lines(name, out, tol):
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}; {r['route']}) passes={r['passes']} "
             f"attention={'one tile' if r['tc'] == 0 else 'chunks'} "
-            f"tc={r['tc']} dg={r['dg']}")
+            f"tc={r['tc']} dg={r['dg']} cg={r['cg']} "
+            f"build={'ragged' if r['ragged'] else 'plain'}")
         if not r["rel_rms"] <= tol:
             raise AssertionError(f"{k} {name}: rel_rms {r['rel_rms']:.3e} "
                                  f"> {tol:g}")
@@ -593,6 +612,52 @@ def long_case(name, dtype, B, T, Cp, c_real, null, L, H, F, quant, n_layers,
     got = {k: r["tc"] for k, r in out.items()}
     if set(got.values()) != {tc}:
         raise AssertionError(f"{name}: attention tc {got}, expected {tc}")
+    return out
+
+
+# widths off a multiple of 16 and one head wider than a chunk of 4 frames
+# beside ctx's 8 columns, which take the ragged build (k_pass_plan's
+# ragged, cg): L 40 (5 heads of 8, F 80) and L 36 (4 heads of 9, F 72) at
+# Cp 128, with null rows and int8 / int4 codes; the BEAT gesture branch at
+# latent 520 (8 heads of 65) and ff_size 1032, phase 4's model; one head
+# 4160 wide in f32 and 4224 in bf16, ctx's columns in groups of 4 (one
+# layer: 0.7-1.5 GB of weights a layer).
+# (name, dtype, B, T, Cp, c_real, null rows, L, heads, F, quant, layers,
+# cg expected)
+ODD_CASES = (
+    ("odd-L40-f32", torch.float32, 1, 34, 128, 113, False, 40, 5, 80,
+     "none", 8, 0),
+    ("odd-L40-bf16", torch.bfloat16, 1, 34, 128, 113, False, 40, 5, 80,
+     "none", 8, 0),
+    ("odd-L40-bf16-int4", torch.bfloat16, 1, 34, 128, 113, False, 40, 5,
+     80, "int4", 8, 0),
+    ("odd-L36-cfg-f32", torch.float32, 2, 34, 128, 101, True, 36, 4, 72,
+     "none", 8, 0),
+    ("odd-L36-bf16-int8", torch.bfloat16, 1, 34, 128, 101, False, 36, 4, 72,
+     "int8", 8, 0),
+    ("odd-L520-f32", torch.float32, 1, 34, 1024, 955, False, 520, 8, 1032,
+     "none", 8, 0),
+    ("odd-L520-bf16", torch.bfloat16, 1, 34, 1024, 955, False, 520, 8, 1032,
+     "none", 8, 0),
+    ("odd-L520-f32-int8", torch.float32, 1, 34, 1024, 955, False, 520, 8,
+     1032, "int8", 8, 0),
+    ("hd4160-f32", torch.float32, 1, 34, 4224, 4200, False, 4160, 1, 4160,
+     "none", 1, 4),
+    ("hd4224-bf16", torch.bfloat16, 1, 34, 4352, 4300, False, 4224, 1, 4224,
+     "none", 1, 4))
+
+
+def odd_case(name, dtype, B, T, Cp, c_real, null, L, H, F, quant, n_layers,
+             cg, dev, seed, reps):
+    """Both layer kernels at a shape of the ragged build, held to their
+    dtype's tolerance; fails unless the launch took the ragged build with
+    ctx columns in groups of ``cg``."""
+    out = kernel_case(name, dtype, B, T, Cp, c_real, null, dev, seed, reps,
+                      quant, L=L, H=H, F=F, n_layers=n_layers)
+    got = {k: (r["ragged"], r["cg"]) for k, r in out.items()}
+    if set(got.values()) != {(True, cg)}:
+        raise AssertionError(f"{name}: (ragged, cg) {got}, expected "
+                             f"{(True, cg)}")
     return out
 
 
@@ -706,6 +771,17 @@ ATTENTION_CASES = (("beat-f32", torch.float32, 1, 34, 512, 0),
                    # classifier-free pair of 352-frame windows (tiled)
                    ("hd144-f32", torch.float32, 1, 34, 1152, 0),
                    ("hd144-cfg-t352-f32", torch.float32, 2, 352, 1152, 0))
+# one head wider than a block's 512 threads (the wide kernels): 1024 wide
+# at a BEAT window (tiled) and a 12-frame one (staged), through an
+# unaligned input too, and 1040 wide at a classifier-free pair of 88-frame
+# windows in f32 and bf16; phase 4's one-head model runs (1, 34, 1024).
+# (name, dtype, B, T, D, offset): one head
+WIDE_ATTENTION_CASES = (
+    ("hd1024-f32", torch.float32, 1, 34, 1024, 0),
+    ("hd1024-t12-f32", torch.float32, 1, 12, 1024, 0),
+    ("hd1024-unaligned-f32", torch.float32, 1, 34, 1024, 1),
+    ("hd1040-cfg-t88-f32", torch.float32, 2, 88, 1040, 0),
+    ("hd1040-cfg-t88-bf16", torch.bfloat16, 2, 88, 1040, 0))
 
 
 def attention_inputs(dtype, B, T, D, dev, seed, offset=0):
@@ -896,6 +972,9 @@ def phase_kernels(dev, reps):
                                                  dev, 11, reps)
     # the decoder's cross-attention over the gesture branch's condition
     # (audio latent 256 + HuBERT 128 + expression 51)
+    for name, dt, B, T, D, offset in WIDE_ATTENTION_CASES:
+        results[f"attn-{name}"] = attention_case(name, dt, B, T, D, offset, 1,
+                                                 dev, 11, reps)
     results["attn-cross-beat-f32"] = attention_case(
         "cross-beat-f32", torch.float32, 1, 34, 512, 0, 8, dev, 11, reps,
         qkv=cross_attention_inputs(1, 34, 512, 435, dev, 16))
@@ -919,6 +998,8 @@ def phase_kernels(dev, reps):
         results[name] = wide_case(name, *case, dev, 19, reps)
     for name, *case in LONG_CASES:
         results[name] = long_case(name, *case, dev, 20, reps)
+    for name, *case in ODD_CASES:
+        results[name] = odd_case(name, *case, dev, 21, reps)
     results.update(quant_kernel_cases(dev, reps))
     results.update(example_kernel_cases(dev, reps))
     return results
@@ -984,7 +1065,10 @@ def ab_line(what, path, outs, ms, plain, exact):
 # per-layer kernel alone at the other f32 shapes of the main paths (cli
 # generate's 4 speakers, training's evaluation of 7 windows); then the
 # raw-HuBERT gesture branch and ff_size 2048 in f32, which a version
-# without K passes refuses
+# without K passes refuses; then the other pass instantiations (bf16
+# ff_size 6144, f32 int4 codes at the raw gesture width) and a 300-frame
+# SHOW window in f32 (attention in chunks of T), which a version without
+# chunks refuses
 BOTH = ("fused_branch", "fused_layer")
 AB_LAYER_CASES = (
     ("beat-ges-bf16", torch.bfloat16, 1, 34, 1024, 947, 1024, False, "none",
@@ -1010,7 +1094,13 @@ AB_LAYER_CASES = (
     ("raw-ges-f32", torch.float32, 1, 34, 1920, 1843, 1024, False, "none",
      19, 8, BOTH),
     ("ff2048-f32", torch.float32, 1, 34, 1024, 947, 2048, False, "none", 19,
-     8, BOTH))
+     8, BOTH),
+    ("ff6144-bf16", torch.bfloat16, 1, 34, 1024, 947, 6144, False, "none",
+     19, 8, BOTH),
+    ("raw-ges-f32-int4", torch.float32, 1, 34, 1920, 1843, 1024, False,
+     "int4", 19, 8, BOTH),
+    ("show-t300-f32", torch.float32, 1, 300, 1024, 999, 1024, False, "none",
+     20, 8, BOTH))
 
 
 def ab_fused_layer(dev, reps, path, exact):
@@ -1042,14 +1132,18 @@ def ab_fused_layer(dev, reps, path, exact):
 
 
 def ab_attention(dev, reps, path, exact):
+    """Phase 3's linear-attention cases (8 heads, then the wide heads, one
+    a block, which a version before the wide kernels refuses)."""
     from diffsheg_tpu_torch.ops import linear_attention as ops
     other = ab_entry(ops, path)
-    for name, dtype, B, T, D, offset in ATTENTION_CASES:
-        q, k, v = attention_inputs(dtype, B, T, D, dev, 11, offset)
-        outs, ms = ab_time(ops, other,
-                           lambda: ops.fused_linear_attention(q, k, v, 8), reps)
-        ab_line(f"fused_linear_attention {name}", path, outs, ms,
-                ops.fused_linear_attention_reference(q, k, v, 8), exact)
+    for H, cases in ((8, ATTENTION_CASES), (1, WIDE_ATTENTION_CASES)):
+        for name, dtype, B, T, D, offset in cases:
+            q, k, v = attention_inputs(dtype, B, T, D, dev, 11, offset)
+            outs, ms = ab_time(
+                ops, other, lambda: ops.fused_linear_attention(q, k, v, H),
+                reps)
+            ab_line(f"fused_linear_attention {name}", path, outs, ms,
+                    ops.fused_linear_attention_reference(q, k, v, H), exact)
 
 
 def ab_step(dev, reps, path, exact):
@@ -1202,6 +1296,8 @@ def phase_stream(dev, model):
     phase_quant_stream(dev, model, ref, mel, pid, hub)
     launches = raw_hubert_stream(dev, mel, pid, hub)
     launches.update(show_long_stream(dev))
+    launches.update(odd_width_stream(dev, mel, pid, hub))
+    launches.update(wide_head_stream(dev, mel, pid, hub))
     return launches
 
 
@@ -1341,6 +1437,102 @@ def show_long_stream(dev):
     if failed:
         raise AssertionError(f"SHOW 352-frame stream failed: {failed}")
     return launches
+
+
+# a BEAT model at the published depth and heads with its widths off a
+# multiple of 16 (8 layers a branch, 8 heads of 65, HuBERT-large features):
+# both branches' feats pad to 1024, so every launch is (Cp 1024, F 1032, 1
+# pass) on the ragged build
+ODD_MODEL = dict(latent_dim=520, ff_size=1032)
+ODD_WIDTH = (1024, 1032, 1)
+
+
+def odd_width_stream(dev, mel, pid, hub):
+    """The 68-frame stream of a seeded latent-520 / ff_size-1032 BEAT
+    model in f32 through the per-layer kernel ('auto') and in bf16 through
+    the branch kernel ('chain'), held to 5e-3 / 2.5e-2 against the model's
+    own kernel-free f32 uncached stream; the launches exactly, by width."""
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    model = init_unidiffuser(beat_cfg("float32", "off", model=ODD_MODEL).model,
+                             seed=5)
+    ref = reference_stream(beat_cfg("float32", "off", model=ODD_MODEL,
+                                    level_cache=False),
+                           model, mel, pid, hub, dev)
+    launches, failed = {}, []
+    for dtype, mode, kernel, tol in (("float32", "auto", "fused_layer", 5e-3),
+                                     ("bfloat16", "chain", "fused_branch",
+                                      2.5e-2)):
+        cfg = beat_cfg(dtype, mode, model=ODD_MODEL)
+        calls = stream_calls(cfg, mel.shape[1])
+        per = cfg.model.num_layers if mode == "auto" else 1
+        zero_counts()
+        t0 = time.perf_counter()
+        got = run_stream(cfg, model, mel, pid, hub, 5, dev)
+        secs = time.perf_counter() - t0
+        counts = {n: fn.launches for n, fn in counters().items()}
+        widths = layer_widths()[mode == "chain"]
+        err = rel_rms(got, ref)
+        log(f"stream[68 frames, latent 520 ff 1032, {dtype} {mode}]: vs f32 "
+            f"uncached rel_rms={err:.3e} (tol {tol:g}); seconds={secs:.3f} "
+            f"model_calls={calls} launches={counts} {kernel} by (Cp, F, "
+            f"passes)={widths}")
+        # the level cache's audio encoder: one linear-attention launch in
+        # f32 (bf16 takes the composition)
+        want = {kernel: 2 * per * calls,
+                "fused_linear_attention": int(dtype == "float32")}
+        if counts != {n: want.get(n, 0) for n in counters()}:
+            failed.append(f"{mode}: launches {counts}, expected {want}")
+        if widths != {ODD_WIDTH: 2 * per * calls}:
+            failed.append(f"{mode}: by width {widths}")
+        if not (torch.isfinite(got).all() and err < tol):
+            failed.append(f"{mode}: {err:.3e}")
+        launches[f"{kernel}_odd_stream"] = counts[kernel]
+    if failed:
+        raise AssertionError(f"latent-520 stream failed: {failed}")
+    return launches
+
+
+# a BEAT model with one head 1024 wide, 2 layers a branch (cut from 8 to pay
+# for its width), through the f32 module forward: every self-attention a
+# launch of the wide linear-attention kernels
+WIDE_MODEL = dict(latent_dim=1024, num_heads=1, num_layers=2)
+WIDE_ATTN = (1, 34, 1024, 1)
+
+
+def wide_head_stream(dev, mel, pid, hub):
+    """The 68-frame stream of a seeded one-head latent-1024 BEAT model
+    through the f32 module forward on the level cache (fused_layer='off'),
+    held to 5e-3 against its own kernel-free f32 uncached stream; linear
+    attention's launches exactly, by shape."""
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    model = init_unidiffuser(beat_cfg("float32", "off", model=WIDE_MODEL
+                                      ).model, seed=6)
+    ref = reference_stream(beat_cfg("float32", "off", model=WIDE_MODEL,
+                                    level_cache=False),
+                           model, mel, pid, hub, dev)
+    cfg = beat_cfg("float32", "off", model=WIDE_MODEL)
+    calls = stream_calls(cfg, mel.shape[1])
+    zero_counts()
+    t0 = time.perf_counter()
+    got = run_stream(cfg, model, mel, pid, hub, 5, dev)
+    secs = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in counters().items()}
+    shapes = dict(counters()["fused_linear_attention"].launches_by_shape)
+    err = rel_rms(got, ref)
+    log(f"stream[68 frames, latent 1024, one head, f32 off]: vs f32 uncached "
+        f"rel_rms={err:.3e} (tol 5e-3); seconds={secs:.3f} "
+        f"model_calls={calls} launches={counts} linear attention by "
+        f"shape={shapes}")
+    # 2 branches x 2 layers a model call, and the level cache's audio
+    # encoder once (128 wide, one head)
+    self_attn = 2 * WIDE_MODEL["num_layers"] * calls
+    expect("one-head latent-1024 stream", counts,
+           fused_linear_attention=self_attn + 1)
+    if shapes.get(WIDE_ATTN) != self_attn or not (
+            torch.isfinite(got).all() and err < 5e-3):
+        raise AssertionError(f"one-head latent-1024 stream: {shapes}, "
+                             f"{err:.3e}")
+    return {"fused_linear_attention_wide_stream": shapes[WIDE_ATTN]}
 
 
 def phase_quant_stream(dev, model, ref, mel, pid, hub):
@@ -4203,6 +4395,8 @@ def main() -> int:
            "fused_ddim_repaint_step_learned_var",
            "fused_layer_raw_stream", "fused_branch_raw_stream",
            "fused_layer_show352_stream", "fused_branch_show352_stream",
+           "fused_layer_odd_stream", "fused_branch_odd_stream",
+           "fused_linear_attention_wide_stream",
            "fused_layer_live_show352",
            "fused_layer_generate_raw",
            "fused_layer_generate", "fused_branch_generate",
@@ -4376,6 +4570,16 @@ def main() -> int:
               "fused_branch", "fused_layer.cu", "ops/fused_layer.py:475"),
              ("fused_layer_live_show352", "show-cfg-t352-bf16",
               "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556")]
+    # widths off a multiple of 16 (the ragged build) and a head wider than
+    # a block's threads: phase 4's latent-520 streams, f32 through the
+    # per-layer kernel and bf16 through the branch kernel, and its one-head
+    # latent-1024 module forward through linear attention
+    rows += [("fused_layer_odd_stream", "odd-L520-f32", "fused_layer",
+              "fused_layer.cu", "ops/fused_layer.py:556"),
+             ("fused_branch_odd_stream", "odd-L520-bf16", "fused_branch",
+              "fused_layer.cu", "ops/fused_layer.py:475"),
+             ("fused_linear_attention_wide_stream", "attn-hd1024-f32", None,
+              "linear_attention.cu", "ops/linear_attention.py:99")]
     # phase 10, training: the forward of every self-attention of a step at
     # batch 2500 (the first 2 epochs' launches), and the evaluation's
     # per-layer kernel (at (7, 34), 9 of its 10 launches a layer) and

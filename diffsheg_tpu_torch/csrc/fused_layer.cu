@@ -98,8 +98,8 @@
 // latency-bound, so int8 runs as fast as QB = 0 and int4 a little slower
 // (PERF.md).  QB = 0 is the unquantized kernel.
 //
-// K passes (fused_layers_kernel<W, QB, true>).  A block holds one work
-// item's weight slice beside at least 16 operand rows, both at the widest
+// K passes (fused_layers_kernel<W, QB, true, false>).  A block holds one
+// work item's weight slice beside at least 16 operand rows, both at the widest
 // contraction K = max(Cp, 2L, F, L).  Where that does not fit in shared
 // memory (f32 above K = 1680, 1840 with int8 codes; bf16 above 4464, 3344
 // with int4 codes), the host's plan (ops/fused_layer.py::k_pass_plan, the
@@ -130,6 +130,22 @@
 // in VMEM and take any T and head width.  Shapes whose tiles fit take
 // attention(), the code they ran before; a window is never split across
 // launches (ops/fused_layer.py groups a batch by whole windows).
+//
+// Ragged shapes (fused_layers_kernel<W, QB, true, true>, built alone with
+// -DDIFFSHEG_RAGGED into a library of its own, ops/build.py).  The JAX
+// kernels take any L that the heads divide, any F and any Cp; the other
+// instantiations assume widths that are multiples of 16 (16-byte row loads,
+// whole mma steps, whole 8-column items) and keep ctx's 8 columns of an
+// attention item whole.  Where L, F or Cp is off a multiple of 16, or one
+// head is so wide that not even a chunk of 4 frames fits beside ctx (f32
+// above 3104, bf16 above 4128 at T 34), the host's plan sends the launch to
+// this build: its products stage each pass's operand columns and weight
+// rows element by element, zero-filled to a multiple of 16 (the K edge adds
+// exact zeros), walk each matrix's columns in items of 8 with the last one
+// narrower (the N edge, stored under a predicate), and its chunked
+// attention walks an item's ctx columns in groups of a.cg, each column's
+// sums in the order attention() adds them.  The other libraries refuse such
+// shapes (REFUSE_RAGGED), so every shape they ran keeps its code.
 //
 // All eight weight products and both attention contractions are computed
 // here with f32 accumulation (no library GEMM): the weight products on the
@@ -196,6 +212,7 @@ struct Args {
   int tc, dg;                   // attention: 0, the one-tile attention(); else
                                 // frames a chunk and k features a group
                                 // (attention_chunks)
+  int cg;                       // ctx columns a group (ragged build; 0: all AC)
 };
 
 constexpr int NPHASE = 12;   // phases (grid barriers) per layer
@@ -208,6 +225,15 @@ constexpr bool TRACE = true;
 #else
 constexpr bool TRACE = false;
 #endif
+// The ragged instantiations are compiled only with -DDIFFSHEG_RAGGED, and
+// then alone (see "Ragged shapes" above).
+#ifdef DIFFSHEG_RAGGED
+constexpr bool RAGGED_BUILD = true;
+#else
+constexpr bool RAGGED_BUILD = false;
+#endif
+
+__host__ __device__ constexpr int up16(int n) { return (n + 15) / 16 * 16; }
 
 template <typename W> __device__ __forceinline__ float ld(const void* p, long long i);
 template <> __device__ __forceinline__ float ld<float>(const void* p, long long i) {
@@ -956,7 +982,7 @@ __device__ void product_bf16(const Args& a, const Prod p, unsigned char* smem,
   stamp(a, 4);
 }
 
-// The K-pass form (fused_layers_kernel<W, QB, true>).  The one-pass
+// The K-pass form (fused_layers_kernel<W, QB, true, false>).  The one-pass
 // functions above keep their own code, so that the shapes they run compile
 // as before; these are used by the pass instantiation alone.
 //
@@ -992,13 +1018,89 @@ __device__ void stage_cols(const Prod& p, int r0, int rows, int k0, int kp,
   }
 }
 
+// The ragged instantiation's staging (widths off a multiple of 16): element
+// by element, as rows need not start on a 16-byte word.  Columns k0 .. k0 +
+// kw of operand rows r0 .. r0 + rows, then zeros up to kq (a multiple of
+// 16), so the mma steps past the edge add exact zeros.
+template <typename W>
+__device__ void stage_cols_ragged(const Prod& p, int r0, int rows, int k0,
+                                  int kw, int kq, W* As, int lda) {
+  const W* src = static_cast<const W*>(p.A) + (long long)r0 * p.K + k0;
+  for (int i = threadIdx.x; i < rows * kq; i += NT) {
+    const int r = i / kq, k = i - r * kq;
+    As[r * lda + k] = k < kw ? src[(long long)r * p.K + k] : to_w<W>(0.f);
+  }
+}
+
+// A ragged work item: matrix `mat`'s columns (packed int4: byte columns)
+// c0 .. c0 + valid, valid <= TN; `per` items a matrix, its last narrower.
+struct RItem { int mat, c0, valid; };
+template <int QB>
+__device__ __forceinline__ RItem ragged_item(const Prod& p, int item,
+                                             int per) {
+  const int w = QB == 4 ? p.ncol / 2 : p.ncol;
+  const int mat = item / per, c0 = (item - mat * per) * TN;
+  return {mat, c0, min(TN, w - c0)};
+}
+
+// The first n of a weight row's TN values (codes, packed bytes) from any
+// element-aligned address, the rest zero, in fetch_w's register layout.
+template <typename W, int QB>
+__device__ __forceinline__ typename raw_row<W, QB>::type row_of(
+    const char* src, int n) {
+  if constexpr (QB != 0) {
+    uint32_t v[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (j < n) v[j / 4] |= (uint32_t)(uint8_t)src[j] << (8 * (j % 4));
+    return make_uint2(v[0], v[1]);
+  } else if constexpr (sizeof(W) == 2) {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (j < n) v[j / 2] |= (uint32_t)s[j] << (16 * (j % 2));
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    uint32_t v[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) v[j] = j < n ? s[j] : 0u;
+    return f32x8{make_uint4(v[0], v[1], v[2], v[3]),
+                 make_uint4(v[4], v[5], v[6], v[7])};
+  }
+}
+
+// Item `it`'s weight slice of contraction rows 0 .. p.K into Ws, as put_w
+// lays out a slice of kq rows (kq a multiple of 16), rows p.K .. kq zero.
+template <typename W, int QB>
+__device__ void stage_w_ragged(const Prod& p, const RItem& it, int kq,
+                               W* Ws) {
+  using Raw = typename raw_row<W, QB>::type;
+  const long long row = QB == 0 ? (long long)p.ncol * (int)sizeof(W)
+                      : QB == 8 ? p.ncol : p.ncol / 2;   // bytes, as fetch_w
+  const char* base = static_cast<const char*>(pick(it.mat, p.wk0, p.wk1, p.wk2))
+      + (QB == 0 ? it.c0 * (int)sizeof(W) : it.c0);
+  Prod z = p;
+  z.K = kq;
+  for (int k0 = 0; k0 < kq; k0 += WR * NT) {
+    Slice<W, QB> s;
+#pragma unroll
+    for (int j = 0; j < WR; ++j) {
+      const int k = k0 + threadIdx.x + j * NT;
+      s.r[j] = k < p.K ? row_of<W, QB>(base + k * row, it.valid) : Raw{};
+    }
+    put_w<W, QB>(z, k0, s, Ws);
+  }
+}
+
 // The warps' accumulated tiles d of product columns n0 .. n0 + TN, rows
 // r0 .. r0 + rows: summed through shared memory in warp order, then the
-// epilogue (multiply's last part).
-template <typename W, int QB>
+// epilogue (multiply's last part); RAGGED: only the first `valid` columns.
+template <typename W, int QB, bool RAGGED>
 __device__ void finish_tile(const Args& a, const Prod& p, int r0, int rows,
                             int n0, const float (&d)[RB / 16][4],
-                            float* part) {
+                            float* part, int valid) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mtiles = (rows + 15) / 16;
@@ -1017,6 +1119,7 @@ __device__ void finish_tile(const Args& a, const Prod& p, int r0, int rows,
   const float* sc = pick(cc.mat, p.ws0, p.ws1, p.ws2);
   for (int i = threadIdx.x; i < rows * TN; i += NT) {
     const int r = i / TN, j = i - r * TN;
+    if (RAGGED && j >= valid) continue;
     const long long o = (long long)(r0 + r) * p.N + n0 + j;
     float v = 0.f;
 #pragma unroll
@@ -1033,16 +1136,20 @@ __device__ void finish_tile(const Args& a, const Prod& p, int r0, int rows,
 // pass stages its item's slice once for every chunk and tile, and the rows
 // once for the whole product when they fit; a product of several passes
 // stages both anew in every pass.  Each warp takes a K / 8 share of every
-// pass and keeps its fragments d across the passes.
-template <typename W, int QB>
+// pass and keeps its fragments d across the passes.  RAGGED: each matrix's
+// columns in items of TN, its last item narrower (ragged_item), and each
+// pass staged element by element up to a multiple of 16 rows.
+template <typename W, int QB, bool RAGGED>
 __device__ void product_passes(const Args& a, const Prod p,
                                unsigned char* smem) {
   const int M = a.B * a.T;
-  const int n_items = p.N / (TN * item_tiles<QB>());
+  const int per = RAGGED ? (p.ncol / (QB == 4 ? 2 : 1) + TN - 1) / TN : 0;
+  const int n_items = RAGGED ? p.N / p.ncol * per
+                             : p.N / (TN * item_tiles<QB>());
   if ((int)blockIdx.x >= n_items) return;   // never block 0: no stamps owed
   const int kp = min(p.K, a.kp);
   const bool one = kp == p.K;
-  const int lda = lda_of<W>(kp);
+  const int lda = lda_of<W>(RAGGED ? up16(kp) : kp);
   const int fit = min(RB, a.a_elems / lda_of<W>(a.kp));   // the planned rows
   const bool all = M <= fit;                  // every row in one chunk ...
   const bool whole = one && all;              // ... staged once a product
@@ -1053,6 +1160,8 @@ __device__ void product_passes(const Args& a, const Prod p,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    RItem it{};
+    if constexpr (RAGGED) it = ragged_item<QB>(p, item, per);
     for (int r0 = 0; r0 < M; r0 += rb) {
       const int rows = min(rb, M - r0), mtiles = (rows + 15) / 16;
       const bool first_chunk = r0 == 0 && item == (int)blockIdx.x;
@@ -1064,30 +1173,40 @@ __device__ void product_passes(const Args& a, const Prod p,
           d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.f;
         for (int k0 = 0; k0 < p.K; k0 += kp) {
           const Prod q = pass_of<W, QB>(p, k0, min(kp, p.K - k0));
+          const int kq = RAGGED ? up16(q.K) : q.K;   // rows staged
           __syncthreads();                        // As, Ws, part are free
-          if (!one || (tile == 0 && (!whole || first_chunk)))
-            stage_cols<W>(p, r0, rows, k0, q.K, As, lda);
+          if (!one || (tile == 0 && (!whole || first_chunk))) {
+            if constexpr (RAGGED)
+              stage_cols_ragged<W>(p, r0, rows, k0, q.K, kq, As, lda);
+            else
+              stage_cols<W>(p, r0, rows, k0, q.K, As, lda);
+          }
           if (first && k0 == 0) stamp(a, 0);
-          if (!one || (tile == 0 && r0 == 0)) stage_w<W, QB>(q, item, Ws);
+          if (!one || (tile == 0 && r0 == 0)) {
+            if constexpr (RAGGED) stage_w_ragged<W, QB>(q, it, kq, Ws);
+            else stage_w<W, QB>(q, item, Ws);
+          }
           __syncthreads();
           if (first && k0 == 0) stamp(a, 1);
-          const W* Wt = Ws + tile * TN * q.K;     // QB = 4: the item's tile
-          const int ksteps = q.K / 16, kper = (ksteps + 7) / 8;
+          const W* Wt = Ws + tile * TN * kq;      // QB = 4: the item's tile
+          const int ksteps = kq / 16, kper = (ksteps + 7) / 8;
           const int ks0 = warp * kper, ks1 = min(ksteps, ks0 + kper);
           switch (mtiles) {
-            case 1: mma_slice<1, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
-            case 2: mma_slice<2, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
-            case 3: mma_slice<3, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
-            default: mma_slice<4, QB>(d, As, lda, Wt, q.K, ks0, ks1, g, t); break;
+            case 1: mma_slice<1, QB>(d, As, lda, Wt, kq, ks0, ks1, g, t); break;
+            case 2: mma_slice<2, QB>(d, As, lda, Wt, kq, ks0, ks1, g, t); break;
+            case 3: mma_slice<3, QB>(d, As, lda, Wt, kq, ks0, ks1, g, t); break;
+            default: mma_slice<4, QB>(d, As, lda, Wt, kq, ks0, ks1, g, t); break;
           }
         }
         if (first) stamp(a, 2);
         int n0 = item * TN;
-        if constexpr (QB == 4) {
+        if constexpr (RAGGED) {
+          n0 = it.mat * p.ncol + it.c0 + tile * (p.ncol / 2);
+        } else if constexpr (QB == 4) {
           const Cols c = int4_item(p, item, TN);
           n0 = c.mat * p.ncol + c.c0 + tile * (p.ncol / 2);
         }
-        finish_tile<W, QB>(a, p, r0, rows, n0, d, part);
+        finish_tile<W, QB, RAGGED>(a, p, r0, rows, n0, d, part, it.valid);
         if (first) stamp(a, 3);
       }
     }
@@ -1095,11 +1214,11 @@ __device__ void product_passes(const Args& a, const Prod p,
   stamp(a, 4);
 }
 
-template <typename W, int QB, bool PASSES>
+template <typename W, int QB, bool PASSES, bool RAGGED>
 __device__ __forceinline__ void product(const Args& a, const Prod p,
                                         unsigned char* smem,
                                         Slice<W, QB>& ahead) {
-  if constexpr (PASSES) product_passes<W, QB>(a, p, smem);
+  if constexpr (PASSES) product_passes<W, QB, RAGGED>(a, p, smem);
   else if constexpr (sizeof(W) == 4) product_tf32<QB>(a, p, smem, ahead);
   else product_bf16<QB>(a, p, smem, ahead);
 }
@@ -1201,12 +1320,14 @@ __device__ void attention(const Args& a, const float* qkv, float* y,
 }
 
 // Shared floats of attention_chunks: a tile of tc frames of q (hd + 1
-// wide) or of a k feature group, the item's v columns of those frames, ctx
-// (hd x AC), and per feature of a group of dg: ctx's four partial sums per
-// column, the softmax's four parts' max and sum, and its max and sum.
-__host__ __device__ constexpr long long chunk_floats(int tc, int hd, int dg) {
-  return (long long)tc * (hd + 1 + AC) + (long long)hd * AC
-       + (long long)dg * (4 * AC + 10);
+// wide) or of a k feature group, a group of cg of the item's v columns of
+// those frames, those columns of ctx (hd x cg), and per feature of a group
+// of dg: ctx's four partial sums per column, the softmax's four parts' max
+// and sum, and its max and sum.
+__host__ __device__ constexpr long long chunk_floats(int tc, int hd, int dg,
+                                                     int cg) {
+  return (long long)tc * (hd + 1 + cg) + (long long)hd * cg
+       + (long long)dg * (4 * cg + 10);
 }
 
 // The attention phase in chunks of a.tc frames (the host plans a.tc > 0
@@ -1223,21 +1344,26 @@ __host__ __device__ constexpr long long chunk_floats(int tc, int hd, int dg) {
 // less room); then (d) softmax(q) and y, which are per frame, chunk by
 // chunk.  An item of the head's last ctx columns takes hd - c AC < AC of
 // them.  A window of one chunk is staged once for (a) - (c).  Compiled
-// into the K-pass instantiation alone (fused_layers_kernel<W, QB, true>,
-// which a plan with tc > 0 takes), so that the one-pass instantiations
-// keep their code and registers.
-template <typename W>
+// into the K-pass instantiations alone (fused_layers_kernel<W, QB, true,
+// RAGGED>, which a plan with tc > 0 takes), so that the one-pass ones
+// keep their code and registers.  RAGGED: where not even a chunk of 4
+// frames fits beside ctx's AC columns (one head past ~3100 features), the
+// item walks its columns in groups of a.cg, (a) - (d) once a group: each
+// column's ctx and y depend on that column alone, so every value is the
+// one a whole item computes.
+template <typename W, bool RAGGED>
 __device__ void attention_chunks(const Args& a, const float* qkv, float* y,
                                  float* smem) {
   const int T = a.T, L = a.L, H = a.H, tc = a.tc, dg = a.dg;
   const int hd = L / H, nc = (hd + AC - 1) / AC, ldq = hd + 1;
+  const int cg = RAGGED && a.cg != 0 ? a.cg : AC;
   const int n_items = a.B * H * nc;
   constexpr int parts = 4;
   float* Xs = smem;                   // tc x (hd + 1): q, or a k feature group
-  float* Vs = Xs + tc * ldq;          // tc x AC
-  float* Cs = Vs + tc * AC;           // hd x AC: ctx, rounded
-  float* Acc = Cs + hd * AC;          // dg x AC x 4: ctx's partial sums
-  float* Mx = Acc + dg * AC * 4;      // dg x 4: each part's max
+  float* Vs = Xs + tc * ldq;          // tc x cg
+  float* Cs = Vs + tc * cg;           // hd x cg: ctx, rounded
+  float* Acc = Cs + hd * cg;          // dg x cg x 4: ctx's partial sums
+  float* Mx = Acc + dg * cg * 4;      // dg x 4: each part's max
   float* Sx = Mx + dg * parts;        // dg x 4: each part's sum
   float* Md = Sx + dg * parts;        // dg: the max over time
   float* Sd = Md + dg;                // dg: the sum over time
@@ -1248,135 +1374,142 @@ __device__ void attention_chunks(const Args& a, const float* qkv, float* y,
     const int cw = min(AC, hd - c * AC);
     const float* base = qkv + (long long)b * T * 3 * L;
     const bool first = item == (int)blockIdx.x;
-    for (int g0 = 0; g0 < hd; g0 += dg) {
-      const int gw = min(dg, hd - g0), ldk = gw + 1;
-      // frames t0 .. t0 + rows of k's features g0 .. g0 + gw
-      auto stage_k = [&](int t0, int rows) {
+    // the item's ctx and y columns c AC + c0 .. c0 + gw_c: all cw of them
+    // in one pass, or (RAGGED) in groups of cg
+    for (int c0 = 0; c0 < (RAGGED ? cw : 1); c0 += cg) {
+      const int gw_c = RAGGED ? min(cg, cw - c0) : cw;
+      const int col = c * AC + c0;
+      for (int g0 = 0; g0 < hd; g0 += dg) {
+        const int gw = min(dg, hd - g0), ldk = gw + 1;
+        // frames t0 .. t0 + rows of k's features g0 .. g0 + gw
+        auto stage_k = [&](int t0, int rows) {
+          __syncthreads();                        // Xs is free
+          for (int i = threadIdx.x; i < rows * gw; i += NT) {
+            const int t = i / gw, d = i - t * gw;
+            Xs[t * ldk + d] =
+                base[(long long)(t0 + t) * 3 * L + L + hh * hd + g0 + d];
+          }
+          __syncthreads();
+        };
+        for (int i = threadIdx.x; i < gw * parts; i += NT) {
+          Mx[i] = -FLT_MAX;
+          Sx[i] = 0.f;
+        }
+        for (int i = threadIdx.x; i < gw * cg * 4; i += NT) Acc[i] = 0.f;
+        // (a) each part's max (a thread keeps its own (feature, part) entries)
+        for (int t0 = 0; t0 < T; t0 += tc) {
+          const int rows = min(tc, T - t0);
+          stage_k(t0, rows);
+          if (first && t0 == 0 && g0 == 0) stamp(a, 0);
+          for (int i = threadIdx.x; i < gw * parts; i += NT) {
+            const int d = i / parts, part = i - d * parts;
+            float mx = Mx[i];
+            for (int t = part; t < rows; t += parts) mx = fmaxf(mx, Xs[t * ldk + d]);
+            Mx[i] = mx;
+          }
+        }
+        __syncthreads();
+        for (int d = threadIdx.x; d < gw; d += NT)
+          Md[d] = fmaxf(fmaxf(Mx[parts * d], Mx[parts * d + 1]),
+                        fmaxf(Mx[parts * d + 2], Mx[parts * d + 3]));
+        __syncthreads();
+        // (b) each part's sum of exponentials, then theirs as the shuffles of
+        // attention() add them
+        for (int t0 = 0; t0 < T; t0 += tc) {
+          const int rows = min(tc, T - t0);
+          if (!one) stage_k(t0, rows);
+          for (int i = threadIdx.x; i < gw * parts; i += NT) {
+            const int d = i / parts, part = i - d * parts;
+            const float mx = Md[d];
+            float s = Sx[i];
+            for (int t = part; t < rows; t += parts) s += expf(Xs[t * ldk + d] - mx);
+            Sx[i] = s;
+          }
+        }
+        __syncthreads();
+        for (int d = threadIdx.x; d < gw; d += NT)
+          Sd[d] = (Sx[parts * d] + Sx[parts * d + 1])
+                + (Sx[parts * d + 2] + Sx[parts * d + 3]);
+        __syncthreads();
+        if (first && g0 == 0) stamp(a, 1);
+        // (c) k' rounded, and ctx[:, col..] = k'^T v[:, col..] summed chunk by
+        // chunk
+        for (int t0 = 0; t0 < T; t0 += tc) {
+          const int rows = min(tc, T - t0);
+          if (!one) stage_k(t0, rows);
+          if (!one || g0 == 0)
+            for (int i = threadIdx.x; i < rows * cg; i += NT) {
+              const int t = i / cg, cc = i - t * cg;
+              Vs[i] = cc < gw_c ? rnd<W>(base[(long long)(t0 + t) * 3 * L + 2 * L
+                                              + hh * hd + col + cc]) : 0.f;
+            }
+          for (int i = threadIdx.x; i < rows * gw; i += NT) {
+            const int t = i / gw, d = i - t * gw;
+            Xs[t * ldk + d] = rnd<W>(expf(Xs[t * ldk + d] - Md[d]) / Sd[d]);
+          }
+          __syncthreads();
+          for (int i = threadIdx.x; i < gw * cg; i += NT) {
+            const int d = i / cg, cc = i - d * cg;
+            float* p = Acc + 4 * i;
+            float s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3];
+            int t = 0;
+            for (; t + 3 < rows; t += 4) {
+              s0 = fmaf(Xs[t * ldk + d], Vs[t * cg + cc], s0);
+              s1 = fmaf(Xs[(t + 1) * ldk + d], Vs[(t + 1) * cg + cc], s1);
+              s2 = fmaf(Xs[(t + 2) * ldk + d], Vs[(t + 2) * cg + cc], s2);
+              s3 = fmaf(Xs[(t + 3) * ldk + d], Vs[(t + 3) * cg + cc], s3);
+            }
+            for (; t < rows; ++t) s0 = fmaf(Xs[t * ldk + d], Vs[t * cg + cc], s0);
+            p[0] = s0;
+            p[1] = s1;
+            p[2] = s2;
+            p[3] = s3;
+          }
+        }
+        for (int i = threadIdx.x; i < gw * cg; i += NT) {
+          const float* p = Acc + 4 * i;
+          Cs[(g0 + i / cg) * cg + i % cg] = rnd<W>((p[0] + p[1]) + (p[2] + p[3]));
+        }
+        __syncthreads();                          // Acc and Xs are free
+      }
+      if (first) stamp(a, 2);
+      // (d) softmax(q) over the head's features, one warp per frame, and
+      // y[:, col..] = q' ctx[:, col..], chunk by chunk
+      for (int t0 = 0; t0 < T; t0 += tc) {
+        const int rows = min(tc, T - t0);
+        for (int i = threadIdx.x; i < rows * hd; i += NT) {
+          const int t = i / hd, d = i - t * hd;
+          Xs[t * ldq + d] = base[(long long)(t0 + t) * 3 * L + hh * hd + d];
+        }
+        __syncthreads();
+        for (int t = warp; t < rows; t += NT / 32) {
+          float* q = Xs + t * ldq;
+          float mx = -FLT_MAX;
+          for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, q[d]);
+          mx = warp_max(mx);
+          float s = 0.f;
+          for (int d = lane; d < hd; d += 32) s += expf(q[d] - mx);
+          s = warp_sum(s);
+          for (int d = lane; d < hd; d += 32) q[d] = rnd<W>(expf(q[d] - mx) / s);
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < rows * cg; i += NT) {
+          const int t = i / cg, cc = i - t * cg;
+          if (cc >= gw_c) continue;
+          float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+          int d = 0;
+          for (; d + 3 < hd; d += 4) {
+            s0 = fmaf(Xs[t * ldq + d], Cs[d * cg + cc], s0);
+            s1 = fmaf(Xs[t * ldq + d + 1], Cs[(d + 1) * cg + cc], s1);
+            s2 = fmaf(Xs[t * ldq + d + 2], Cs[(d + 2) * cg + cc], s2);
+            s3 = fmaf(Xs[t * ldq + d + 3], Cs[(d + 3) * cg + cc], s3);
+          }
+          for (; d < hd; ++d) s0 = fmaf(Xs[t * ldq + d], Cs[d * cg + cc], s0);
+          y[((long long)b * T + t0 + t) * L + hh * hd + col + cc] =
+              (s0 + s1) + (s2 + s3);
+        }
         __syncthreads();                          // Xs is free
-        for (int i = threadIdx.x; i < rows * gw; i += NT) {
-          const int t = i / gw, d = i - t * gw;
-          Xs[t * ldk + d] =
-              base[(long long)(t0 + t) * 3 * L + L + hh * hd + g0 + d];
-        }
-        __syncthreads();
-      };
-      for (int i = threadIdx.x; i < gw * parts; i += NT) {
-        Mx[i] = -FLT_MAX;
-        Sx[i] = 0.f;
       }
-      for (int i = threadIdx.x; i < gw * AC * 4; i += NT) Acc[i] = 0.f;
-      // (a) each part's max (a thread keeps its own (feature, part) entries)
-      for (int t0 = 0; t0 < T; t0 += tc) {
-        const int rows = min(tc, T - t0);
-        stage_k(t0, rows);
-        if (first && t0 == 0 && g0 == 0) stamp(a, 0);
-        for (int i = threadIdx.x; i < gw * parts; i += NT) {
-          const int d = i / parts, part = i - d * parts;
-          float mx = Mx[i];
-          for (int t = part; t < rows; t += parts) mx = fmaxf(mx, Xs[t * ldk + d]);
-          Mx[i] = mx;
-        }
-      }
-      __syncthreads();
-      for (int d = threadIdx.x; d < gw; d += NT)
-        Md[d] = fmaxf(fmaxf(Mx[parts * d], Mx[parts * d + 1]),
-                      fmaxf(Mx[parts * d + 2], Mx[parts * d + 3]));
-      __syncthreads();
-      // (b) each part's sum of exponentials, then theirs as the shuffles of
-      // attention() add them
-      for (int t0 = 0; t0 < T; t0 += tc) {
-        const int rows = min(tc, T - t0);
-        if (!one) stage_k(t0, rows);
-        for (int i = threadIdx.x; i < gw * parts; i += NT) {
-          const int d = i / parts, part = i - d * parts;
-          const float mx = Md[d];
-          float s = Sx[i];
-          for (int t = part; t < rows; t += parts) s += expf(Xs[t * ldk + d] - mx);
-          Sx[i] = s;
-        }
-      }
-      __syncthreads();
-      for (int d = threadIdx.x; d < gw; d += NT)
-        Sd[d] = (Sx[parts * d] + Sx[parts * d + 1])
-              + (Sx[parts * d + 2] + Sx[parts * d + 3]);
-      __syncthreads();
-      if (first && g0 == 0) stamp(a, 1);
-      // (c) k' rounded, and ctx[:, c] = k'^T v[:, c] summed chunk by chunk
-      for (int t0 = 0; t0 < T; t0 += tc) {
-        const int rows = min(tc, T - t0);
-        if (!one) stage_k(t0, rows);
-        if (!one || g0 == 0)
-          for (int i = threadIdx.x; i < rows * AC; i += NT) {
-            const int t = i / AC, cc = i - t * AC;
-            Vs[i] = cc < cw ? rnd<W>(base[(long long)(t0 + t) * 3 * L + 2 * L
-                                          + hh * hd + c * AC + cc]) : 0.f;
-          }
-        for (int i = threadIdx.x; i < rows * gw; i += NT) {
-          const int t = i / gw, d = i - t * gw;
-          Xs[t * ldk + d] = rnd<W>(expf(Xs[t * ldk + d] - Md[d]) / Sd[d]);
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < gw * AC; i += NT) {
-          const int d = i / AC, cc = i - d * AC;
-          float* p = Acc + 4 * i;
-          float s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3];
-          int t = 0;
-          for (; t + 3 < rows; t += 4) {
-            s0 = fmaf(Xs[t * ldk + d], Vs[t * AC + cc], s0);
-            s1 = fmaf(Xs[(t + 1) * ldk + d], Vs[(t + 1) * AC + cc], s1);
-            s2 = fmaf(Xs[(t + 2) * ldk + d], Vs[(t + 2) * AC + cc], s2);
-            s3 = fmaf(Xs[(t + 3) * ldk + d], Vs[(t + 3) * AC + cc], s3);
-          }
-          for (; t < rows; ++t) s0 = fmaf(Xs[t * ldk + d], Vs[t * AC + cc], s0);
-          p[0] = s0;
-          p[1] = s1;
-          p[2] = s2;
-          p[3] = s3;
-        }
-      }
-      for (int i = threadIdx.x; i < gw * AC; i += NT) {
-        const float* p = Acc + 4 * i;
-        Cs[(g0 + i / AC) * AC + i % AC] = rnd<W>((p[0] + p[1]) + (p[2] + p[3]));
-      }
-      __syncthreads();                            // Acc and Xs are free
-    }
-    if (first) stamp(a, 2);
-    // (d) softmax(q) over the head's features, one warp per frame, and
-    // y[:, c] = q' ctx[:, c], chunk by chunk
-    for (int t0 = 0; t0 < T; t0 += tc) {
-      const int rows = min(tc, T - t0);
-      for (int i = threadIdx.x; i < rows * hd; i += NT) {
-        const int t = i / hd, d = i - t * hd;
-        Xs[t * ldq + d] = base[(long long)(t0 + t) * 3 * L + hh * hd + d];
-      }
-      __syncthreads();
-      for (int t = warp; t < rows; t += NT / 32) {
-        float* q = Xs + t * ldq;
-        float mx = -FLT_MAX;
-        for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, q[d]);
-        mx = warp_max(mx);
-        float s = 0.f;
-        for (int d = lane; d < hd; d += 32) s += expf(q[d] - mx);
-        s = warp_sum(s);
-        for (int d = lane; d < hd; d += 32) q[d] = rnd<W>(expf(q[d] - mx) / s);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows * AC; i += NT) {
-        const int t = i / AC, cc = i - t * AC;
-        if (cc >= cw) continue;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int d = 0;
-        for (; d + 3 < hd; d += 4) {
-          s0 = fmaf(Xs[t * ldq + d], Cs[d * AC + cc], s0);
-          s1 = fmaf(Xs[t * ldq + d + 1], Cs[(d + 1) * AC + cc], s1);
-          s2 = fmaf(Xs[t * ldq + d + 2], Cs[(d + 2) * AC + cc], s2);
-          s3 = fmaf(Xs[t * ldq + d + 3], Cs[(d + 3) * AC + cc], s3);
-        }
-        for (; d < hd; ++d) s0 = fmaf(Xs[t * ldq + d], Cs[d * AC + cc], s0);
-        y[((long long)b * T + t0 + t) * L + hh * hd + c * AC + cc] =
-            (s0 + s1) + (s2 + s3);
-      }
-      __syncthreads();                            // Xs is free
     }
     if (first) stamp(a, 3);
   }
@@ -1457,8 +1590,10 @@ __device__ __forceinline__ Prod layer_prod(const Args& a, int layer, int i,
 // One block an SM (its shared memory takes no more): without the 1, ptxas
 // held <float, 8> to 128 registers, and it spilled.  PASSES: the K-pass
 // products (product_passes), which take no slice ahead, and the attention
-// in chunks of T where the plan asks for it (a.tc > 0).
-template <typename W, int QB, bool PASSES>
+// in chunks of T where the plan asks for it (a.tc > 0).  RAGGED (with
+// PASSES, the ragged build alone): widths off a multiple of 16 and ctx in
+// column groups.
+template <typename W, int QB, bool PASSES, bool RAGGED>
 __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NT / 32];
@@ -1499,18 +1634,18 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
     row_phase<W>(a, R_FEATS, nullptr, a.Cp, wp(a, FP_NORM_S, layer),
                  wp(a, FP_NORM_B, layer), nullptr, h, opA, red);
     SYNC_BEFORE(layer, 0);
-    product<W, QB, PASSES>(a, PROD(layer, 0), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 0), smem, ahead);
     SYNC_BEFORE(layer, 1);
-    product<W, QB, PASSES>(a, PROD(layer, 1), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 1), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LN, x1, L, wp(a, SA_NORM_S, layer),
                  wp(a, SA_NORM_B, layer), nullptr, h, opA, red);
     SYNC_BEFORE(layer, 2);
-    product<W, QB, PASSES>(a, PROD(layer, 2), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 2), smem, ahead);
     SYNC();
     if constexpr (PASSES) {
       float* tiles = reinterpret_cast<float*>(smem);
-      if (a.tc != 0) attention_chunks<W>(a, qkv, y, tiles);
+      if (a.tc != 0) attention_chunks<W, RAGGED>(a, qkv, y, tiles);
       else attention<W>(a, qkv, y, tiles);
     } else {
       attention<W>(a, qkv, y, reinterpret_cast<float*>(smem));
@@ -1519,16 +1654,16 @@ __global__ void __launch_bounds__(NT, 1) fused_layers_kernel(Args a) {
     row_phase<W>(a, R_LNMOD, y, L, wp(a, SA_SO_S, layer),
                  wp(a, SA_SO_B, layer), msa, h, opA, red);
     SYNC_BEFORE(layer, 3);
-    product<W, QB, PASSES>(a, PROD(layer, 3), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 3), smem, ahead);
     SYNC_BEFORE(layer, 4);
-    product<W, QB, PASSES>(a, PROD(layer, 4), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 4), smem, ahead);
     SYNC_BEFORE(layer, 5);
-    product<W, QB, PASSES>(a, PROD(layer, 5), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 5), smem, ahead);
     SYNC();
     row_phase<W>(a, R_LNMOD, g, L, wp(a, FF_SO_S, layer),
                  wp(a, FF_SO_B, layer), mffn, h, opA, red);
     SYNC_BEFORE(layer, 6);
-    product<W, QB, PASSES>(a, PROD(layer, 6), smem, ahead);
+    product<W, QB, PASSES, RAGGED>(a, PROD(layer, 6), smem, ahead);
     if (layer + 1 < a.n_layers || (TRACE && a.trace != nullptr)) SYNC();
   }
 #undef PROD
@@ -1552,9 +1687,14 @@ constexpr size_t SMEM_CAP = 227 * 1024 - 1024;  // dynamic, beside the static
 __host__ __device__ inline int widest_k(const Args& a) {
   return max(max(a.Cp, 2 * a.L), max(a.F, a.L));
 }
+// Widths the ragged build alone takes: off a multiple of 16, or ctx in
+// column groups.
+__host__ __device__ inline bool ragged(const Args& a) {
+  return a.L % 16 || a.F % 16 || a.Cp % 16 || a.cg != 0;
+}
 template <typename W, int QB>
 bool fits_plan(const Args& a, size_t bytes) {
-  if (a.kp < 16 || a.kp % 16 || a.kp > widest_k(a) || bytes > SMEM_CAP
+  if (a.kp < 16 || a.kp % 16 || a.kp > up16(widest_k(a)) || bytes > SMEM_CAP
       || a.w_off % 16)
     return false;
   const int hd = a.L / a.H, lda = lda_of<W>(a.kp);
@@ -1562,15 +1702,17 @@ bool fits_plan(const Args& a, size_t bytes) {
   const size_t part = sizeof(float) * (NT / 32) * RB * TN;
   // attention(): the whole window's q and k tiles, its v columns, ctx (whole
   // 8-column items); attention_chunks(): chunks of tc frames, a multiple of
-  // 4 unless one chunk holds the window, k features in groups of dg
-  if (a.tc == 0 ? hd % AC != 0
+  // 4 unless one chunk holds the window, k features in groups of dg, ctx
+  // columns in groups of cg (0: all AC)
+  if (a.tc == 0 ? hd % AC != 0 || a.cg != 0
       : a.tc < 1 || (a.tc < a.T && a.tc % 4) || a.tc > a.T || a.dg < 1
-        || a.dg > hd)
+        || a.dg > hd || a.cg < 0 || a.cg > AC)
     return false;
   const size_t attn = a.tc == 0
       ? sizeof(float) * ((size_t)2 * a.T * (hd + 1) + (size_t)a.T * AC
                          + (size_t)hd * AC)
-      : sizeof(float) * (size_t)chunk_floats(a.tc, hd, a.dg);
+      : sizeof(float) * (size_t)chunk_floats(a.tc, hd, a.dg,
+                                             a.cg ? a.cg : AC);
   // f32: the split slice (QB 0: hi and lo tiles; QB 8: one of codes; QB 4:
   // two of nibbles); bf16: one tile, two for packed int4
   const size_t wbytes = sizeof(W) == 4
@@ -1590,18 +1732,20 @@ enum Refusal {
   REFUSE_ARGS = -4,     // no barrier word, a trace without the traced build,
                         // a qb other than 0, 8, 4, or heads that do not
                         // divide L
+  REFUSE_RAGGED = -5,   // ragged widths or ctx column groups to a build
+                        // without the ragged instantiations
 };
 
-// Launch geometry of fused_layers_kernel<W, QB, PASSES> at the host's
-// plan: the dynamic shared memory and the grid.
-template <typename W, int QB, bool PASSES>
+// Launch geometry of fused_layers_kernel<W, QB, PASSES, RAGGED> at the
+// host's plan: the dynamic shared memory and the grid.
+template <typename W, int QB, bool PASSES, bool RAGGED>
 int plan(const Args& a, size_t smem, int* grid_out) {
   // cached per instantiation: the SM count never changes and the
   // occupancy only with the dynamic shared memory size
   static int sms = 0, occ = 0;
   static size_t smem_set = 0;
   if (!fits_plan<W, QB>(a, smem)) return REFUSE_PLAN;
-  void* fn = (void*)fused_layers_kernel<W, QB, PASSES>;
+  void* fn = (void*)fused_layers_kernel<W, QB, PASSES, RAGGED>;
   cudaError_t e;
   if (sms == 0) {
     int dev = 0;
@@ -1624,15 +1768,22 @@ int plan(const Args& a, size_t smem, int* grid_out) {
 
 // The instantiation the plan asks for: K passes where the pass width is
 // narrower than the widest product, or the attention runs in chunks (its
-// products then take one pass, product_passes with kp = K).
+// products then take one pass, product_passes with kp = K).  The ragged
+// build has one instantiation a dtype and QB, which takes every plan.
 template <typename W, int QB>
 int plan_of(const Args& a, size_t smem, int* grid, void** fn) {
-  if (a.kp < widest_k(a) || a.tc != 0) {
-    *fn = (void*)fused_layers_kernel<W, QB, true>;
-    return plan<W, QB, true>(a, smem, grid);
+  if constexpr (RAGGED_BUILD) {
+    *fn = (void*)fused_layers_kernel<W, QB, true, true>;
+    return plan<W, QB, true, true>(a, smem, grid);
+  } else {
+    if (ragged(a)) return REFUSE_RAGGED;
+    if (a.kp < widest_k(a) || a.tc != 0) {
+      *fn = (void*)fused_layers_kernel<W, QB, true, false>;
+      return plan<W, QB, true, false>(a, smem, grid);
+    }
+    *fn = (void*)fused_layers_kernel<W, QB, false, false>;
+    return plan<W, QB, false, false>(a, smem, grid);
   }
-  *fn = (void*)fused_layers_kernel<W, QB, false>;
-  return plan<W, QB, false>(a, smem, grid);
 }
 
 template <typename W>
@@ -1711,7 +1862,9 @@ int copy_probe(const Args& a, size_t smem, int grid, int n, const void* buf,
 //       or 4), then the N_SCALES per-layer scale strides in bytes, then the
 //       host's plan (ops/fused_layer.py::k_pass_plan): the pass width kp,
 //       a_elems, w_off, part_off, the dynamic shared memory bytes, and the
-//       attention's tc (0: the whole window in one tile) and dg.
+//       attention's tc (0: the whole window in one tile), dg and cg (0: an
+//       item's AC ctx columns at once; other values, and widths off a
+//       multiple of 16, only in the ragged build).
 // dtype: 0 = float32, 1 = bfloat16 (x, feats/cond, mods, out, vectors and
 //       unquantized matrices; the compute dtype of the products).
 namespace {
@@ -1755,6 +1908,7 @@ int parse(const uint64_t* ptrs, const int64_t* ints, Args* out, int* qb_out,
   *smem_out = (size_t)ints[j++];
   a.tc = (int)ints[j++];
   a.dg = (int)ints[j++];
+  a.cg = (int)ints[j++];
   *out = a;
   if (a.barrier == nullptr || (!TRACE && a.trace != nullptr) || a.H < 1
       || a.L % a.H)

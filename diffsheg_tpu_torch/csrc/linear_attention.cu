@@ -53,6 +53,15 @@
 // with single columns (V = 1).  expf and the divisions stay IEEE (no
 // --use_fast_math).
 //
+// Heads wider than a block's threads (WIDE: one head past 512 features,
+// which the JAX kernel takes where VMEM holds it).  A thread holds one
+// column of k's max in a register from step 1 to step 2, which needs a
+// thread a column.  The wide kernels walk k's columns with a loop instead,
+// a thread every NT-th column, and keep each column's max in the ctx buffer
+// (free until ctx is written, after the last read of the maxima); q's row
+// statistics take at most a warp a row.  The main path's plans never take
+// them, so their kernels keep their code.
+//
 // C interface (ctypes): diffsheg_linear_attention(dtype, q, k, v, out,
 // B, T, D, H, heads, width, tile_rows, staged, vec, threads, smem_bytes,
 // stream) returns a cudaError_t code (0 = launched); dtype 0 = float32, 1 =
@@ -68,8 +77,6 @@
 
 namespace {
 
-constexpr int HDMAX = 512;            // largest head width: a thread a
-                                      // column of k
 constexpr int ACC = 16;               // ctx accumulators per thread
 constexpr int UNROLL = 8;             // loads in flight per thread, staging
 constexpr int QV = 16;                // values of a q row a lane, at most
@@ -171,9 +178,10 @@ __host__ __device__ inline long long smem_floats(int hd, int heads, int width,
 
 // HD, WD, HBC: the head width, output columns a block and heads a block
 // fixed at compile time for the main path's plans (0: read at run time),
-// so their divisions, loop bounds and lane counts fold away
+// so their divisions, loop bounds and lane counts fold away; WIDE: more
+// columns of k than threads (a head wider than NT)
 template <typename E, int V, int NT, bool STAGED, int HD = 0, int WD = 0,
-          int HBC = 0>
+          int HBC = 0, bool WIDE = false>
 __global__ void __launch_bounds__(NT, NT == 256 ? 3 : 1)
 linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
                         const E* __restrict__ v, E* __restrict__ out, int T,
@@ -262,7 +270,7 @@ linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
   auto q_stats = [&](int rows) {
     const int nseg = rows * HB;
     int G2 = 1;
-    while (G2 * QV < hd) G2 <<= 1;
+    while (G2 * QV < hd && (!WIDE || G2 < 32)) G2 <<= 1;
     while (G2 < 32 && G2 < hd && nseg * G2 * 2 <= NT) G2 <<= 1;
     for (int s0 = 0; s0 < nseg; s0 += NT / G2) {
       const int seg = s0 + tid / G2, l = tid % G2;
@@ -318,6 +326,8 @@ linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
     stage(0, T, true, true, true);
     __syncthreads();
   }
+  // WIDE: column c's max over T, in the ctx buffer until step 2's last read
+  float* kmax = cx;
   // 1. the max of each column of k over T
   float m = -INFINITY;
   for (int t0 = 0; t0 < T; t0 += TR) {
@@ -326,20 +336,28 @@ linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
       stage(t0, rows, false, true, false);
       __syncthreads();
     }
-#pragma unroll 1
-    for (int r0 = kact ? kst : rows; r0 < rows; r0 += G * KV) {
-      float x[KV];
-#pragma unroll
-      for (int u = 0; u < KV; ++u) {
-        const int r = r0 + u * G;
-        x[u] = r < rows ? ks[r * LQ + kc] : -INFINITY;
+    if constexpr (WIDE) {
+      for (int c = tid; c < CW; c += NT) {
+        float mc = t0 == 0 ? -INFINITY : kmax[c];
+        for (int r = 0; r < rows; ++r) mc = fmaxf(mc, ks[r * LQ + c]);
+        kmax[c] = mc;
       }
+    } else {
+#pragma unroll 1
+      for (int r0 = kact ? kst : rows; r0 < rows; r0 += G * KV) {
+        float x[KV];
 #pragma unroll
-      for (int u = 0; u < KV; ++u) m = fmaxf(m, x[u]);
+        for (int u = 0; u < KV; ++u) {
+          const int r = r0 + u * G;
+          x[u] = r < rows ? ks[r * LQ + kc] : -INFINITY;
+        }
+#pragma unroll
+        for (int u = 0; u < KV; ++u) m = fmaxf(m, x[u]);
+      }
     }
     if constexpr (!STAGED) __syncthreads();
   }
-  m = warp_max(m, G);
+  if constexpr (!WIDE) m = warp_max(m, G);
 
   // 2. exp(k - max) in place, then ctx = exp(k)^T v / column sum, quads of
   //    V columns (d, l..l+V) a thread per round, rows split over P lanes
@@ -361,18 +379,25 @@ linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
       stage(t0, rows, false, true, true);
       __syncthreads();
     }
-#pragma unroll 1
-    for (int r0 = kact ? kst : rows; r0 < rows; r0 += G * KV) {
-      float x[KV];
-#pragma unroll
-      for (int u = 0; u < KV; ++u) {
-        const int r = r0 + u * G;
-        if (r < rows) x[u] = ks[r * LQ + kc];
+    if constexpr (WIDE) {
+      for (int c = tid; c < CW; c += NT) {
+        const float mc = kmax[c];
+        for (int r = 0; r < rows; ++r) ks[r * LQ + c] = expf(ks[r * LQ + c] - mc);
       }
+    } else {
+#pragma unroll 1
+      for (int r0 = kact ? kst : rows; r0 < rows; r0 += G * KV) {
+        float x[KV];
 #pragma unroll
-      for (int u = 0; u < KV; ++u) {
-        const int r = r0 + u * G;
-        if (r < rows) ks[r * LQ + kc] = expf(x[u] - m);
+        for (int u = 0; u < KV; ++u) {
+          const int r = r0 + u * G;
+          if (r < rows) x[u] = ks[r * LQ + kc];
+        }
+#pragma unroll
+        for (int u = 0; u < KV; ++u) {
+          const int r = r0 + u * G;
+          if (r < rows) ks[r * LQ + kc] = expf(x[u] - m);
+        }
       }
     }
     if constexpr (STAGED) q_stats(T);
@@ -465,11 +490,11 @@ linear_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
 }
 
 template <typename E, int V, int NT, bool STAGED, int HD = 0, int WD = 0,
-          int HBC = 0>
+          int HBC = 0, bool WIDE = false>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int T, int D, int H, int heads, int width, int tile_rows, int smem,
            cudaStream_t stream) {
-  auto kernel = linear_attention_kernel<E, V, NT, STAGED, HD, WD, HBC>;
+  auto kernel = linear_attention_kernel<E, V, NT, STAGED, HD, WD, HBC, WIDE>;
   // above 48 KB a block's shared memory is opt-in, once per device
   static bool opted[MAX_DEVICES];
   if (smem > 48 * 1024) {
@@ -501,6 +526,13 @@ int launch_typed(int vec, int threads, int staged, const void* q,
                  cudaStream_t s) {
   const int hd = D / H;
 #define ARGS q, k, v, out, B, T, D, H, heads, width, tile_rows, smem, s
+  if (heads * hd > threads) {                     // wide heads, 512 threads
+    if (vec)
+      return staged ? launch<E, 4, 512, true, 0, 0, 0, true>(ARGS)
+                    : launch<E, 4, 512, false, 0, 0, 0, true>(ARGS);
+    return staged ? launch<E, 1, 512, true, 0, 0, 0, true>(ARGS)
+                  : launch<E, 1, 512, false, 0, 0, 0, true>(ARGS);
+  }
   if (vec && hd == 64 && heads == 1) {            // branch rows, hd 64
     if (width == 4 && threads == 256 && staged)
       return launch<E, 4, 256, true, 64, 4, 1>(ARGS);
@@ -531,13 +563,15 @@ extern "C" int diffsheg_linear_attention(int dtype, const void* q,
                                          int tile_rows, int staged, int vec,
                                          int threads, int smem_bytes,
                                          void* stream) {
-  if (B < 1 || T < 1 || H < 1 || D % H || D / H > HDMAX || heads < 1 ||
+  if (B < 1 || T < 1 || H < 1 || D % H || heads < 1 ||
       H % heads || width < 1 || (D / H) % width ||
       (threads != 256 && threads != 512))
     return (int)cudaErrorInvalidValue;
   const int hd = D / H;
   const long long grid = (long long)B * (H / heads) * (hd / width);
-  if (heads * hd > threads || heads * hd * width > threads * ACC ||
+  // more columns of k than threads: one head a block, 512 threads (WIDE)
+  if ((heads * hd > threads && (heads != 1 || threads != 512)) ||
+      heads * hd * width > threads * ACC ||
       (vec && (hd % 4 || width % 4)) || grid > 0x7fffffffLL ||
       (staged ? tile_rows != T : (tile_rows < 1 || tile_rows > T)) ||
       (long long)smem_bytes != 4 * smem_floats(hd, heads, width, tile_rows, staged) ||

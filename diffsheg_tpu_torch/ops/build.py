@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -24,9 +25,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "diffsheg_tpu_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fused_layer.cu", "linear_attention.cu", "step_math.cu")
-# "source:flag": a second build of a source with one more flag
+# "source:flag": another build of a source with one more flag: the layer
+# kernels with their stamps compiled in, and their ragged instantiations
+# alone (widths off a multiple of 16, ctx in column groups)
 TRACED_FUSED_LAYER = "fused_layer.cu:-DDIFFSHEG_TRACE"
-BUILDS = SOURCES + (TRACED_FUSED_LAYER,)    # every library of the package
+RAGGED_FUSED_LAYER = "fused_layer.cu:-DDIFFSHEG_RAGGED"
+BUILDS = SOURCES + (TRACED_FUSED_LAYER, RAGGED_FUSED_LAYER)  # every library
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -74,6 +78,7 @@ def build(sources: Sequence[str] = BUILDS, verbose: bool = False) -> Dict[str, P
     targets = {s: _target(s) for s in sources}
     todo = {s: t for s, t in targets.items() if not t.exists()}
     procs = []
+    t0 = time.perf_counter()
     for s, t in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -91,8 +96,8 @@ def build(sources: Sequence[str] = BUILDS, verbose: bool = False) -> Dict[str, P
             os.unlink(tmp)
             errors.append(f"nvcc {s} failed ({proc.returncode}):\n{out}")
             continue
-        if verbose and out:
-            print(out)
+        if verbose:
+            print(f"{out}nvcc {s}: done by {time.perf_counter() - t0:.1f} s")
         os.replace(tmp, t)   # atomic: a concurrent build sees all or nothing
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -30,7 +30,10 @@ can stage beside one weight slice runs in passes (csrc
 ``product_passes``), an attention phase whose window does not fit beside
 the products' room (or whose head width is not a multiple of 8) runs in
 chunks of T (csrc ``attention_chunks``), and a shape no plan fits is
-refused by name before any launch.  :func:`branch_phase_ns` and
+refused by name before any launch.  Widths off a multiple of 16, and one
+head so wide that ctx's columns go in groups, take the ragged build of the
+same source (``ops/build.py``, csrc "Ragged shapes"); every other shape
+takes the library it took before.  :func:`branch_phase_ns` and
 :func:`kernel_probe` measure inside the kernel (per-phase and in-phase
 times from a traced build, the grid barriers' floor, the operand copy's
 rate); ``chip_smoke.py`` prints them.  :func:`random_layer_params` makes
@@ -353,11 +356,16 @@ def fused_branch_reference(x, cond, mods, slp: LayerParams, num_heads: int,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib(probe: bool = False, traced: bool = False):
+def _lib(probe: bool = False, traced: bool = False, ragged: bool = False):
     """The kernel's C entry (``probe``: the probes' entry); ``traced``: from
-    the library built with the stamps compiled in."""
-    from diffsheg_tpu_torch.ops.build import TRACED_FUSED_LAYER, library
-    lib = library(TRACED_FUSED_LAYER if traced else KERNEL_SOURCE)
+    the library built with the stamps compiled in; ``ragged``: from the
+    ragged build (a plan's ``ragged``)."""
+    from diffsheg_tpu_torch.ops.build import (RAGGED_FUSED_LAYER,
+                                              TRACED_FUSED_LAYER, library)
+    if traced and ragged:
+        raise ValueError("the traced build takes no ragged shape")
+    lib = library(TRACED_FUSED_LAYER if traced else
+                  RAGGED_FUSED_LAYER if ragged else KERNEL_SOURCE)
     fn = lib.diffsheg_fused_layers_probe if probe else lib.diffsheg_fused_layers
     if fn.argtypes is None:     # 64-bit stream handle, not ctypes' default int
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
@@ -439,29 +447,34 @@ class KPassPlan(NamedTuple):
     smem_bytes: int   # dynamic shared memory of one block
     tc: int = 0       # attention: 0, the whole window in one tile; else
     dg: int = 0       # frames a chunk and k features a group
+    cg: int = 0       # ctx columns a group (0: an item's 8 at once)
+    ragged: bool = False   # the ragged build's launch: a width off a
+                           # multiple of 16, or cg > 0
 
 
-def _attention_bytes(T: int, hd: int, tc: int = 0, dg: int = 0) -> int:
+def _attention_bytes(T: int, hd: int, tc: int = 0, dg: int = 0,
+                     cg: int = 0) -> int:
     """Shared bytes of the kernel's attention phase: with ``tc`` 0 the
     whole window's q and k tiles, its v columns and ctx (csrc
-    ``attention``); else a tile of ``tc`` frames, ctx, and per feature of a
-    group of ``dg`` the softmax's and ctx's partial sums (csrc
-    ``chunk_floats``)."""
+    ``attention``); else a tile of ``tc`` frames, ctx's columns of a group
+    of ``cg`` (0: all 8 of an item), and per feature of a group of ``dg``
+    the softmax's and ctx's partial sums (csrc ``chunk_floats``)."""
     if tc == 0:
         return 4 * (2 * T * (hd + 1) + T * _AC + hd * _AC)
-    return 4 * (tc * (hd + 1 + _AC) + hd * _AC + dg * (4 * _AC + 10))
+    c = cg or _AC
+    return 4 * (tc * (hd + 1 + c) + hd * c + dg * (4 * c + 10))
 
 
-def _attention_chunks(T: int, hd: int, room: int):
-    """(tc, dg) of attention in chunks within ``room`` bytes: every k
-    feature in one group and the longest chunk that fits (the whole window,
-    or a multiple of 4 frames), halving the group while not even 4 frames
-    fit; None if no group does."""
+def _attention_chunks(T: int, hd: int, room: int, cg: int = 0):
+    """(tc, dg) of attention in chunks within ``room`` bytes, ctx's columns
+    in groups of ``cg``: every k feature in one group and the longest chunk
+    that fits (the whole window, or a multiple of 4 frames), halving the
+    group while not even 4 frames fit; None if no group does."""
     dg = hd
     while True:
         # frames that fit: one, and as many more as the room leaves
-        frame = 4 * (hd + 1 + _AC)
-        n = (room - _attention_bytes(T, hd, 1, dg)) // frame + 1
+        frame = 4 * (hd + 1 + (cg or _AC))
+        n = (room - _attention_bytes(T, hd, 1, dg, cg)) // frame + 1
         if n >= T:
             return T, dg
         if n >= 4:
@@ -507,15 +520,20 @@ def k_pass_plan(dtype: torch.dtype, qb: int, B: int, T: int, Cp: int,
                 L: int, F: int, H: int) -> KPassPlan:
     """The launch's shared-memory plan: one pass when a block can hold one
     work item's weight slice at the widest contraction ``max(Cp, 2L, F,
-    L)`` beside 16 operand rows (every shape the kernel ran before passes
-    existed), else passes of ``_PASS_WIDTH``; the attention's whole window
-    in one tile where it fits beside them and the head width is a multiple
-    of 8 (every shape the kernel ran before chunks existed: the same plan),
-    else in chunks of T.  Raises ``ValueError``, naming the limit, for a
+    L)`` (rounded up to 16, the ragged build's staged width) beside 16
+    operand rows (every shape the kernel ran before passes existed), else
+    passes of ``_PASS_WIDTH``; the attention's whole window in one tile
+    where it fits beside them and the head width is a multiple of 8 (every
+    shape the kernel ran before chunks existed: the same plan), else in
+    chunks of T, ctx's 8 columns of an item at once where a chunk of 4
+    frames fits beside them (every shape planned before), else in groups of
+    4, 2 or 1.  ``ragged``: a width off a multiple of 16 or ctx in groups
+    (the ragged build).  Raises ``ValueError``, naming the limit, for a
     shape no plan fits."""
     esize = dtype.itemsize
     M, hd = B * T, L // H
-    kmax = max(Cp, 2 * L, F, L)
+    widths_ragged = bool(L % 16 or F % 16 or Cp % 16)
+    kmax = -(-max(Cp, 2 * L, F, L) // 16) * 16
     kps = (kmax, min(kmax, _PASS_WIDTH))
     if hd % _AC == 0:
         for kp in kps:
@@ -523,19 +541,22 @@ def k_pass_plan(dtype: torch.dtype, qb: int, B: int, T: int, Cp: int,
                 esize, qb, M, kp, _attention_bytes(T, hd))
             if rows >= 16 and smem <= _SMEM_CAP:
                 return KPassPlan(kp, -(-kmax // kp), a_elems, w_off,
-                                 part_off, smem)
-    for kp in kps:
-        rows, _, w_off, part_off, smem = _layout(esize, qb, M, kp, 0)
-        room = (_SMEM_CAP - (part_off - w_off) - 4 * (_NT // 32) * _RB * _TN
-                ) // 16 * 16
-        chunk = _attention_chunks(T, hd, room) if rows >= 16 else None
-        if chunk is None:
-            continue
-        rows, a_elems, w_off, part_off, smem = _layout(
-            esize, qb, M, kp, _attention_bytes(T, hd, *chunk))
-        if rows >= 16 and smem <= _SMEM_CAP:
-            return KPassPlan(kp, -(-kmax // kp), a_elems, w_off, part_off,
-                             smem, *chunk)
+                                 part_off, smem, ragged=widths_ragged)
+    for cg in (0, 4, 2, 1):
+        for kp in kps:
+            rows, _, w_off, part_off, smem = _layout(esize, qb, M, kp, 0)
+            room = (_SMEM_CAP - (part_off - w_off)
+                    - 4 * (_NT // 32) * _RB * _TN) // 16 * 16
+            chunk = (_attention_chunks(T, hd, room, cg) if rows >= 16
+                     else None)
+            if chunk is None:
+                continue
+            rows, a_elems, w_off, part_off, smem = _layout(
+                esize, qb, M, kp, _attention_bytes(T, hd, *chunk, cg))
+            if rows >= 16 and smem <= _SMEM_CAP:
+                return KPassPlan(kp, -(-kmax // kp), a_elems, w_off,
+                                 part_off, smem, *chunk, cg,
+                                 widths_ragged or cg != 0)
     kind = {0: str(dtype), 8: f"{dtype} with int8 codes",
             4: f"{dtype} with int4 codes"}[qb]
     raise ValueError(
@@ -543,8 +564,8 @@ def k_pass_plan(dtype: torch.dtype, qb: int, B: int, T: int, Cp: int,
         f"head width {hd}, widest contraction {kmax} (Cp={Cp}, L={L}, "
         f"F={F}), {kind}: at pass width {kps[-1]} the products leave "
         f"{room} of the {_SMEM_CAP} bytes, and the attention takes "
-        f"{_attention_bytes(T, hd, 4, 1)} at its least (chunks of 4 frames, "
-        f"k features one at a time); the JAX kernel takes this shape")
+        f"{_attention_bytes(T, hd, 4, 1, 1)} at its least (chunks of 4 "
+        f"frames, k features and ctx columns one at a time)")
 
 
 def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
@@ -561,10 +582,13 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
     F = slp.ffn_l1_b.shape[-1]
     if num_heads < 1 or L % num_heads:
         raise ValueError(f"{num_heads} heads must divide the width L={L}")
-    if L % 16 or Cp % 16 or F % 16 or not L <= c_real <= Cp:
-        raise ValueError(f"widths must be multiples of 16 with L <= c_real "
-                         f"<= Cp (L={L}, c_real={c_real}, Cp={Cp}, F={F})")
+    if not L <= c_real <= Cp:
+        raise ValueError(f"the feats' real width must lie in [L, Cp] "
+                         f"(L={L}, c_real={c_real}, Cp={Cp})")
     qb = _quant_bits(slp, sc, L)
+    if qb == 4 and (L % 2 or F % 2):
+        raise ValueError(f"int4 codes pack two columns a byte: the widths "
+                         f"must be even (L={L}, F={F})")
     lead = (n_layers,) if chain else ()
     shapes = LayerParams(
         (Cp,), (Cp,), (Cp, 2 * L), (2 * L,), (2 * L, L), (L,), (L,), (L,),
@@ -608,7 +632,7 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
         num_heads, qb] + ([layer_bytes(t) for t in scales]
                           or [0] * len(LayerScales._fields)) + [
         plan.kp, plan.a_elems, plan.w_off, plan.part_off, plan.smem_bytes,
-        plan.tc, plan.dg]
+        plan.tc, plan.dg, plan.cg]
     return (_DTYPE_CODE[dt], (ctypes.c_uint64 * len(ptrs))(*ptrs),
             (ctypes.c_int64 * len(ints))(*ints)), out, scratch, plan
 
@@ -617,7 +641,9 @@ def _pack(x, feats, mod_sa, mod_ffn, mod_layer_stride, slp, n_layers,
 _REFUSALS = {-3: "the host's shared-memory plan does not fit the kernel",
              -4: "no barrier word, a trace without the traced build, a "
                  "quantization other than int8 / int4, or heads that do "
-                 "not divide L"}
+                 "not divide L",
+             -5: "a width off a multiple of 16 or ctx column groups, "
+                 "which only the ragged build takes"}
 
 
 def _refused(err: int, x, plan: KPassPlan, cargs) -> str:
@@ -635,7 +661,7 @@ def _launch(x, *args, trace=None, **kwargs):
     """Check, plan, allocate, launch (arguments: see :func:`_pack`);
     returns the output and the plan."""
     cargs, out, _scratch, plan = _pack(x, *args, trace=trace, **kwargs)
-    err = _lib(traced=trace is not None)(
+    err = _lib(traced=trace is not None, ragged=plan.ragged)(
         *cargs, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(_refused(err, x, plan, cargs))
@@ -644,7 +670,8 @@ def _launch(x, *args, trace=None, **kwargs):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address: a copy where a batch
-    group's rows of a short vector start inside a 16-byte word."""
+    group's rows start inside a 16-byte word (a short vector's, or any
+    row of a width off a multiple of 16)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -675,12 +702,11 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
         raise ValueError(f"unsupported device {x.device}")
     outs = []
     for g in _batch_groups(x.shape[0], x.shape[1]):
-        ms, mf = mod_sa[g].contiguous(), mod_ffn[g].contiguous()
+        ms, mf = _aligned(mod_sa[g]), _aligned(mod_ffn[g])
         for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
             _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype, x.device)
-        out, plan = _launch(x[g].contiguous(), feats[g].contiguous(), ms,
-                            mf, 0, lp, 1, num_heads, c_real, False, None,
-                            None, sc)
+        out, plan = _launch(_aligned(x[g]), _aligned(feats[g]), ms, mf, 0,
+                            lp, 1, num_heads, c_real, False, None, None, sc)
         outs.append(out)
         fused_layer.launches += 1
         fused_layer.launches_by_shape[tuple(x[g].shape)] += 1
@@ -728,7 +754,7 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
         ne = None if null_emb is None else null_emb.reshape(-1).contiguous()
         nm = None if null_mask is None else \
             _aligned(null_mask[g].to(torch.float32))
-        out, plan = _launch(x[g].contiguous(), cond[g].contiguous(),
+        out, plan = _launch(_aligned(x[g]), _aligned(cond[g]),
                             m[0, 0], m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
                             num_heads, c_real, True, ne, nm, ssc)
         outs.append(out)
@@ -807,9 +833,9 @@ def kernel_probe(kind: str, n: int, x, cond, mods, slp: LayerParams,
     ``dict(blocks, smem_bytes, rows, row_elems)``, the geometry and what a
     block copies per repeat.  No launch counter moves."""
     code = {"barrier": 0, "copy": 1}[kind]
-    cargs, _out, _scratch, _plan = _pack(*_branch_args(
+    cargs, _out, _scratch, plan = _pack(*_branch_args(
         x, cond, mods, slp, num_heads, c_real, None, None, ssc))
-    fn = _lib(probe=True)
+    fn = _lib(probe=True, ragged=plan.ragged)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     out = (ctypes.c_int64 * 4)()
 

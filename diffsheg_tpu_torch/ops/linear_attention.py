@@ -38,7 +38,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 KERNEL_SOURCE = "linear_attention.cu"
-_MAX_HEAD = 512              # one thread a column of k: at most 512 threads
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's constants (csrc/linear_attention.cu) and the card's
@@ -93,14 +92,18 @@ def _launch_plan(B: int, T: int, D: int, H: int,
     block's threads hold its ctx columns.  All of T is staged when it fits
     in a block's shared memory; past that, tiles.  A block of one head runs
     512 threads from T 64 on (shorter chains on the critical path) or when
-    the head is wider than 256 (a thread a column of k), every other block
-    256 (on the H100, 256 won at T 12 and 34, 512 at 88 and 512)."""
+    the head is wider than 256 (a thread a column of k; past 512, the wide
+    kernels, a thread every 512th column), every other block 256 (on the
+    H100, 256 won at T 12 and 34, 512 at 88 and 512).  Raises
+    ``ValueError`` for heads that do not divide D, and for a head wider
+    than 8192, whose ctx columns no block's accumulators hold."""
     if B < 1 or T < 1 or H < 1 or D % H:
         raise ValueError(f"bad shape (B, T, D) = {(B, T, D)}, {H} heads")
     hd = D // H
-    if hd > _MAX_HEAD:
-        raise ValueError(f"head width {D}/{H} must divide and be at most "
-                         f"{_MAX_HEAD}")
+    if hd > _THREADS_LONG * _ACC:
+        raise ValueError(f"head width {D}/{H} = {hd}: a block's {_THREADS_LONG}"
+                         f" threads hold {_THREADS_LONG * _ACC} ctx values, "
+                         f"not one column of {hd}")
     vec = vec and hd % 4 == 0
     heads = 1
     if vec and hd <= _NARROW:
@@ -116,9 +119,11 @@ def _launch_plan(B: int, T: int, D: int, H: int,
                 if hd % w == 0 and B * H * (hd // w) <= _SMS]
         width = min(fits, default=hd)
     if heads * hd * width > threads * _ACC:     # only heads wider than 64
-        width = max(w for w in range(1, hd + 1)
-                    if hd % w == 0 and (w % 4 == 0 or not vec)
-                    and hd * w <= threads * _ACC)
+        fits = [w for w in range(1, hd + 1)
+                if hd % w == 0 and hd * w <= threads * _ACC]
+        if vec and not any(w % 4 == 0 for w in fits):   # hd past 2048
+            vec = False
+        width = max(w for w in fits if w % 4 == 0 or not vec)
     rows, staged = T, True
     if _smem_bytes(hd, heads, width, T, True) > _SMEM_MAX:
         rows, staged = min(T, _TILE_ROWS), False
@@ -190,9 +195,6 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel supports float32/bfloat16, got {q.dtype}")
     B, T, D = q.shape
-    if D % num_heads or D // num_heads > _MAX_HEAD:
-        raise ValueError(f"head width {D}/{num_heads} must divide and be at "
-                         f"most {_MAX_HEAD}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, expected "

@@ -200,22 +200,25 @@ WIDE_F32 = [(1, 34, 1792, 1024), (1, 34, 1920, 1024), (4, 34, 1920, 1024),
 def fits_plan(dt, qb, B, T, Cp, L, F, H, plan):
     """The kernel's own check of a plan (csrc ``fits_plan``), transcribed:
     the room for the operand rows it reads, the attention tiles (the whole
-    window's, or chunks of tc frames and k feature groups of dg), the weight
-    slice and the warps' partial tiles."""
+    window's, or chunks of tc frames, k feature groups of dg and ctx column
+    groups of cg), the weight slice and the warps' partial tiles; the widest
+    contraction staged up to a multiple of 16 (the ragged build's)."""
     es = dt.itemsize
-    kmax = max(Cp, 2 * L, F, L)
+    kmax = -(-max(Cp, 2 * L, F, L) // 16) * 16
     lda = plan.kp + 8 if es == 2 else plan.kp + 16 - plan.kp % 32
     rows = plan.a_elems // lda
     hd = L // H
     if plan.tc == 0:
-        if hd % 8:
+        if hd % 8 or plan.cg:
             return False
         attn = 4 * (2 * T * (hd + 1) + T * 8 + hd * 8)
     else:
         if not (1 <= plan.tc <= T and (plan.tc == T or plan.tc % 4 == 0)
-                and 1 <= plan.dg <= hd):
+                and 1 <= plan.dg <= hd and 0 <= plan.cg <= 8):
             return False
-        attn = 4 * (plan.tc * (hd + 1 + 8) + hd * 8 + plan.dg * (4 * 8 + 10))
+        cg = plan.cg or 8
+        attn = 4 * (plan.tc * (hd + 1 + cg) + hd * cg
+                    + plan.dg * (4 * cg + 10))
     wbytes = (4 * 8 * plan.kp * (1 if qb == 8 else 2) if es == 4
               else 2 * 8 * plan.kp * (2 if qb == 4 else 1))
     reach = es * lda * ((rows + 15) // 16 * 16)
@@ -319,7 +322,7 @@ def test_pack_refuses_by_name(case, args, chunked, monkeypatch):
     assert fits_plan(F32, 0, B, T, Cp, L, F, H, plan)
     assert (0 < plan.tc < T) == chunked
     ints = list(cargs[2])
-    assert ints[-2:] == [plan.tc, plan.dg] and out.shape == (B, T, L)
+    assert ints[-3:] == [plan.tc, plan.dg, plan.cg] and out.shape == (B, T, L)
     # the kernel's scratch: 8 f32 rows of L, then the operands, per row
     assert scratch.numel() == B * T * (8 * L * 4 + (L + max(2 * L, F)
                                                      + max(Cp, L)) * 4)

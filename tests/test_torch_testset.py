@@ -178,7 +178,10 @@ def test_trainer_evaluate_fgd_matches_jax(models, tmp_path):
         params=jax.tree.map(jnp.asarray, variables["params"]),
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]))
     rng = jax.random.PRNGKey(18)
-    want = jt.evaluate(JLoader(JDataset(cache), 4, shuffle=False), rng)
+    # no prefetch thread: the JAX loader drops its end mark when its queue
+    # is full and its consumer then waits forever (ROADMAP, Queue 3)
+    want = jt.evaluate(JLoader(JDataset(cache), 4, shuffle=False,
+                               prefetch=0), rng)
     tt = TTrainer(tcfg, str(tmp_path / "tw"), device="cpu", fgd_net=tfgd)
     load_flax_tree(tt.state.model, variables)
     jgen = jt._get_generator()
