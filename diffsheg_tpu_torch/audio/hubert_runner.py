@@ -23,6 +23,7 @@ from diffsheg_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from diffsheg_tpu_torch.models.factory import random_init_
 from diffsheg_tpu_torch.models.hubert import (HubertConfig, HubertModel,
                                               normalize_waveform)
+from diffsheg_tpu_torch.utils.profiling import span
 
 KERNEL = 400
 STRIDE = 320
@@ -66,40 +67,43 @@ class HubertFeatureExtractor:
     @torch.no_grad()
     def __call__(self, audio_16k, target_frames: Optional[int] = None):
         """audio (N,) or (1, N) float32 at 16 kHz -> (1, T, hidden)."""
-        audio = torch.as_tensor(audio_16k, dtype=torch.float32,
-                                device=self.device)
-        if audio.dim() == 1:
-            audio = audio[None]
-        n = audio.shape[1]
-        exp_t = expected_frames(n)
-        plan = [(CLIP_SAMPLES * i, min(CHUNK_SAMPLES, n - CLIP_SAMPLES * i))
-                for i in range(n // CLIP_SAMPLES)]
-        rest = CLIP_SAMPLES * (n // CLIP_SAMPLES)
-        if n - rest >= KERNEL:
-            plan.append((rest, n - rest))
-        if not plan:   # shorter than one kernel: no frames
-            return torch.zeros((1, target_frames or 0, self.cfg.hidden_size),
-                               device=self.device)
-        valid = [(length - KERNEL) // STRIDE + 1 for _, length in plan]
-        full = (CHUNK_SAMPLES - KERNEL) // STRIDE + 1
-        frame_mask = None
-        if any(length < CHUNK_SAMPLES for _, length in plan):
-            frame_mask = torch.as_tensor(
-                np.arange(full)[None, :] < np.asarray(valid)[:, None],
-                device=self.device)
-        audio = normalize_waveform(audio)
-        batch = torch.cat([F.pad(audio[:, s:s + length],
-                                 (0, CHUNK_SAMPLES - length))
-                           for s, length in plan])
-        feats = self.model(batch, frame_mask)             # (chunks, F, H)
-        seq = torch.cat([feats[i, :v] for i, v in enumerate(valid)])[None]
-        if seq.shape[1] < exp_t:
-            seq = F.pad(seq, (0, 0, 0, exp_t - seq.shape[1]))
-        else:
-            seq = seq[:, :exp_t]
-        if target_frames is not None:
-            seq = linear_resample(seq, target_frames)
-        return seq
+        with span("frontend.hubert"):
+            audio = torch.as_tensor(audio_16k, dtype=torch.float32,
+                                    device=self.device)
+            if audio.dim() == 1:
+                audio = audio[None]
+            n = audio.shape[1]
+            exp_t = expected_frames(n)
+            plan = [(CLIP_SAMPLES * i,
+                     min(CHUNK_SAMPLES, n - CLIP_SAMPLES * i))
+                    for i in range(n // CLIP_SAMPLES)]
+            rest = CLIP_SAMPLES * (n // CLIP_SAMPLES)
+            if n - rest >= KERNEL:
+                plan.append((rest, n - rest))
+            if not plan:   # shorter than one kernel: no frames
+                return torch.zeros(
+                    (1, target_frames or 0, self.cfg.hidden_size),
+                    device=self.device)
+            valid = [(length - KERNEL) // STRIDE + 1 for _, length in plan]
+            full = (CHUNK_SAMPLES - KERNEL) // STRIDE + 1
+            frame_mask = None
+            if any(length < CHUNK_SAMPLES for _, length in plan):
+                frame_mask = torch.as_tensor(
+                    np.arange(full)[None, :] < np.asarray(valid)[:, None],
+                    device=self.device)
+            audio = normalize_waveform(audio)
+            batch = torch.cat([F.pad(audio[:, s:s + length],
+                                     (0, CHUNK_SAMPLES - length))
+                               for s, length in plan])
+            feats = self.model(batch, frame_mask)         # (chunks, F, H)
+            seq = torch.cat([feats[i, :v] for i, v in enumerate(valid)])[None]
+            if seq.shape[1] < exp_t:
+                seq = F.pad(seq, (0, 0, 0, exp_t - seq.shape[1]))
+            else:
+                seq = seq[:, :exp_t]
+            if target_frames is not None:
+                seq = linear_resample(seq, target_frames)
+            return seq
 
     @torch.no_grad()
     def encode_left_context(self, seg, pad_left: int, skip_frames: int,

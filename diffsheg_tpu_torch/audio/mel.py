@@ -17,6 +17,7 @@ import torch
 from torch.nn import functional as F
 
 from diffsheg_tpu_torch.device import DeviceLike, resolve_device
+from diffsheg_tpu_torch.utils.profiling import span
 
 
 F_SP = 200.0 / 3            # Slaney scale: linear below 1 kHz, log above
@@ -110,9 +111,10 @@ class MelFrontend:
 
     @torch.no_grad()
     def __call__(self, y) -> torch.Tensor:
-        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        if y.dim() == 1:
-            y = y[None]
-        mel = stft_magsq(y, self.n_fft, self.hop, self._window,
-                         pad_mode=self.pad_mode) @ self._filters
-        return mel[..., :-1, :] if self.drop_last else mel
+        with span("frontend.mel"):
+            y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+            if y.dim() == 1:
+                y = y[None]
+            mel = stft_magsq(y, self.n_fft, self.hop, self._window,
+                             pad_mode=self.pad_mode) @ self._filters
+            return mel[..., :-1, :] if self.drop_last else mel

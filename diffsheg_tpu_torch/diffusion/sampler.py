@@ -9,7 +9,10 @@ plain version or its CUDA kernel; optional saved noisy tails
 (``same_overlap_noisy``).  :func:`ancestral_sample_program`: the
 ancestral ``p_sample`` step with every ``var_type``
 (:func:`model_log_variance`) and the RePaint projection before the model
-call.  A step program runs as a host loop.
+call.  A step program runs as a host loop: each model call in a
+``sampler.call`` span, each step's other work (noise draws, step math,
+projection, tails; an undo step) in a ``sampler.update`` span
+(``utils/profiling.py``).
 
 Noise comes from an injectable :class:`NoiseSource`.  PyTorch cannot
 replay JAX's threefry draws, so the tests hand the sampler a
@@ -40,6 +43,7 @@ from diffsheg_tpu_torch.diffusion.vlb import learned_range_logvar
 from diffsheg_tpu_torch.ops.step_math import (blend_weights,
                                               ddim_repaint_step_reference,
                                               fused_ddim_repaint_step)
+from diffsheg_tpu_torch.utils.profiling import span
 
 # denoise_fn(x, t) -> model epsilon; t is the respaced level (python int)
 DenoiseFn = Callable[[torch.Tensor, int], torch.Tensor]
@@ -232,33 +236,39 @@ def ddim_sample_program(
     for s, (t, is_denoise) in enumerate(zip(program.t.tolist(),
                                             program.denoise.tolist())):
         if not is_denoise:
-            x = sched.undo(x, t, noise.step(window, s, "undo", shape, device))
+            with span("sampler.update"):
+                x = sched.undo(x, t, noise.step(window, s, "undo", shape,
+                                                device))
             continue
-        out, _ = split_model_output(denoise_fn(x, t), var_type)
-        prev_tail = prev_saved_tails[t] if use_prev else None
-        if use_fast:
-            # a learned-variance output's mean half is a strided view; the
-            # kernel takes contiguous operands
-            x = step_fn(
-                x, out.contiguous(), (sched.alphas_cumprod_prev[t],
-                         sched.sqrt_recip_alphas_cumprod[t],
-                         sched.sqrt_recipm1_alphas_cumprod[t], float(valid)),
-                gt if do_repaint else None,
-                noise.step(window, s, "gt", shape, device) if do_repaint else None,
-                prev_tail, ov if do_repaint else 0,
-                do_repaint and repaint.add_blend)
-        else:
-            x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
-            x = ddim_update(sched, x, t, x0,
-                            noise.step(window, s, "model", shape, device)
-                            if eta > 0 and t != 0 else None, eta)
-            if do_repaint:
-                x = repaint_project(
-                    sched, repaint, x, t, gt,
-                    noise.step(window, s, "gt", shape, device), prev_tail,
-                    prev_tails_valid if use_prev else None)
-        if track_tails:
-            tails[t] = x[:, -ov:]
+        with span("sampler.call"):
+            out, _ = split_model_output(denoise_fn(x, t), var_type)
+        with span("sampler.update"):
+            prev_tail = prev_saved_tails[t] if use_prev else None
+            if use_fast:
+                # a learned-variance output's mean half is a strided view;
+                # the kernel takes contiguous operands
+                x = step_fn(
+                    x, out.contiguous(),
+                    (sched.alphas_cumprod_prev[t],
+                     sched.sqrt_recip_alphas_cumprod[t],
+                     sched.sqrt_recipm1_alphas_cumprod[t], float(valid)),
+                    gt if do_repaint else None,
+                    noise.step(window, s, "gt", shape, device)
+                    if do_repaint else None,
+                    prev_tail, ov if do_repaint else 0,
+                    do_repaint and repaint.add_blend)
+            else:
+                x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
+                x = ddim_update(sched, x, t, x0,
+                                noise.step(window, s, "model", shape, device)
+                                if eta > 0 and t != 0 else None, eta)
+                if do_repaint:
+                    x = repaint_project(
+                        sched, repaint, x, t, gt,
+                        noise.step(window, s, "gt", shape, device), prev_tail,
+                        prev_tails_valid if use_prev else None)
+            if track_tails:
+                tails[t] = x[:, -ov:]
     return x, tails
 
 
@@ -294,26 +304,31 @@ def ancestral_sample_program(
     for s, (t, is_denoise) in enumerate(zip(program.t.tolist(),
                                             program.denoise.tolist())):
         if not is_denoise:
-            x = sched.undo(x, t + 1, noise.step(window, s, "undo", shape, device))
+            with span("sampler.update"):
+                x = sched.undo(x, t + 1, noise.step(window, s, "undo", shape,
+                                                    device))
             continue
         if do_repaint:
-            gt_noise = noise.step(window, s, "gt", shape, device)
-            if started:
-                ov = repaint.overlap_len
-                ab = f32(sched.alphas_cumprod[t])
-                head = (float(np.sqrt(ab)) * gt[:, :ov]
-                        + float(np.sqrt(f32(1.0) - ab)) * gt_noise[:, :ov])
-                x = torch.cat([head, x[:, ov:]], dim=1)
-        out, var_raw = split_model_output(denoise_fn(x, t), var_type)
-        x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
-        mean = (out if mean_type == "previous_x"
-                else sched.q_posterior_mean(x0, x, t))
-        log_var = model_log_variance(sched, var_type, var_raw, t)
-        if isinstance(log_var, float):
-            std = float(np.exp(f32(0.5) * f32(log_var)))
-        else:
-            std = torch.exp(0.5 * log_var)
-        trans = noise.step(window, s, "trans", shape, device)
-        x = mean + float(t != 0) * std * trans
+            with span("sampler.update"):
+                gt_noise = noise.step(window, s, "gt", shape, device)
+                if started:
+                    ov = repaint.overlap_len
+                    ab = f32(sched.alphas_cumprod[t])
+                    head = (float(np.sqrt(ab)) * gt[:, :ov]
+                            + float(np.sqrt(f32(1.0) - ab)) * gt_noise[:, :ov])
+                    x = torch.cat([head, x[:, ov:]], dim=1)
+        with span("sampler.call"):
+            out, var_raw = split_model_output(denoise_fn(x, t), var_type)
+        with span("sampler.update"):
+            x0 = _pred_xstart(sched, mean_type, x, t, out, clip_denoised)
+            mean = (out if mean_type == "previous_x"
+                    else sched.q_posterior_mean(x0, x, t))
+            log_var = model_log_variance(sched, var_type, var_raw, t)
+            if isinstance(log_var, float):
+                std = float(np.exp(f32(0.5) * f32(log_var)))
+            else:
+                std = torch.exp(0.5 * log_var)
+            trans = noise.step(window, s, "trans", shape, device)
+            x = mean + float(t != 0) * std * trans
         started = True
     return x

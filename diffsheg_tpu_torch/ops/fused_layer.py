@@ -21,8 +21,10 @@ On a CUDA tensor each wrapper launches the hand-written kernel of
 ``csrc/fused_layer.cu`` (built at first use, see ``ops/build.py``) or
 raises; on a CPU tensor it runs the plain PyTorch version
 (:func:`fused_layer_reference`, :func:`fused_branch_reference`), the
-exact transcription of the JAX ``_layer_math``.  Each wrapper counts its
-kernel launches in ``.launches``; :func:`fused_layer` counts them by the
+exact transcription of the JAX ``_layer_math``.  Each wrapper opens a
+``launch.fused_layer`` / ``launch.fused_branch`` span a launch (its
+checks, plan and allocations included; ``utils/profiling.py``) and counts
+its kernel launches in ``.launches``; :func:`fused_layer` counts them by the
 launch's (B, T, L) in ``.launches_by_shape`` too, and both by (Cp, F,
 passes) in ``.launches_by_width``.  :func:`k_pass_plan` lays out the
 kernel's shared memory: a product whose contraction is wider than a block
@@ -48,6 +50,8 @@ import functools
 from typing import List, NamedTuple, Optional
 
 import torch
+
+from diffsheg_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-5
 KERNEL_SOURCE = "fused_layer.cu"
@@ -702,11 +706,14 @@ def fused_layer(x: torch.Tensor,        # (B, T, L)
         raise ValueError(f"unsupported device {x.device}")
     outs = []
     for g in _batch_groups(x.shape[0], x.shape[1]):
-        ms, mf = _aligned(mod_sa[g]), _aligned(mod_ffn[g])
-        for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
-            _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype, x.device)
-        out, plan = _launch(_aligned(x[g]), _aligned(feats[g]), ms, mf, 0,
-                            lp, 1, num_heads, c_real, False, None, None, sc)
+        with span("launch.fused_layer"):
+            ms, mf = _aligned(mod_sa[g]), _aligned(mod_ffn[g])
+            for name, t in (("mod_sa", ms), ("mod_ffn", mf)):
+                _check(name, t, (ms.shape[0], 2 * x.shape[-1]), x.dtype,
+                       x.device)
+            out, plan = _launch(_aligned(x[g]), _aligned(feats[g]), ms, mf,
+                                0, lp, 1, num_heads, c_real, False, None,
+                                None, sc)
         outs.append(out)
         fused_layer.launches += 1
         fused_layer.launches_by_shape[tuple(x[g].shape)] += 1
@@ -748,15 +755,18 @@ def fused_branch(x: torch.Tensor,      # (B, T, L) embedded input (post PE)
     L = x.shape[-1]
     outs = []
     for g in _batch_groups(x.shape[0], x.shape[1]):
-        Bg = g.stop - g.start
-        m = mods[:, :, g].contiguous()
-        _check("mods", m, (n_layers, 2, Bg, 2 * L), x.dtype, x.device)
-        ne = None if null_emb is None else null_emb.reshape(-1).contiguous()
-        nm = None if null_mask is None else \
-            _aligned(null_mask[g].to(torch.float32))
-        out, plan = _launch(_aligned(x[g]), _aligned(cond[g]),
-                            m[0, 0], m[0, 1], 2 * Bg * 2 * L, slp, n_layers,
-                            num_heads, c_real, True, ne, nm, ssc)
+        with span("launch.fused_branch"):
+            Bg = g.stop - g.start
+            m = mods[:, :, g].contiguous()
+            _check("mods", m, (n_layers, 2, Bg, 2 * L), x.dtype, x.device)
+            ne = (None if null_emb is None
+                  else null_emb.reshape(-1).contiguous())
+            nm = None if null_mask is None else \
+                _aligned(null_mask[g].to(torch.float32))
+            out, plan = _launch(_aligned(x[g]), _aligned(cond[g]),
+                                m[0, 0], m[0, 1], 2 * Bg * 2 * L, slp,
+                                n_layers, num_heads, c_real, True, ne, nm,
+                                ssc)
         outs.append(out)
         fused_branch.launches += 1
         fused_branch.launches_by_width[_width_key(slp, plan)] += 1

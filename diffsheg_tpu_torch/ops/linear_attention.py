@@ -19,7 +19,8 @@ head), on pre-softmax, pre-masked q, k, v (B, T, D):
   tensor it launches the kernel or raises.  It is differentiable: the
   backward recomputes through the composition, as the JAX custom VJP does.
   Launches are counted in ``fused_linear_attention.launches``, and by
-  (B, T, D, heads) in ``fused_linear_attention.launches_by_shape``.  How the
+  (B, T, D, heads) in ``fused_linear_attention.launches_by_shape``; each
+  runs in a ``launch.linear_attention`` span (``utils/profiling.py``).  How the
   work is cut into blocks is :func:`_launch_plan`'s choice, made here and
   passed to the kernel.
 - :func:`linear_attention` dispatches as the JAX package does, with "on
@@ -36,6 +37,8 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from diffsheg_tpu_torch.utils.profiling import span
 
 KERNEL_SOURCE = "linear_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,8 +232,9 @@ class _FusedLinearAttention(torch.autograd.Function):
             return fused_linear_attention_reference(q, k, v, num_heads)
         if q.device.type != "cuda":
             raise ValueError(f"unsupported device {q.device}")
-        out = _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                      num_heads)
+        with span("launch.linear_attention"):
+            out = _launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                          num_heads)
         fused_linear_attention.launches += 1
         fused_linear_attention.launches_by_shape[(*q.shape, num_heads)] += 1
         return out

@@ -16,7 +16,8 @@ on the host as float32 values.
   ``csrc/step_math.cu`` (replacing the Pallas ``fused_ddim_repaint_step``,
   diffsheg_tpu/ops/step_math.py:111) on a CUDA tensor, or raises; on a
   CPU tensor it runs the plain version.  Launches are counted in
-  ``fused_ddim_repaint_step.launches``.  The launch shape (four channels a
+  ``fused_ddim_repaint_step.launches``, each in a ``launch.ddim_step``
+  span (``utils/profiling.py``).  The launch shape (four channels a
   thread or one) is :func:`_step_plan`'s choice, made here;
 - :func:`ddim_repaint_step` is the dispatcher between the two (the
   kernel for CUDA tensors unless told otherwise);
@@ -31,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from diffsheg_tpu_torch.utils.profiling import span
 
 KERNEL_SOURCE = "step_math.cu"
 
@@ -129,37 +132,39 @@ def fused_ddim_repaint_step(x, eps_out, scal: StepScalars, gt, gt_noise,
                                            prev_tail, overlap_len, add_blend)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B, T, C = x.shape
-    has_gt = gt is not None
-    ov = overlap_len if has_gt else 0
-    _check("x", x, (B, T, C), x.device)
-    _check("eps_out", eps_out, (B, T, C), x.device)
-    if has_gt:
-        if not 1 <= ov <= T:
-            raise ValueError(f"overlap_len {ov} outside [1, {T}]")
-        _check("gt", gt, (B, T, C), x.device)
-        _check("gt_noise", gt_noise, (B, T, C), x.device)
-    if prev_tail is not None:
-        if not has_gt:
-            raise ValueError("prev_tail needs gt")
-        _check("prev_tail", prev_tail, (B, ov, C), x.device)
-    out = torch.empty_like(x)
+    with span("launch.ddim_step"):
+        B, T, C = x.shape
+        has_gt = gt is not None
+        ov = overlap_len if has_gt else 0
+        _check("x", x, (B, T, C), x.device)
+        _check("eps_out", eps_out, (B, T, C), x.device)
+        if has_gt:
+            if not 1 <= ov <= T:
+                raise ValueError(f"overlap_len {ov} outside [1, {T}]")
+            _check("gt", gt, (B, T, C), x.device)
+            _check("gt_noise", gt_noise, (B, T, C), x.device)
+        if prev_tail is not None:
+            if not has_gt:
+                raise ValueError("prev_tail needs gt")
+            _check("prev_tail", prev_tail, (B, ov, C), x.device)
+        out = torch.empty_like(x)
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
+        def ptr(t):
+            return 0 if t is None else t.data_ptr()
 
-    ab_prev, r, rm1, valid = (float(np.float32(s)) for s in scal)
-    plan = _step_plan(B, T, C, all(
-        t.data_ptr() % 16 == 0 for t in (x, eps_out, gt, gt_noise, prev_tail,
-                                         out) if t is not None))
-    err = _lib()(x.data_ptr(), eps_out.data_ptr(), ptr(gt), ptr(gt_noise),
-                 ptr(prev_tail), out.data_ptr(), B, T, C, ov, ab_prev, r,
-                 rm1, valid, int(has_gt), int(prev_tail is not None),
-                 int(add_blend and has_gt), int(plan.vec), plan.threads,
-                 plan.grid_x, plan.grid_y,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
+        ab_prev, r, rm1, valid = (float(np.float32(s)) for s in scal)
+        plan = _step_plan(B, T, C, all(
+            t.data_ptr() % 16 == 0
+            for t in (x, eps_out, gt, gt_noise, prev_tail, out)
+            if t is not None))
+        err = _lib()(x.data_ptr(), eps_out.data_ptr(), ptr(gt), ptr(gt_noise),
+                     ptr(prev_tail), out.data_ptr(), B, T, C, ov, ab_prev, r,
+                     rm1, valid, int(has_gt), int(prev_tail is not None),
+                     int(add_blend and has_gt), int(plan.vec), plan.threads,
+                     plan.grid_x, plan.grid_y,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
     fused_ddim_repaint_step.launches += 1
     return out
 

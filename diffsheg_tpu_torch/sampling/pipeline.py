@@ -13,6 +13,7 @@ import torch
 
 from diffsheg_tpu_torch.diffusion.sampler import NoiseSource
 from diffsheg_tpu_torch.sampling.streamer import StreamingGenerator
+from diffsheg_tpu_torch.utils.profiling import span
 
 
 class FusedPipeline:
@@ -35,14 +36,17 @@ class FusedPipeline:
                  person_id: torch.Tensor, noise: NoiseSource) -> torch.Tensor:
         """audio_mel (1, N) at the mel rate; audio_16k (1, N16) or None;
         person_id (B, style_dim).  Returns (B, T, C) float32, C the
-        model's ``denoised_channels``."""
-        mel = self.frontend(audio_mel)
-        T = mel.shape[1]
-        hub = (self.hubert(audio_16k, target_frames=T)
-               if self.hubert is not None and audio_16k is not None else None)
-        B = person_id.shape[0]
-        if B > 1:   # one audio, a batch of speaker styles
-            mel = mel.expand(B, *mel.shape[1:])
-            if hub is not None:
-                hub = hub.expand(B, *hub.shape[1:])
-        return self.stream.generate_fused(mel, person_id, noise, hub)
+        model's ``denoised_channels``.  Every span of the call nests in
+        its ``pipeline`` span."""
+        with span("pipeline"):
+            mel = self.frontend(audio_mel)
+            T = mel.shape[1]
+            hub = (self.hubert(audio_16k, target_frames=T)
+                   if self.hubert is not None and audio_16k is not None
+                   else None)
+            B = person_id.shape[0]
+            if B > 1:   # one audio, a batch of speaker styles
+                mel = mel.expand(B, *mel.shape[1:])
+                if hub is not None:
+                    hub = hub.expand(B, *hub.shape[1:])
+            return self.stream.generate_fused(mel, person_id, noise, hub)
