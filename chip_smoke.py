@@ -49,7 +49,14 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               grid barrier, from traced launches), the floor its grid
               barriers set (``barrier[grid ...]``: the same grid through as
               many barriers and no work) and the rate of its operand copy
-              out of L2 (``l2copy[...]``);
+              out of L2 (``l2copy[...]``); the split-TF32 dense products
+              (``gemm_tf32x3``) at every shape of a BEAT training step
+              (forward NT, dX NN, dW TN; 85 000 and 2500 rows, the padded
+              widths), each against its plain version and an f64 product
+              beside cuBLAS f32 and TF32, reruns bit for bit; the cell's
+              widths timed beside cuBLAS f32 (``--only crossover``: the
+              kernel against cuBLAS by rows at every width, which sets
+              the route's rule; in no whole run);
 4. stream   — a three-window BEAT stream with the same injected noise
               through the bf16 and f32 branch-kernel paths and phase 6's
               path, held to the port's numerics bands against the f32 fully
@@ -137,8 +144,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               uninterrupted, bit for bit; step ms, windows a second, peak
               memory, loader ms, linear attention's launches by shape;
               one step under torch.profiler (device busy time by kind of
-              kernel); (b) at batch 256 the kernel against the plain
-              composition inside 3 steps (1e-5) and remat against none;
+              kernel, ``gemm_tf32x3``'s launches by shape); (b) at batch
+              256 the kernel against the plain composition inside 3 steps
+              (1e-5) and remat against none;
               (c) ``Trainer.evaluate`` of 64 windows through the
               per-layer kernel before and after a step;
 11. data    — the loop a user of the paper runs, on synthetic raw splits
@@ -211,7 +219,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               idle share) and writes the 240-epoch convergence curve.
 
 Each main path runs with every kernel's launch count set to 0 just before
-it and read just after, and the counts are asserted exactly.  Prints its
+it and read just after, and the counts are asserted exactly
+(``gemm_tf32x3``'s by (M, N, K, layout): the f32 level caches' and the
+training steps' dense products the route takes).  Prints its
 findings, a ``kernels`` JSON line, the nvidia-smi line, and ends with
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is non-zero; with no CUDA device it exits 1 and prints no result.
@@ -220,6 +230,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
+    python3 chip_smoke.py --only crossover  # gemm_tf32x3 against cuBLAS
     python3 chip_smoke.py --only live       # the serving daemon
     python3 chip_smoke.py --only variants   # every model variant
     python3 chip_smoke.py --only generate   # cli generate, wav to BVH
@@ -240,6 +251,7 @@ TF32 is off in every phase that holds an f32 band.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -328,21 +340,52 @@ def counters():
     in ``.launches``."""
     from diffsheg_tpu_torch.ops.fused_layer import fused_branch, fused_layer
     from diffsheg_tpu_torch.ops.linear_attention import fused_linear_attention
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
     from diffsheg_tpu_torch.ops.step_math import fused_ddim_repaint_step
     return {"fused_branch": fused_branch, "fused_layer": fused_layer,
             "fused_linear_attention": fused_linear_attention,
-            "fused_ddim_repaint_step": fused_ddim_repaint_step}
+            "fused_ddim_repaint_step": fused_ddim_repaint_step,
+            "gemm_tf32x3": gemm_tf32x3}
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count to 0, linear attention's and the
-    per-layer kernel's by shape too, the layer kernels' by width."""
+    """Every kernel's launch count to 0, linear attention's, the per-layer
+    kernel's and gemm_tf32x3's by shape too, the layer kernels' by
+    width."""
     for fn in counters().values():
         fn.launches = 0
     counters()["fused_linear_attention"].launches_by_shape.clear()
     counters()["fused_layer"].launches_by_shape.clear()
     counters()["fused_layer"].launches_by_width.clear()
     counters()["fused_branch"].launches_by_width.clear()
+    counters()["gemm_tf32x3"].launches_by_shape.clear()
+
+
+class Launches(dict):
+    """Launches by kernel name; ``.gemm`` holds gemm_tf32x3's by (M, N, K,
+    layout), read at the same moment."""
+    gemm: dict = {}
+
+
+def launch_counts() -> Launches:
+    out = Launches((n, fn.launches) for n, fn in counters().items())
+    out.gemm = dict(counters()["gemm_tf32x3"].launches_by_shape)
+    return out
+
+
+def launch_gap(counts, want, gemm=None) -> str:
+    """'' where ``counts`` are ``want`` exactly (a kernel not named: no
+    launch) and gemm_tf32x3's launches by shape are ``gemm`` (none if not
+    given); else what differs."""
+    gemm = dict(gemm or {})
+    want = {n: want.get(n, 0) for n in counters()}
+    want["gemm_tf32x3"] = sum(gemm.values())
+    got = getattr(counts, "gemm", gemm)
+    if counts == want and got == gemm:
+        return ""
+    return (f"launches {dict(counts)}, expected {want}" + (
+        "" if got == gemm else
+        f"; gemm_tf32x3 by (M, N, K, layout) {got}, expected {gemm}"))
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -870,6 +913,241 @@ def attention_case(name, dtype, B, T, D, offset, H, dev, seed, reps,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+# The dense layers' products in one BEAT training step at batch 2500 with
+# remat, by (M, N, K, layout) as gemm_tf32x3 takes them: every Dense at
+# 85 000 rows (forward NT, the layers inside remat's recomputed blocks
+# twice; dX NN, not for an input that takes no gradient; dW TN) and the
+# per-window products at 2500 rows; widths off a multiple of 4 zero-padded
+# (the 51- and 141-channel heads to 52 and 144, the gesture branch's
+# 947-wide condition to 948).  The route's rule (train_gemm) leaves the
+# 32 -> 2048 timestep products to cuBLAS.
+TRAIN_ROWS = 85000
+TRAIN_GEMM = {
+    (2500, 2048, 512, "nt"): 3, (2500, 2048, 2048, "nt"): 5,
+    (85000, 128, 128, "nt"): 5, (2500, 256, 2048, "nt"): 2,
+    (85000, 1024, 128, "nt"): 1, (85000, 128, 1024, "nt"): 1,
+    (2500, 2048, 32, "nt"): 2, (85000, 512, 52, "nt"): 1,
+    (85000, 256, 256, "nt"): 2, (85000, 1024, 896, "nt"): 16,
+    (85000, 512, 1024, "nt"): 64, (85000, 512, 512, "nt"): 160,
+    (2500, 1024, 2048, "nt"): 64, (85000, 1024, 512, "nt"): 32,
+    (85000, 52, 512, "nt"): 1, (85000, 512, 144, "nt"): 1,
+    (85000, 1024, 948, "nt"): 16, (85000, 144, 512, "nt"): 1,
+    (85000, 512, 144, "nn"): 1, (85000, 512, 512, "nn"): 80,
+    (2500, 2048, 1024, "nn"): 32, (85000, 1024, 512, "nn"): 32,
+    (85000, 512, 1024, "nn"): 16, (85000, 948, 1024, "nn"): 8,
+    (85000, 256, 256, "nn"): 2, (2500, 2048, 2048, "nn"): 5,
+    (85000, 512, 52, "nn"): 1, (85000, 896, 1024, "nn"): 8,
+    (85000, 128, 128, "nn"): 5, (2500, 2048, 256, "nn"): 2,
+    (85000, 1024, 128, "nn"): 1, (85000, 128, 1024, "nn"): 1,
+    (144, 512, 85000, "tn"): 1, (512, 512, 85000, "tn"): 80,
+    (1024, 2048, 2500, "tn"): 32, (512, 1024, 85000, "tn"): 32,
+    (1024, 512, 85000, "tn"): 16, (1024, 948, 85000, "tn"): 8,
+    (256, 256, 85000, "tn"): 2, (512, 144, 85000, "tn"): 1,
+    (2048, 2048, 2500, "tn"): 5, (2048, 32, 2500, "tn"): 2,
+    (2048, 512, 2500, "tn"): 3, (52, 512, 85000, "tn"): 1,
+    (1024, 896, 85000, "tn"): 8, (512, 52, 85000, "tn"): 1,
+    (128, 128, 85000, "tn"): 5, (256, 2048, 2500, "tn"): 2,
+    (128, 1024, 85000, "tn"): 1, (1024, 128, 85000, "tn"): 1}
+# ... of which these are timed: a BEAT layer's dense widths (in, out) at
+# 85 000 rows, q / k / v / outputs, FFN in and out, the condition
+# projection's first layer, in each layout
+GEMM_WIDTHS = ((512, 512), (512, 1024), (1024, 512), (896, 1024))
+GEMM_TIMED = {s for kin, nout in GEMM_WIDTHS for s in (
+    (TRAIN_ROWS, nout, kin, "nt"), (TRAIN_ROWS, kin, nout, "nn"),
+    (nout, kin, TRAIN_ROWS, "tn"))}
+
+
+def gemm_rows(M, N, K, layout):
+    """The rows of the dense layer a product belongs to: its forward's and
+    dX's M, dW's contraction."""
+    return K if layout == "tn" else M
+
+
+def gemm_widths(M, N, K, layout):
+    """(in, out) of the dense layer a product belongs to."""
+    return {"nt": (K, N), "nn": (N, K), "tn": (N, M)}[layout]
+
+
+# TRAIN_GEMM's forward products (N, K) that remat runs twice: the
+# branches' transformer layers at 85 000 rows and their style projections
+# (2048 -> 1024) at 2500
+REMAT_NT = {(512, 512), (512, 1024), (1024, 512), (1024, 896), (1024, 948),
+            (1024, 2048)}
+
+
+def train_gemm(windows: int, steps: int = 1, remat: bool = True) -> dict:
+    """gemm_tf32x3's launches in ``steps`` BEAT training steps of
+    ``windows`` windows: TRAIN_GEMM's products at 34 rows a window (or one
+    a window) where the route takes them at those rows; without remat the
+    forward of REMAT_NT once."""
+    from diffsheg_tpu_torch.ops.products import takes_tf32x3
+    out = collections.Counter()
+    for (M, N, K, lay), n in TRAIN_GEMM.items():
+        rows = (windows * 34 if gemm_rows(M, N, K, lay) == TRAIN_ROWS
+                else windows)
+        if not takes_tf32x3("cuda", torch.float32, rows,
+                            *gemm_widths(M, N, K, lay)):
+            continue
+        if lay == "nt" and not remat and (N, K) in REMAT_NT:
+            n //= 2
+        if lay == "tn":
+            K = rows
+        else:
+            M = rows
+        out[(M, N, K, lay)] += n * steps
+    return dict(out)
+
+
+def cache_gemm(model, windows: int, frames: int, styles: int = 1,
+               levels: int = 25) -> dict:
+    """gemm_tf32x3's launches of one f32 level cache of ``windows`` windows
+    of ``frames`` and ``styles`` style rows, forward only, where the route
+    takes them: the audio encoder's dense layers and each branch's audio
+    projection over levels x windows x frames rows, the encoder's style
+    projections over levels x windows, the branch layers' style
+    projections (the static cache) over levels x styles."""
+    from diffsheg_tpu_torch.ops.products import Dense, takes_tf32x3
+    branches = (model.encoder_exp, model.encoder_ges)
+    layers = [(m, levels * windows * (1 if name.endswith("emb_proj")
+                                      else frames))
+              for name, m in model.encoder_aud.named_modules()
+              if isinstance(m, Dense)]
+    layers += [(b.audio_proj, levels * windows * frames) for b in branches]
+    layers += [(block.proj_out.emb_proj, levels * styles)
+               for b in branches for layer in b.layers
+               for block in (layer.sa_block, layer.ffn)]
+    out = collections.Counter()
+    for m, rows in layers:
+        if takes_tf32x3("cuda", torch.float32, rows, m.in_features,
+                        m.out_features):
+            out[(rows, -(-m.out_features // 4) * 4,
+                 -(-m.in_features // 4) * 4, "nt")] += 1
+    return dict(out)
+
+
+def times(gemm: dict, n: int) -> dict:
+    """Launches by shape, ``n`` times over."""
+    return {k: v * n for k, v in gemm.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def beat_structure():
+    """A BEAT model at the published widths on the CPU: the shapes of the
+    dense layers that a command builds for itself."""
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.models.unidiffuser import init_unidiffuser
+    return init_unidiffuser(beat_config().model, seed=0)
+
+
+def gemm_case(M, N, K, layout, dev, seed, reps):
+    """``gemm_tf32x3`` at one (M, N, K, layout) of TRAIN_GEMM against its
+    plain version (the port's f32 band, 1e-5) and against an f64 product,
+    beside cuBLAS f32's and single-pass TF32's errors against the same f64:
+    the kernel's at most 8x cuBLAS f32's and 100x under TF32's, two calls
+    bit for bit the same.  'nt' adds a bias, as the forward does.  With
+    ``reps``, also its device ms beside the operations bound (three TF32
+    products) and cuBLAS f32 (``library_ms``, TF32 off)."""
+    from diffsheg_tpu_torch.ops.products import (gemm_tf32x3,
+                                                 gemm_tf32x3_reference)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((M, K) if layout[0] == "n" else (K, M), generator=gen,
+                    device=dev)
+    b = torch.randn((N, K) if layout[1] == "t" else (K, N), generator=gen,
+                    device=dev) / K ** 0.5
+    bias = (torch.randn(N, generator=gen, device=dev) if layout == "nt"
+            else None)
+    A = a if layout[0] == "n" else a.t()
+    B = b.t() if layout[1] == "t" else b
+
+    def library():
+        out = A @ B
+        return out if bias is None else out + bias
+
+    got = gemm_tf32x3(a, b, layout, bias)
+    same = torch.equal(got, gemm_tf32x3(a, b, layout, bias))
+    e_plain = rel_rms(got, gemm_tf32x3_reference(a, b, layout, bias))
+    exact = A.double() @ B.double()
+    if bias is not None:
+        exact += bias.double()
+    err, e_lib = rel_rms(got, exact), rel_rms(library(), exact)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    e_tf32 = rel_rms(library(), exact)
+    no_tf32()
+    del exact, got
+    res = dict(rel_rms=err, library_rel_rms=e_lib, tf32_rel_rms=e_tf32,
+               plain_rel_rms=e_plain)
+    line = (f"kernel[gemm_tf32x3 {layout} (M, N, K)=({M}, {N}, {K})]: "
+            f"rel_rms_f64={err:.3e} cublas_f32_rel_rms_f64={e_lib:.3e} "
+            f"tf32_rel_rms_f64={e_tf32:.3e} rel_rms_plain={e_plain:.3e} "
+            f"bit_identical={same}")
+    if reps:
+        flops = 2.0 * M * N * K
+        res.update(ms=device_ms(lambda: gemm_tf32x3(a, b, layout, bias),
+                                reps),
+                   bound_ms=3 * flops / TF32_FLOPS * 1e3,
+                   library_ms=device_ms(library, reps))
+        line += (f" ms={res['ms']:.4f} tflops={flops / res['ms'] / 1e9:.1f}"
+                 f" bound_ms={res['bound_ms']:.4f} (operations) "
+                 f"library_ms={res['library_ms']:.4f}")
+    log(line)
+    if not (same and err <= 8 * e_lib and 100 * err <= e_tf32
+            and e_plain <= 1e-5):
+        raise AssertionError(
+            f"gemm_tf32x3 {layout} {(M, N, K)}: {err:.3e} against f64, "
+            f"cuBLAS f32 {e_lib:.3e}, TF32 {e_tf32:.3e}, plain "
+            f"{e_plain:.3e}, bit-identical {same}")
+    return res
+
+
+def gemm_cases(dev, reps):
+    """gemm_case at every shape of TRAIN_GEMM, the cell's widths timed."""
+    return {f"gemm-{lay}-{M}x{N}x{K}": gemm_case(
+                M, N, K, lay, dev, 22 + i,
+                reps if (M, N, K, lay) in GEMM_TIMED else 0)
+            for i, (M, N, K, lay) in enumerate(sorted(TRAIN_GEMM))}
+
+
+# the crossover's rows, around and above MIN_ROWS (2550: the three-window
+# stream's f32 level cache)
+CROSSOVER_ROWS = (512, 1024, 2048, 2550, 4096, 8192, 16384)
+
+
+def phase_crossover(dev, reps):
+    """Device ms of a dense layer's products through gemm_tf32x3 and
+    through cuBLAS f32 by rows, at every (in, out) of TRAIN_GEMM: the
+    forward alone (inference, a level cache) and forward, dX and dW
+    together (training).  ``ops/products.py::takes_tf32x3`` is set from
+    these lines; they are not part of a whole run."""
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
+    no_tf32()
+    widths = sorted({gemm_widths(*s) for s in TRAIN_GEMM})
+    for kin, nout in widths:
+        line = []
+        for rows in CROSSOVER_ROWS:
+            x = torch.randn(rows, kin, device=dev)
+            w = torch.randn(nout, kin, device=dev)
+            b = torch.randn(nout, device=dev)
+            dy = torch.randn(rows, nout, device=dev)
+            fwd = (device_ms(lambda: gemm_tf32x3(x, w, "nt", b), reps),
+                   device_ms(lambda: torch.addmm(b, x, w.t()), reps))
+
+            def kernel():
+                gemm_tf32x3(x, w, "nt", b)
+                gemm_tf32x3(dy, w, "nn")
+                gemm_tf32x3(dy, x, "tn")
+
+            def library():
+                torch.addmm(b, x, w.t())
+                dy @ w
+                dy.t() @ x
+
+            line.append(f"{rows}:{fwd[0]:.4f}/{fwd[1]:.4f},"
+                        f"{device_ms(kernel, reps):.4f}/"
+                        f"{device_ms(library, reps):.4f}")
+        log(f"gemm_tf32x3 crossover {kin}->{nout} rows:forward kernel_ms/"
+            f"library_ms,all three kernel_ms/library_ms {' '.join(line)}")
+
+
 # the step kernel: BEAT (1, 34, 192), overlap 4; SHOW (1, 88, 232), 10;
 # and the gesture-only model's (1, 34, 141), 4
 STEP_CASES = (("beat", 1, 34, 192, 4, 12), ("show", 1, 88, 232, 10, 13),
@@ -1002,6 +1280,7 @@ def phase_kernels(dev, reps):
         results[name] = odd_case(name, *case, dev, 21, reps)
     results.update(quant_kernel_cases(dev, reps))
     results.update(example_kernel_cases(dev, reps))
+    results.update(gemm_cases(dev, reps))
     return results
 
 
@@ -1234,8 +1513,7 @@ def reference_stream(cfg, model, mel, pid, hub, dev):
         ref = run_stream(cfg, model, mel, pid, hub, 5, dev)
     finally:
         attn.linear_attention = saved
-    expect("kernel-free reference", {n: fn.launches for n, fn in
-                                     counters().items()})
+    expect("kernel-free reference", launch_counts())
     return ref
 
 
@@ -1277,7 +1555,14 @@ def phase_stream(dev, model):
     f32o = run_stream(beat_cfg("float32", "off", fused_step="on"), model,
                       mel, pid, hub, 5, dev)
     bf16 = run_stream(beat_cfg("bfloat16", "chain"), model, mel, pid, hub, 5, dev)
+    zero_counts()
     f32k = run_stream(beat_cfg("float32", "chain"), model, mel, pid, hub, 5, dev)
+    # two branches a model call; the f32 level cache of the three windows:
+    # its audio encoder's linear attention, its dense layers' products
+    expect("stream f32 chain", launch_counts(),
+           gemm=cache_gemm(model, 3, 34),
+           fused_branch=2 * stream_calls(beat_cfg("float32", "chain"), 68),
+           fused_linear_attention=1)
     f32p = plain_swap_stream(beat_cfg("float32", "chain"), model, mel, pid,
                              hub, dev)
     r16, r32 = rel_rms(bf16, ref), rel_rms(f32k, ref)
@@ -1338,7 +1623,7 @@ def raw_hubert_stream(dev, mel, pid, hub):
         per = cfg.model.num_layers if mode == "auto" else 1
         zero_counts()
         got = run_stream(cfg, model, mel, pid, hub, 5, dev)
-        counts = {n: fn.launches for n, fn in counters().items()}
+        counts = launch_counts()
         widths = layer_widths()[mode == "chain"]
         swap = plain_swap_stream(cfg, model, mel, pid, hub, dev)
         e_ref, e_swap = rel_rms(got, ref), rel_rms(got, swap)
@@ -1348,7 +1633,8 @@ def raw_hubert_stream(dev, mel, pid, hub):
             f"passes)={widths}")
         # the level cache's audio encoder: one f32 linear-attention launch
         expect(f"raw HuBERT stream {mode}", counts,
-               **{kernel: 2 * per * calls}, fused_linear_attention=1)
+               gemm=cache_gemm(model, 3, 34), **{kernel: 2 * per * calls},
+               fused_linear_attention=1)
         want = {w: per * calls for w in RAW_WIDTHS}
         if widths != want:
             failed.append(f"{mode}: by width {widths}, expected {want}")
@@ -1411,7 +1697,7 @@ def show_long_stream(dev):
         per = cfg.model.num_layers if mode == "auto" else 1
         zero_counts()
         got = run_stream(cfg, model, mel, pid, hub, 5, dev)
-        counts = {n: fn.launches for n, fn in counters().items()}
+        counts = launch_counts()
         shapes = dict(counters()["fused_layer"].launches_by_shape)
         widths = layer_widths()[mode == "chain"]
         attn = dict(counters()["fused_linear_attention"].launches_by_shape)
@@ -1425,8 +1711,10 @@ def show_long_stream(dev):
         # f32 (bf16 takes the composition)
         want = {kernel: rows * per * calls,
                 "fused_linear_attention": int(dtype == "float32")}
-        if counts != {n: want.get(n, 0) for n in counters()}:
-            failed.append(f"{mode}: launches {counts}, expected {want}")
+        gemm = cache_gemm(model, 2, SHOW_LONG_T) if dtype == "float32" else {}
+        gap = launch_gap(counts, want, gemm)
+        if gap:
+            failed.append(f"{mode}: {gap}")
         if mode == "auto" and shapes != {(1, SHOW_LONG_T, m.latent_dim):
                                          rows * per * calls}:
             failed.append(f"{mode}: by shape {shapes}")
@@ -1469,7 +1757,7 @@ def odd_width_stream(dev, mel, pid, hub):
         t0 = time.perf_counter()
         got = run_stream(cfg, model, mel, pid, hub, 5, dev)
         secs = time.perf_counter() - t0
-        counts = {n: fn.launches for n, fn in counters().items()}
+        counts = launch_counts()
         widths = layer_widths()[mode == "chain"]
         err = rel_rms(got, ref)
         log(f"stream[68 frames, latent 520 ff 1032, {dtype} {mode}]: vs f32 "
@@ -1480,8 +1768,10 @@ def odd_width_stream(dev, mel, pid, hub):
         # f32 (bf16 takes the composition)
         want = {kernel: 2 * per * calls,
                 "fused_linear_attention": int(dtype == "float32")}
-        if counts != {n: want.get(n, 0) for n in counters()}:
-            failed.append(f"{mode}: launches {counts}, expected {want}")
+        gemm = cache_gemm(model, 3, 34) if dtype == "float32" else {}
+        gap = launch_gap(counts, want, gemm)
+        if gap:
+            failed.append(f"{mode}: {gap}")
         if widths != {ODD_WIDTH: 2 * per * calls}:
             failed.append(f"{mode}: by width {widths}")
         if not (torch.isfinite(got).all() and err < tol):
@@ -1516,7 +1806,7 @@ def wide_head_stream(dev, mel, pid, hub):
     t0 = time.perf_counter()
     got = run_stream(cfg, model, mel, pid, hub, 5, dev)
     secs = time.perf_counter() - t0
-    counts = {n: fn.launches for n, fn in counters().items()}
+    counts = launch_counts()
     shapes = dict(counters()["fused_linear_attention"].launches_by_shape)
     err = rel_rms(got, ref)
     log(f"stream[68 frames, latent 1024, one head, f32 off]: vs f32 uncached "
@@ -1527,6 +1817,7 @@ def wide_head_stream(dev, mel, pid, hub):
     # encoder once (128 wide, one head)
     self_attn = 2 * WIDE_MODEL["num_layers"] * calls
     expect("one-head latent-1024 stream", counts,
+           gemm=cache_gemm(model, 3, 34),
            fused_linear_attention=self_attn + 1)
     if shapes.get(WIDE_ATTN) != self_attn or not (
             torch.isfinite(got).all() and err < 5e-3):
@@ -1608,15 +1899,15 @@ def drive(pipe, secs, dev, seed):
     out = pipe(a18, a16, pid, GeneratorNoise(seed, dev))
     torch.cuda.synchronize()
     secs_taken = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters().items()}
+    counts = launch_counts()
     return out, secs_taken, counts
 
 
-def expect(what, counts, **want):
-    """Exact launch counts; every kernel not named must not launch."""
-    want = {name: want.get(name, 0) for name in counters()}
-    if counts != want:
-        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+def expect(what, counts, gemm=None, **want):
+    """Exact launch counts (``launch_gap``)."""
+    gap = launch_gap(counts, want, gemm)
+    if gap:
+        raise AssertionError(f"{what}: {gap}")
 
 
 # a 60 s BEAT stream: windows at 0, 30, ..., 840 and a left-shifted 866,
@@ -1641,7 +1932,7 @@ def phase_e2e(dev, model, hubert_fe):
     pipe = make_pipeline(cfg, model, hubert_fe, dev)
     log(f"e2e: set-up (model to the card) {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    _, warm_s, _ = drive(pipe, 60, dev, 11)
+    # one call, its warm-up included: the beat-stream-bf16 cell times it
     out, secs, counts = drive(pipe, 60, dev, 12)
     frames = out.shape[1]
     # stage split of the same call: frontend (mel + HuBERT) alone
@@ -1654,7 +1945,7 @@ def phase_e2e(dev, model, hubert_fe):
     torch.cuda.synchronize()
     front_s = time.perf_counter() - t0
     log(f"e2e[beat 60 s, bf16, fused_layer=chain]: frames={frames} "
-        f"warm_s={warm_s:.3f} seconds={secs:.3f} fps={frames / secs:.1f} "
+        f"seconds={secs:.3f} (first call) fps={frames / secs:.1f} "
         f"frontend_s={front_s:.3f} launches={counts} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
@@ -1728,6 +2019,7 @@ def phase_uncached(dev, model, hubert_fe):
     if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
     expect("module forward on the cache", counts,
+           gemm=cache_gemm(model, 30, 34),
            fused_linear_attention=16 * CALLS_60S + 1,
            fused_ddim_repaint_step=CALLS_60S)
     # by (B, T, D, heads): the 16 branch self-attentions of each model
@@ -1873,7 +2165,7 @@ def live_session(srv, hub, tag, W, B, secs, mode, dev, reps):
         outs, ms = push_stream(cli.push, secs)
         motion = cli.finish()
     secs_taken = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters().items()}
+    counts = launch_counts()
 
     cfg = srv.cfg
     ov = cfg.stream.overlap_len if default else min(cfg.stream.overlap_len,
@@ -2080,8 +2372,7 @@ def variant_plain_swap(cfg, model, mel, pid, hub, dev):
         out = run_stream(cfg, model, mel, pid, hub, 5, dev)
     finally:
         attn.linear_attention, smp.fused_ddim_repaint_step = saved
-    expect("plain-swap variant stream", {n: fn.launches for n, fn in
-                                         counters().items()})
+    expect("plain-swap variant stream", launch_counts())
     return out
 
 
@@ -2264,7 +2555,7 @@ class CliRun:
             (g.CustomAudioPipeline.export_beat,
              g.CustomAudioPipeline.export_show) = exports
         self.seconds = time.perf_counter() - t0
-        self.counts = {name: fn.launches for name, fn in counters().items()}
+        self.counts = launch_counts()
         self.shapes = dict(counters()["fused_linear_attention"]
                            .launches_by_shape)
         self.printed = out.getvalue().splitlines()
@@ -2442,8 +2733,8 @@ def phase_generate(dev, model):
         if a.result.motion.shape != (4, 900, 192) or not np.isfinite(
                 a.result.motion).all():
             raise AssertionError(f"(a): motion {a.result.motion.shape}")
-        expect("generate (a)", a.counts, fused_layer=16 * GEN_CALLS_60S,
-               fused_linear_attention=1)
+        expect("generate (a)", a.counts, gemm=cache_gemm(model, 4 * 30, 34),
+               fused_layer=16 * GEN_CALLS_60S, fused_linear_attention=1)
         check_attention_shapes("generate (a)", a.shapes,
                                {(3000, 34, 128, 8): 1})
         check_beat_files(a, out_a, stats, "speech", speakers, 900)
@@ -2484,8 +2775,8 @@ def phase_generate(dev, model):
         generate_line("(c) beat 10 s, f32, auto, staged", c, 150)
         if set(c.result.stages) != {"mel", "hubert", "sampler", "total"}:
             raise AssertionError(f"(c): stages {c.result.stages}")
-        expect("generate (c)", c.counts, fused_layer=16 * GEN_CALLS_10S,
-               fused_linear_attention=1)
+        expect("generate (c)", c.counts, gemm=cache_gemm(model, 5, 34),
+               fused_layer=16 * GEN_CALLS_10S, fused_linear_attention=1)
         check_attention_shapes("generate (c)", c.shapes,
                                {(125, 34, 128, 8): 1})
         launches["fused_layer_generate_staged"] = c.counts["fused_layer"]
@@ -2500,7 +2791,7 @@ def phase_generate(dev, model):
                       show_dir, "--warmup", "--audio", wav10, "--out-dir",
                       os.path.join(tmp, "d"), "--speakers", "1"])
         generate_line("(d) show 10 s, f32, auto", d, 300)
-        expect("generate (d)", d.counts,
+        expect("generate (d)", d.counts, gemm=cache_gemm(show_model(), 4, 88),
                fused_layer=16 * GEN_CALLS_SHOW_10S, fused_linear_attention=1)
         check_attention_shapes("generate (d)", d.shapes,
                                {(100, 88, 128, 8): 1})
@@ -2513,8 +2804,8 @@ def phase_generate(dev, model):
             d.counts["fused_linear_attention"])
 
         # (e) raw HuBERT features: f32 layers in K passes
-        raw_tar = save_reference_checkpoint(
-            raw_hubert_model(), os.path.join(tmp, "raw.tar"))
+        raw = raw_hubert_model()
+        raw_tar = save_reference_checkpoint(raw, os.path.join(tmp, "raw.tar"))
         e = CliRun()(["generate", "--checkpoint", raw_tar, "--stats-dir",
                       stats_dir, "--warmup", "--audio", wav10, "--out-dir",
                       os.path.join(tmp, "e"), "--speakers", "1", "--set",
@@ -2527,8 +2818,8 @@ def phase_generate(dev, model):
         if e.result.motion.shape != (1, 150, 192) or not np.isfinite(
                 e.result.motion).all():
             raise AssertionError(f"(e): motion {e.result.motion.shape}")
-        expect("generate (e)", e.counts, fused_layer=16 * GEN_CALLS_10S,
-               fused_linear_attention=1)
+        expect("generate (e)", e.counts, gemm=cache_gemm(raw, 5, 34),
+               fused_layer=16 * GEN_CALLS_10S, fused_linear_attention=1)
         check_attention_shapes("generate (e)", e.shapes,
                                {(125, 34, 128, 8): 1})
         expect_shapes("generate (e) per-layer kernel by (Cp, F, passes)",
@@ -2652,7 +2943,8 @@ def train_run(tag, argv, steps, dev):
     with TrainRecorder() as rec:
         main(argv)
     secs = time.perf_counter() - t0
-    expect(f"train {tag}", {n: fn.launches for n, fn in counters().items()},
+    expect(f"train {tag}", launch_counts(),
+           gemm=train_gemm(TRAIN_BATCH, steps),
            fused_linear_attention=33 * steps)
     check_attention_shapes(f"train {tag}", attn.launches_by_shape,
                            {TRAIN_ATTN: 32 * steps,
@@ -2743,6 +3035,7 @@ def train_profile(dev):
     from diffsheg_tpu_torch.diffusion.schedule import (
         get_named_beta_schedule, make_schedule)
     from diffsheg_tpu_torch.models.factory import init_denoiser
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
     from diffsheg_tpu_torch.train.step import (create_train_state,
                                                make_train_step)
     cfg = beat_config()
@@ -2764,9 +3057,20 @@ def train_profile(dev):
     step(state, batch)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    gemm_tf32x3.launches_by_shape.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state, batch)
         torch.cuda.synchronize()
+    shapes = dict(gemm_tf32x3.launches_by_shape)
+    by_layout = {lay: sum(n for k, n in shapes.items() if k[3] == lay)
+                 for lay in ("nt", "nn", "tn")}
+    tflop = sum(2.0 * m * n * k * c
+                for (m, n, k, _), c in shapes.items()) / 1e12
+    log(f"train[one step, gemm_tf32x3]: {sum(shapes.values())} launches "
+        f"{by_layout}, {tflop:.2f} TFLOP; by (M, N, K, layout): {shapes}")
+    if shapes != train_gemm(B):
+        raise AssertionError(f"train step: gemm_tf32x3 launches {shapes}, "
+                             f"expected {train_gemm(B)}")
     kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time for e in kern) / 1e3
     by_kind, by_name = {}, {}
@@ -2848,14 +3152,12 @@ def phase_train(dev):
                   for _ in range(3)]
         zero_counts()
         k_terms, k_params = injected_steps(remat, batch, ts, noises, dev)
-        expect("train (b) kernel", {n: fn.launches for n, fn in
-                                    counters().items()},
-               fused_linear_attention=3 * 33)
+        expect("train (b) kernel", launch_counts(),
+               gemm=train_gemm(B, 3), fused_linear_attention=3 * 33)
         zero_counts()
         p_terms, p_params = injected_steps(remat, batch, ts, noises, dev,
                                            plain=True)
-        expect("train (b) plain", {n: fn.launches for n, fn in
-                                   counters().items()})
+        expect("train (b) plain", launch_counts(), gemm=train_gemm(B, 3))
         n_terms, n_params = injected_steps(cfg, batch, ts, noises, dev)
         train_band("(b) kernel vs plain, batch 256", k_terms, p_terms,
                    k_params, p_params, 1e-5)
@@ -2881,8 +3183,9 @@ def phase_train(dev):
             r = tr.evaluate(loader, seed=5)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            expect(f"evaluate {i}", {n: fn.launches for n, fn in
-                                     counters().items()},
+            expect(f"evaluate {i}", launch_counts(),
+                   gemm=cache_gemm(beat_structure(), EVAL_BATCH, 34,
+                                   EVAL_BATCH),
                    fused_layer=EVAL_LAYER_LAUNCHES,
                    fused_linear_attention=1)
             check_attention_shapes(
@@ -2995,7 +3298,7 @@ def cli_call(argv):
     if rc != 0:
         raise AssertionError(f"cli {argv}: exit {rc}")
     return (out.getvalue().splitlines(), secs,
-            {name: fn.launches for name, fn in counters().items()},
+            launch_counts(),
             {name: dict(counters()[name].launches_by_shape)
              for name in ("fused_linear_attention", "fused_layer")})
 
@@ -3205,7 +3508,8 @@ def phase_data(dev, reps):
                 "--set", "train.log_every=1"])
         # without remat (the default): 16 self-attentions forward, the
         # audio encoder once
-        expect("data train", counts, fused_linear_attention=17)
+        expect("data train", counts, fused_linear_attention=17,
+               gemm=train_gemm(DATA_TRAIN_WINDOWS, remat=False))
         attn = shapes["fused_linear_attention"]
         check_attention_shapes("data train", attn, {
             DATA_TRAIN_ATTN: 16, DATA_TRAIN_AUDIO_ATTN: 1})
@@ -3228,7 +3532,9 @@ def phase_data(dev, reps):
             "--checkpoint", ckpt, "--fgd-checkpoint", fgd,
             "--stats-dir", stats])
         expect("data eval", counts, fused_layer=DATA_EVAL_LAYER,
-               fused_linear_attention=DATA_EVAL_BATCHES)
+               fused_linear_attention=DATA_EVAL_BATCHES,
+               gemm=times(cache_gemm(beat_structure(), 32, 34, 32),
+                          DATA_EVAL_BATCHES))
         check_attention_shapes("data eval", shapes["fused_linear_attention"],
                                {DATA_EVAL_AUDIO_ATTN: DATA_EVAL_BATCHES})
         check_layer_shapes("data eval", shapes["fused_layer"],
@@ -3393,7 +3699,8 @@ def frontend_train(tmp, caches, stats, hub_dir):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # without remat (cli train's default) a step's forward makes the 16
     # self-attentions of the branches and the audio encoder's one
-    expect("scale train", counts, fused_linear_attention=34)
+    expect("scale train", counts, fused_linear_attention=34,
+           gemm=train_gemm(SCALE_BATCH, 2, remat=False))
     check_attention_shapes("scale train", shapes["fused_linear_attention"],
                            {SCALE_ATTN: 32, SCALE_AUDIO_ATTN: 2})
     if len(rec.steps) != 2 or len(fe.ms) != 2:
@@ -3468,13 +3775,13 @@ def frontend_checks(caches, hub_model, dev):
     k_terms, k_params = injected_steps(cfg, batch, ts, noises, dev,
                                        frontend=full_fe)
     expect("scale step with the frontend, kernel",
-           {n: fn.launches for n, fn in counters().items()},
+           launch_counts(), gemm=train_gemm(SCALE_BATCH, remat=False),
            fused_linear_attention=17)
     zero_counts()
     p_terms, p_params = injected_steps(cfg, batch, ts, noises, dev,
                                        plain=True, frontend=full_fe)
     expect("scale step with the frontend, plain",
-           {n: fn.launches for n, fn in counters().items()})
+           launch_counts(), gemm=train_gemm(SCALE_BATCH, remat=False))
     train_band("scale: kernel vs plain in a step with the frontend",
                k_terms, p_terms, k_params, p_params, 1e-5)
 
@@ -3500,7 +3807,8 @@ def frontend_eval(caches, stats, hub_model, dev):
         r = tr.evaluate(loader, seed=5)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    expect("scale evaluate", {n: fn.launches for n, fn in counters().items()},
+    expect("scale evaluate", launch_counts(),
+           gemm=cache_gemm(beat_structure(), EVAL_BATCH, 34, EVAL_BATCH),
            fused_layer=EVAL_LAYER_LAUNCHES, fused_linear_attention=1)
     check_attention_shapes(
         "scale evaluate",
@@ -3529,8 +3837,8 @@ def parallel_runs(tmp, dev):
         t0 = time.perf_counter()
         out = mp.compute_lockstep(**lock, **kw)
         torch.cuda.synchronize()
-        expect(f"scale {tag}", {n: fn.launches for n, fn in
-                                counters().items()},
+        expect(f"scale {tag}", launch_counts(),
+               gemm=train_gemm(batch, 3, remat=False),
                fused_linear_attention=51)
         by_shape = counters()["fused_linear_attention"].launches_by_shape
         check_attention_shapes(f"scale {tag}", by_shape,
@@ -3568,7 +3876,10 @@ def parallel_runs(tmp, dev):
     mp.check_workers(workers, 2)
     for w in workers:
         got = w["launches"]
-        if (got["fused_linear_attention"] != 51 or got[
+        if (got["gemm_tf32x3_by_shape"] != {
+                "x".join(map(str, k)): v for k, v in
+                train_gemm(batch // 2, 3, remat=False).items()}
+                or got["fused_linear_attention"] != 51 or got[
                 "fused_linear_attention_by_shape"] != {
                     "x".join(map(str, DP_ATTN)): 48,
                     "x".join(map(str, DP_AUDIO_ATTN)): 3}
@@ -3593,7 +3904,7 @@ def parallel_runs(tmp, dev):
     single = mp.verify_testset(workers, 2, os.path.join(tmp, "testset_1"),
                                clips=SCALE_TESTSET_CLIPS, device="cuda",
                                full_width=True)
-    one = {n: fn.launches for n, fn in counters().items()}
+    one = launch_counts()
     shapes = {n: {"x".join(map(str, k)): v for k, v in
                   counters()[n].launches_by_shape.items()}
               for n in ("fused_layer", "fused_linear_attention")}
@@ -3693,7 +4004,7 @@ def doctor_check():
     t0 = time.perf_counter()
     rc, lines, _ = captured(run_doctor, calibrate=True)
     secs = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters().items()}
+    counts = launch_counts()
     for ln in lines:
         log(f"doctor: {ln}")
     log(f"doctor: {secs:.1f} s, launches={counts}")
@@ -3722,7 +4033,7 @@ def guard_controls(calib):
     zero_counts()
     got, out, err = captured(build_guarded, lambda: x, lambda a: a @ a,
                              lambda: retries.append(1), "cpu-control", calib)
-    counts = {name: fn.launches for name, fn in counters().items()}
+    counts = launch_counts()
     for ln in err:
         log(f"guard[cpu program]: {ln}")
     if not isinstance(got, SystemExit) or got.code != 1:
@@ -3768,7 +4079,7 @@ def guarded_stream(dev, model, hubert_fe, calib):
     act = device_activity(lambda: call(pipe))
     zero_counts()
     totals, frac = timed_reps(lambda i: call(pipe), GUARD_REPS)
-    counts = {name: fn.launches for name, fn in counters().items()}
+    counts = launch_counts()
     expect("guarded stream", counts, fused_layer=GUARD_REPS * 16 * CALLS_10S)
     out, plain_s, _ = drive(pipe, 10, dev, 14)
     frames = out.shape[1]
@@ -3907,7 +4218,7 @@ def run_example(tag, fn, *args, env=None, **kw):
             else:
                 os.environ[k] = v
     secs = time.perf_counter() - t0
-    counts = {name: f.launches for name, f in counters().items()}
+    counts = launch_counts()
     layers, attns = by_shape()
     return (out.buf.getvalue(), err.buf.getvalue(), counts, layers, attns,
             secs, ret)
@@ -4202,6 +4513,7 @@ def example_train_bench(full):
             want = {(256, 34, 512, 8): 12 * 16, (256, 34, 128, 8): 12}
             expect_shapes("train_bench attention", attns, want)
             expect("train_bench", counts,
+                   gemm=train_gemm(256, 12, remat=False),
                    fused_linear_attention=sum(want.values()))
             launches = want[(256, 34, 512, 8)]
         # the bf16 rows run the composition (bf16 attention inputs): a
@@ -4287,7 +4599,8 @@ def example_probe(full):
     want_layer = 4 * 6 * calls * 2 * cfg.model.num_layers
     expect_shapes("perf_probe attention", attns, want_attn)
     expect("perf_probe", counts, fused_layer=want_layer,
-           fused_linear_attention=12)
+           fused_linear_attention=12,
+           gemm=times(cache_gemm(beat_structure(), K, 34), 2 * 6))
     example_line("perf_probe", {"lines": out.strip().splitlines()}, counts,
                  layers, attns, t)
     return {"fused_layer_examples_probe": want_layer,
@@ -4335,12 +4648,14 @@ def phase_examples(dev, full, items=EXAMPLE_ITEMS):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "qkernels", "stream", "e2e",
-                                       "uncached", "live", "variants",
-                                       "generate", "train", "data",
-                                       "scale", "tools", "examples"),
+    ap.add_argument("--only", choices=("kernels", "qkernels", "crossover",
+                                       "stream", "e2e", "uncached", "live",
+                                       "variants", "generate", "train",
+                                       "data", "scale", "tools", "examples"),
                     default=None, help="run the build and one phase "
-                    "(qkernels: the quantized kernel cases alone)")
+                    "(qkernels: the quantized kernel cases alone; "
+                    "crossover: gemm_tf32x3 against cuBLAS by rows, in no "
+                    "whole run)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--full", action="store_true",
                     help="run the examples phase at the JAX scripts' "
@@ -4437,6 +4752,9 @@ def main() -> int:
            "fused_layer_examples_probe",
            "fused_linear_attention_examples_probe"])
     t0 = time.perf_counter()
+    if args.only == "crossover":
+        phase_crossover(dev, args.reps)
+        return 0
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
             else None)

@@ -24,6 +24,7 @@ from torch import nn
 
 from diffsheg_tpu_torch.ops.linear_attention import (  # noqa: F401
     linear_attention, linear_attention_core, linear_attention_reference)
+from diffsheg_tpu_torch.ops.products import Dense
 
 if TYPE_CHECKING:    # blocks.py imports this module
     from diffsheg_tpu_torch.models.blocks import Train
@@ -42,9 +43,9 @@ class LinearTemporalSelfAttention(nn.Module):
         from diffsheg_tpu_torch.models.blocks import StylizationBlock
         self.num_heads = num_heads
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
-        self.query = nn.Linear(latent_dim, latent_dim)
-        self.key = nn.Linear(latent_dim, latent_dim)
-        self.value = nn.Linear(latent_dim, latent_dim)
+        self.query = Dense(latent_dim, latent_dim)
+        self.key = Dense(latent_dim, latent_dim)
+        self.value = Dense(latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb, src_mask: Optional[torch.Tensor] = None,
@@ -70,9 +71,9 @@ class LinearTemporalCrossAttention(nn.Module):
         self.num_heads = num_heads
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.text_norm = nn.LayerNorm(cond_dim, eps=LN_EPS)
-        self.query = nn.Linear(latent_dim, latent_dim)
-        self.key = nn.Linear(cond_dim, latent_dim)
-        self.value = nn.Linear(cond_dim, latent_dim)
+        self.query = Dense(latent_dim, latent_dim)
+        self.key = Dense(cond_dim, latent_dim)
+        self.value = Dense(cond_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, xf, emb, mod: Optional[torch.Tensor] = None,

@@ -17,6 +17,11 @@ the Flax parameter tree so weights carry across by name
   forward; the sampler's fast path runs the same layers in the fused-layer
   kernels (``ops/fused_layer.py``).
 
+Dense layers are ``ops/products.py``'s ``Dense``: ``nn.Linear`` whose f32
+products on the card run in split TF32 on the tensor cores where they are
+large enough (``takes_tf32x3``: training's batches), ``F.linear``
+otherwise.
+
 Every forward takes ``train``: dropout (probability ``dropout``, from
 torch's global generator) runs only in training, as Flax's
 ``deterministic=not train``.  ``train`` is ``False``, ``True`` (one process
@@ -35,6 +40,7 @@ from torch.nn import functional as F
 
 from diffsheg_tpu_torch.models.attention import (LinearTemporalCrossAttention,
                                                 LinearTemporalSelfAttention)
+from diffsheg_tpu_torch.ops.products import Dense
 
 LN_EPS = 1e-5
 
@@ -91,9 +97,9 @@ class StylizationBlock(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.emb_proj = nn.Linear(time_embed_dim, 2 * latent_dim)
+        self.emb_proj = Dense(time_embed_dim, 2 * latent_dim)
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
-        self.out_proj = nn.Linear(latent_dim, latent_dim)
+        self.out_proj = Dense(latent_dim, latent_dim)
 
     def forward(self, h, emb: Optional[torch.Tensor],
                 mod: Optional[torch.Tensor] = None, train: Train = False):
@@ -110,8 +116,8 @@ class FFN(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.linear1 = nn.Linear(latent_dim, ffn_dim)
-        self.linear2 = nn.Linear(ffn_dim, latent_dim)
+        self.linear1 = Dense(latent_dim, ffn_dim)
+        self.linear2 = Dense(ffn_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb, mod: Optional[torch.Tensor] = None,
@@ -125,8 +131,8 @@ class CondProjection(nn.Module):
     def __init__(self, in_dim: int, latent_dim: int):
         super().__init__()
         self.norm = nn.LayerNorm(in_dim, eps=LN_EPS)
-        self.fc1 = nn.Linear(in_dim, 2 * latent_dim)
-        self.fc2 = nn.Linear(2 * latent_dim, latent_dim)
+        self.fc1 = Dense(in_dim, 2 * latent_dim)
+        self.fc2 = Dense(2 * latent_dim, latent_dim)
 
     def forward(self, x):
         return self.fc2(F.silu(self.fc1(self.norm(x))))

@@ -29,6 +29,7 @@ from diffsheg_tpu_torch.models.blocks import (DiffusionTransformerLayer,
                                               dropout, gelu_exact)
 from diffsheg_tpu_torch.models.embeddings import (positional_encoding,
                                                   timestep_embedding)
+from diffsheg_tpu_torch.ops.products import Dense
 
 
 class BranchCache(NamedTuple):
@@ -69,8 +70,8 @@ class TimeEmbedMLP(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, out_dim)
-        self.fc2 = nn.Linear(out_dim, out_dim)
+        self.fc1 = Dense(in_dim, out_dim)
+        self.fc2 = Dense(out_dim, out_dim)
 
     def forward(self, x):
         return self.fc2(F.silu(self.fc1(x)))
@@ -188,20 +189,20 @@ class MotionDenoiser(nn.Module):
         if speech_mode == "conv":
             self.hubert_encoder = HubertConvEncoder(hubert_dim, hubert_latent_dim)
         elif speech_mode == "linear":
-            self.hubert_encoder = nn.Linear(hubert_dim, hubert_latent_dim)
+            self.hubert_encoder = Dense(hubert_dim, hubert_latent_dim)
         if text:      # Embed (labels clamped at 0) -> k3 SAME conv
             self.text_embed = nn.Embedding(word_vocab, word_f)
             self.text_tcn = nn.Conv1d(word_f, word_f, 3, padding=1)
         if emotion:
             self.emotion_embed = nn.Embedding(num_emotions, emotion_f)
             self.emotion_tail = nn.Conv1d(emotion_f, emotion_f, 3, padding=1)
-        self.audio_proj = nn.Linear(audio_dim, aud_latent_dim)
-        self.joint_embed = nn.Linear(input_feats, latent_dim)
+        self.audio_proj = Dense(audio_dim, aud_latent_dim)
+        self.joint_embed = Dense(input_feats, latent_dim)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DiffusionTransformerLayer(
                 latent_dim, ff_size, num_heads, E, feats_dim, model_base,
                 dropout))
-        self.out = nn.Linear(latent_dim,
+        self.out = Dense(latent_dim,
                              input_feats * (2 if learned_variance else 1))
         if classifier_free:
             self.null_cond_emb = nn.Parameter(torch.zeros(1, feats_dim))

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "diffsheg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_layer.cu", "linear_attention.cu", "step_math.cu")
+SOURCES = ("fused_layer.cu", "linear_attention.cu", "step_math.cu",
+           "gemm_tf32x3.cu")
 # "source:flag": another build of a source with one more flag: the layer
 # kernels with their stamps compiled in, and their ragged instantiations
 # alone (widths off a multiple of 16, ctx in column groups)

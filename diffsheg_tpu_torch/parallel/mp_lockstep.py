@@ -417,13 +417,16 @@ def kernel_launches():
     CUDA kernel of the port made in it, by name and by shape."""
     from diffsheg_tpu_torch.ops.fused_layer import fused_branch, fused_layer
     from diffsheg_tpu_torch.ops.linear_attention import fused_linear_attention
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
     from diffsheg_tpu_torch.ops.step_math import fused_ddim_repaint_step
     fns = {"fused_branch": fused_branch, "fused_layer": fused_layer,
            "fused_linear_attention": fused_linear_attention,
-           "fused_ddim_repaint_step": fused_ddim_repaint_step}
+           "fused_ddim_repaint_step": fused_ddim_repaint_step,
+           "gemm_tf32x3": gemm_tf32x3}
     before = {n: f.launches for n, f in fns.items()}
     shapes = {n: dict(fns[n].launches_by_shape)
-              for n in ("fused_layer", "fused_linear_attention")}
+              for n in ("fused_layer", "fused_linear_attention",
+                        "gemm_tf32x3")}
     out: Dict = {}
     yield out
     out.update({n: f.launches - before[n] for n, f in fns.items()})

@@ -131,8 +131,9 @@ class SpanRecorder:
     ``generate_fused``), ``sampler.call`` (a model call of a sampler
     program), ``sampler.update`` (a step's work outside the model call, an
     undo step), and ``launch.fused_branch``, ``launch.fused_layer``,
-    ``launch.linear_attention``, ``launch.ddim_step`` (one kernel launch
-    each, its argument checks included)."""
+    ``launch.linear_attention``, ``launch.ddim_step``,
+    ``launch.gemm_tf32x3`` (one kernel launch each, its argument checks
+    included)."""
 
     def __init__(self, capacity: int = 1 << 16):
         self.capacity = capacity
