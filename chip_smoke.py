@@ -56,7 +56,12 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               beside cuBLAS f32 and TF32, reruns bit for bit; the cell's
               widths timed beside cuBLAS f32 (``--only crossover``: the
               kernel against cuBLAS by rows at every width, which sets
-              the route's rule; in no whole run);
+              the route's rule; in no whole run); and the speech encoders
+              beside each other (``kernel[speech-encoder ...]``):
+              HuBERT-large and WavLM-Large on a 64-window chunk of the
+              training frontend (f32) and a 1000-frame stream chunk
+              (bf16), with the attention calls by kind and the seconds
+              the cases add (``--only speech``: those cases alone);
 4. stream   — a three-window BEAT stream with the same injected noise
               through the bf16 and f32 branch-kernel paths and phase 6's
               path, held to the port's numerics bands against the f32 fully
@@ -206,7 +211,7 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               reaches a kernel, through its entry point, at a cut depth:
               convergence_demo 40 epochs with the resume at 20,
               overfit_demo 300 steps, serve_capacity sessions 1 and 4
-              for 8 s, show_bench (30 s, with ``fused_step='on'``),
+              for 8 s, show_bench (15 s, with ``fused_step='on'``),
               one train_bench row (batch 256, f32), batch_probe B 8 on a
               10 s stream, live_latency W 34 and 12 for 10 s, live_demo
               10 s, perf_probe on a 10 s stream; each prints one line with
@@ -230,6 +235,7 @@ TF32 is off in every phase that holds an f32 band.
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only qkernels   # the quantized kernel cases
+    python3 chip_smoke.py --only speech     # HuBERT beside WavLM
     python3 chip_smoke.py --only crossover  # gemm_tf32x3 against cuBLAS
     python3 chip_smoke.py --only live       # the serving daemon
     python3 chip_smoke.py --only variants   # every model variant
@@ -1242,6 +1248,61 @@ def quant_kernel_cases(dev, reps):
     return results
 
 
+# the speech encoders beside each other (models/hubert.py): a chunk of the
+# training frontend (HUBERT_CHUNK 64 BEAT windows of 36 266 samples, f32,
+# audio/frontend.py) and one chunk of a stream (320 080 samples, 1000
+# frames, bf16 as the stream cells run it, audio/hubert_runner.py)
+SPEECH_ENCODER_CASES = (("chunk64-f32", 64, 36266, torch.float32),
+                        ("stream1000-bf16", 1, 320080, torch.bfloat16))
+SPEECH_ENCODER_REPS = 3
+
+
+def speech_encoder_cases(dev, reps):
+    """HuBERT-large and WavLM-Large (gated relative-position attention) on
+    seeded weights made on the card, each case's median device ms; the
+    attention calls by kind; the seconds the cases add to the smoke."""
+    from diffsheg_tpu_torch.models.hubert import (HubertModel,
+                                                  attention_calls,
+                                                  speech_encoder_config)
+    no_tf32()
+    t_all = time.perf_counter()
+    reps = min(reps, SPEECH_ENCODER_REPS)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    results = {}
+    for enc in ("hubert-large", "wavlm-large"):
+        with torch.device("meta"):
+            model = HubertModel(speech_encoder_config(enc))
+        model = model.to_empty(device=dev).eval()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                scale = p[0].numel() ** -0.5 if p.dim() >= 2 else 0.02
+                unit = 1.0 if p.dim() == 1 and n.endswith("weight") else 0.0
+                p.copy_(unit + scale * torch.randn(
+                    p.shape, generator=gen, device=dev))
+        for name, B, S, dtype in SPEECH_ENCODER_CASES:
+            model = model.to(dtype)
+            x = torch.randn((B, S), generator=gen, device=dev)
+            before = dict(attention_calls)
+            with torch.no_grad():
+                ms = device_ms(lambda: model(x), reps)
+                out = model(x)
+            kinds = {k: v - before.get(k, 0) for k, v in attention_calls.items()
+                     if v != before.get(k, 0)}
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"speech encoder {enc} {name}: not finite")
+            results[f"speech-{enc}-{name}"] = ms
+            log(f"kernel[speech-encoder {enc} {name}] B={B} samples={S} "
+                f"frames={out.shape[1]} ms={ms:.3f} attention calls "
+                f"{kinds} ({2 + reps} calls)")
+        del model
+        torch.cuda.empty_cache()
+    for name, *_ in SPEECH_ENCODER_CASES:
+        log(f"kernel[speech-encoder {name}] wavlm-large / hubert-large = "
+            f"{results[f'speech-wavlm-large-{name}'] / results[f'speech-hubert-large-{name}']:.3f}")
+    log(f"speech-encoder cases: {time.perf_counter() - t_all:.1f} s")
+    return results
+
+
 def phase_kernels(dev, reps):
     no_tf32()
     results = {}
@@ -1281,6 +1342,7 @@ def phase_kernels(dev, reps):
     results.update(quant_kernel_cases(dev, reps))
     results.update(example_kernel_cases(dev, reps))
     results.update(gemm_cases(dev, reps))
+    results.update(speech_encoder_cases(dev, reps))
     return results
 
 
@@ -4451,7 +4513,7 @@ def capacity_idle(dev, cfg, n, secs):
             "profiled_kernels": len(kernels)}
 
 
-SHOW_BENCH_SECS = 30
+SHOW_BENCH_SECS = 15
 
 
 def example_show(full):
@@ -4460,7 +4522,7 @@ def example_show(full):
     configuration ('auto')."""
     from diffsheg_tpu_torch.examples import show_bench as ex
     default, default_secs = ex.make_config, ex.SECS
-    # its stream: the script's 60 s with --full, else 30 (cut in PR 17)
+    # its stream: the script's 60 s with --full, else 15
     stream_secs = default_secs if full else SHOW_BENCH_SECS
     res = {}
     for step in (("on", "auto") if full else ("on",)):
@@ -4648,12 +4710,14 @@ def phase_examples(dev, full, items=EXAMPLE_ITEMS):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "qkernels", "crossover",
+    ap.add_argument("--only", choices=("kernels", "qkernels", "speech",
+                                       "crossover",
                                        "stream", "e2e", "uncached", "live",
                                        "variants", "generate", "train",
                                        "data", "scale", "tools", "examples"),
                     default=None, help="run the build and one phase "
                     "(qkernels: the quantized kernel cases alone; "
+                    "speech: phase 3's speech-encoder cases alone; "
                     "crossover: gemm_tf32x3 against cuBLAS by rows, in no "
                     "whole run)")
     ap.add_argument("--reps", type=int, default=20)
@@ -4757,7 +4821,8 @@ def main() -> int:
         return 0
     kres = (phase_kernels(dev, args.reps) if run("kernels") else
             quant_kernel_cases(dev, args.reps) if args.only == "qkernels"
-            else None)
+            else speech_encoder_cases(dev, args.reps)
+            if args.only == "speech" else None)
     if kres is not None:
         log(f"kernels: phase {time.perf_counter() - t0:.1f} s")
     if any(run(p) for p in ("stream", "e2e", "uncached", "live",

@@ -9,9 +9,10 @@ card) and computes both features there:
 
   wave16 (B, S) --+-- polyphase 16k -> 18k (audio/resample.py) -> mel
                   |   (audio/mel.py), last frame dropped, T frames -> (B, T, 128)
-                  +-- normalize -> HuBERT encoder (models/hubert.py) in
-                      model.compute_dtype, padded / cut to the frames of
-                      S samples, linearly resampled to T   -> (B, T, 1024)
+                  +-- normalize -> speech encoder (models/hubert.py:
+                      HuBERT-large unless told another, e.g. WavLM-Large)
+                      in model.compute_dtype, padded / cut to the frames
+                      of S samples, linearly resampled to T -> (B, T, 1024)
 
 Both branches run under ``torch.no_grad()``: the speech encoder is frozen
 (reference ddpm_beat_trainer.py:1434), so nothing differentiates through
@@ -21,10 +22,15 @@ and has no counterpart).  The mel branch equals the cache builder's (host
 scipy resample + the same mel) to f32 rounding; the HuBERT branch equals
 the offline extractor on each window (a window is shorter than one of its
 20 s chunks).
+
+Under a profiler the two branches are the spans ``train.frontend.mel`` and
+``train.frontend.encoder``, and :data:`encoder_counts` counts the windows
+and chunks the encoder took since the process started.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict
 
 import torch
@@ -32,6 +38,7 @@ from torch.nn import functional as F
 
 from diffsheg_tpu_torch.config import Config
 from diffsheg_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
+from diffsheg_tpu_torch.utils.profiling import span
 
 # Windows a HuBERT forward takes at once.  A HuBERT-large window of BEAT
 # (36266 samples) costs ~82 GFLOP, and its first conv's output and that
@@ -44,17 +51,22 @@ HUBERT_CHUNK = 64
 
 Batch = Dict[str, torch.Tensor]
 
+# windows and chunks of HUBERT_CHUNK the frontends' encoders took
+encoder_counts: collections.Counter = collections.Counter()
+
 
 def make_speech_frontend(cfg: Config, hubert_model=None,
-                         device: DeviceLike = None
-                         ) -> Callable[[Batch], Batch]:
+                         device: DeviceLike = None,
+                         hubert_config=None) -> Callable[[Batch], Batch]:
     """``frontend(batch) -> batch``: pops ``wave16`` (B, S), float or int16
     (divided by 32768), and adds ``mel`` (B, T, n_mels), T the frames of
     ``batch['motion']``, and with ``model.add_hubert`` ``hubert`` (B, T,
     hidden) f32.  ``hubert_model`` is the frozen ``HubertModel`` (either
     weight layout loads into it, ``compat/from_jax.py``), moved to
     ``device`` (default: the GPU) in ``model.compute_dtype``; without one,
-    HuBERT-large with seeded random weights, as ``cli train`` has without
+    an encoder of ``hubert_config`` (a ``HubertConfig``, default
+    HuBERT-large; ``models/hubert.py::wavlm_large_config`` for WavLM-Large)
+    with seeded random weights, as ``cli train`` has without
     ``--hubert-checkpoint``."""
     from diffsheg_tpu_torch.audio.hubert_runner import (expected_frames,
                                                         linear_resample)
@@ -72,7 +84,8 @@ def make_speech_frontend(cfg: Config, hubert_model=None,
             from diffsheg_tpu_torch.models.factory import random_init_
             from diffsheg_tpu_torch.models.hubert import (HubertConfig,
                                                           HubertModel)
-            hubert_model = random_init_(HubertModel(HubertConfig()), 0)
+            hubert_model = random_init_(
+                HubertModel(hubert_config or HubertConfig()), 0)
         hubert = hubert_model.to(
             device=dev, dtype=torch_dtype(cfg.model.compute_dtype)).eval()
 
@@ -84,17 +97,21 @@ def make_speech_frontend(cfg: Config, hubert_model=None,
             # the int16 transport halves the bytes to the card
             wave = wave.float() / 32768.0
         T = batch["motion"].shape[1]
-        res = resample_poly_device(wave, data.mel_sr, data.audio_sr)
-        batch["mel"] = mel_fe(res)[:, :T]
+        with span("train.frontend.mel"):
+            res = resample_poly_device(wave, data.mel_sr, data.audio_sr)
+            batch["mel"] = mel_fe(res)[:, :T]
         if hubert is not None:
-            exp_t = expected_frames(wave.shape[-1])
-            feats = []
-            for i in range(0, wave.shape[0], HUBERT_CHUNK):
-                f = hubert(normalize_waveform(wave[i:i + HUBERT_CHUNK]))
-                f = (F.pad(f, (0, 0, 0, exp_t - f.shape[1]))
-                     if f.shape[1] < exp_t else f[:, :exp_t])
-                feats.append(linear_resample(f, T).float())
-            batch["hubert"] = torch.cat(feats)
+            with span("train.frontend.encoder"):
+                exp_t = expected_frames(wave.shape[-1])
+                feats = []
+                for i in range(0, wave.shape[0], HUBERT_CHUNK):
+                    f = hubert(normalize_waveform(wave[i:i + HUBERT_CHUNK]))
+                    f = (F.pad(f, (0, 0, 0, exp_t - f.shape[1]))
+                         if f.shape[1] < exp_t else f[:, :exp_t])
+                    feats.append(linear_resample(f, T).float())
+                batch["hubert"] = torch.cat(feats)
+            encoder_counts["windows"] += wave.shape[0]
+            encoder_counts["chunks"] += len(feats)
         return batch
 
     return frontend

@@ -50,9 +50,10 @@ def linear_resample(x: torch.Tensor, new_len: int) -> torch.Tensor:
 
 
 class HubertFeatureExtractor:
-    """Chunked long-audio HuBERT runner.  ``model`` defaults to a HuBERT of
-    ``cfg`` with seeded random weights; it is cast to ``cfg.dtype`` and
-    moved to ``device`` (default: the GPU)."""
+    """Chunked long-audio speech-encoder runner.  ``model`` defaults to an
+    encoder of ``cfg`` (default HuBERT-large; any layout of
+    ``models/hubert.py``, WavLM-Large's too) with seeded random weights; it
+    is cast to ``cfg.dtype`` and moved to ``device`` (default: the GPU)."""
 
     def __init__(self, cfg: Optional[HubertConfig] = None,
                  model: Optional[HubertModel] = None, seed: int = 0,

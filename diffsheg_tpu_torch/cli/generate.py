@@ -50,14 +50,17 @@ class CustomAudioPipeline:
       model: a denoiser of ``models/factory.py::build_denoiser``.
       hubert_model: a ``models.hubert.HubertModel`` (e.g. from
         ``compat/hubert_ckpt.py::load_hf_hubert``); without it a model
-        with ``add_hubert`` gets a seeded random HuBERT-large.
+        with ``add_hubert`` gets a seeded random encoder of
+        ``hubert_config``'s layout (default HuBERT-large).
+      hubert_config: the speech encoder's ``HubertConfig`` (e.g.
+        ``models/hubert.py::wavlm_large_config()``).
       motion_mean, motion_std: dataset statistics for the export.
       device: where everything runs (default: the GPU; raises without
         one).
     """
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 hubert_model=None,
+                 hubert_model=None, hubert_config=None,
                  motion_mean: Optional[np.ndarray] = None,
                  motion_std: Optional[np.ndarray] = None,
                  device: DeviceLike = None):
@@ -88,7 +91,7 @@ class CustomAudioPipeline:
                     "compat.hubert_ckpt.load_hf_hubert) or set "
                     "model.add_hubert=false.", file=sys.stderr)
             self.hubert_extractor = HubertFeatureExtractor(
-                model=hubert_model, device=self.device)
+                hubert_config, model=hubert_model, device=self.device)
 
     # -- stages ------------------------------------------------------------
     def _load_audio(self, wav_path: str):

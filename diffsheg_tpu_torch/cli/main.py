@@ -19,6 +19,9 @@ Counterpart of ``diffsheg_tpu/cli/main.py``:
       --stats-dir stats/ --template-bvh template.bvh --speakers 1,3,5,7
   python -m diffsheg_tpu_torch.cli serve --dataset beat \\
       --checkpoint model.tar --hubert-checkpoint hubert-large/ --prewarm 1
+  python -m diffsheg_tpu_torch.cli train --dataset beat --workdir runs/wavlm \\
+      --train-cache cache/train --set train.on_device_frontend=true \\
+      --speech-encoder wavlm-large --hubert-checkpoint wavlm-large/
   python -m diffsheg_tpu_torch.cli export-ckpt --checkpoint model.tar \\
       --out copy.tar
   python -m diffsheg_tpu_torch.cli view --bvh out/clip_0.bvh
@@ -128,13 +131,22 @@ def _load_model(cfg: Config, checkpoint: Optional[str]):
     return load_reference_checkpoint(checkpoint, cfg.model)
 
 
-def _load_hubert(cfg: Config, path: Optional[str]):
-    """The HuBERT weights of ``--hubert-checkpoint`` (a local HF
-    checkpoint), or None."""
+def _load_hubert(cfg: Config, path: Optional[str], hubert_config=None):
+    """The speech encoder's weights of ``--hubert-checkpoint`` (a local HF
+    checkpoint) in ``hubert_config``'s layout (``--speech-encoder``;
+    default HuBERT-large), or None."""
     if not (path and cfg.model.add_hubert):
         return None
     from diffsheg_tpu_torch.compat.hubert_ckpt import load_hf_hubert
-    return load_hf_hubert(path)
+    return load_hf_hubert(path, hubert_config)
+
+
+def _speech_encoder(args):
+    """The ``HubertConfig`` that ``--speech-encoder`` names, or None."""
+    if args.speech_encoder is None:
+        return None
+    from diffsheg_tpu_torch.models.hubert import speech_encoder_config
+    return speech_encoder_config(args.speech_encoder)
 
 
 def _load_stats(args):
@@ -216,9 +228,9 @@ def cmd_train(args) -> int:
                                       process_index=process_index(),
                                       process_count=n)
 
-        hubert_model = None
+        hubert_model, speech = None, _speech_encoder(args)
         if cfg.train.on_device_frontend and cfg.model.add_hubert:
-            hubert_model = _load_hubert(cfg, args.hubert_checkpoint)
+            hubert_model = _load_hubert(cfg, args.hubert_checkpoint, speech)
             if hubert_model is None:
                 print("WARNING: train.on_device_frontend with "
                       "model.add_hubert but no --hubert-checkpoint — speech "
@@ -226,7 +238,7 @@ def cmd_train(args) -> int:
                       file=sys.stderr)
         trainer = Trainer(cfg, args.workdir, device=device,
                           fgd_net=_load_fgd_net(args, cfg, device),
-                          hubert_model=hubert_model)
+                          hubert_model=hubert_model, hubert_config=speech)
         if args.resume:
             trainer.try_resume()
         trainer.fit(loader(train_ds), loader(val_ds) if val_ds else None,
@@ -359,9 +371,11 @@ def cmd_generate(args) -> int:
     stats = _load_stats(args)
     mean = stats.motion_mean if stats is not None else None
     std = stats.motion_std if stats is not None else None
+    speech = _speech_encoder(args)
     pipe = CustomAudioPipeline(cfg, _load_model(cfg, args.checkpoint),
                                hubert_model=_load_hubert(
-                                   cfg, args.hubert_checkpoint),
+                                   cfg, args.hubert_checkpoint, speech),
+                               hubert_config=speech,
                                motion_mean=mean, motion_std=std,
                                device=device)
     if args.warmup:
@@ -425,8 +439,10 @@ def cmd_serve(args) -> int:
             print("WARNING: model.add_hubert is on but no "
                   "--hubert-checkpoint was given — speech features come "
                   "from a RANDOM-INIT encoder.", file=sys.stderr)
+        speech = _speech_encoder(args)
         hubert_fe = HubertFeatureExtractor(
-            model=_load_hubert(cfg, args.hubert_checkpoint), device=device)
+            speech, model=_load_hubert(cfg, args.hubert_checkpoint, speech),
+            device=device)
 
     from diffsheg_tpu_torch.serving.server import MotionServer
     server = MotionServer(cfg, model, hubert_extractor=hubert_fe,
@@ -471,8 +487,16 @@ def cmd_doctor(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from diffsheg_tpu_torch.models.hubert import SPEECH_ENCODERS
     p = argparse.ArgumentParser(prog="diffsheg_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def speech_encoder(sp):
+        sp.add_argument("--speech-encoder", choices=list(SPEECH_ENCODERS),
+                        help="the speech encoder, and the layout of "
+                             "--hubert-checkpoint (default hubert-large); "
+                             "without a checkpoint its weights are seeded "
+                             "random")
 
     def common(sp):
         sp.add_argument("--dataset", choices=["beat", "show"],
@@ -501,6 +525,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HF HuBERT weights for the on-device speech "
                          "frontend (train.on_device_frontend); unused "
                          "otherwise")
+    speech_encoder(sp)
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("build-cache", help="build a dataset cache")
@@ -587,6 +612,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="local HF HuBERT-large weights (pytorch_model.bin / "
                          "model.safetensors, or their directory); required "
                          "for faithful output when model.add_hubert is on")
+    speech_encoder(sp)
     sp.set_defaults(fn=cmd_generate)
 
     sp = sub.add_parser(
@@ -624,6 +650,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--hubert-checkpoint",
                     help="local HF HuBERT-large weights (pytorch_model.bin / "
                          "model.safetensors, or their directory)")
+    speech_encoder(sp)
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=7431)
     sp.add_argument("--max-sessions", type=int, default=8,

@@ -1,15 +1,17 @@
-"""HuggingFace HuBERT checkpoint -> the port's ``HubertModel``.
+"""HuggingFace HuBERT / WavLM checkpoint -> the port's ``HubertModel``.
 
-Counterpart of ``diffsheg_tpu/compat/hubert_ckpt.py`` for both layouts:
+Counterpart of ``diffsheg_tpu/compat/hubert_ckpt.py`` for its two layouts:
 HuBERT-large (``do_stable_layer_norm=True``, ``feat_extract_norm='layer'``:
 the checkpoint DiffSHEG serves with, hubert-large-ls960-ft) and
 HuBERT-base / wav2vec2-base (``feat_extract_norm='group'``: the first
 conv's GroupNorm becomes ``gn_scale`` / ``gn_bias``; post-LN layers keep
-the same key names), picked by the ``HubertConfig`` given.  A torch state
-dict becomes the Flax-named numpy tree that
-``compat/from_jax.py::load_flax_tree`` loads, folding the weight-norm
-parametrization of the positional conv (the legacy ``weight_g`` /
-``weight_v`` names and torch >= 2.1's
+the same key names), picked by the ``HubertConfig`` given; and, in the
+port alone, a ``WavLMModel`` (microsoft/wavlm-large: bias-free convs, each
+layer's ``attention.gru_rel_pos_linear`` and ``gru_rel_pos_const``, layer
+0's ``attention.rel_attn_embed``).  A torch state dict becomes the
+Flax-named numpy tree that ``compat/from_jax.py::load_flax_tree`` loads,
+folding the weight-norm parametrization of the positional conv (the
+legacy ``weight_g`` / ``weight_v`` names and torch >= 2.1's
 ``parametrizations.weight.original0/1``).
 
 :func:`load_hf_hubert` reads a local file or directory only (never a hub
@@ -26,6 +28,10 @@ import torch
 
 from diffsheg_tpu_torch.compat.from_jax import load_flax_tree
 from diffsheg_tpu_torch.models.hubert import HubertConfig, HubertModel
+
+# the prefixes of HF's heads over the encoder (``HubertForCTC``,
+# ``WavLMForCTC``)
+_HEAD_PREFIXES = ("hubert.", "wavlm.")
 
 
 def _t(x) -> np.ndarray:
@@ -64,12 +70,14 @@ def convert_hubert_state_dict(sd: Mapping[str, Any],
                               ) -> Dict[str, Any]:
     """HF HuBERT state dict -> ``{'params': ...}`` (Flax names, float32
     numpy) for the layout of ``cfg`` (default HuBERT-large); a ``hubert.``
-    prefix (``HubertForCTC``) is dropped."""
+    or ``wavlm.`` prefix (a ``...ForCTC`` head) is dropped."""
     cfg = cfg or HubertConfig()
-    if not any(k.startswith("feature_extractor") for k in sd) and any(
-            k.startswith("hubert.") for k in sd):
-        sd = {k[len("hubert."):]: v for k, v in sd.items()
-              if k.startswith("hubert.")}
+    if not any(k.startswith("feature_extractor") for k in sd):
+        for prefix in _HEAD_PREFIXES:
+            if any(k.startswith(prefix) for k in sd):
+                sd = {k[len(prefix):]: v for k, v in sd.items()
+                      if k.startswith(prefix)}
+                break
     fe: Dict[str, Any] = {}
     for i in range(len(cfg.conv_dim)):
         base = f"feature_extractor.conv_layers.{i}"
@@ -103,18 +111,28 @@ def convert_hubert_state_dict(sd: Mapping[str, Any],
             "fc1": _dense(sd, f"{base}.feed_forward.intermediate_dense"),
             "fc2": _dense(sd, f"{base}.feed_forward.output_dense"),
         }
+        if cfg.rel_pos_buckets:
+            attn, a = p[f"layer_{i}"]["attn"], f"{base}.attention"
+            if i == 0:
+                attn["rel_attn_embed"] = {
+                    "embedding": _t(sd[f"{a}.rel_attn_embed.weight"])}
+            attn["gru_rel_pos_linear"] = _dense(sd,
+                                                f"{a}.gru_rel_pos_linear")
+            # HF keeps it (1, heads, 1, 1)
+            attn["gru_rel_pos_const"] = _t(
+                sd[f"{a}.gru_rel_pos_const"]).reshape(-1)
     p["final_ln"] = _ln(sd, "encoder.layer_norm")
     return {"params": p}
 
 
 def load_hf_hubert(path: str, cfg: Optional[HubertConfig] = None
                    ) -> HubertModel:
-    """A ``HubertModel`` of ``cfg``'s layout (default HuBERT-large;
-    ``models/hubert.py::wav2vec2_base_config`` for the base layout) from a
-    local HuggingFace checkpoint: a ``pytorch_model.bin`` /
-    ``model.safetensors`` file, or a directory holding one
-    (``.safetensors`` needs the ``safetensors`` package).  On the CPU in
-    float32."""
+    """A ``HubertModel`` from a local HuggingFace checkpoint: a
+    ``pytorch_model.bin`` / ``model.safetensors`` file, or a directory
+    holding one (``.safetensors`` needs the ``safetensors`` package), in
+    ``cfg``'s layout (default HuBERT-large;
+    ``models/hubert.py::wavlm_large_config`` / ``wav2vec2_base_config``
+    for the others).  On the CPU in float32."""
     if os.path.isdir(path):
         names = [n for n in ("model.safetensors", "pytorch_model.bin")
                  if os.path.exists(os.path.join(path, n))]
@@ -137,7 +155,8 @@ def load_hf_hubert(path: str, cfg: Optional[HubertConfig] = None
 
 def hf_state_dict(model: HubertModel) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`convert_hubert_state_dict`: ``model``'s
-    weights under the HuggingFace ``HubertModel`` names of its layout
+    weights under the HuggingFace ``HubertModel`` (``WavLMModel``) names of
+    its layout
     (the positional conv's weight folded, as a plain ``weight``), e.g. to
     write a local checkpoint of seeded weights for :func:`load_hf_hubert`."""
     cfg = model.cfg
@@ -168,5 +187,12 @@ def hf_state_dict(model: HubertModel) -> Dict[str, torch.Tensor]:
         put(f"{base}.final_layer_norm", f"layer_{i}.ffn_ln")
         put(f"{base}.feed_forward.intermediate_dense", f"layer_{i}.fc1")
         put(f"{base}.feed_forward.output_dense", f"layer_{i}.fc2")
+        if cfg.rel_pos_buckets:
+            a, ours_a = f"{base}.attention", f"layer_{i}.attn"
+            put(f"{a}.gru_rel_pos_linear", f"{ours_a}.gru_rel_pos_linear")
+            sd[f"{a}.gru_rel_pos_const"] = ours[
+                f"{ours_a}.gru_rel_pos_const"].detach().clone().view(
+                    1, -1, 1, 1)
+            put(f"{a}.rel_attn_embed", f"{ours_a}.rel_attn_embed")
     put("encoder.layer_norm", "final_ln")
     return sd

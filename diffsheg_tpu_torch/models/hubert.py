@@ -1,4 +1,5 @@
-"""HuBERT encoder: the hubert-large-ls960-ft and wav2vec2-base layouts.
+"""HuBERT encoder: the hubert-large-ls960-ft, wav2vec2-base and WavLM-Large
+layouts.
 
 Counterpart of ``diffsheg_tpu/models/hubert.py``.  HuBERT-large: a 7-layer
 conv feature extractor with per-layer LayerNorm, LN + projection, a
@@ -6,13 +7,19 @@ grouped-conv positional embedding, 24 pre-LN transformer layers (16
 heads, FFN 4096), final LayerNorm.  The wav2vec2-base / HuBERT-base family
 (:func:`wav2vec2_base_config`): bias-free convs with a per-channel
 GroupNorm over time on the first conv only, the encoder LayerNorm after
-the positional conv (none at the end) and post-LN layers.  Attribute
-names follow the Flax parameter tree.
+the positional conv (none at the end) and post-LN layers.  WavLM-Large
+(:func:`wavlm_large_config`; Chen et al., arXiv:2110.13900, HuggingFace's
+``WavLMAttention``): HuBERT-large's geometry with bias-free convs and
+attention that adds a gated relative-position bias to its logits
+(:class:`GatedRelPosAttention`; the JAX package has no counterpart).
+Attribute names follow the Flax parameter tree.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -38,6 +45,9 @@ class HubertConfig:
     stable_layer_norm: bool = True  # True: pre-LN (hubert-large); False:
                                     # post-LN (wav2vec2-base)
     dtype: str = "float32"
+    # relative-position buckets of WavLM's gated attention bias (0: no
+    # bias, the HuBERT / wav2vec2 attention)
+    rel_pos_buckets: int = 0
 
 
 def hubert_large_config() -> HubertConfig:
@@ -52,6 +62,36 @@ def wav2vec2_base_config() -> HubertConfig:
         hidden_size=768, num_layers=12, num_heads=12,
         intermediate_size=3072, conv_norm="group_first",
         stable_layer_norm=False, conv_bias=False)
+
+
+def wavlm_large_config() -> HubertConfig:
+    """microsoft/wavlm-large geometry: HuBERT-large's widths, bias-free
+    convs, 320 relative-position buckets up to :data:`REL_POS_MAX_DISTANCE`.
+    """
+    return HubertConfig(conv_bias=False, rel_pos_buckets=320)
+
+
+# WavLM's ``max_bucket_distance``: the distance past which a key's bucket
+# stops growing (with its 320 buckets, the last log bucket)
+REL_POS_MAX_DISTANCE = 800
+
+# the encoders the entry points build by name (``--speech-encoder``)
+SPEECH_ENCODERS = {"hubert-large": hubert_large_config,
+                   "wavlm-large": wavlm_large_config,
+                   "wav2vec2-base": wav2vec2_base_config}
+
+
+def speech_encoder_config(name: str) -> HubertConfig:
+    try:
+        return SPEECH_ENCODERS[name]()
+    except KeyError:
+        raise ValueError(f"speech encoder {name!r}: valid encoders are "
+                         f"{', '.join(SPEECH_ENCODERS)}") from None
+
+
+# attention calls by kind since the process started ('plain': HuBERT's,
+# 'gated_bias': WavLM's), counted where each layer's attention runs
+attention_calls: collections.Counter = collections.Counter()
 
 
 def gelu(x):
@@ -116,6 +156,8 @@ class PosConvEmbed(nn.Module):
 
 
 class HubertSelfAttention(nn.Module):
+    kind = "plain"
+
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         H = cfg.hidden_size
@@ -125,7 +167,8 @@ class HubertSelfAttention(nn.Module):
         self.v_proj = nn.Linear(H, H)
         self.out_proj = nn.Linear(H, H)
 
-    def forward(self, x, frame_mask=None):
+    def forward(self, x, frame_mask=None, position_bias=None):
+        attention_calls[self.kind] += 1
         B, T, H = x.shape
         nh = self.num_heads
         hd = H // nh
@@ -134,6 +177,8 @@ class HubertSelfAttention(nn.Module):
         v = self.v_proj(x).reshape(B, T, nh, hd)
         # logits and P.V accumulate in f32, probabilities in x's dtype
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        if position_bias is not None:
+            logits = logits + self.bias(x, position_bias)
         if frame_mask is not None:
             # padded frames get zero weight: valid frames equal a
             # natural-length forward
@@ -143,24 +188,83 @@ class HubertSelfAttention(nn.Module):
         return self.out_proj(out.reshape(B, T, H))
 
 
+def relative_position_buckets(T: int, num_buckets: int,
+                              max_distance: int = REL_POS_MAX_DISTANCE,
+                              device=None) -> torch.Tensor:
+    """(T, T) long: the bucket of key j seen from query i, r = j - i (HF
+    ``WavLMAttention._relative_positions_bucket``).  Each sign takes half
+    of the buckets (r > 0 the upper half); |r| under a quarter of them is
+    its own bucket, past that ``exact + log(|r| / exact) / log(max_distance
+    / exact) * (half - exact)`` in f32, truncated and capped at the half's
+    last bucket."""
+    half = num_buckets // 2
+    exact = half // 2
+    pos = torch.arange(T, device=device)
+    r = pos[None, :] - pos[:, None]
+    a = r.abs()
+    far = (exact + torch.log(a.clamp(min=1).float() / exact)
+           / math.log(max_distance / exact) * (half - exact)).long()
+    return ((r > 0).long() * half
+            + torch.where(a < exact, a, far.clamp(max=half - 1)))
+
+
+class GatedRelPosAttention(HubertSelfAttention):
+    """WavLM's attention: HuBERT's, with ``gate * B[h, i, j]`` added to the
+    logits.  ``B`` (heads, T, T) is layer 0's ``rel_attn_embed`` looked up
+    at each pair's bucket, made once a forward (:meth:`position_bias`) and
+    handed to every layer.  Each layer gates it per query and head from
+    its own input x (after the pre-LN) cut into heads: the head's 8
+    ``gru_rel_pos_linear`` outputs summed in two groups of 4 and put
+    through a sigmoid, (a, b), give ``a * (b * c_h - 1) + 2`` with
+    ``c_h`` the head's ``gru_rel_pos_const``."""
+
+    kind = "gated_bias"
+
+    def __init__(self, cfg: HubertConfig, has_embed: bool):
+        super().__init__(cfg)
+        self.cfg = cfg
+        if has_embed:
+            self.rel_attn_embed = nn.Embedding(cfg.rel_pos_buckets,
+                                               cfg.num_heads)
+        self.gru_rel_pos_linear = nn.Linear(cfg.hidden_size // cfg.num_heads,
+                                            8)
+        self.gru_rel_pos_const = nn.Parameter(torch.ones(cfg.num_heads))
+
+    def position_bias(self, T: int) -> torch.Tensor:
+        """(heads, T, T) f32 bias of a sequence of T frames."""
+        table = self.rel_attn_embed.weight
+        b = relative_position_buckets(T, self.cfg.rel_pos_buckets,
+                                      device=table.device)
+        return table.float()[b].permute(2, 0, 1)
+
+    def bias(self, x, position_bias):
+        B, T, H = x.shape
+        nh = self.num_heads
+        g = self.gru_rel_pos_linear(x.reshape(B, T, nh, H // nh)).float()
+        a, b = torch.sigmoid(g.reshape(B, T, nh, 2, 4).sum(-1)).unbind(-1)
+        gate = a * (b * self.gru_rel_pos_const.float() - 1.0) + 2.0
+        return gate.transpose(1, 2)[..., None] * position_bias
+
+
 class HubertEncoderLayer(nn.Module):
     """Transformer layer: pre-LN (``stable_layer_norm``, hubert-large) or
     post-LN (wav2vec2-base)."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, index: int = 0):
         super().__init__()
         self.pre_ln = cfg.stable_layer_norm
-        self.attn = HubertSelfAttention(cfg)
+        self.attn = (GatedRelPosAttention(cfg, has_embed=index == 0)
+                     if cfg.rel_pos_buckets else HubertSelfAttention(cfg))
         self.attn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
         self.ffn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x, frame_mask=None):
+    def forward(self, x, frame_mask=None, position_bias=None):
         if self.pre_ln:
-            x = x + self.attn(self.attn_ln(x), frame_mask)
+            x = x + self.attn(self.attn_ln(x), frame_mask, position_bias)
             return x + self.fc2(gelu(self.fc1(self.ffn_ln(x))))
-        x = self.attn_ln(x + self.attn(x, frame_mask))
+        x = self.attn_ln(x + self.attn(x, frame_mask, position_bias))
         return self.ffn_ln(x + self.fc2(gelu(self.fc1(x))))
 
 
@@ -170,7 +274,8 @@ class HubertModel(nn.Module):
     of right-padded rows: pad frames are zeroed before the positional conv
     and excluded from attention.  The encoder LayerNorm ``final_ln`` comes
     after the layers (pre-LN) or before them, after the positional conv
-    (post-LN)."""
+    (post-LN).  With ``rel_pos_buckets`` (WavLM) the relative-position bias
+    of the sequence at hand is made once and handed through the layers."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
@@ -180,7 +285,7 @@ class HubertModel(nn.Module):
         self.feat_proj = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
         self.pos_conv = PosConvEmbed(cfg)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", HubertEncoderLayer(cfg))
+            self.add_module(f"layer_{i}", HubertEncoderLayer(cfg, i))
         self.final_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
 
     def forward(self, x, frame_mask: Optional[torch.Tensor] = None):
@@ -190,8 +295,10 @@ class HubertModel(nn.Module):
         h = h + self.pos_conv(h)
         if not self.cfg.stable_layer_norm:
             h = self.final_ln(h)
+        bias = (self.layer_0.attn.position_bias(h.shape[1])
+                if self.cfg.rel_pos_buckets else None)
         for i in range(self.cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, frame_mask)
+            h = getattr(self, f"layer_{i}")(h, frame_mask, bias)
         return self.final_ln(h) if self.cfg.stable_layer_norm else h
 
 

@@ -149,8 +149,12 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
 def sum_across_processes(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the processes, differentiable: its gradient
     is the sum of every process's upstream gradient
-    (``torch.distributed.nn.functional.all_reduce``)."""
+    (``torch.distributed.nn.functional.all_reduce``).  The group is
+    named at each call: that function's default is the group of the time
+    torch imported it, which a process that left a group and joined
+    another would still reduce over."""
     if process_count() == 1:
         return t
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(t.to(group_device())).to(t.device)
+    return all_reduce(t.to(group_device()),
+                      group=dist.group.WORLD).to(t.device)

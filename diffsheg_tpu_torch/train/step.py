@@ -35,6 +35,9 @@ sees it:
     whole global batch, and the returned loss terms are global means.
 One process keeps the one-process computation.
 
+Under a profiler a step is the span ``train.step`` and each cross-process
+mean in it (the gradients, the loss terms) a ``train.allreduce`` span.
+
 With ``model.compute_dtype='bfloat16'`` the step casts the f32 master
 weights to bf16 inside the graph (``torch.func.functional_call``; under
 ``fully_shard`` its mixed-precision policy does), so autograd returns f32
@@ -64,6 +67,7 @@ from diffsheg_tpu_torch.parallel.collectives import (gather_rows, global_rows,
                                                      process_count,
                                                      sum_across_processes)
 from diffsheg_tpu_torch.parallel.mesh import is_fsdp
+from diffsheg_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -110,7 +114,9 @@ def clip_grad_global_norm_(grads, max_norm: float) -> torch.Tensor:
 def average_gradients_(grads) -> None:
     """Every process's gradients replaced by their mean over the
     processes: one ``all_reduce`` of the flattened gradients."""
-    flat = mean_across_processes_(torch.cat([g.reshape(-1) for g in grads]))
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    with span("train.allreduce"):
+        mean_across_processes_(flat)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -217,6 +223,10 @@ def make_train_step(cfg: Config, sched: DiffusionSchedule,
                 t_in: Optional[torch.Tensor] = None,
                 noise_in: Optional[torch.Tensor] = None
                 ) -> Tuple[TrainState, LossTerms]:
+        with span("train.step"):
+            return spanned_step(state, batch, t_in, noise_in)
+
+    def spanned_step(state, batch, t_in, noise_in):
         model, dev = state.model, state.device
         motion = batch["motion"]
         B = motion.shape[0]
@@ -268,8 +278,9 @@ def make_train_step(cfg: Config, sched: DiffusionSchedule,
         state.step += 1
         terms = LossTerms(*(v.detach() for v in terms))
         if n > 1:
-            terms = LossTerms(*mean_across_processes_(
-                torch.stack(list(terms)).double()).float())
+            with span("train.allreduce"):
+                terms = LossTerms(*mean_across_processes_(
+                    torch.stack(list(terms)).double()).float())
         return state, terms
 
     if inject_randoms:

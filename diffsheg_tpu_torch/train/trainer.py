@@ -115,13 +115,14 @@ class Trainer:
     distributions (zero output projections) seeded by ``train.seed``, the
     same in every process.  ``fgd_net``: the frozen FGD feature net the
     evaluation embeds with (moved to the trainer's device);
-    ``hubert_model``: the frozen HuBERT of the speech frontend (seeded
-    random weights without one)."""
+    ``hubert_model``: the frozen HuBERT of the speech frontend (without
+    one, seeded random weights of ``hubert_config``'s layout, default
+    HuBERT-large)."""
 
     def __init__(self, cfg: Config, workdir: str,
                  logger: Optional[MetricLogger] = None,
                  device: DeviceLike = None, fgd_net=None,
-                 hubert_model=None):
+                 hubert_model=None, hubert_config=None):
         self.device = init_distributed(resolve_device(device))
         _, fsdp = mesh_shape(cfg.mesh)
         self.cfg = cfg
@@ -144,7 +145,7 @@ class Trainer:
         if cfg.train.on_device_frontend:
             from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
             self._frontend = make_speech_frontend(cfg, hubert_model,
-                                                  self.device)
+                                                  self.device, hubert_config)
         # two step variants: the epoch-gated velocity / x0 terms
         self._step_full = make_train_step(cfg, self.schedule,
                                           vel_loss_active=True)

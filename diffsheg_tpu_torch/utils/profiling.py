@@ -133,7 +133,10 @@ class SpanRecorder:
     undo step), and ``launch.fused_branch``, ``launch.fused_layer``,
     ``launch.linear_attention``, ``launch.ddim_step``,
     ``launch.gemm_tf32x3`` (one kernel launch each, its argument checks
-    included)."""
+    included); in training ``train.step`` (``train/step.py``: the loss,
+    backward and update), ``train.allreduce`` (each cross-process mean in
+    it), ``train.frontend.mel`` and ``train.frontend.encoder``
+    (``audio/frontend.py``)."""
 
     def __init__(self, capacity: int = 1 << 16):
         self.capacity = capacity

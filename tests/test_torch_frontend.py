@@ -310,8 +310,8 @@ def test_cli_train_with_the_frontend_and_a_hubert_checkpoint(
     seen = []
     real = cli._load_hubert
 
-    def load(cfg, path):
-        seen.append((path, real(cfg, path)))
+    def load(cfg, path, *layout):
+        seen.append((path, real(cfg, path, *layout)))
         return seen[-1][1]
     monkeypatch.setattr(cli, "_load_hubert", load)
     monkeypatch.setattr(hubert_ckpt, "HubertConfig", lambda: hcfg)

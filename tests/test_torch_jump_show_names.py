@@ -88,8 +88,10 @@ def test_hubert_large_config_equals_jax():
     from diffsheg_tpu_torch.models.hubert import (HubertConfig,
                                                   hubert_large_config)
     assert hubert_large_config() == HubertConfig()
-    assert dataclasses.asdict(hubert_large_config()) == dataclasses.asdict(
-        j_cfg())
+    ours = dataclasses.asdict(hubert_large_config())
+    # the port's own fields (WavLM's relative-position bias) are off
+    assert ours.pop("rel_pos_buckets") == 0
+    assert ours == dataclasses.asdict(j_cfg())
 
 
 @pytest.mark.parametrize("shape", [(2, 34, 8, 64), (3, 12, 4, 8),
