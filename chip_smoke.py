@@ -56,12 +56,14 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
               beside cuBLAS f32 and TF32, reruns bit for bit; the cell's
               widths timed beside cuBLAS f32 (``--only crossover``: the
               kernel against cuBLAS by rows at every width, which sets
-              the route's rule; in no whole run); and the speech encoders
+              the route's rule, and the speech encoder's forward at 1000
+              and 7232 rows; in no whole run); and the speech encoders
               beside each other (``kernel[speech-encoder ...]``):
               HuBERT-large and WavLM-Large on a 64-window chunk of the
-              training frontend (f32) and a 1000-frame stream chunk
-              (bf16), with the attention calls by kind and the seconds
-              the cases add (``--only speech``: those cases alone);
+              training frontend (f32: 145 ``gemm_tf32x3`` launches a
+              call) and a 1000-frame stream chunk (bf16: none), with the
+              attention calls by kind and the seconds the cases add
+              (``--only speech``: those cases alone);
 4. stream   — a three-window BEAT stream with the same injected noise
               through the bf16 and f32 branch-kernel paths and phase 6's
               path, held to the port's numerics bands against the f32 fully
@@ -225,8 +227,9 @@ Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly
-(``gemm_tf32x3``'s by (M, N, K, layout): the f32 level caches' and the
-training steps' dense products the route takes).  Prints its
+(``gemm_tf32x3``'s by (M, N, K, layout): the f32 level caches', the
+training steps' and the f32 speech encoders' dense products the route
+takes).  Prints its
 findings, a ``kernels`` JSON line, the nvidia-smi line, and ends with
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
 code is non-zero; with no CUDA device it exits 1 and prints no result.
@@ -1036,6 +1039,63 @@ def times(gemm: dict, n: int) -> dict:
     return {k: v * n for k, v in gemm.items()}
 
 
+def plus(*gemms: dict) -> dict:
+    """Launches by shape of several parts together."""
+    out = collections.Counter()
+    for g in gemms:
+        out.update(g)
+    return dict(out)
+
+
+# one BEAT window of 16 kHz speech (34 frames at 15 fps) and the speech
+# encoder's frames of it
+BEAT_WINDOW_SAMPLES = 36266
+BEAT_WINDOW_FRAMES = (BEAT_WINDOW_SAMPLES - 400) // 320 + 1     # 113
+
+
+def encoder_gemm(rows: int, calls: int = 1, enc: str = "hubert-large") -> dict:
+    """gemm_tf32x3's launches of ``calls`` f32 forwards of a speech encoder
+    (``models/hubert.py``, by name) over ``rows`` frames each, where the
+    route takes them: the feature projection and each layer's q, k, v,
+    out, fc1 and fc2 at ``rows``, WavLM's gate at rows x heads."""
+    from diffsheg_tpu_torch.models.hubert import speech_encoder_config
+    from diffsheg_tpu_torch.ops.products import takes_tf32x3
+    c = speech_encoder_config(enc)
+    H, F = c.hidden_size, c.intermediate_size
+    layer = [(rows, H, H)] * 4 + [(rows, H, F), (rows, F, H)]
+    if c.rel_pos_buckets:
+        layer.append((rows * c.num_heads, H // c.num_heads, 8))
+    out = collections.Counter()
+    for r, kin, nout in [(rows, c.conv_dim[-1], H)] + layer * c.num_layers:
+        if takes_tf32x3("cuda", torch.float32, r, kin, nout):
+            out[(r, -(-nout // 4) * 4, -(-kin // 4) * 4, "nt")] += calls
+    return dict(out)
+
+
+def frontend_gemm(windows: int, calls: int = 1,
+                  enc: str = "hubert-large") -> dict:
+    """... of ``calls`` f32 training frontends (``audio/frontend.py``) of
+    ``windows`` BEAT windows with the speech encoder ``enc``: the encoder
+    in chunks of HUBERT_CHUNK windows, the last chunk the rest."""
+    from diffsheg_tpu_torch.audio.frontend import HUBERT_CHUNK
+    full, rest = divmod(windows, HUBERT_CHUNK)
+    return plus(
+        encoder_gemm(HUBERT_CHUNK * BEAT_WINDOW_FRAMES, full * calls, enc)
+        if full else {},
+        encoder_gemm(rest * BEAT_WINDOW_FRAMES, calls, enc) if rest else {})
+
+
+def extractor_gemm(samples: int, calls: int = 1) -> dict:
+    """... of ``calls`` f32 HuBERT-large extractions
+    (``audio/hubert_runner.py``) of ``samples`` of 16 kHz audio: its
+    chunks of CLIP_FRAMES frames in one batch (a 60 s clip 3000 rows, a
+    10 s clip 1000)."""
+    from diffsheg_tpu_torch.audio.hubert_runner import (CLIP_FRAMES,
+                                                        CLIP_SAMPLES, KERNEL)
+    chunks = samples // CLIP_SAMPLES + (samples % CLIP_SAMPLES >= KERNEL)
+    return encoder_gemm(chunks * CLIP_FRAMES, calls)
+
+
 @functools.lru_cache(maxsize=None)
 def beat_structure():
     """A BEAT model at the published widths on the CPU: the shapes of the
@@ -1046,8 +1106,8 @@ def beat_structure():
 
 
 def gemm_case(M, N, K, layout, dev, seed, reps):
-    """``gemm_tf32x3`` at one (M, N, K, layout) of TRAIN_GEMM against its
-    plain version (the port's f32 band, 1e-5) and against an f64 product,
+    """``gemm_tf32x3`` at one (M, N, K, layout) of TRAIN_GEMM or of the
+    speech encoder's (``encoder_gemm``) against its plain version (the port's f32 band, 1e-5) and against an f64 product,
     beside cuBLAS f32's and single-pass TF32's errors against the same f64:
     the kernel's at most 8x cuBLAS f32's and 100x under TF32's, two calls
     bit for bit the same.  'nt' adds a bias, as the forward does.  With
@@ -1106,24 +1166,36 @@ def gemm_case(M, N, K, layout, dev, seed, reps):
 
 
 def gemm_cases(dev, reps):
-    """gemm_case at every shape of TRAIN_GEMM, the cell's widths timed."""
-    return {f"gemm-{lay}-{M}x{N}x{K}": gemm_case(
-                M, N, K, lay, dev, 22 + i,
-                reps if (M, N, K, lay) in GEMM_TIMED else 0)
-            for i, (M, N, K, lay) in enumerate(sorted(TRAIN_GEMM))}
+    """gemm_case at every shape of TRAIN_GEMM, the cell's widths timed;
+    then, timed, at the speech encoder's forward products in a chunk of
+    the training frontend (HUBERT_CHUNK windows, 7232 rows: the feature
+    projection, q / k / v / out, fc1, fc2)."""
+    from diffsheg_tpu_torch.audio.frontend import HUBERT_CHUNK
+    shapes = [(s, reps if s in GEMM_TIMED else 0) for s in sorted(TRAIN_GEMM)]
+    shapes += [(s, reps) for s in sorted(
+        encoder_gemm(HUBERT_CHUNK * BEAT_WINDOW_FRAMES))]
+    return {f"gemm-{lay}-{M}x{N}x{K}": gemm_case(M, N, K, lay, dev, 22 + i,
+                                                 timed)
+            for i, ((M, N, K, lay), timed) in enumerate(shapes)}
 
 
 # the crossover's rows, around and above MIN_ROWS (2550: the three-window
 # stream's f32 level cache)
 CROSSOVER_ROWS = (512, 1024, 2048, 2550, 4096, 8192, 16384)
+# the speech encoder's (in, out), forward only (the encoder is frozen), at
+# a 20 s extraction chunk's rows and a training frontend chunk's (64
+# windows)
+ENCODER_WIDTHS = ((512, 1024), (1024, 1024), (1024, 4096), (4096, 1024))
+ENCODER_ROWS = (1000, 64 * BEAT_WINDOW_FRAMES)
 
 
 def phase_crossover(dev, reps):
     """Device ms of a dense layer's products through gemm_tf32x3 and
     through cuBLAS f32 by rows, at every (in, out) of TRAIN_GEMM: the
     forward alone (inference, a level cache) and forward, dX and dW
-    together (training).  ``ops/products.py::takes_tf32x3`` is set from
-    these lines; they are not part of a whole run."""
+    together (training); then the speech encoder's forward at
+    ENCODER_WIDTHS x ENCODER_ROWS.  ``ops/products.py::takes_tf32x3`` is
+    set from these lines; they are not part of a whole run."""
     from diffsheg_tpu_torch.ops.products import gemm_tf32x3
     no_tf32()
     widths = sorted({gemm_widths(*s) for s in TRAIN_GEMM})
@@ -1152,6 +1224,18 @@ def phase_crossover(dev, reps):
                         f"{device_ms(library, reps):.4f}")
         log(f"gemm_tf32x3 crossover {kin}->{nout} rows:forward kernel_ms/"
             f"library_ms,all three kernel_ms/library_ms {' '.join(line)}")
+    for kin, nout in ENCODER_WIDTHS:
+        line = []
+        for rows in ENCODER_ROWS:
+            x = torch.randn(rows, kin, device=dev)
+            w = torch.randn(nout, kin, device=dev)
+            b = torch.randn(nout, device=dev)
+            line.append(
+                f"{rows}:"
+                f"{device_ms(lambda: gemm_tf32x3(x, w, 'nt', b), reps):.4f}/"
+                f"{device_ms(lambda: torch.addmm(b, x, w.t()), reps):.4f}")
+        log(f"gemm_tf32x3 crossover encoder {kin}->{nout} rows:forward "
+            f"kernel_ms/library_ms {' '.join(line)}")
 
 
 # the step kernel: BEAT (1, 34, 192), overlap 4; SHOW (1, 88, 232), 10;
@@ -1252,18 +1336,74 @@ def quant_kernel_cases(dev, reps):
 # training frontend (HUBERT_CHUNK 64 BEAT windows of 36 266 samples, f32,
 # audio/frontend.py) and one chunk of a stream (320 080 samples, 1000
 # frames, bf16 as the stream cells run it, audio/hubert_runner.py)
-SPEECH_ENCODER_CASES = (("chunk64-f32", 64, 36266, torch.float32),
-                        ("stream1000-bf16", 1, 320080, torch.bfloat16))
+SPEECH_ENCODER_CASES = (
+    ("chunk64-f32", 64, BEAT_WINDOW_SAMPLES, torch.float32),
+    ("stream1000-bf16", 1, 320080, torch.bfloat16))
 SPEECH_ENCODER_REPS = 3
+# the f32 chunk against the same encoder with every product on F.linear
+# (cuBLAS f32, TF32 off): rel-RMS
+SPEECH_ENCODER_TOL = 1e-5
+# one batch of the frontend training cell (beat-wavlm-train-fe-f32)
+FRONTEND_STEP_WINDOWS = 2500
+
+
+def library_products(call):
+    """``call()`` with every ``Dense`` on ``F.linear`` (the route refuses
+    every product), in this process only."""
+    import diffsheg_tpu_torch.ops.products as products
+    saved = products.takes_tf32x3
+    products.takes_tf32x3 = lambda *shape: False
+    try:
+        return call()
+    finally:
+        products.takes_tf32x3 = saved
+
+
+def frontend_step(model, enc, dev, gen):
+    """The f32 training frontend (``audio/frontend.py``) with ``model`` over
+    one batch of the frontend training cell, FRONTEND_STEP_WINDOWS windows
+    of seeded int16 speech: gemm_tf32x3's launches by shape exactly
+    (``frontend_gemm``: 39 chunks of 145 NT products at 7232 rows, none in
+    the tail chunk of 4 windows) and its wall ms."""
+    from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
+    from diffsheg_tpu_torch.config import beat_config
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
+    W = FRONTEND_STEP_WINDOWS
+    fe = make_speech_frontend(beat_config(), model, device=dev)
+    batch = {"wave16": torch.randint(-8192, 8192, (W, BEAT_WINDOW_SAMPLES),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int16),
+             "motion": torch.zeros(W, 34, 1, device=dev)}
+    gemm_tf32x3.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fe(batch)["hubert"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    gemm, want = (dict(gemm_tf32x3.launches_by_shape),
+                  frontend_gemm(W, enc=enc))
+    log(f"kernel[speech-encoder {enc} frontend {W} windows] ms={ms:.1f} "
+        f"gemm_tf32x3 {sum(gemm.values())} launches: {gemm}")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"frontend {enc} {W} windows: not finite")
+    if gemm != want:
+        raise AssertionError(f"frontend {enc} {W} windows: gemm_tf32x3 by "
+                             f"(M, N, K, layout) {gemm}, expected {want}")
+    return ms
 
 
 def speech_encoder_cases(dev, reps):
     """HuBERT-large and WavLM-Large (gated relative-position attention) on
     seeded weights made on the card, each case's median device ms; the
-    attention calls by kind; the seconds the cases add to the smoke."""
+    attention calls by kind; gemm_tf32x3's launches by shape exactly (the
+    f32 chunk's 145 products a call, none in bf16); the f32 chunk against
+    the encoder on ``F.linear`` (SPEECH_ENCODER_TOL); WavLM-Large in the
+    training frontend over a batch of the frontend cell (frontend_step);
+    the seconds the cases add to the smoke."""
     from diffsheg_tpu_torch.models.hubert import (HubertModel,
                                                   attention_calls,
                                                   speech_encoder_config)
+    from diffsheg_tpu_torch.ops.products import gemm_tf32x3
     no_tf32()
     t_all = time.perf_counter()
     reps = min(reps, SPEECH_ENCODER_REPS)
@@ -1283,17 +1423,42 @@ def speech_encoder_cases(dev, reps):
             model = model.to(dtype)
             x = torch.randn((B, S), generator=gen, device=dev)
             before = dict(attention_calls)
+            gemm_tf32x3.launches_by_shape.clear()
             with torch.no_grad():
                 ms = device_ms(lambda: model(x), reps)
                 out = model(x)
+            calls = 3 + reps        # device_ms's 2 + reps, then one more
             kinds = {k: v - before.get(k, 0) for k, v in attention_calls.items()
                      if v != before.get(k, 0)}
+            gemm = dict(gemm_tf32x3.launches_by_shape)
+            want = (encoder_gemm(B * out.shape[1], calls, enc)
+                    if dtype == torch.float32 else {})
             if not torch.isfinite(out).all():
                 raise AssertionError(f"speech encoder {enc} {name}: not finite")
+            if gemm != want:
+                raise AssertionError(f"speech encoder {enc} {name}: "
+                                     f"gemm_tf32x3 by (M, N, K, layout) "
+                                     f"{gemm}, expected {want}")
+            err = ""
+            if dtype == torch.float32:
+                with torch.no_grad():
+                    lib = library_products(lambda: model(x))
+                e_lib = rel_rms(out, lib)
+                err = (f" rel_rms_library={e_lib:.3e} "
+                       f"(tol {SPEECH_ENCODER_TOL:g})")
+                del lib
+                if not e_lib <= SPEECH_ENCODER_TOL:
+                    raise AssertionError(f"speech encoder {enc} {name}: "
+                                         f"{e_lib:.3e} against F.linear")
             results[f"speech-{enc}-{name}"] = ms
             log(f"kernel[speech-encoder {enc} {name}] B={B} samples={S} "
-                f"frames={out.shape[1]} ms={ms:.3f} attention calls "
-                f"{kinds} ({2 + reps} calls)")
+                f"frames={out.shape[1]} ms={ms:.3f}{err} attention calls "
+                f"{kinds} gemm_tf32x3 a call "
+                f"{ {k: v // calls for k, v in gemm.items()} } ({calls} "
+                f"calls)")
+        if enc == "wavlm-large":
+            results[f"speech-{enc}-frontend{FRONTEND_STEP_WINDOWS}"] = (
+                frontend_step(model, enc, dev, gen))
         del model
         torch.cuda.empty_cache()
     for name, *_ in SPEECH_ENCODER_CASES:
@@ -2795,7 +2960,9 @@ def phase_generate(dev, model):
         if a.result.motion.shape != (4, 900, 192) or not np.isfinite(
                 a.result.motion).all():
             raise AssertionError(f"(a): motion {a.result.motion.shape}")
-        expect("generate (a)", a.counts, gemm=cache_gemm(model, 4 * 30, 34),
+        expect("generate (a)", a.counts,
+               gemm=plus(cache_gemm(model, 4 * 30, 34),
+                         extractor_gemm(60 * 16000)),
                fused_layer=16 * GEN_CALLS_60S, fused_linear_attention=1)
         check_attention_shapes("generate (a)", a.shapes,
                                {(3000, 34, 128, 8): 1})
@@ -2827,7 +2994,9 @@ def phase_generate(dev, model):
                                "--set", "diffusion.fused_layer=chain",
                                "--set", "diffusion.jump_n_sample=2"])
         generate_line("(b) beat 60 s, bf16, chain, jump_n_sample 2", b, 900)
-        expect("generate (b)", b.counts, fused_branch=2 * CALLS_60S)
+        # HuBERT stays f32 (its own HubertConfig) under a bf16 model
+        expect("generate (b)", b.counts, gemm=extractor_gemm(60 * 16000),
+               fused_branch=2 * CALLS_60S)
         launches["fused_branch_generate"] = b.counts["fused_branch"]
 
         # (c) the staged path: mel, HuBERT and sampler stages
@@ -2837,7 +3006,8 @@ def phase_generate(dev, model):
         generate_line("(c) beat 10 s, f32, auto, staged", c, 150)
         if set(c.result.stages) != {"mel", "hubert", "sampler", "total"}:
             raise AssertionError(f"(c): stages {c.result.stages}")
-        expect("generate (c)", c.counts, gemm=cache_gemm(model, 5, 34),
+        expect("generate (c)", c.counts,
+               gemm=plus(cache_gemm(model, 5, 34), extractor_gemm(10 * 16000)),
                fused_layer=16 * GEN_CALLS_10S, fused_linear_attention=1)
         check_attention_shapes("generate (c)", c.shapes,
                                {(125, 34, 128, 8): 1})
@@ -2853,7 +3023,9 @@ def phase_generate(dev, model):
                       show_dir, "--warmup", "--audio", wav10, "--out-dir",
                       os.path.join(tmp, "d"), "--speakers", "1"])
         generate_line("(d) show 10 s, f32, auto", d, 300)
-        expect("generate (d)", d.counts, gemm=cache_gemm(show_model(), 4, 88),
+        expect("generate (d)", d.counts,
+               gemm=plus(cache_gemm(show_model(), 4, 88),
+                         extractor_gemm(10 * 16000)),
                fused_layer=16 * GEN_CALLS_SHOW_10S, fused_linear_attention=1)
         check_attention_shapes("generate (d)", d.shapes,
                                {(100, 88, 128, 8): 1})
@@ -2880,7 +3052,8 @@ def phase_generate(dev, model):
         if e.result.motion.shape != (1, 150, 192) or not np.isfinite(
                 e.result.motion).all():
             raise AssertionError(f"(e): motion {e.result.motion.shape}")
-        expect("generate (e)", e.counts, gemm=cache_gemm(raw, 5, 34),
+        expect("generate (e)", e.counts,
+               gemm=plus(cache_gemm(raw, 5, 34), extractor_gemm(10 * 16000)),
                fused_layer=16 * GEN_CALLS_10S, fused_linear_attention=1)
         check_attention_shapes("generate (e)", e.shapes,
                                {(125, 34, 128, 8): 1})
@@ -3677,6 +3850,10 @@ def phase_data(dev, reps):
 # --------------------------------------------------------------------------
 
 SCALE_BATCH = 256
+# the frontend's encoder on the card against the CPU: 2260 rows, enough
+# for every product of the encoder to take gemm_tf32x3 (the feature
+# projection's 512 -> 1024 from 2048 rows)
+FRONTEND_CPU_WINDOWS = 20
 SCALE_CLIPS = {"train": 3, "val": 1}        # 261 and 87 windows
 SCALE_ATTN = (SCALE_BATCH, 34, 512, 8)
 SCALE_AUDIO_ATTN = (SCALE_BATCH, 34, 128, 8)
@@ -3762,7 +3939,8 @@ def frontend_train(tmp, caches, stats, hub_dir):
     # without remat (cli train's default) a step's forward makes the 16
     # self-attentions of the branches and the audio encoder's one
     expect("scale train", counts, fused_linear_attention=34,
-           gemm=train_gemm(SCALE_BATCH, 2, remat=False))
+           gemm=plus(train_gemm(SCALE_BATCH, 2, remat=False),
+                     frontend_gemm(SCALE_BATCH, 2)))
     check_attention_shapes("scale train", shapes["fused_linear_attention"],
                            {SCALE_ATTN: 32, SCALE_AUDIO_ATTN: 2})
     if len(rec.steps) != 2 or len(fe.ms) != 2:
@@ -3784,9 +3962,11 @@ def frontend_train(tmp, caches, stats, hub_dir):
 
 def frontend_checks(caches, hub_model, dev):
     """The frontend on the card: its mel against the cache's (built from
-    the same audio), its HuBERT against the same encoder on the CPU, the
-    mel / HuBERT split of its time, and the linear-attention kernel
-    against its plain version inside a step with it."""
+    the same audio), its HuBERT against the same encoder on the CPU
+    (FRONTEND_CPU_WINDOWS windows, the card's products through
+    gemm_tf32x3), the mel / HuBERT split of its time, and the
+    linear-attention kernel against its plain version inside a step with
+    it."""
     import copy
     from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
     from diffsheg_tpu_torch.config import beat_config
@@ -3805,19 +3985,23 @@ def frontend_checks(caches, hub_model, dev):
 
     # the int16 transport of the trainer's batches
     wave16 = torch.clamp(audio * 32768.0, -32768, 32767).to(torch.int16)
+    n = FRONTEND_CPU_WINDOWS
     cpu_fe = make_speech_frontend(cfg, hub_model, device="cpu")
     t0 = time.perf_counter()
-    want = cpu_fe({"wave16": wave16[:4].cpu(),
-                   "motion": motion[:4].cpu()})["hubert"]
+    want = cpu_fe({"wave16": wave16[:n].cpu(),
+                   "motion": motion[:n].cpu()})["hubert"]
     cpu_s = time.perf_counter() - t0
-    got = full_fe({"wave16": wave16[:4], "motion": motion[:4]})["hubert"]
+    zero_counts()
+    got = full_fe({"wave16": wave16[:n], "motion": motion[:n]})["hubert"]
+    expect("scale frontend against the CPU", launch_counts(),
+           gemm=frontend_gemm(n))
     hub_err = rel_rms(got.cpu(), want)
     mel_ms = wall_ms(lambda: mel_fe({"wave16": wave16, "motion": motion}), 3)
     full_ms = wall_ms(lambda: full_fe({"wave16": wave16, "motion": motion}),
                       3)
     log(f"scale[frontend]: mel against the cache's max |diff| / max "
         f"{mel_err:.3e} (tol 2e-5); HuBERT-large on the card against the "
-        f"CPU, 4 windows: rel_rms {hub_err:.3e} (tol 1e-5; the CPU took "
+        f"CPU, {n} windows: rel_rms {hub_err:.3e} (tol 1e-5; the CPU took "
         f"{cpu_s:.1f} s); {SCALE_BATCH} windows: mel {mel_ms:.1f} ms, "
         f"HuBERT {full_ms - mel_ms:.1f} ms (frontend {full_ms:.1f} ms)")
     if not (mel_err <= 2e-5 and hub_err <= 1e-5):
@@ -3836,14 +4020,15 @@ def frontend_checks(caches, hub_model, dev):
     zero_counts()
     k_terms, k_params = injected_steps(cfg, batch, ts, noises, dev,
                                        frontend=full_fe)
+    with_frontend = plus(train_gemm(SCALE_BATCH, remat=False),
+                         frontend_gemm(SCALE_BATCH))
     expect("scale step with the frontend, kernel",
-           launch_counts(), gemm=train_gemm(SCALE_BATCH, remat=False),
-           fused_linear_attention=17)
+           launch_counts(), gemm=with_frontend, fused_linear_attention=17)
     zero_counts()
     p_terms, p_params = injected_steps(cfg, batch, ts, noises, dev,
                                        plain=True, frontend=full_fe)
     expect("scale step with the frontend, plain",
-           launch_counts(), gemm=train_gemm(SCALE_BATCH, remat=False))
+           launch_counts(), gemm=with_frontend)
     train_band("scale: kernel vs plain in a step with the frontend",
                k_terms, p_terms, k_params, p_params, 1e-5)
 
@@ -3870,7 +4055,8 @@ def frontend_eval(caches, stats, hub_model, dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     expect("scale evaluate", launch_counts(),
-           gemm=cache_gemm(beat_structure(), EVAL_BATCH, 34, EVAL_BATCH),
+           gemm=plus(cache_gemm(beat_structure(), EVAL_BATCH, 34, EVAL_BATCH),
+                     frontend_gemm(EVAL_BATCH)),
            fused_layer=EVAL_LAYER_LAUNCHES, fused_linear_attention=1)
     check_attention_shapes(
         "scale evaluate",
@@ -4670,11 +4856,18 @@ def example_probe(full):
 
 
 def example_hubert_drift():
-    """Item 10 (full depth only): HuBERT's live drift; no kernel."""
+    """Item 10 (full depth only): HuBERT's live drift, f32: the offline
+    extraction of its 24 s and each window alone (a chunk of 1000 frames)
+    take gemm_tf32x3; the windows with 4 s of left context (313 frames)
+    do not."""
     from diffsheg_tpu_torch.examples import live_hubert_drift as ex
+    from diffsheg_tpu_torch.sampling.streamer import window_starts
     out, _, counts, layers, attns, t, _ = run_example(
         "live_hubert_drift", ex.main, [])
-    expect("live_hubert_drift", counts)
+    windows = len(window_starts(24 * 15, 34, 30))
+    expect("live_hubert_drift", counts,
+           gemm=plus(extractor_gemm(24 * 16000),
+                     extractor_gemm(BEAT_WINDOW_SAMPLES, windows)))
     example_line("live_hubert_drift", json_lines_of(out)[-1], counts, layers,
                  attns, t)
 

@@ -12,7 +12,9 @@ the positional conv (none at the end) and post-LN layers.  WavLM-Large
 ``WavLMAttention``): HuBERT-large's geometry with bias-free convs and
 attention that adds a gated relative-position bias to its logits
 (:class:`GatedRelPosAttention`; the JAX package has no counterpart).
-Attribute names follow the Flax parameter tree.
+The dense layers are ``ops/products.py``'s ``Dense``: ``nn.Linear`` whose
+f32 products on the card, at the route's sizes, run in split TF32 on the
+tensor cores.  Attribute names follow the Flax parameter tree.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from diffsheg_tpu_torch.ops.products import Dense
 
 LN_EPS = 1e-5
 
@@ -162,10 +166,10 @@ class HubertSelfAttention(nn.Module):
         super().__init__()
         H = cfg.hidden_size
         self.num_heads = cfg.num_heads
-        self.q_proj = nn.Linear(H, H)
-        self.k_proj = nn.Linear(H, H)
-        self.v_proj = nn.Linear(H, H)
-        self.out_proj = nn.Linear(H, H)
+        self.q_proj = Dense(H, H)
+        self.k_proj = Dense(H, H)
+        self.v_proj = Dense(H, H)
+        self.out_proj = Dense(H, H)
 
     def forward(self, x, frame_mask=None, position_bias=None):
         attention_calls[self.kind] += 1
@@ -226,8 +230,7 @@ class GatedRelPosAttention(HubertSelfAttention):
         if has_embed:
             self.rel_attn_embed = nn.Embedding(cfg.rel_pos_buckets,
                                                cfg.num_heads)
-        self.gru_rel_pos_linear = nn.Linear(cfg.hidden_size // cfg.num_heads,
-                                            8)
+        self.gru_rel_pos_linear = Dense(cfg.hidden_size // cfg.num_heads, 8)
         self.gru_rel_pos_const = nn.Parameter(torch.ones(cfg.num_heads))
 
     def position_bias(self, T: int) -> torch.Tensor:
@@ -257,8 +260,8 @@ class HubertEncoderLayer(nn.Module):
                      if cfg.rel_pos_buckets else HubertSelfAttention(cfg))
         self.attn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
         self.ffn_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x, frame_mask=None, position_bias=None):
         if self.pre_ln:
@@ -282,7 +285,7 @@ class HubertModel(nn.Module):
         self.cfg = cfg
         self.feature_extractor = ConvFeatureExtractor(cfg)
         self.feat_proj_ln = nn.LayerNorm(cfg.conv_dim[-1], eps=LN_EPS)
-        self.feat_proj = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.feat_proj = Dense(cfg.conv_dim[-1], cfg.hidden_size)
         self.pos_conv = PosConvEmbed(cfg)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", HubertEncoderLayer(cfg, i))

@@ -18,7 +18,8 @@ case holds it against its plain version and an f64 product there); here:
   widths on and off a multiple of 4 (padded for the kernel);
 - ``Dense`` on the CPU is ``nn.Linear`` bit for bit, and ``UniDiffuser``'s
   parameters and state dict keep their names;
-- the route's rule and the split of dW's contraction over k;
+- the route's rule (the denoiser's and the speech encoder's shapes) and
+  the split of dW's contraction over k;
 - every kernel of the source has ``gemm`` in its name (the benchmark's
   ``products_ms_per_step.train`` finds product kernels by name).
 """
@@ -216,6 +217,24 @@ def test_unidiffuser_keeps_its_parameter_names(monkeypatch):
     (("cuda", torch.float32, 34, 512, 512), False),
     (("cuda", torch.bfloat16, 85000, 512, 512), False),
     (("cpu", torch.float32, 85000, 512, 512), False),
+    # the speech encoder's: a frontend chunk of 64 windows, 7232 rows
+    # (q / k / v / out, fc1, fc2, the feature projection)
+    (("cuda", torch.float32, 7232, 1024, 1024), True),
+    (("cuda", torch.float32, 7232, 1024, 4096), True),
+    (("cuda", torch.float32, 7232, 4096, 1024), True),
+    (("cuda", torch.float32, 7232, 512, 1024), True),
+    # offline extraction: a 60 s clip's three 20 s chunks in one batch;
+    # one chunk alone takes fc1 / fc2, its 1024 -> 1024 products fall just
+    # under 2^30 multiply-adds
+    (("cuda", torch.float32, 3000, 1024, 1024), True),
+    (("cuda", torch.float32, 1000, 1024, 4096), True),
+    (("cuda", torch.float32, 1000, 1024, 1024), False),
+    # WavLM's gate on every head's rows: 5.9e7 multiply-adds
+    (("cuda", torch.float32, 7232 * 16, 64, 8), False),
+    # a training step's last chunk of 4 windows
+    (("cuda", torch.float32, 452, 1024, 4096), False),
+    # the streams' bf16 encoder
+    (("cuda", torch.bfloat16, 7232, 1024, 1024), False),
 ])
 def test_route_rule(case, expected):
     assert takes_tf32x3(*case) is expected
