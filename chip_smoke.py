@@ -1,239 +1,49 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs on the GPU.
+"""The port's on-card check: ``diffsheg_tpu_torch`` on one NVIDIA card.
 
-Drives ``diffsheg_tpu_torch`` on one NVIDIA card:
+An index of its phases, in the order they run; each ``phase_*``
+function's docstring says what the phase runs and holds.
 
-1. device   — the card's name and power limit (nvidia-smi);
-2. build    — compiles the CUDA kernels from ``diffsheg_tpu_torch/csrc``;
-3. kernels  — each kernel against its plain PyTorch version on the card at
-              the main paths' shapes, with times: the fused-layer kernels
-              (BEAT branches in bf16 and f32, the SHOW classifier-free
-              shape with null rows; their int8 and int4 variants at the
-              BEAT gesture branch in bf16 and f32 and the SHOW shape in
-              bf16; the per-layer kernel at the live shapes, a 12-frame
-              window and 4 speakers of 34 frames, bf16; cli generate's 4
-              speaker styles of 34 frames, f32; the widths past one pass,
-              which the kernels run in K passes: a model fed raw HuBERT
-              features, its expression branch (Cp 1792) and gesture branch
-              (1843 padded to 1920) in f32, the gesture branch in bf16 (one
-              pass) and at 4 speakers, f32 int8 / int4 at 1920, ff_size
-              2048 in f32 and 6144 in bf16, each line with its passes;
-              windows past 256 frames and heads the one-tile attention
-              does not take, which run the attention in chunks of T:
-              SHOW's widths at 300 frames and a classifier-free pair of
-              352-frame windows in f32 and bf16, int8 at 300, heads 128
-              wide at 256 frames, 144 wide at 34 and 300, 12 wide, one
-              head 1024 wide, each line with its plan's tc and dg;
-              widths off a multiple of 16 and one head wider than a
-              chunk beside ctx's 8 columns, which take the ragged build:
-              L 40 / 5 heads / F 80 and L 36 / 4 heads / F 72 (f32 with
-              null rows, bf16, int8, int4), BEAT's branch at latent 520 /
-              ff_size 1032 (f32, bf16, f32 int8), one head 4160 wide in
-              f32 and 4224 in bf16 (ctx columns in groups of 4), each
-              line with its plan's cg),
-              linear attention (the BEAT branch rows in f32 and
-              bf16, SHOW classifier-free, the level cache's 750-row audio
-              encoder, its batch-1 shape and cli generate's 3000-row
-              (4 speakers), 125-row (10 s) and SHOW 100-row shapes, a 12-frame and a 512-frame
-              window; the decoder's cross-attention, queries from a normed
-              latent and unmasked keys and values from a normed
-              condition; an hd-32 shape and an unaligned one that take
-              the general kernels; heads 144 wide at 34 and 352 frames;
-              one head 1024 wide at 34 and 12 frames and 1040 wide at a
-              classifier-free pair of 88, f32 and bf16, which take the
-              wide kernels; gradients too) and the DDIM + RePaint
-              step (BEAT, SHOW and the gesture-only model's 141 channels,
-              every switch; beside an empty launch of its shape); for the branch kernel at the BEAT gesture shape also
-              where a layer's time goes (``phases[...]``: each phase;
-              ``subphases[...]``: the steps inside it and its wait at the
-              grid barrier, from traced launches), the floor its grid
-              barriers set (``barrier[grid ...]``: the same grid through as
-              many barriers and no work) and the rate of its operand copy
-              out of L2 (``l2copy[...]``); the split-TF32 dense products
-              (``gemm_tf32x3``) at every shape of a BEAT training step
-              (forward NT, dX NN, dW TN; 85 000 and 2500 rows, the padded
-              widths), each against its plain version and an f64 product
-              beside cuBLAS f32 and TF32, reruns bit for bit; the cell's
-              widths timed beside cuBLAS f32 (``--only crossover``: the
-              kernel against cuBLAS by rows at every width, which sets
-              the route's rule, and the speech encoder's forward at 1000
-              and 7232 rows; in no whole run); and the speech encoders
-              beside each other (``kernel[speech-encoder ...]``):
-              HuBERT-large and WavLM-Large on a 64-window chunk of the
-              training frontend (f32: 145 ``gemm_tf32x3`` launches a
-              call) and a 1000-frame stream chunk (bf16: none), with the
-              attention calls by kind and the seconds the cases add
-              (``--only speech``: those cases alone);
-4. stream   — a three-window BEAT stream with the same injected noise
-              through the bf16 and f32 branch-kernel paths and phase 6's
-              path, held to the port's numerics bands against the f32 fully
-              uncached module forward with no kernel in it (bench.py
-              --check's reference), the kernel paths also against the f32
-              fast path with its kernels swapped for their plain versions;
-              then bench.py --check's quantized rows (int8 per-layer, int8
-              and int4 branch kernel, int8 on a classifier-free model);
-              then a seeded raw-HuBERT model's f32 stream through each
-              kernel (K passes), against its own f32 uncached reference and
-              its plain swap (5e-3), launches by (Cp, F, passes); then a
-              seeded SHOW model's 12 s stream in windows of 352 frames
-              (its server's widest window_frames) in f32 'auto' and bf16
-              'chain' against its own kernel-free f32 uncached forward
-              (5e-3 / 2.5e-2), launches by shape; then a seeded BEAT model
-              at the published depth with its widths off 16 (latent 520,
-              8 heads of 65, ff_size 1032; HuBERT-large features) in f32
-              'auto' and bf16 'chain' (the ragged build), and one at
-              latent 1024 with one head (2 layers a branch) through the
-              f32 module forward (the wide linear-attention kernels),
-              each against its own kernel-free f32 uncached forward (5e-3
-              / 2.5e-2), launches by width and shape;
-5. e2e      — the BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large
-              -> windowed DDIM-25 + RePaint sampler -> motion) at full
-              width with seeded random weights, through the branch kernel;
-              then a short stream through the per-layer kernel; then
-              quantized serving: 60 s int8 through the branch kernel, 10 s
-              int8 and int4 through each kernel;
-6. uncached — the same pipeline at f32 through the module forward
-              (fused_layer='off') fed by the level cache, with the step
-              kernel (fused_step='on'): every self-attention in the
-              linear-attention kernel; then a 10 s stream with
-              level_cache=False, the audio encoder in every call;
-7. live     — the serving daemon: a MotionServer on 127.0.0.1 (port 0),
-              BEAT at full width in bf16 with HuBERT-large, fed by
-              MotionClients in 100 ms chunks, unpaced: 20 s sessions at
-              window 34, window 12 and 4 speakers through the per-layer
-              kernel ('auto'), and 10 s on a server started with
-              diffusion.fused_layer=chain; then a SHOW server (bf16,
-              'auto', HuBERT-large) asked for window_frames 352, 15 s;
-              per session the windows,
-              per-window compute (p50, max: the service time of the
-              pushes that completed a window), HuBERT ms a window, the
-              lookahead W/fps, worst latency (lookahead + max compute),
-              real-time headroom ((step/fps) / p50) and the kernel's host
-              ms a launch; the served session at window 34 against an
-              in-process LiveSession, bit for bit; one window's device
-              busy time under torch.profiler;
-8. variants — every model variant the port builds, by init_denoiser at
-              BEAT's full width in f32 under the default generator
-              settings (the uncached module forward): (a) the decoder base
-              with the step kernel, (b) a learned-range variance head
-              sampled ancestrally, (c) the gesture-only model conditioned
-              on text and emotion labels with the step kernel, (d) the
-              learned-range model through DDIM with the step kernel on
-              the mean half of its output; a 10 s
-              pipeline stream each with exact launch counts, FPS, kernels
-              and host ms a model call, and a 68-frame stream against the
-              same path with its kernels swapped for their plain versions
-              (f32 rel-RMS <= 5e-3);
-9. generate — ``python -m diffsheg_tpu_torch.cli generate`` in-process, in
-              a temporary directory holding a 60 s speech-like wav, seeded
-              BEAT statistics, a BEAT template BVH and the phases' model
-              exported once to a reference .tar (``--checkpoint``), BEAT
-              at full width with a random HuBERT-large: (a) the defaults
-              (f32, the per-layer kernel) with 4 speaker styles in one
-              batch, ``--warmup --template-bvh --player``; (b) the bench's
-              configuration (bf16, 'chain', jump_n_sample 2); (c) the
-              staged path (``stream.single_dispatch=false``), 10 s; (d)
-              SHOW, 10 s; each with exact launch counts (zeroed after the
-              warmup), FPS and RTF as the command prints them, its stages
-              and the export's host seconds a clip; every BVH parsed back,
-              every face JSON and npy checked; (a)'s motion against a
-              direct CustomAudioPipeline.generate, bit for bit; the
-              exporter's euler conversion on the card against the CPU
-              (1e-4 degrees weighed by the split's conditioning, |cos|
-              of the middle angle); (e) a raw-HuBERT model, 10 s, f32,
-              launches by (Cp, F, passes); a HuBERT-base extractor
-              (768 x 12) on the card
-              against the CPU (f32 rel-RMS <= 1e-5);
-10. train   — ``python -m diffsheg_tpu_torch.cli train`` in-process on
-              synthetic caches of 5000 windows (and a HuBERT-large cache),
-              BEAT at full width, f32, ``model.remat=true``, batch 2500:
-              (a) 2 epochs, ``--resume`` for a third, against 3
-              uninterrupted, bit for bit; step ms, windows a second, peak
-              memory, loader ms, linear attention's launches by shape;
-              one step under torch.profiler (device busy time by kind of
-              kernel, ``gemm_tf32x3``'s launches by shape); (b) at batch
-              256 the kernel against the plain composition inside 3 steps
-              (1e-5) and remat against none;
-              (c) ``Trainer.evaluate`` of 64 windows through the
-              per-layer kernel before and after a step;
-11. data    — the loop a user of the paper runs, on synthetic raw splits
-              (BEAT: 60 s clips, train 8, val 1; test 2 clips of 30 s;
-              SHOW: 4 sequences of 30 s) at BEAT's full width with a
-              HuBERT-large cache: ``cli build-cache --device cuda`` for
-              every split (windows, seconds, windows a second), the BEAT
-              train and SHOW splits again with ``--device cpu`` and held
-              equal field for field
-              (mel / mfcc 2e-5 of scale, axis-angle 1e-4 through rebuilt
-              matrices, the rest and the euler / facial statistics bit for
-              bit); ``cli train`` one epoch (one step of 696 windows);
-              ``cli eval`` of its checkpoint with a reference-layout FGD
-              checkpoint (the FGD net on the card against the CPU, f32
-              rel-RMS <= 1e-5, and its ms a batch); ``cli test-stream``
-              over the test clips with the exporter, a template BVH,
-              players and FGD (its metrics JSON; every BVH, face JSON and
-              npy checked), clip 0 alone (``--max-clips 1``) equal bit
-              for bit to clip 0 of the two-clip run, and
-              ``--output-gt``; exact launch counts for every command;
-12. scale   — training with the speech frontend in the step and across
-              processes, BEAT at full width, f32, on a cache built from
-              raw clips (3 train, 1 val): (a) ``cli train --set
-              train.on_device_frontend=true --hubert-checkpoint`` (a
-              HuBERT-large HF checkpoint of seeded weights written to a
-              temporary directory), 2 steps of 256 windows: frontend and
-              step ms, peak memory, linear attention's launches by shape;
-              the frontend's mel against the cache's (2e-5 of scale), its
-              HuBERT against the same encoder on the CPU (4 windows, f32
-              rel-RMS <= 1e-5), the mel / HuBERT split of its time, and
-              the kernel against its plain version in a step with it
-              (1e-5); (b) ``Trainer.evaluate`` of 64 windows with the
-              frontend; (c) 3 data-parallel steps at a global batch of
-              256 alone, in an NCCL group of one through the
-              data-parallel path (bit for bit) and FSDP on a 1-D mesh of
-              one, and over 2 processes sharing the card through gloo
-              (``parallel/mp_lockstep.py`` workers: their collectives on
-              CUDA tensors, the ranks bit for bit, rtol 2e-5 / atol 1e-6
-              against one process); (d) ``generate_testset`` of 2 clips
-              over those 2 processes against one (files, replicated
-              metrics, clip sums, launches);
-13. tools   — ``cli doctor --calibrate`` in-process (every line ok, its
-              kernel probe launching each of the four kernels once at the
-              main path's shape); the negative controls (a CPU calibration
-              without ``allow_cpu`` is not ok; ``build_guarded`` around a
-              program on the CPU exits 1 with the invalid JSON, and the
-              profiler and the counters see no kernel of it); the 10 s bf16
-              ``'auto'`` pipeline through ``build_guarded`` + ``timed_reps``
-              (FPS, host CPU fraction, profiled device-busy share, launches)
-              beside the same stream driven as phase 5 drives it; the C++
-              data plane built on this host, a 60 s ``bvh_rot`` file parsed
-              natively, by the numpy path and by ``np.loadtxt`` (bit for
-              bit, MB/s each) and 2500 rows of a memory-mapped cache field
-              gathered natively and by ``np.take`` (bit for bit, ms each);
-              ``docs/torch_config.md`` equal to ``configdocs.generate()``;
-14. examples — every module of ``diffsheg_tpu_torch/examples/`` that
-              reaches a kernel, through its entry point, at a cut depth:
-              convergence_demo 40 epochs with the resume at 20,
-              overfit_demo 300 steps, serve_capacity sessions 1 and 4
-              for 8 s, show_bench (15 s, with ``fused_step='on'``),
-              one train_bench row (batch 256, f32), batch_probe B 8 on a
-              10 s stream, live_latency W 34 and 12 for 10 s, live_demo
-              10 s, perf_probe on a 10 s stream; each prints one line with
-              its JSON and its exact launch counts (by shape too); phase
-              3 holds the kernels at the examples' new shapes.  ``--only
-              examples --full`` runs them at the JAX scripts' default
-              depths (with live_hubert_drift, show_bench's JAX
-              configuration, train_bench's bf16 / pipelined / frontend
-              points, and a profiled row of serve_capacity for the card's
-              idle share) and writes the 240-epoch convergence curve.
+1. device   — the card's name and power limit (nvidia-smi).
+2. build    — the CUDA kernels of ``diffsheg_tpu_torch/csrc`` (nvcc).
+3. kernels  — every kernel against its plain version at the main paths'
+              shapes, timed beside its bound, and the kernels' cases past
+              them (``phase_kernels``; the closing ``kernels`` line's rows
+              are ``KERNEL_ROWS``).
+4. stream   — short streams held to the numerics bands against kernel-free
+              f32 references, quantized, wide, long and ragged models too
+              (``phase_stream``).
+5. e2e      — the BEAT serving pipeline on 60 s of audio through the
+              branch kernel, a short stream through the per-layer kernel,
+              quantized serving (``phase_e2e``).
+6. uncached — the f32 module forward with the step kernel, on the level
+              cache and without it (``phase_uncached``).
+7. live     — the serving daemon through ``MotionClient`` sessions
+              (``phase_live``).
+8. variants — every model variant through the module forward
+              (``phase_variants``).
+9. generate — ``cli generate`` from a wav to BVH and face JSON
+              (``phase_generate``).
+10. train   — ``cli train`` at the published batch, the kernel against its
+              plain version inside steps, evaluation (``phase_train``).
+11. data    — ``cli build-cache``, ``train``, ``eval`` and ``test-stream``
+              on synthetic raw splits (``phase_data``).
+12. scale   — the speech frontend inside the step; several processes
+              (``phase_scale``).
+13. tools   — ``cli doctor --calibrate``, the bench guards, the data plane,
+              the config reference (``phase_tools``).
+14. examples — the examples through their entry points (``phase_examples``).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after, and the counts are asserted exactly
-(``gemm_tf32x3``'s by (M, N, K, layout): the f32 level caches', the
-training steps' and the f32 speech encoders' dense products the route
-takes).  Prints its
-findings, a ``kernels`` JSON line, the nvidia-smi line, and ends with
-``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit
-code is non-zero; with no CUDA device it exits 1 and prints no result.
-TF32 is off in every phase that holds an f32 band.
+(``gemm_tf32x3``'s by (M, N, K, layout)).  TF32 is off in every phase that
+holds an f32 band.  Phases 3-14 each log ``<phase>: phase <s> s``, the
+build ``build: <s> s`` and the run ``total: <s> s``.  A timing that a
+benchmark cell (``BENCHMARK.json``) takes at the same configuration is
+left to the cell.  Prints its findings, a ``kernels`` JSON line, the
+nvidia-smi line, and ends with ``{"ok": true, "device": {...}}``.  Any
+failed phase raises and the exit code is non-zero; with no CUDA device it
+exits 1 and prints no result.
 
     python3 chip_smoke.py            # all phases
     python3 chip_smoke.py --only kernels
@@ -275,9 +85,13 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TF32_FLOPS = 495e12                # its tensor cores in TF32, dense
+# the H100's data-sheet peaks, as the benchmark's readers take them
+from benchmark.flops.model import PEAKS
+
+HBM_BYTES_PER_S = PEAKS["hbm_bytes_per_s"]
+PEAK_FLOPS = {torch.bfloat16: PEAKS["bf16_flops"],
+              torch.float32: PEAKS["f32_simt_flops"]}
+TF32_FLOPS = PEAKS["tf32_flops"]   # its tensor cores in TF32, dense
 
 
 def log(msg: str) -> None:
@@ -1364,7 +1178,8 @@ def frontend_step(model, enc, dev, gen):
     one batch of the frontend training cell, FRONTEND_STEP_WINDOWS windows
     of seeded int16 speech: gemm_tf32x3's launches by shape exactly
     (``frontend_gemm``: 39 chunks of 145 NT products at 7232 rows, none in
-    the tail chunk of 4 windows) and its wall ms."""
+    the tail chunk of 4 windows).  Its time is the cell's
+    (``speech_encoder_ms.train``)."""
     from diffsheg_tpu_torch.audio.frontend import make_speech_frontend
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.ops.products import gemm_tf32x3
@@ -1375,21 +1190,16 @@ def frontend_step(model, enc, dev, gen):
                                      dtype=torch.int16),
              "motion": torch.zeros(W, 34, 1, device=dev)}
     gemm_tf32x3.launches_by_shape.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     out = fe(batch)["hubert"]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     gemm, want = (dict(gemm_tf32x3.launches_by_shape),
                   frontend_gemm(W, enc=enc))
-    log(f"kernel[speech-encoder {enc} frontend {W} windows] ms={ms:.1f} "
+    log(f"kernel[speech-encoder {enc} frontend {W} windows] "
         f"gemm_tf32x3 {sum(gemm.values())} launches: {gemm}")
     if not torch.isfinite(out).all():
         raise AssertionError(f"frontend {enc} {W} windows: not finite")
     if gemm != want:
         raise AssertionError(f"frontend {enc} {W} windows: gemm_tf32x3 by "
                              f"(M, N, K, layout) {gemm}, expected {want}")
-    return ms
 
 
 def speech_encoder_cases(dev, reps):
@@ -1457,8 +1267,7 @@ def speech_encoder_cases(dev, reps):
                 f"{ {k: v // calls for k, v in gemm.items()} } ({calls} "
                 f"calls)")
         if enc == "wavlm-large":
-            results[f"speech-{enc}-frontend{FRONTEND_STEP_WINDOWS}"] = (
-                frontend_step(model, enc, dev, gen))
+            frontend_step(model, enc, dev, gen)
         del model
         torch.cuda.empty_cache()
     for name, *_ in SPEECH_ENCODER_CASES:
@@ -1469,6 +1278,39 @@ def speech_encoder_cases(dev, reps):
 
 
 def phase_kernels(dev, reps):
+    """Each kernel against its plain PyTorch version on the card, f32
+    within 1e-5 and bf16 within 8e-3 rel-RMS (the step kernel 1e-6 abs),
+    with its device ms (``device_ms``), host ms a launch, the plain
+    version's ms and the bound from bytes or operations at the H100's
+    peaks: what PERF.md's kernel table is built from.
+
+    - Linear attention (``ATTENTION_CASES``, ``WIDE_ATTENTION_CASES``):
+      the main paths' shapes (branch rows, the level caches' audio
+      encoders, training, evaluation, the data and scale phases' rows),
+      the decoder's cross-attention, the general kernels (hd 32, an
+      unaligned input), heads 144 wide, one head wider than a block's
+      threads; the gradient behind the kernel's forward; each line with
+      its launch plan.
+    - The DDIM + RePaint step (``STEP_CASES``) at every switch, beside an
+      empty launch of its shape.
+    - The fused-layer kernels: BEAT's branches and SHOW's classifier-free
+      shape with null rows in bf16 and f32 (``kernel_case``), the
+      per-layer kernel at the live, cli generate and evaluation shapes
+      (``LIVE_LAYER_CASES``), widths in K passes (``WIDE_CASES``),
+      windows and heads past the one-tile attention (``LONG_CASES``),
+      widths off a multiple of 16 on the ragged build (``ODD_CASES``),
+      each line with its plan's passes, tc, dg and cg and failing on
+      another plan; int8 / int4 codes (``quant_kernel_cases``); the
+      examples' shapes (``example_kernel_cases``).  At the BEAT gesture
+      branch also where a layer's time goes (``phases[...]``,
+      ``subphases[...]``: traced launches), the floor its grid barriers
+      set (``barrier[...]``) and its operand copy's rate out of L2
+      (``l2copy[...]``).
+    - ``gemm_tf32x3`` at every shape of a BEAT training step and of the
+      speech encoder's training chunk (``gemm_cases``).
+    - HuBERT-large beside WavLM-Large (``speech_encoder_cases``).
+
+    ``--only crossover`` (``phase_crossover``) is in no whole run."""
     no_tf32()
     results = {}
     for name, dt, B, T, D, offset in ATTENTION_CASES:
@@ -1680,7 +1522,6 @@ def phase_ab(dev, reps, others, exact):
     through both in one process, timed in the order other, tree, tree,
     other, and the outputs compared bit for bit and with the plain
     version.  With ``exact`` a version whose outputs differ fails."""
-    import os
     by_source = {"fused_layer.cu": ab_fused_layer,
                  "linear_attention.cu": ab_attention,
                  "step_math.cu": ab_step}
@@ -1773,7 +1614,13 @@ def phase_stream(dev, model):
     fully uncached module forward (fused_layer='off', level_cache=False:
     bench.py --check's reference) with every kernel out of it.  The kernel
     paths are also held against the f32 fast path with its kernel calls
-    swapped for their plain versions."""
+    swapped for their plain versions.  Then bench.py --check's quantized
+    rows (``phase_quant_stream``), a raw-HuBERT model in K passes
+    (``raw_hubert_stream``), a SHOW model in windows of 352 frames
+    (``show_long_stream``), a BEAT model with its widths off 16
+    (``odd_width_stream``) and one with a head 1024 wide
+    (``wide_head_stream``), each against its own kernel-free reference,
+    launches by shape and width."""
     no_tf32()
     mel, pid, hub = stream_inputs(dev)
     ref = reference_stream(beat_cfg("float32", "off", level_cache=False),
@@ -2154,26 +2001,22 @@ def make_hubert(dev):
 
 
 def phase_e2e(dev, model, hubert_fe):
-    t0 = time.perf_counter()
+    """The BEAT serving pipeline (60 s of audio -> mel -> HuBERT-large ->
+    windowed DDIM-25 + RePaint sampler -> motion) at full width with
+    seeded random weights, bf16 through the branch kernel: one call, its
+    warm-up included, with exact launch counts (the beat-stream-bf16 cell
+    takes its FPS and frontend time); then a 10 s stream through the
+    per-layer kernel ('auto'); then quantized serving
+    (``phase_quant_e2e``)."""
+    t_phase = time.perf_counter()
     cfg = beat_cfg("bfloat16", "chain")
     pipe = make_pipeline(cfg, model, hubert_fe, dev)
-    log(f"e2e: set-up (model to the card) {time.perf_counter() - t0:.1f} s")
+    log(f"e2e: set-up (model to the card) "
+        f"{time.perf_counter() - t_phase:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    # one call, its warm-up included: the beat-stream-bf16 cell times it
     out, secs, counts = drive(pipe, 60, dev, 12)
-    frames = out.shape[1]
-    # stage split of the same call: frontend (mel + HuBERT) alone
-    a18 = torch.from_numpy(synth(60, 18000)).to(dev)
-    a16 = torch.from_numpy(synth(60, 16000)).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mel = pipe.frontend(a18)
-    hubert_fe(a16, target_frames=mel.shape[1])
-    torch.cuda.synchronize()
-    front_s = time.perf_counter() - t0
-    log(f"e2e[beat 60 s, bf16, fused_layer=chain]: frames={frames} "
-        f"seconds={secs:.3f} (first call) fps={frames / secs:.1f} "
-        f"frontend_s={front_s:.3f} launches={counts} "
+    log(f"e2e[beat 60 s, bf16, fused_layer=chain]: frames={out.shape[1]} "
+        f"seconds={secs:.3f} (first call) launches={counts} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if tuple(out.shape) != (1, 900, 192) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
@@ -2192,6 +2035,7 @@ def phase_e2e(dev, model, hubert_fe):
     launches = {"fused_branch": counts["fused_branch"],
                 "fused_layer": counts10["fused_layer"]}
     launches.update(phase_quant_e2e(dev, model, hubert_fe))
+    log(f"e2e: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2229,8 +2073,13 @@ def phase_uncached(dev, model, hubert_fe):
     8 per branch) through the linear-attention kernel, every denoise step
     through the step kernel.  With the level cache the audio encoder runs
     once per stream, over all 25 levels x 30 windows in one launch;
-    without it, once per model call."""
+    without it, once per model call.  The 60 s stream on the cache with
+    exact launch counts, linear attention's by shape; one model call alone,
+    device ms behind a sleep kernel against host ms, and its kernels and
+    device busy time under torch.profiler; a 10 s stream without the
+    cache."""
     no_tf32()
+    t_phase = time.perf_counter()
     cfg = beat_cfg("float32", "off", fused_step="on")
     pipe = make_pipeline(cfg, model, hubert_fe, dev)
     torch.cuda.reset_peak_memory_stats()
@@ -2291,6 +2140,7 @@ def phase_uncached(dev, model, hubert_fe):
     expect("fully uncached forward", counts10,
            fused_linear_attention=17 * CALLS_10S,
            fused_ddim_repaint_step=CALLS_10S)
+    log(f"uncached: phase {time.perf_counter() - t_phase:.1f} s")
     # the kernels line's two attention rows, each the launches of its own
     # shape in the 60 s run
     return {"fused_linear_attention": shapes[BEAT_ATTN],
@@ -2471,9 +2321,16 @@ def phase_live(dev, model, hubert_fe, reps):
     large, a ``MotionServer`` on 127.0.0.1 (port 0) with client geometry
     and both served geometries prewarmed; sessions (a)-(c) through the
     per-layer kernel ('auto'), (d) through a second server started with
-    ``--set diffusion.fused_layer=chain``.  Session (a) must equal an
-    in-process ``LiveSession`` bit for bit.  Returns each session's
-    launches of its kernel."""
+    ``--set diffusion.fused_layer=chain``, (e) through a SHOW server
+    (bf16, 'auto') asked for window_frames 352 (``LIVE_SESSIONS``), each
+    fed by a ``MotionClient`` in 100 ms chunks, unpaced.  Per session the
+    exact launches and a latency line (``live_session``): windows,
+    per-window compute p50 / max (the service time of the pushes that
+    completed a window), HuBERT ms a window, the lookahead W / fps, worst
+    latency, real-time headroom, the kernel's host ms a launch.  Session
+    (a) must equal an in-process ``LiveSession`` bit for bit; one push's
+    device busy time under torch.profiler (``window_profile``).  Returns
+    each session's launches of its kernel."""
     from diffsheg_tpu_torch.cli.main import _apply_overrides
     from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
     from diffsheg_tpu_torch.sampling.live import LiveSession
@@ -2611,8 +2468,8 @@ def phase_variants(dev, hubert_fe):
     with exact launch counts (every linear attention in the kernel, each
     denoise step of (a), (c) and (d) in the step kernel); then a 68-frame
     stream against the same path with its kernels swapped for their plain
-    versions, f32 rel-RMS <= 5e-3.  Returns each path's launches by
-    shape."""
+    versions, f32 rel-RMS <= 5e-3.  Each stream line has its FPS, kernels
+    and host ms a model call.  Returns each path's launches by shape."""
     no_tf32()
     t_phase = time.perf_counter()
     launches = {}
@@ -2742,8 +2599,6 @@ class CliRun:
         self.export_s = 0.0
 
     def __call__(self, argv):
-        import contextlib
-        import io
         g, run = self.g, self
         warmup, generate = g.CustomAudioPipeline.warmup, g.CustomAudioPipeline.generate
         exports = (g.CustomAudioPipeline.export_beat,
@@ -2928,9 +2783,13 @@ def phase_generate(dev, model):
     (bf16, 'chain', jump_n_sample 2), one speaker; (c) the staged path
     (``stream.single_dispatch=false``), 10 s; (d) SHOW, 10 s; (e) a model
     fed raw HuBERT features, 10 s (its f32 layers in K passes).  Launch
-    counts exactly, files checked; (a)'s motion against a direct
-    ``CustomAudioPipeline.generate`` bit for bit; the exporter on the card;
-    a HuBERT-base extractor on the card against the CPU."""
+    counts exactly (zeroed after the warm-up), FPS and RTF as the command
+    prints them, its stages and the export's host seconds a clip; every
+    BVH parsed back, every face JSON and npy checked; (a)'s motion against
+    a direct ``CustomAudioPipeline.generate`` bit for bit; the exporter's
+    euler conversion on the card against the CPU (``exporter_on_card``);
+    a HuBERT-base extractor (768 x 12) on the card against the CPU, f32
+    rel-RMS <= 1e-5."""
     import tempfile
     from diffsheg_tpu_torch.cli.generate import CustomAudioPipeline
     from diffsheg_tpu_torch.compat.torch_ckpt import save_reference_checkpoint
@@ -3168,7 +3027,8 @@ class TrainRecorder:
 
 def train_run(tag, argv, steps, dev):
     """One in-process ``cli train``; its launches asserted exactly, its
-    steps' times and loss terms printed; returns the recorder."""
+    steps' loss terms printed (their time is the beat-train-f32 cell's);
+    returns the recorder."""
     from diffsheg_tpu_torch.cli.main import main
     attn = counters()["fused_linear_attention"]
     torch.cuda.empty_cache()
@@ -3187,16 +3047,11 @@ def train_run(tag, argv, steps, dev):
     if len(rec.steps) != steps:
         raise AssertionError(f"train {tag}: {len(rec.steps)} steps, "
                              f"expected {steps}")
-    ms = [m for m, _ in rec.steps]
-    med = statistics.median(ms[1:] if len(ms) > 1 else ms)
-    for i, (m, terms) in enumerate(rec.steps):
-        log(f"train[{tag}] step {i}: {m:.1f} ms " + " ".join(
+    for i, (_, terms) in enumerate(rec.steps):
+        log(f"train[{tag}] step {i}: " + " ".join(
             f"{k}={v:.6g}" for k, v in terms.items()))
-    log(f"train[{tag}]: {steps} steps in {secs:.1f} s of command; step ms "
-        f"median (after the first) {med:.1f}, first {ms[0]:.1f}; "
-        f"{TRAIN_BATCH / med * 1e3:.1f} windows/s, "
-        f"{TRAIN_BATCH * 34 / med * 1e3:.0f} frames/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loader "
+    log(f"train[{tag}]: {steps} steps in {secs:.1f} s of command; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loader "
         f"{statistics.median(rec.loads):.1f} ms a batch "
         f"({len(rec.loads)} batches); launches {attn.launches} "
         f"({dict(attn.launches_by_shape)})")
@@ -3250,22 +3105,12 @@ def injected_steps(cfg, batch, ts, noises, dev, plain=False, frontend=None):
     return terms, flat_params(state.model)
 
 
-KERNEL_KINDS = (("matrix products", ("gemm", "cutlass", "xmma", "sm90_",
-                                     "sm80_", "cublas")),
-                ("linear-attention kernel", ("linear_attention",)),
-                ("convolutions", ("conv", "cudnn", "implicit")),
-                ("norms", ("norm",)),
-                ("softmax", ("softmax",)),
-                ("reductions", ("reduce",)),
-                ("elementwise", ("elementwise", "vectorized", "copy",
-                                 "fill", "index", "cat")))
-
-
-def train_profile(dev):
-    """Where one training step's time goes, at the published batch with
-    remat: its wall time and, under torch.profiler, the device's busy
-    time by kind of kernel and the largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def train_step_gemm(dev):
+    """gemm_tf32x3's launches by (M, N, K, layout) in one BEAT training
+    step of ``make_train_step`` at the published batch with remat, exactly
+    ``train_gemm``'s.  The step's time and where it goes are the
+    beat-train-f32 cell's (``device_idle_pct.train``,
+    ``products_ms_per_step.train``, the ledger's breakdown)."""
     from diffsheg_tpu_torch.config import beat_config
     from diffsheg_tpu_torch.diffusion.schedule import (
         get_named_beta_schedule, make_schedule)
@@ -3286,16 +3131,9 @@ def train_profile(dev):
                  torch.arange(B, device=dev) % 30, 30).float(),
              "hubert": torch.randn(B, 34, 1024, generator=gen, device=dev),
              "sem": torch.rand(B, 34, generator=gen, device=dev)}
-    step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, batch)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
     gemm_tf32x3.launches_by_shape.clear()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
+    step(state, batch)
+    torch.cuda.synchronize()
     shapes = dict(gemm_tf32x3.launches_by_shape)
     by_layout = {lay: sum(n for k, n in shapes.items() if k[3] == lay)
                  for lay in ("nt", "nn", "tn")}
@@ -3306,29 +3144,20 @@ def train_profile(dev):
     if shapes != train_gemm(B):
         raise AssertionError(f"train step: gemm_tf32x3 launches {shapes}, "
                              f"expected {train_gemm(B)}")
-    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy = sum(e.device_time for e in kern) / 1e3
-    by_kind, by_name = {}, {}
-    for e in kern:
-        low = e.name.lower()
-        kind = next((k for k, keys in KERNEL_KINDS
-                     if any(x in low for x in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    log(f"train[one step, batch {B}, remat, profiled]: wall_ms={wall:.1f} "
-        f"device busy_ms={busy:.1f} ({len(kern)} kernels) idle "
-        f"share={1 - busy / wall:.3f}; by kind: " + ", ".join(
-            f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in
-            sorted(by_kind.items(), key=lambda kv: -kv[1])))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"train[profile]: {ms:.1f} ms ({ms / busy:.1%}) {name[:110]}")
     del state, batch
 
 
 def phase_train(dev):
-    """(a) ``cli train`` at the published width and batch; (b) the kernel
-    against its plain version inside the step, remat against none; (c)
-    ``Trainer.evaluate`` through the per-layer kernel."""
+    """(a) ``cli train`` in-process on synthetic caches of 5000 windows (and
+    a HuBERT-large cache), BEAT at full width, f32, ``model.remat=true``,
+    batch 2500: 2 epochs, ``--resume`` for a third, against 3
+    uninterrupted (1e-6); peak memory, loader ms, linear attention's
+    launches by shape; one step of ``make_train_step`` with
+    ``gemm_tf32x3``'s launches by shape (``train_step_gemm``).  The step's
+    time is the beat-train-f32 cell's.  (b) At batch 256 the kernel
+    against the plain composition inside 3 steps (1e-5) and remat against
+    none (1e-6).  (c) ``Trainer.evaluate`` of 64 windows through the
+    per-layer kernel before and after a step."""
     import shutil
     import tempfile
     from diffsheg_tpu_torch.config import beat_config
@@ -3367,7 +3196,7 @@ def phase_train(dev):
                    flat_params(end[0]), flat_params(end[1]), 1e-6)
         shutil.rmtree(w1)
         shutil.rmtree(w3)
-        train_profile(dev)
+        train_step_gemm(dev)
 
         # (b) batch 256: kernel against plain, remat against no remat
         cfg = beat_config()
@@ -3519,8 +3348,6 @@ def cli_call(argv):
     """``cli.main.main(argv)`` in-process with every launch count set to 0
     first: (printed lines, seconds, launches, launches by shape of linear
     attention and of the per-layer kernel, by kernel name)."""
-    import contextlib
-    import io
     from diffsheg_tpu_torch.cli.main import main
     out = io.StringIO()
     zero_counts()
@@ -3662,13 +3489,19 @@ def check_stream_files(out_dir, clips, frames):
 
 def phase_data(dev, reps):
     """The loop a user of the paper runs, on synthetic raw splits at BEAT's
-    published width: (1) ``cli build-cache`` on the card for every split
-    (BEAT train / val / test, SHOW train), the BEAT train split and the
-    SHOW split again on the CPU, held equal; (2) ``cli train`` one epoch on
-    the built cache with a HuBERT-large cache; (3) ``cli eval`` of the
-    trained checkpoint with a reference-layout FGD checkpoint; (4) ``cli
-    test-stream`` over the test split with the exporter, a template BVH,
-    players and FGD, clip 0 again bit for bit, and ``--output-gt``."""
+    published width (BEAT: 60 s clips, train 8, val 1; test 2 clips of 30
+    s; SHOW: 4 sequences of 30 s): (1) ``cli build-cache`` on the card for
+    every split (BEAT train / val / test, SHOW train; windows a second),
+    the BEAT train split and the SHOW split again on the CPU, held equal
+    field for field (``assert_caches_equal``; the euler and facial
+    statistics bit for bit); (2) ``cli train`` one epoch on the built
+    cache with a HuBERT-large cache (one step of 696 windows); (3) ``cli
+    eval`` of the trained checkpoint with a reference-layout FGD
+    checkpoint (the FGD net on the card against the CPU, ``fgd_on_card``);
+    (4) ``cli test-stream`` over the test split with the exporter, a
+    template BVH, players and FGD (every file checked), clip 0 again
+    (``--max-clips 1``) bit for bit, and ``--output-gt``.  Exact launch
+    counts for every command."""
     import shutil
     import tempfile
     from diffsheg_tpu_torch.data.beat import BeatStats
@@ -4183,10 +4016,19 @@ def parallel_runs(tmp, dev):
 
 
 def phase_scale(dev):
-    """(a) ``cli train`` with the speech frontend in the step at BEAT's
-    full width with HuBERT-large; (b) ``Trainer.evaluate`` with it; (c)
-    the data-parallel step in an NCCL group of one and over 2 processes;
-    (d) the test-set stream over 2 processes."""
+    """Training with the speech frontend in the step and across processes,
+    BEAT at full width, f32, on caches built from raw clips (3 train, 1
+    val) and a HuBERT-large HF checkpoint of seeded weights: (a) ``cli
+    train --set train.on_device_frontend=true --hubert-checkpoint``, 2
+    steps of 256 windows (``frontend_train``), then the frontend's mel and
+    HuBERT against the cache and the CPU and the kernel against its plain
+    version in a step with it (``frontend_checks``); (b)
+    ``Trainer.evaluate`` of 64 windows with it (``frontend_eval``); (c)
+    the data-parallel step alone, in an NCCL group of one (bit for bit)
+    and FSDP on a mesh of one, and over 2 ``mp_lockstep`` processes
+    sharing the card through gloo (ranks bit for bit, rtol 2e-5 / atol
+    1e-6 against one process); (d) ``generate_testset`` of 2 clips over
+    those 2 processes against one (``parallel_runs``)."""
     import tempfile
     no_tf32()
     torch.backends.cudnn.deterministic = True
@@ -4233,8 +4075,6 @@ GUARD_REPS = 3
 
 def captured(fn, *args, **kw):
     """(fn's result or its SystemExit, stdout lines, stderr lines)."""
-    import contextlib
-    import io
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         try:
@@ -4301,7 +4141,8 @@ def guard_controls(calib):
 
 def guarded_stream(dev, model, hubert_fe, calib):
     """The 10 s bf16 'auto' pipeline through ``build_guarded`` +
-    ``timed_reps``, beside the same stream driven as phase 5 drives it."""
+    ``timed_reps``: FPS, host CPU fraction, the profiled device-busy share
+    and the launches, exactly."""
     from diffsheg_tpu_torch.diffusion.sampler import GeneratorNoise
     from diffsheg_tpu_torch.utils.benchguard import build_guarded, timed_reps
     from diffsheg_tpu_torch.utils.calibration import device_activity
@@ -4329,14 +4170,11 @@ def guarded_stream(dev, model, hubert_fe, calib):
     totals, frac = timed_reps(lambda i: call(pipe), GUARD_REPS)
     counts = launch_counts()
     expect("guarded stream", counts, fused_layer=GUARD_REPS * 16 * CALLS_10S)
-    out, plain_s, _ = drive(pipe, 10, dev, 14)
-    frames = out.shape[1]
-    fps = [frames / t for t in totals]
+    fps = [10 * cfg.data.fps / t for t in totals]
     log(f"guard[10 s auto]: fps={statistics.median(fps):.1f} "
         f"(reps {', '.join(f'{f:.1f}' for f in fps)}) host_cpu_frac="
         f"{frac:.3f} profiled {act.line()} fused_layer launches "
-        f"{counts['fused_layer'] // GUARD_REPS} a stream; unguarded drive "
-        f"fps={frames / plain_s:.1f}")
+        f"{counts['fused_layer'] // GUARD_REPS} a stream")
     return counts["fused_layer"] // GUARD_REPS
 
 
@@ -4395,6 +4233,12 @@ def dataplane_check(tmp):
 
 
 def phase_tools(dev, model, hubert_fe):
+    """``cli doctor --calibrate`` in-process (``doctor_check``); the
+    negative controls of the calibration and the bench guard
+    (``guard_controls``); the 10 s bf16 'auto' pipeline through the guard
+    (``guarded_stream``); the C++ data plane against numpy
+    (``dataplane_check``); ``docs/torch_config.md`` equal to
+    ``configdocs.generate()``."""
     import tempfile
     from diffsheg_tpu_torch.utils.benchguard import calibrate_or_exit
     from diffsheg_tpu_torch.utils.configdocs import generate
@@ -4413,8 +4257,8 @@ def phase_tools(dev, model, hubert_fe):
                            "docs", "torch_config.md")) as f:
         if f.read() != generate():
             raise AssertionError("docs/torch_config.md is stale")
-    log(f"tools: config reference current; phase "
-        f"{time.perf_counter() - t0:.1f} s")
+    log("tools: config reference current")
+    log(f"tools: phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4878,8 +4722,16 @@ EXAMPLE_ITEMS = ("convergence", "overfit", "capacity", "show",
 
 def phase_examples(dev, full, items=EXAMPLE_ITEMS):
     """The examples of ``items`` (all by default) through their entry
-    points at a cut depth (``--full``: the JAX scripts' default depths),
-    each with exact launch counts; live_hubert_drift runs only in full."""
+    points at a cut depth, each printing one line with its JSON and its
+    exact launch counts (by shape too): convergence_demo 40 epochs with
+    the resume at 20, overfit_demo 300 steps, serve_capacity sessions 1
+    and 4 for 8 s, show_bench (15 s, ``fused_step='on'``), one
+    train_bench row (batch 256, f32), batch_probe B 8 on a 10 s stream,
+    live_latency W 34 and 12 and live_demo for 10 s, perf_probe on a 10 s
+    stream.  ``--full`` runs them at the JAX scripts' default depths, adds
+    live_hubert_drift, show_bench's JAX configuration, train_bench's bf16
+    / pipelined / frontend points and a profiled serve_capacity row (the
+    card's idle share), and writes the 240-epoch convergence curve."""
     import tempfile
     no_tf32()
     t0 = time.perf_counter()
@@ -4899,6 +4751,147 @@ def phase_examples(dev, full, items=EXAMPLE_ITEMS):
         example_hubert_drift()
     log(f"examples: phase {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# --------------------------------------------------------------------------
+# the closing kernels line
+# --------------------------------------------------------------------------
+
+# The closing ``kernels`` line, a row each: (the launch name a phase
+# returns, phase 3's case whose numbers the row carries).  The kernel is
+# the name's prefix, the layer kernels' sub-result of their case; the
+# source and the JAX call site replaced come from KERNEL_SOURCES.
+KERNEL_ROWS = (
+    # the main paths: phases 5 and 6
+    ("fused_branch", "beat-ges-bf16"),
+    ("fused_layer", "beat-ges-bf16"),
+    ("fused_linear_attention", "attn-beat-f32"),
+    ("fused_linear_attention_audio_enc", "attn-audio-enc-f32"),
+    ("fused_ddim_repaint_step", "step-beat"),
+    # quantized, the BEAT gesture branch in bf16
+    ("fused_branch_int8", "beat-ges-bf16-int8"),
+    ("fused_layer_int8", "beat-ges-bf16-int8"),
+    ("fused_branch_int4", "beat-ges-bf16-int4"),
+    ("fused_layer_int4", "beat-ges-bf16-int4"),
+    # phase 7's sessions (a)-(d)
+    ("fused_layer_live_w34", "beat-ges-bf16"),
+    ("fused_layer_live_w12", "live-t12-bf16"),
+    ("fused_layer_live_b4", "live-b4-bf16"),
+    ("fused_branch_live", "beat-ges-bf16"),
+    # phase 8's variants (a)-(d); the decoder's timed at its cross-attention
+    ("fused_linear_attention_decoder", "attn-cross-beat-f32"),
+    ("fused_linear_attention_decoder_audio_enc", "attn-audio-enc-b1-f32"),
+    ("fused_ddim_repaint_step_decoder", "step-beat"),
+    ("fused_linear_attention_learned_var", "attn-beat-f32"),
+    ("fused_linear_attention_learned_var_audio_enc", "attn-audio-enc-b1-f32"),
+    ("fused_linear_attention_single", "attn-beat-f32"),
+    ("fused_ddim_repaint_step_single", "step-beat-ges"),
+    ("fused_ddim_repaint_step_learned_var", "step-beat"),
+    # phase 9, cli generate (a)-(d)
+    ("fused_layer_generate", "layer-beat-4spk-f32"),
+    ("fused_branch_generate", "beat-ges-bf16"),
+    ("fused_layer_generate_staged", "beat-ges-f32"),
+    ("fused_layer_generate_show", "show-cfg-f32"),
+    ("fused_linear_attention_generate_audio_enc", "attn-audio-enc-4spk-f32"),
+    ("fused_linear_attention_generate_staged_audio_enc",
+     "attn-audio-enc-10s-f32"),
+    ("fused_linear_attention_generate_show_audio_enc",
+     "attn-show-audio-enc-f32"),
+    # the raw-HuBERT model in K passes: phase 4's streams, phase 9's (e)
+    ("fused_layer_raw_stream", "raw-ges-f32"),
+    ("fused_branch_raw_stream", "raw-ges-f32"),
+    ("fused_layer_generate_raw", "raw-ges-f32"),
+    # windows of 352 frames: phase 4's SHOW stream, phase 7's session (e)
+    ("fused_layer_show352_stream", "show-cfg-t352-f32"),
+    ("fused_branch_show352_stream", "show-cfg-t352-bf16"),
+    ("fused_layer_live_show352", "show-cfg-t352-bf16"),
+    # widths off 16 and a head past a block's threads: phase 4's streams
+    ("fused_layer_odd_stream", "odd-L520-f32"),
+    ("fused_branch_odd_stream", "odd-L520-bf16"),
+    ("fused_linear_attention_wide_stream", "attn-hd1024-f32"),
+    # phase 10: cli train at batch 2500, the evaluation at (7, 34)
+    ("fused_linear_attention_train", "attn-train-beat-f32"),
+    ("fused_linear_attention_train_audio_enc", "attn-train-audio-enc-f32"),
+    ("fused_layer_eval", "layer-eval-beat-f32"),
+    ("fused_linear_attention_eval_audio_enc", "attn-eval-audio-enc-f32"),
+    # phase 11: cli train, eval and test-stream
+    ("fused_linear_attention_data_train", "attn-data-train-beat-f32"),
+    ("fused_linear_attention_data_train_audio_enc",
+     "attn-data-train-audio-enc-f32"),
+    ("fused_layer_data_eval", "layer-eval-beat-f32"),
+    ("fused_layer_data_eval_b4", "layer-beat-4spk-f32"),
+    ("fused_linear_attention_data_eval_audio_enc",
+     "attn-data-eval-audio-enc-f32"),
+    ("fused_layer_test_stream", "beat-ges-f32"),
+    ("fused_linear_attention_test_stream_audio_enc",
+     "attn-stream-audio-enc-f32"),
+    # phase 12: the frontend in the step, an NCCL group of one, 2 processes
+    ("fused_linear_attention_scale_train", "attn-scale-train-beat-f32"),
+    ("fused_linear_attention_scale_train_audio_enc",
+     "attn-scale-train-audio-enc-f32"),
+    ("fused_layer_scale_eval", "layer-eval-beat-f32"),
+    ("fused_linear_attention_scale_eval_audio_enc", "attn-eval-audio-enc-f32"),
+    ("fused_linear_attention_scale_world1", "attn-scale-train-beat-f32"),
+    ("fused_linear_attention_scale_world1_audio_enc",
+     "attn-scale-train-audio-enc-f32"),
+    ("fused_linear_attention_scale_dp", "attn-scale-dp-beat-f32"),
+    ("fused_linear_attention_scale_dp_audio_enc",
+     "attn-scale-dp-audio-enc-f32"),
+    ("fused_layer_scale_testset", "beat-ges-f32"),
+    ("fused_linear_attention_scale_testset_audio_enc",
+     "attn-stream-audio-enc-f32"),
+    # phase 13: cli doctor's kernel probe
+    ("fused_branch_doctor", "beat-ges-bf16"),
+    ("fused_layer_doctor", "beat-ges-f32"),
+    ("fused_linear_attention_doctor", "attn-beat-f32"),
+    ("fused_ddim_repaint_step_doctor", "step-beat"),
+    # phase 14: the examples
+    ("fused_linear_attention_examples_convergence", "attn-conv-train-f32"),
+    ("fused_layer_examples_convergence", "layer-conv-f32"),
+    ("fused_linear_attention_examples_overfit", "attn-overfit-train-f32"),
+    ("fused_layer_examples_overfit", "layer-overfit-f32"),
+    ("fused_layer_examples_capacity", "beat-ges-bf16"),
+    ("fused_branch_examples_show", "show-cfg-bf16"),
+    ("fused_ddim_repaint_step_examples_show", "step-show"),
+    ("fused_linear_attention_examples_train_bench",
+     "attn-scale-train-beat-f32"),
+    ("fused_layer_examples_batch", "layer-b7-bf16"),
+    ("fused_layer_examples_live", "beat-ges-bf16"),
+    ("fused_layer_examples_probe", "beat-ges-f32"),
+    ("fused_linear_attention_examples_probe", "attn-audio-enc-10s-f32"))
+# (kernel, quantized) -> (its CUDA source, the JAX call site it replaces)
+KERNEL_SOURCES = {
+    ("fused_branch", False): ("fused_layer.cu", "ops/fused_layer.py:475"),
+    ("fused_branch", True): ("fused_layer.cu", "ops/fused_layer.py:374"),
+    ("fused_layer", False): ("fused_layer.cu", "ops/fused_layer.py:556"),
+    ("fused_layer", True): ("fused_layer.cu", "ops/fused_layer.py:492"),
+    ("fused_linear_attention", False): ("linear_attention.cu",
+                                        "ops/linear_attention.py:99"),
+    ("fused_ddim_repaint_step", False): ("step_math.cu",
+                                         "ops/step_math.py:153")}
+
+
+def kernels_line(kres, launches):
+    """The ``kernels`` line's entries: each KERNEL_ROWS row whose case is
+    in ``kres`` (phase 3's results), with the launches its path made
+    (``launches``, by name; None where no phase ran it)."""
+    entries = []
+    for name, key in KERNEL_ROWS:
+        if key not in kres:
+            continue
+        kernel = next(k for k, _ in KERNEL_SOURCES if name.startswith(k))
+        source, line = KERNEL_SOURCES[kernel,
+                                      key.endswith(tuple(QUANT_BITS))]
+        case = kres[key][kernel] if kernel in BOTH else kres[key]
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"diffsheg_tpu_torch/csrc/{source}",
+            replaces=f"diffsheg_tpu/{line}",
+            launches=launches.get(name), max_abs_err=case["max_abs_err"],
+            ms=case["ms"], plain_ms=case["plain_ms"],
+            bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+            library_ms=None))
+    return entries
 
 
 def main() -> int:
@@ -4938,6 +4931,7 @@ def main() -> int:
     import diffsheg_tpu_torch  # noqa: F401  (fails outside a checkout)
     from diffsheg_tpu_torch.ops import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4953,61 +4947,7 @@ def main() -> int:
 
     if args.ab:
         phase_ab(dev, args.reps, args.ab, args.ab_exact)
-    launches = dict.fromkeys(list(counters()) + [
-        f"{k}_{q}" for q in QUANT_BITS for k in ("fused_branch", "fused_layer")]
-        + ["fused_linear_attention_audio_enc", "fused_layer_live_w34",
-           "fused_layer_live_w12", "fused_layer_live_b4", "fused_branch_live",
-           "fused_linear_attention_decoder",
-           "fused_linear_attention_decoder_audio_enc",
-           "fused_ddim_repaint_step_decoder",
-           "fused_linear_attention_learned_var",
-           "fused_linear_attention_learned_var_audio_enc",
-           "fused_linear_attention_single",
-           "fused_ddim_repaint_step_single",
-           "fused_ddim_repaint_step_learned_var",
-           "fused_layer_raw_stream", "fused_branch_raw_stream",
-           "fused_layer_show352_stream", "fused_branch_show352_stream",
-           "fused_layer_odd_stream", "fused_branch_odd_stream",
-           "fused_linear_attention_wide_stream",
-           "fused_layer_live_show352",
-           "fused_layer_generate_raw",
-           "fused_layer_generate", "fused_branch_generate",
-           "fused_layer_generate_staged", "fused_layer_generate_show",
-           "fused_linear_attention_generate_audio_enc",
-           "fused_linear_attention_generate_staged_audio_enc",
-           "fused_linear_attention_generate_show_audio_enc",
-           "fused_linear_attention_train",
-           "fused_linear_attention_train_audio_enc", "fused_layer_eval",
-           "fused_linear_attention_eval_audio_enc",
-           "fused_linear_attention_data_train",
-           "fused_linear_attention_data_train_audio_enc",
-           "fused_layer_data_eval", "fused_layer_data_eval_b4",
-           "fused_linear_attention_data_eval_audio_enc",
-           "fused_layer_test_stream",
-           "fused_linear_attention_test_stream_audio_enc",
-           "fused_linear_attention_scale_train",
-           "fused_linear_attention_scale_train_audio_enc",
-           "fused_layer_scale_eval",
-           "fused_linear_attention_scale_eval_audio_enc",
-           "fused_linear_attention_scale_world1",
-           "fused_linear_attention_scale_world1_audio_enc",
-           "fused_linear_attention_scale_dp",
-           "fused_linear_attention_scale_dp_audio_enc",
-           "fused_layer_scale_testset",
-           "fused_linear_attention_scale_testset_audio_enc",
-           "fused_branch_doctor", "fused_layer_doctor",
-           "fused_linear_attention_doctor",
-           "fused_ddim_repaint_step_doctor",
-           "fused_linear_attention_examples_convergence",
-           "fused_layer_examples_convergence",
-           "fused_linear_attention_examples_overfit",
-           "fused_layer_examples_overfit", "fused_layer_examples_capacity",
-           "fused_branch_examples_show",
-           "fused_ddim_repaint_step_examples_show",
-           "fused_linear_attention_examples_train_bench",
-           "fused_layer_examples_batch", "fused_layer_examples_live",
-           "fused_layer_examples_probe",
-           "fused_linear_attention_examples_probe"])
+    launches = {}
     t0 = time.perf_counter()
     if args.only == "crossover":
         phase_crossover(dev, args.reps)
@@ -5055,231 +4995,10 @@ def main() -> int:
     if run("examples"):
         launches.update(phase_examples(dev, args.full,
                                        args.examples.split(",")))
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     if kres is None:
         return 0
-    entries = []
-    rows = [("fused_branch", "beat-ges-bf16", "fused_branch",
-             "fused_layer.cu", "ops/fused_layer.py:475"),
-            ("fused_layer", "beat-ges-bf16", "fused_layer",
-             "fused_layer.cu", "ops/fused_layer.py:556"),
-            ("fused_linear_attention", "attn-beat-f32", None,
-             "linear_attention.cu", "ops/linear_attention.py:99"),
-            ("fused_linear_attention_audio_enc", "attn-audio-enc-f32", None,
-             "linear_attention.cu", "ops/linear_attention.py:99"),
-            ("fused_ddim_repaint_step", "step-beat", None,
-             "step_math.cu", "ops/step_math.py:153")]
-    # the quantized variants (use_quant: the chain kernel's body :374-395,
-    # the per-layer kernel's :492-497), at the BEAT gesture branch in bf16
-    for q in QUANT_BITS:
-        rows += [(f"fused_branch_{q}", f"beat-ges-bf16-{q}", "fused_branch",
-                  "fused_layer.cu", "ops/fused_layer.py:374"),
-                 (f"fused_layer_{q}", f"beat-ges-bf16-{q}", "fused_layer",
-                  "fused_layer.cu", "ops/fused_layer.py:492")]
-    # the live sessions of phase 7: the per-layer kernel at (1, 34),
-    # (1, 12) and (4, 34), and the branch kernel of session (d)
-    rows += [("fused_layer_live_w34", "beat-ges-bf16", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_live_w12", "live-t12-bf16", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_live_b4", "live-b4-bf16", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_live", "beat-ges-bf16", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475")]
-    # phase 8's variants through the module forward at f32: (a) the decoder
-    # (its self- and cross-attentions at the branch rows, timed at the
-    # cross-attention case; its audio encoder at batch 1), (b) the
-    # learned-variance model, (c) the gesture-only model's step, (d) the
-    # step on a learned-variance model's mean half
-    rows += [("fused_linear_attention_decoder", "attn-cross-beat-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_linear_attention_decoder_audio_enc",
-              "attn-audio-enc-b1-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_ddim_repaint_step_decoder", "step-beat", None,
-              "step_math.cu", "ops/step_math.py:153"),
-             ("fused_linear_attention_learned_var", "attn-beat-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_linear_attention_learned_var_audio_enc",
-              "attn-audio-enc-b1-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_single", "attn-beat-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_ddim_repaint_step_single", "step-beat-ges", None,
-              "step_math.cu", "ops/step_math.py:153"),
-             ("fused_ddim_repaint_step_learned_var", "step-beat", None,
-              "step_math.cu", "ops/step_math.py:153")]
-    # phase 9, cli generate: (a) the defaults, f32, 4 speaker styles (the
-    # per-layer kernel at (4, 34), the audio encoder at 4 x 25 x 30 rows),
-    # (b) the bench's bf16 chain, (c) the staged 10 s stream, (d) SHOW
-    rows += [("fused_layer_generate", "layer-beat-4spk-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_generate", "beat-ges-bf16", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_layer_generate_staged", "beat-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_generate_show", "show-cfg-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_generate_audio_enc",
-              "attn-audio-enc-4spk-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_generate_staged_audio_enc",
-              "attn-audio-enc-10s-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_generate_show_audio_enc",
-              "attn-show-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99")]
-    # the raw-HuBERT model (f32, K passes): phase 4's 68-frame streams
-    # through each kernel, phase 9's cli generate (e)
-    rows += [("fused_layer_raw_stream", "raw-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_raw_stream", "raw-ges-f32", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_layer_generate_raw", "raw-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556")]
-    # windows of 352 frames (attention in chunks of T where the f32 tiles
-    # do not fit): phase 4's SHOW stream, f32 through the per-layer kernel
-    # and bf16 through the branch kernel, and phase 7's served SHOW
-    # session (e), bf16 per-layer; each a launch of one row
-    rows += [("fused_layer_show352_stream", "show-cfg-t352-f32",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_show352_stream", "show-cfg-t352-bf16",
-              "fused_branch", "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_layer_live_show352", "show-cfg-t352-bf16",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556")]
-    # widths off a multiple of 16 (the ragged build) and a head wider than
-    # a block's threads: phase 4's latent-520 streams, f32 through the
-    # per-layer kernel and bf16 through the branch kernel, and its one-head
-    # latent-1024 module forward through linear attention
-    rows += [("fused_layer_odd_stream", "odd-L520-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_odd_stream", "odd-L520-bf16", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_linear_attention_wide_stream", "attn-hd1024-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99")]
-    # phase 10, training: the forward of every self-attention of a step at
-    # batch 2500 (the first 2 epochs' launches), and the evaluation's
-    # per-layer kernel (at (7, 34), 9 of its 10 launches a layer) and
-    # level-cache audio encoder
-    rows += [("fused_linear_attention_train", "attn-train-beat-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_linear_attention_train_audio_enc",
-              "attn-train-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_eval", "layer-eval-beat-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_eval_audio_enc",
-              "attn-eval-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99")]
-    # phase 11: cli train on the built cache (one step of 696 windows), cli
-    # eval (the per-layer kernel at (7, 34) and (4, 34), the level cache at
-    # 800 rows), cli test-stream (the per-layer kernel at (1, 34), each
-    # window's level cache at 25 rows)
-    rows += [("fused_linear_attention_data_train", "attn-data-train-beat-f32",
-              None, "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_linear_attention_data_train_audio_enc",
-              "attn-data-train-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_data_eval", "layer-eval-beat-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_data_eval_b4", "layer-beat-4spk-f32",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_data_eval_audio_enc",
-              "attn-data-eval-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_test_stream", "beat-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_test_stream_audio_enc",
-              "attn-stream-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99")]
-    # phase 12: cli train with the speech frontend (batch 256), its
-    # evaluation (the per-layer kernel at (7, 34), the level cache at 1600
-    # rows), the step in an NCCL group of one (3 runs of 3 steps at 256
-    # rows), each of 2 processes' 128 rows, and the test-set stream over
-    # them (the per-layer kernel at (1, 34), a window's level cache)
-    rows += [("fused_linear_attention_scale_train",
-              "attn-scale-train-beat-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_scale_train_audio_enc",
-              "attn-scale-train-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_scale_eval", "layer-eval-beat-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_scale_eval_audio_enc",
-              "attn-eval-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_scale_world1",
-              "attn-scale-train-beat-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_scale_world1_audio_enc",
-              "attn-scale-train-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_linear_attention_scale_dp", "attn-scale-dp-beat-f32",
-              None, "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_linear_attention_scale_dp_audio_enc",
-              "attn-scale-dp-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_scale_testset", "beat-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_scale_testset_audio_enc",
-              "attn-stream-audio-enc-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99")]
-    # phase 13: cli doctor's kernel probe, one launch each at the main
-    # path's shapes (rows 1, 2f, 3 and 4 of PERF.md's kernel table)
-    rows += [("fused_branch_doctor", "beat-ges-bf16", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_layer_doctor", "beat-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_doctor", "attn-beat-f32", None,
-              "linear_attention.cu", "ops/linear_attention.py:99"),
-             ("fused_ddim_repaint_step_doctor", "step-beat", None,
-              "step_math.cu", "ops/step_math.py:153")]
-    # phase 14, the examples: convergence (training rows, the evaluation's
-    # per-layer kernel at 21 windows of 12 frames), overfit (training rows,
-    # sampling at (1, 34), L 128), serve_capacity and the live harnesses
-    # (bf16 at (1, 34)), show_bench (the SHOW chain, the step kernel),
-    # train_bench (batch 256), batch_probe (7 + 1 styles a launch),
-    # perf_probe (f32 at (1, 34), the 10 s level cache)
-    rows += [("fused_linear_attention_examples_convergence",
-              "attn-conv-train-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_examples_convergence", "layer-conv-f32",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_examples_overfit",
-              "attn-overfit-train-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_examples_overfit", "layer-overfit-f32",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_examples_capacity", "beat-ges-bf16",
-              "fused_layer", "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_branch_examples_show", "show-cfg-bf16", "fused_branch",
-              "fused_layer.cu", "ops/fused_layer.py:475"),
-             ("fused_ddim_repaint_step_examples_show", "step-show", None,
-              "step_math.cu", "ops/step_math.py:153"),
-             ("fused_linear_attention_examples_train_bench",
-              "attn-scale-train-beat-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99"),
-             ("fused_layer_examples_batch", "layer-b7-bf16", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_examples_live", "beat-ges-bf16", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_layer_examples_probe", "beat-ges-f32", "fused_layer",
-              "fused_layer.cu", "ops/fused_layer.py:556"),
-             ("fused_linear_attention_examples_probe",
-              "attn-audio-enc-10s-f32", None, "linear_attention.cu",
-              "ops/linear_attention.py:99")]
-    for name, key, sub, source, line in rows:
-        if key not in kres:
-            continue
-        case = kres[key] if sub is None else kres[key][sub]
-        entries.append(dict(
-            name=name, route="cuda",
-            source=f"diffsheg_tpu_torch/csrc/{source}",
-            replaces=f"diffsheg_tpu/{line}",
-            launches=launches[name], max_abs_err=case["max_abs_err"],
-            ms=case["ms"], plain_ms=case["plain_ms"],
-            bound_ms=case["bound_ms"], bound_by=case["bound_by"],
-            library_ms=None))
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": kernels_line(kres, launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
